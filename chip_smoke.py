@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Drives the port's serving path (``neural_spectral_codec_torch``) the way a
+server would, at the full width of the model the repository supports,
+with weights and data made from seeds:
+
+1. device: requires a CUDA card and prints its name and power limit;
+2. build: compiles the three hand-written kernels from ``csrc/`` (nvcc);
+3. kernels: each kernel against its plain PyTorch version on the same
+   CUDA tensors at the main path's shapes (8 full-density HDL-64E scans,
+   133,632 points each) and on edge cases (drop mode, other fold counts,
+   partial rows, no interpolation): the spectral kernel to <= 1e-5, the
+   two projection kernels bit-equal (and equal to the plain path run on
+   the CPU); median times over 25
+   CUDA-event-timed calls after warm-up, kernel beside plain;
+4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
+   (800 → 256 → 800, 3 GAT layers), a 100,000-row W₁ database on the card,
+   and 32 requests through ``serve_step`` (16 ring-structured, 16
+   arbitrary-order scans), top-10 with a spatial filter, query and insert
+   on. Each request's scan also sits in the database as a row computed by
+   the plain path on the CPU, outside the spatial filter; it must come
+   back as top-1, the descriptor must agree with the CPU's to 1e-4 and
+   the embeddings to 1e-3, and every kernel's launch count must rise.
+
+Any failure raises and the script exits nonzero, printing no result.
+Otherwise the line before the last is the kernels' JSON record and the
+last is ``{"ok": true, "device": {...}}``. It needs no JAX.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+SEED = 0
+BATCH = 8                      # kernel-phase batch (bench.py's headline B)
+N_RINGS, PER_RING = 64, 2088   # HDL-64E full density: 133,632 points
+N_POINTS = N_RINGS * PER_RING
+N_NODES = 1000
+DB_ROWS = 100_000
+N_REQUESTS = 32
+TOP_K = 10
+MIN_DIST = 10.0                # spatial filter radius (m)
+TIMED_CALLS = 25
+
+SPECTRAL_TOL = 1e-5            # kernel vs plain on the card
+DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
+EMB_TOL = 1e-3
+
+
+def _general_scans(n: int, seed: int):
+    """Arbitrary-order scans of N_POINTS points: directions a little wider
+    than the elevation band (clip mode puts them in the edge rows), ranges
+    on both sides of the 1-80 m gate, and a NaN padding tail per scan."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(-np.pi, np.pi, (n, N_POINTS))
+    el = rng.uniform(np.deg2rad(-26.0), np.deg2rad(3.0), (n, N_POINTS))
+    r = rng.uniform(0.5, 90.0, (n, N_POINTS))
+    pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                    r * np.sin(el), rng.uniform(0, 1, r.shape)],
+                   axis=-1).astype(np.float32)
+    for i, tail in enumerate(rng.integers(0, N_POINTS // 8, n)):
+        pts[i, N_POINTS - tail:] = np.nan
+    return pts
+
+
+def _time_ms(fn) -> float:
+    """Median over TIMED_CALLS calls of ``fn``, each timed with CUDA
+    events, after three warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def _check_cpu_image(name: str, got, on_cpu) -> None:
+    """The card's image equals the CPU plain path's: both round angles
+    and square roots from float64 (ops/range_image.py)."""
+    n_diff = int((on_cpu != got.cpu()).sum())
+    print(f"{name}: kernel == plain on the card; vs the CPU plain path "
+          f"{n_diff} of {got.numel()} pixels differ", flush=True)
+    _check(n_diff == 0, f"{name}: the card's image differs from the CPU's")
+
+
+def _sweep_rings(rows, per_ring: int, n_turns: float, seed: int, proj):
+    """One scan of rings at their rows' elevation centers, each sweeping
+    ``n_turns`` turns of azimuth (n_turns > 1: extra wrap events)."""
+    import numpy as np
+    from neural_spectral_codec_torch.ops.ring_path import (
+        ring_elevation_centers)
+    rng = np.random.default_rng(seed)
+    el = ring_elevation_centers(proj, proj.n_elevation)[list(rows)]
+    az = rng.uniform(0, 2 * np.pi, (1, len(rows), 1)) \
+        + np.linspace(0, n_turns * 2 * np.pi, per_ring)[None, None]
+    r = rng.uniform(0.5, 90.0, (1, len(rows), per_ring))
+    ce, se = np.cos(el)[None, :, None], np.sin(el)[None, :, None]
+    return np.stack([r * ce * np.cos(az), r * ce * np.sin(az),
+                     r * se * np.ones_like(az), np.zeros_like(az)],
+                    axis=-1).astype(np.float32)
+
+
+def _edge_cases(device) -> None:
+    """Options and inputs the serving run does not reach, each kernel
+    against its plain version on the card: drop mode, 3-channel points,
+    n_folds = 1 and 3 with extra wraps and leading holes, rings on a
+    subset of rows, no interpolation, another alpha."""
+    import torch
+    from neural_spectral_codec_torch.ops import (
+        projection_kernel, ring_kernel, spectral_kernel)
+    from neural_spectral_codec_torch.ops.range_image import (
+        project_points_batch_plain)
+    from neural_spectral_codec_torch.ops.ring_path import (
+        project_rings_batch_plain)
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoderConfig, encode_images_plain)
+
+    drop = SpectralEncoderConfig(elevation_mode="drop",
+                                 elevation_range_deg=(-20.0, 0.0))
+    pts = torch.from_numpy(_general_scans(2, SEED + 11)).to(device)
+    for name, p, proj in (("drop", pts, drop.projection),
+                          ("xyz", pts[..., :3].contiguous(),
+                           SpectralEncoderConfig().projection)):
+        got = projection_kernel.project_points_cuda(p, proj)
+        _check(torch.equal(got, project_points_batch_plain(p, proj)),
+               f"projection kernel != plain version ({name})")
+    rows = (3, 5, 9, 40, 41, 63)
+    scan = _sweep_rings(rows, 1500, 2.6, SEED + 12, drop.projection)
+    scan[0, 1, :200] = float("nan")                     # leading holes
+    scan[0, 2, 700:900] = float("nan")                  # interior holes
+    rings = torch.from_numpy(scan).to(device)
+    for n_folds in (1, 2, 3):
+        for proj in (SpectralEncoderConfig().projection, drop.projection):
+            got = ring_kernel.project_rings_cuda(rings, proj, rows, n_folds)
+            want = project_rings_batch_plain(rings, proj, rows, n_folds)
+            _check(torch.equal(got, want), f"ring kernel != plain version "
+                   f"(n_folds={n_folds}, {proj.elevation_mode})")
+    imgs = project_points_batch_plain(pts, drop.projection)
+    for cfg, alpha in ((drop._replace(interpolate_empty=False), 2.0),
+                       (drop, 1.3)):
+        err = float((spectral_kernel.encode_images_cuda(imgs, alpha, cfg)
+                     - encode_images_plain(imgs, alpha, cfg)).abs().max())
+        _check(err <= SPECTRAL_TOL, f"spectral kernel vs plain {err:.3e} "
+               f"(interpolate={cfg.interpolate_empty}, alpha={alpha})")
+    print("edge cases: drop mode, xyz input, n_folds 1-3 with extra wraps "
+          "and holes, partial rows, no interpolation, alpha 1.3: kernels "
+          "match their plain versions", flush=True)
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this run needs one "
+                         "card")
+    from neural_spectral_codec_torch import _build, resolve_device
+    from neural_spectral_codec_torch.keyframe.graph import (
+        build_graph, graph_to_tensors)
+    from neural_spectral_codec_torch.models import SpectralGNN, serve_step
+    from neural_spectral_codec_torch.models.serving import encode_scan
+    from neural_spectral_codec_torch.ops import (
+        projection_kernel, ring_kernel, spectral_kernel)
+    from neural_spectral_codec_torch.ops.range_image import (
+        project_points_batch_plain)
+    from neural_spectral_codec_torch.ops.ring_path import (
+        make_structured_ring_scans, project_rings_batch_plain)
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoderConfig, encode_images_plain)
+    from neural_spectral_codec_torch.retrieval import WassersteinRetriever
+
+    # -- 1. device ---------------------------------------------------------
+    device = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load_library()
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- 3. each kernel against its plain version on the card --------------
+    cfg = SpectralEncoderConfig()
+    proj = cfg.projection
+    rows = tuple(range(N_RINGS))
+    alpha = cfg.alpha
+    gen = torch.from_numpy(_general_scans(BATCH, SEED + 1)).to(device)
+    rings = torch.from_numpy(make_structured_ring_scans(
+        BATCH, N_RINGS, PER_RING, proj, seed=SEED + 2)).to(device)
+
+    got = projection_kernel.project_points_cuda(gen, proj)
+    want = project_points_batch_plain(gen, proj)
+    _check(torch.equal(got, want), "projection kernel != plain version "
+           f"({int((got != want).sum())} pixels differ)")
+    proj_err = float((got - want).abs().max())
+    imgs = want.clone()
+    _check_cpu_image("project", got, project_points_batch_plain(
+        gen.cpu(), proj))
+
+    got = ring_kernel.project_rings_cuda(rings, proj, rows)
+    want = project_rings_batch_plain(rings, proj, rows)
+    _check(torch.equal(got, want), "ring kernel != plain version "
+           f"({int((got != want).sum())} pixels differ)")
+    ring_err = float((got - want).abs().max())
+    _check_cpu_image("ring_fold", got, project_rings_batch_plain(
+        rings.cpu(), proj, rows))
+
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    imgs[1] *= torch.rand(imgs[1].shape, generator=g, device=device) < 0.02
+    imgs[2, :3] = 0.0
+    imgs[2, 10:14] = 0.0
+    imgs[3] = 0.0
+    got = spectral_kernel.encode_images_cuda(imgs, alpha, cfg)
+    want = encode_images_plain(imgs, alpha, cfg)
+    spec_err = float((got - want).abs().max())
+    _check(spec_err <= SPECTRAL_TOL,
+           f"spectral kernel vs plain: max abs {spec_err:.3e}")
+    _check(bool(torch.all(torch.isfinite(got))) and
+           float((got[3] - 1.0 / cfg.output_dim).abs().max()) < 1e-9,
+           "spectral kernel: non-finite output or no uniform fallback")
+
+    _edge_cases(device)
+
+    timing = {
+        "project": (_time_ms(lambda: projection_kernel.project_points_cuda(
+            gen, proj)), _time_ms(lambda: project_points_batch_plain(
+                gen, proj))),
+        "ring_fold": (_time_ms(lambda: ring_kernel.project_rings_cuda(
+            rings, proj, rows)), _time_ms(lambda: project_rings_batch_plain(
+                rings, proj, rows))),
+        "spectral": (_time_ms(lambda: spectral_kernel.encode_images_cuda(
+            imgs, alpha, cfg)), _time_ms(lambda: encode_images_plain(
+                imgs, alpha, cfg))),
+    }
+    for name, (k_ms, p_ms) in timing.items():
+        print(f"kernel {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"(median of {TIMED_CALLS}, B={BATCH})", flush=True)
+
+    # -- 4. serve ----------------------------------------------------------
+    rng = np.random.default_rng(SEED + 4)
+    ring_req = make_structured_ring_scans(N_REQUESTS // 2, N_RINGS, PER_RING,
+                                          proj, seed=SEED + 5)
+    gen_req = _general_scans(N_REQUESTS // 2, SEED + 6)
+    requests = [(ring_req[j // 2], rows) if j % 2 == 0
+                else (gen_req[j // 2], None) for j in range(N_REQUESTS)]
+
+    t0 = time.perf_counter()
+    cpu_desc = torch.stack([encode_scan(torch.from_numpy(p), alpha, cfg, r)
+                            for p, r in requests])
+    print(f"serve: CPU plain descriptors of {N_REQUESTS} scans in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    desc0 = rng.random((N_NODES, cfg.output_dim)).astype(np.float32) ** 4
+    desc0 /= desc0.sum(axis=1, keepdims=True)
+    poses = np.tile(np.eye(4), (N_NODES, 1, 1))
+    poses[:, 0, 3] = np.arange(N_NODES) * 2.0        # straight line, 2 m
+    loops = [(i, i + 500) for i in range(0, 500, 25)]
+    graph_np = build_graph(desc0, poses, loop_closures=loops)
+    graph = graph_to_tensors(graph_np, device)
+    graph_cpu = graph_to_tensors(graph_np, "cpu")
+
+    model_cpu = SpectralGNN(generator=torch.Generator().manual_seed(SEED))
+    model_cpu.eval()
+    model = copy.deepcopy(model_cpu).to(device).eval()
+
+    centers = [100 + 25 * j for j in range(N_REQUESTS)]
+    qps = [np.array([poses[c, 0, 3], 0.0, 0.0, MIN_DIST], np.float32)
+           for c in centers]
+    ret = WassersteinRetriever(n_bins=cfg.output_dim,
+                               capacity=DB_ROWS + N_REQUESTS, device=device)
+    gdb = torch.Generator(device=device).manual_seed(SEED + 7)
+    planted = (np.arange(N_REQUESTS) * 3121 + 17) % DB_ROWS
+    chunk = 10_000
+    for lo in range(0, DB_ROWS, chunk):
+        h = torch.rand((chunk, cfg.output_dim), generator=gdb,
+                       device=device) ** 4
+        pos = (torch.rand((chunk, 3), generator=gdb, device=device)
+               - 0.5) * 20_000.0
+        for j in np.flatnonzero((planted >= lo) & (planted < lo + chunk)):
+            h[planted[j] - lo] = cpu_desc[j].to(device)
+            pos[planted[j] - lo] = torch.from_numpy(
+                qps[j][:3] + np.array([5 * MIN_DIST, 0, 0], np.float32))
+        ret.add_to_database(h, pos)
+    torch.cuda.synchronize()
+    print(f"serve: database {ret.database_size} rows x {cfg.output_dim} "
+          f"float32 ({ret.database_size * cfg.output_dim * 4 / 1e6:.0f} MB) "
+          f"on {device}", flush=True)
+
+    # warm-up requests (no insert; not counted, not timed)
+    for p, r in requests[:2]:
+        serve_step(ret, model, torch.from_numpy(p).to(device), alpha, graph,
+                   0, torch.from_numpy(qps[0]).to(device), TOP_K,
+                   do_insert=False, config=cfg, row_of_ring=r)
+    graph = graph_to_tensors(graph_np, device)
+    torch.cuda.synchronize()
+
+    kernels = {"spectral": spectral_kernel.KERNEL,
+               "ring_fold": ring_kernel.KERNEL,
+               "project": projection_kernel.KERNEL}
+    for k in kernels.values():
+        k.launches = 0
+    lat_ms, results = [], []
+    for j, (p, r) in enumerate(requests):
+        qp = torch.from_numpy(qps[j]).to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()            # the scan arrives on the host
+        pts = torch.from_numpy(p).to(device)
+        desc, emb, idx, dist = serve_step(
+            ret, model, pts, alpha, graph, centers[j], qp, TOP_K,
+            do_query=True, do_insert=True, config=cfg, row_of_ring=r)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        results.append((desc.cpu(), emb.cpu(), idx.cpu(), dist.cpu()))
+    launches = {n: k.launches for n, k in kernels.items()}
+    print(f"serve: {N_REQUESTS} requests, latency p50 "
+          f"{statistics.median(lat_ms):.3f} ms, max {max(lat_ms):.3f} ms, "
+          f"launches {launches}", flush=True)
+
+    desc_err = emb_err = 0.0
+    for j, (desc, emb, idx, dist) in enumerate(results):
+        _check(int(idx[0]) == int(planted[j]),
+               f"request {j}: top-1 {int(idx[0])} != planted row "
+               f"{int(planted[j])} (dist {dist[:3].tolist()})")
+        _check(bool(torch.all(torch.isfinite(desc))) and
+               bool(torch.all(torch.isfinite(emb))), f"request {j}: "
+               "non-finite output")
+        desc_err = max(desc_err, float((desc - cpu_desc[j]).abs().max()))
+        graph_cpu.features[centers[j]] = cpu_desc[j]
+        with torch.no_grad():
+            emb_cpu = model_cpu(graph_cpu.features, graph_cpu.neighbors,
+                                graph_cpu.mask, graph_cpu.edge_feats)
+        emb_err = max(emb_err, float((emb - emb_cpu).abs().max()))
+    print(f"serve: top-1 planted row on {N_REQUESTS}/{N_REQUESTS}; "
+          f"descriptor max abs err vs CPU {desc_err:.3e}, embedding "
+          f"{emb_err:.3e}", flush=True)
+    _check(desc_err <= DESC_TOL, f"descriptors differ from the CPU path by "
+           f"{desc_err:.3e} > {DESC_TOL}")
+    _check(emb_err <= EMB_TOL, f"embeddings differ from the CPU path by "
+           f"{emb_err:.3e} > {EMB_TOL}")
+    _check(all(v > 0 for v in launches.values()),
+           f"a kernel of the path never launched: {launches}")
+
+    # -- 5. record ---------------------------------------------------------
+    meta = {
+        "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
+                     "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",
+                     spec_err),
+        "ring_fold": ("neural_spectral_codec_torch/csrc/ring_fold.cu",
+                      "neural_spectral_codec_tpu/ops/pallas_ring.py:248",
+                      ring_err),
+        "project": ("neural_spectral_codec_torch/csrc/project.cu",
+                    "neural_spectral_codec_tpu/ops/pallas_compact.py:142",
+                    proj_err),
+    }
+    record = []
+    for name, (source, replaces, err) in meta.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": err, "ms": timing[name][0],
+                 "plain_ms": timing[name][1]}
+        if name == "project":
+            entry["also_replaces"] = \
+                "neural_spectral_codec_tpu/ops/pallas_densify.py:76"
+        record.append(entry)
+    print(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,142 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+All sources compile with ``nvcc`` into ONE shared library with a plain C
+interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/libnsc_kernels_<hash>.so csrc/*.cu
+
+The build runs at first use and again whenever the sources or flags
+change (the library name carries a hash of both), so a fresh checkout
+builds everything on its first kernel call. No ``--use_fast_math``: the
+projection kernels must round exactly as PyTorch's own CUDA operators do.
+
+A failed build raises, and so does a nonzero ``cudaGetLastError()`` after
+any launch: there is no fallback to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Sequence
+
+_PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+MAX_SHARED_BYTES = 232_448        # opt-in shared memory of one H100 CTA
+
+
+def sources() -> list:
+    """The CUDA sources that make up the library, in a fixed order."""
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    """Hash over every source and header and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libnsc_kernels_{source_hash()}.so"
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from the CUDA toolkit PyTorch found, else from PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("cannot build the CUDA kernels: nvcc not found "
+                           "(no CUDA toolkit on this host)")
+    return found
+
+
+def build() -> Path:
+    """Compile the library if the current sources have not been built.
+
+    Returns its path. Raises ``RuntimeError`` with the compiler's output
+    when nvcc fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[str(s) for s in sources()]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    (BUILD_DIR / "build.log").write_text(
+        f"{' '.join(cmd)}\n{time.perf_counter() - t0:.3f} s\n"
+        f"{proc.stdout}\n{proc.stderr}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the kernel library (once per process)."""
+    lib = ctypes.CDLL(str(build()))
+    lib.nsc_error_string.argtypes = [ctypes.c_int]
+    lib.nsc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class CudaKernel:
+    """One C entry point of the library, with its launch count.
+
+    Every entry point returns the ``cudaError_t`` of its launch
+    (``cudaGetLastError()`` right after it); a nonzero code raises.
+    ``launches`` counts successful launches and nothing else."""
+
+    def __init__(self, symbol: str, argtypes: Sequence):
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+
+    @functools.cached_property
+    def _fn(self):
+        lib = load_library()
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> None:
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol}: CUDA error {err} ({error_string(err)})")
+        self.launches += 1
+
+
+def error_string(code: int) -> str:
+    """``cudaGetErrorString`` of a ``cudaError_t`` code."""
+    return load_library().nsc_error_string(code).decode()
+
+
+def check_contiguous(t, what: str) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")

@@ -1,0 +1,188 @@
+"""Spectral GNN: edge-conditioned GAT as dense masked attention.
+
+Port of ``neural_spectral_codec_tpu/models/gnn.py:37-165`` (and
+``gnn_forward``, :297):
+
+    Input(800) → Linear(256) + BatchNorm + ReLU
+      → n_layers × [GAT(256, heads=1, edge_dim=2) → BatchNorm
+                    (+ReLU+dropout except last layer; +x_prev residual
+                     for middle layers)]
+      → Linear(800) (+ input residual; projection if dims differ)
+
+The GAT follows PyG ``GATConv(heads=1, concat=False)``: a shared linear
+transform without bias, logits a_src·Wx_j + a_dst·Wx_i + a_edge·(W_e e_ji),
+LeakyReLU(0.2), a masked softmax over the incoming edges of i, and a
+self-loop in the LAST slot whose edge feature is the mean of the node's
+valid incoming edge features. Graphs are the padded dense neighbor
+tensors of ``keyframe/graph.py``.
+
+State names differ from Flax's; ``models/convert.py`` maps Flax
+parameters onto this module.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from neural_spectral_codec_torch.keyframe.graph import KeyframeGraph
+
+
+def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
+             generator: Optional[torch.Generator]) -> None:
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        t.uniform_(-lim, lim, generator=generator)
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator]) -> None:
+    with torch.no_grad():
+        t.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
+
+
+class EdgeGATLayer(nn.Module):
+    """Single-head GAT with optional edge conditioning over padded dense
+    neighbors. ``forward`` returns (out, attention); attention is (n, D+1)
+    with the self-loop in the last slot."""
+
+    def __init__(self, in_features: int, features: int,
+                 edge_dim: Optional[int] = 2, negative_slope: float = 0.2,
+                 attn_dropout: float = 0.0):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.attn_dropout = attn_dropout
+        self.lin = nn.Linear(in_features, features, bias=False)
+        self.att_src = nn.Parameter(torch.empty(features))
+        self.att_dst = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        if edge_dim is not None:
+            self.lin_edge = nn.Linear(edge_dim, features, bias=False)
+            self.att_edge = nn.Parameter(torch.empty(features))
+        else:
+            self.lin_edge = None
+            self.att_edge = None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Flax's initialisers: Glorot-uniform weights, zero bias."""
+        c, n_in = self.lin.weight.shape
+        _glorot_(self.lin.weight, n_in, c, generator)
+        for att in (self.att_src, self.att_dst):
+            _glorot_(att, 1, c, generator)
+        if self.lin_edge is not None:
+            _glorot_(self.lin_edge.weight, self.lin_edge.weight.shape[1], c,
+                     generator)
+            _glorot_(self.att_edge, 1, c, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, neighbors: torch.Tensor,
+                mask: torch.Tensor, edge_feats: Optional[torch.Tensor]):
+        n = neighbors.shape[0]
+        h = self.lin(x)                                  # (n, C)
+        h_nbr = h[neighbors]                             # (n, D, C)
+        a_dst = h @ self.att_dst                         # (n,)
+        logits = h_nbr @ self.att_src + a_dst[:, None]   # (n, D)
+        self_logit = h @ self.att_src + a_dst            # (n,)
+        if self.lin_edge is not None and edge_feats is not None:
+            logits = logits + self.lin_edge(edge_feats) @ self.att_edge
+            # self-loop edge feature = mean of the valid incoming edge
+            # features (zeros for an isolated node), PyG fill_value='mean'
+            cnt = mask.sum(dim=1, keepdim=True).clamp(min=1)
+            mean_ef = torch.where(mask[..., None], edge_feats, 0.0).sum(
+                dim=1) / cnt
+            self_logit = self_logit + self.lin_edge(mean_ef) @ self.att_edge
+        all_logits = torch.cat([logits, self_logit[:, None]], dim=1)
+        all_logits = F.leaky_relu(all_logits, self.negative_slope)
+        full_mask = torch.cat(
+            [mask, torch.ones((n, 1), dtype=torch.bool, device=mask.device)],
+            dim=1)
+        all_logits = all_logits.masked_fill(~full_mask, -math.inf)
+        alpha = torch.softmax(all_logits, dim=1)
+        alpha_d = F.dropout(alpha, self.attn_dropout, self.training)
+        vals = torch.cat([h_nbr, h[:, None, :]], dim=1)  # (n, D+1, C)
+        out = torch.einsum("nd,ndc->nc", alpha_d, vals) + self.bias
+        return out, alpha
+
+
+class SpectralGNN(nn.Module):
+    """Full enhancement network (JAX ``SpectralGNN``). BatchNorm uses
+    eps 1e-5 and PyTorch momentum 0.1 (Flax momentum 0.9); in eval mode
+    it normalises with the running statistics."""
+
+    def __init__(self, input_dim: int = 800, hidden_dim: int = 256,
+                 output_dim: int = 800, n_layers: int = 3,
+                 dropout: float = 0.1, residual: bool = True,
+                 edge_dim: Optional[int] = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_dim, self.output_dim = input_dim, output_dim
+        self.n_layers = n_layers
+        self.dropout = dropout
+        self.residual = residual
+        self.input_proj = nn.Linear(input_dim, hidden_dim)
+        self.input_bn = nn.BatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
+        self.gat_layers = nn.ModuleList(
+            EdgeGATLayer(hidden_dim, hidden_dim, edge_dim,
+                         attn_dropout=dropout) for _ in range(n_layers))
+        self.gat_bns = nn.ModuleList(
+            nn.BatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
+            for _ in range(n_layers))
+        self.output_proj = nn.Linear(hidden_dim, output_dim)
+        self.residual_proj = (nn.Linear(input_dim, output_dim)
+                              if residual and input_dim != output_dim
+                              else None)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Flax's initialisers from ``generator``: LeCun-normal Dense
+        kernels with zero bias, Glorot GAT weights, identity BatchNorm."""
+        dense = [self.input_proj, self.output_proj]
+        if self.residual_proj is not None:
+            dense.append(self.residual_proj)
+        for lin in dense:
+            _lecun_normal_(lin.weight, lin.weight.shape[1], generator)
+            with torch.no_grad():
+                lin.bias.zero_()
+        for gat in self.gat_layers:
+            gat.reset_parameters(generator)
+        for bn in [self.input_bn, *self.gat_bns]:
+            bn.reset_parameters()
+
+    def forward(self, features: torch.Tensor, neighbors: torch.Tensor,
+                mask: torch.Tensor, edge_feats: Optional[torch.Tensor] = None,
+                return_attention: bool = False):
+        x_input = features
+        x = F.relu(self.input_bn(self.input_proj(features)))
+        attentions = []
+        for i, (gat, bn) in enumerate(zip(self.gat_layers, self.gat_bns)):
+            x_prev = x
+            x, alpha = gat(x, neighbors, mask, edge_feats)
+            attentions.append(alpha)
+            x = bn(x)
+            if i < self.n_layers - 1:
+                x = F.dropout(F.relu(x), self.dropout, self.training)
+            if self.residual and 0 < i < self.n_layers - 1:
+                x = x + x_prev
+        x = self.output_proj(x)
+        if self.residual:
+            x = x + (self.residual_proj(x_input)
+                     if self.residual_proj is not None else x_input)
+        if return_attention:
+            return x, attentions
+        return x
+
+
+def gnn_forward(model: SpectralGNN, graph: KeyframeGraph) -> torch.Tensor:
+    """Eval-mode forward over a graph of tensors (``graph_to_tensors``)
+    → (n, output_dim) embeddings (JAX ``gnn_forward`` with train=False)."""
+    if model.training:
+        raise ValueError("gnn_forward runs the eval forward; call "
+                         "model.eval() first")
+    with torch.no_grad():
+        return model(graph.features, graph.neighbors, graph.mask,
+                     graph.edge_feats)

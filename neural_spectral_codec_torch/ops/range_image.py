@@ -1,0 +1,244 @@
+"""Panoramic range-image projection and empty-pixel interpolation.
+
+Port of ``neural_spectral_codec_tpu/ops/range_image.py``. On the GPU the
+per-pixel min over arbitrary-order points is one pass of atomics
+(``csrc/project.cu``), so the TPU's packed-key sort and compaction and
+expansion butterflies have no counterpart here. The plain PyTorch version
+is a ``scatter_reduce_(..., "amin")`` into a +inf buffer.
+
+Numerics follow the JAX reference operation for operation (same order, a
+float32 rounding after each step), with one deliberate difference: the
+two angles and the two square roots are computed in float64 and rounded
+once to float32. Float32 ``atan2`` differs in the last ulp between
+libraries (CPU PyTorch, XLA, CUDA), and a 1-ulp difference moves a point
+near a bin edge into the next pixel; at full density that moved CPU and
+card descriptors apart by more than 1e-4. PyTorch's vectorised CPU
+``sqrt`` is not always correctly rounded either (on an H100 host 0.56% of
+ranges came out 1 ulp off the card's). Rounded from float64, angle and
+root are the correctly rounded ones on every device, so the CPU path and
+the CUDA kernels give the same image.
+Divisions by a constant go through a device tensor, not a Python scalar:
+PyTorch's CUDA division by a CPU scalar multiplies by the reciprocal,
+which rounds differently.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+_BIG = 1 << 20  # distance sentinel for "no valid pixel found"
+
+
+class ProjectionConfig(NamedTuple):
+    """Static projection geometry (JAX ``range_image.ProjectionConfig``).
+
+    ``elevation_mode``: ``"clip"`` puts out-of-band elevations in the
+    boundary rows; ``"drop"`` discards them."""
+
+    n_elevation: int = 64
+    n_azimuth: int = 360
+    elevation_range_deg: Tuple[float, float] = (-24.8, 2.0)
+    max_range: float = 80.0
+    min_range: float = 1.0
+    elevation_mode: str = "clip"
+
+    @property
+    def elevation_min(self) -> float:
+        return math.radians(self.elevation_range_deg[0])
+
+    @property
+    def elevation_max(self) -> float:
+        return math.radians(self.elevation_range_deg[1])
+
+    @property
+    def elevation_span(self) -> float:
+        return self.elevation_max - self.elevation_min
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` with an IEEE float32 division on every device (see the
+    module docstring)."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def atan2_f32(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 atan2 computed in float64 and rounded once (see the module
+    docstring; ``csrc/common.cuh`` does the same)."""
+    return torch.atan2(y.double(), x.double()).float()
+
+
+def sqrt_f32(v: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt computed in float64 and rounded once, which is the
+    correctly rounded result (53 ≥ 2·24 + 2 bits), as ``__fsqrt_rn`` in
+    ``csrc/common.cuh`` gives it."""
+    return torch.sqrt(v.double()).float()
+
+
+def _spherical(points: torch.Tensor):
+    """xyz → (range, azimuth in [0, 2π), elevation, finite), as JAX's
+    ``_spherical`` (range_image.py:61-80). Non-finite rows get safe
+    stand-in coordinates and a False finiteness flag."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    finite = torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(z)
+    x = torch.where(finite, x, 1.0)
+    y = torch.where(finite, y, 0.0)
+    z = torch.where(finite, z, 0.0)
+    x_sq = torch.clamp(x * x, 0.0, 1e10)
+    y_sq = torch.clamp(y * y, 0.0, 1e10)
+    z_sq = torch.clamp(z * z, 0.0, 1e10)
+    xy_sq = x_sq + y_sq
+    rng = sqrt_f32(xy_sq + z_sq)
+    azimuth = torch.remainder(atan2_f32(y, x) + math.pi, 2.0 * math.pi)
+    elevation = atan2_f32(z, sqrt_f32(xy_sq))
+    return rng, azimuth, elevation, finite
+
+
+def _valid_mask(rng, elevation, finite, config: ProjectionConfig):
+    """Range gates + (drop mode only) the elevation-band gate."""
+    valid = finite & (rng >= config.min_range) & (rng <= config.max_range)
+    if config.elevation_mode == "drop":
+        valid = valid & (elevation >= config.elevation_min) \
+            & (elevation <= config.elevation_max)
+    return valid
+
+
+def azimuth_bins(azimuth: torch.Tensor, n_azimuth: int) -> torch.Tensor:
+    """floor(az / 2π · A), clipped to [0, A−1], int64."""
+    b = torch.floor(div_const(azimuth, 2.0 * math.pi) * n_azimuth)
+    return torch.clamp(b.to(torch.int64), 0, n_azimuth - 1)
+
+
+def elevation_bins(elevation: torch.Tensor,
+                   config: ProjectionConfig) -> torch.Tensor:
+    """floor((el − el_min) / span · E), clipped to [0, E−1], int64."""
+    v = div_const(elevation - config.elevation_min, config.elevation_span)
+    b = torch.floor(v * config.n_elevation)
+    return torch.clamp(b.to(torch.int64), 0, config.n_elevation - 1)
+
+
+def check_points(points: torch.Tensor, ndim: int, what: str) -> None:
+    if points.dim() != ndim or points.shape[-1] not in (3, 4):
+        raise ValueError(f"{what}: expected {ndim}-D points with 3 or 4 "
+                         f"channels, got shape {tuple(points.shape)}")
+    if points.dtype != torch.float32:
+        raise ValueError(f"{what}: expected float32 points, got {points.dtype}")
+
+
+def project_points_batch_plain(points: torch.Tensor,
+                               config: ProjectionConfig) -> torch.Tensor:
+    """Plain PyTorch version of the general projection: (B, N, 3|4) →
+    (B, n_elevation, n_azimuth), the min range per pixel (0 = empty).
+    Semantics of JAX ``project_points`` (range_image.py:93-130,
+    ``np.minimum.at``), computed as one ``scatter_reduce_("amin")``."""
+    check_points(points, 3, "project_points_batch")
+    b = points.shape[0]
+    n_pix = config.n_elevation * config.n_azimuth
+    rng, azimuth, elevation, finite = _spherical(points)
+    valid = _valid_mask(rng, elevation, finite, config)
+    pix = elevation_bins(elevation, config) * config.n_azimuth \
+        + azimuth_bins(azimuth, config.n_azimuth)
+    base = torch.arange(b, device=points.device)[:, None] * n_pix
+    target = torch.where(valid, pix + base, b * n_pix)   # dump slot
+    vals = torch.where(valid, rng, math.inf)
+    buf = torch.full((b * n_pix + 1,), math.inf, dtype=torch.float32,
+                     device=points.device)
+    buf.scatter_reduce_(0, target.reshape(-1), vals.reshape(-1), "amin")
+    img = buf[:-1].reshape(b, config.n_elevation, config.n_azimuth)
+    return torch.where(torch.isinf(img), 0.0, img)
+
+
+def project_points_batch(points: torch.Tensor,
+                         config: ProjectionConfig) -> torch.Tensor:
+    """(B, N, 3|4) float32 points → (B, n_elevation, n_azimuth) range
+    images. A CPU tensor takes the plain version; a CUDA tensor launches
+    the hand-written kernel (``ops/projection_kernel.py``) and any other
+    device raises."""
+    if points.device.type == "cpu":
+        return project_points_batch_plain(points, config)
+    from neural_spectral_codec_torch.ops.projection_kernel import (
+        project_points_cuda)
+    return project_points_cuda(points, config)
+
+
+def _nearest_valid(val: torch.Tensor, d: torch.Tensor, dim: int,
+                   n: int, direction: int, circular: bool):
+    """Pointer doubling along ``dim``: for every slot, the value and
+    distance of the nearest slot with d == 0 in ``direction`` (+1 = from
+    lower indices). Non-circular shifts treat the edge as _BIG away."""
+    shape = [1] * val.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=val.device).reshape(shape)
+    shift = 1
+    while shift < n:
+        sv = torch.roll(val, direction * shift, dims=dim)
+        sd = torch.roll(d, direction * shift, dims=dim) + shift
+        if not circular:
+            inside = idx >= shift if direction > 0 else idx < n - shift
+            sd = torch.where(inside, sd, _BIG)
+        take = sd < d
+        val = torch.where(take, sv, val)
+        d = torch.minimum(d, sd)
+        shift *= 2
+    return val, d
+
+
+def _fill_empty_rows(img: torch.Tensor,
+                     row_nonempty: torch.Tensor) -> torch.Tensor:
+    """(B, E, A) images: an empty row takes the nearest originally
+    non-empty row above it, else the nearest below (JAX
+    ``_fill_empty_rows``, range_image.py:477-514). Scans with no
+    non-empty row stay as they are."""
+    n_rows = img.shape[1]
+    d0 = torch.where(row_nonempty, 0, _BIG).to(torch.int32)[..., None]
+    d0 = d0.expand_as(img)
+    val_a, d_a = _nearest_valid(img, d0, 1, n_rows, 1, circular=False)
+    val_b, _ = _nearest_valid(img, d0, 1, n_rows, -1, circular=False)
+    filled = torch.where(d_a < _BIG, val_a, val_b)
+    out = torch.where(row_nonempty[..., None], img, filled)
+    return torch.where(row_nonempty.any(dim=1)[:, None, None], out, img)
+
+
+def interpolate_range_image(img: torch.Tensor,
+                            method: str = "linear") -> torch.Tensor:
+    """Circular linear interpolation of empty (not > 0) pixels per row,
+    then the empty-row fill. Accepts (E, A) or (B, E, A). Port of JAX
+    ``interpolate_range_image(method="linear")`` (range_image.py:518-574),
+    which reproduces the reference's ``np.interp`` over the circularly
+    extended valid samples."""
+    if method != "linear":
+        raise NotImplementedError(
+            f"interpolation method {method!r} is not ported yet")
+    single = img.dim() == 2
+    if single:
+        img = img[None]
+    width = img.shape[-1]
+    valid = img > 0.0
+    d0 = torch.where(valid, 0, _BIG).to(torch.int32)
+    val_l, d_l = _nearest_valid(img, d0, 2, width, 1, circular=True)
+    val_r, d_r = _nearest_valid(img, d0, 2, width, -1, circular=True)
+    row_has_valid = valid.any(dim=2, keepdim=True)
+    dl = d_l.to(img.dtype)
+    dr = d_r.to(img.dtype)
+    denom = dl + dr
+    safe = torch.where(denom > 0, denom, 1.0)
+    interp = (val_l * dr + val_r * dl) / safe
+    interp = torch.where(denom > 0, interp, val_l)
+    out = torch.where(valid | ~row_has_valid, img, interp)
+    out = _fill_empty_rows(out, row_has_valid[..., 0])
+    return out[0] if single else out
+
+
+def pad_points(points: np.ndarray, max_points: int) -> np.ndarray:
+    """Host helper: pad/truncate an (N, 3|4) cloud to (max_points, 4) with
+    NaN (copied from JAX ``range_image.pad_points``, range_image.py:710).
+    NaN rows fail the finiteness gate, so padding is invisible."""
+    out = np.full((max_points, 4), np.nan, dtype=np.float32)
+    n = min(len(points), max_points)
+    out[:n, : points.shape[1]] = points[:n]
+    if points.shape[1] == 3:
+        out[:n, 3] = 0.0
+    return out

@@ -1,0 +1,182 @@
+"""Spectral histogram encoder: range image → 800-D descriptor.
+
+Port of ``neural_spectral_codec_tpu/ops/spectral.py``:
+
+    range image (E, A)
+      → (optional) circular interpolation + empty-row fill
+      → adaptive average pool of the rows to ``target_elevation_bins``
+      → unnormalised rFFT magnitudes per row
+      → exponential-α frequency binning (searchsorted-right − 1, clipped)
+      → flatten + global sum-to-1, uniform fallback for an empty histogram
+
+``encode_images`` is the wrapper of the fused CUDA kernel
+(``csrc/spectral.cu``, replacing ``pallas_spectral._kernel``): a CPU
+tensor takes the plain version ``encode_images_plain``, a CUDA tensor the
+kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple, Union
+
+import numpy as np
+import torch
+
+from neural_spectral_codec_torch.ops.range_image import (
+    ProjectionConfig, interpolate_range_image, project_points_batch)
+
+Alpha = Union[float, torch.Tensor]
+
+
+class SpectralEncoderConfig(NamedTuple):
+    """Static encoder hyperparameters (JAX ``SpectralEncoderConfig``
+    without ``use_pallas``: the device of the input picks the route)."""
+
+    n_elevation: int = 64
+    n_azimuth: int = 360
+    n_bins: int = 50
+    target_elevation_bins: int = 16
+    alpha: float = 2.0
+    epsilon: float = 1e-8
+    interpolate_empty: bool = True
+    elevation_range_deg: Tuple[float, float] = (-24.8, 2.0)
+    max_range: float = 80.0
+    min_range: float = 1.0
+    elevation_mode: str = "clip"
+
+    @property
+    def n_freqs(self) -> int:
+        return self.n_azimuth // 2 + 1
+
+    @property
+    def output_dim(self) -> int:
+        return self.target_elevation_bins * self.n_bins
+
+    @property
+    def projection(self) -> ProjectionConfig:
+        return ProjectionConfig(
+            n_elevation=self.n_elevation,
+            n_azimuth=self.n_azimuth,
+            elevation_range_deg=self.elevation_range_deg,
+            max_range=self.max_range,
+            min_range=self.min_range,
+            elevation_mode=self.elevation_mode,
+        )
+
+
+def _alpha(alpha: Alpha, device) -> torch.Tensor:
+    return torch.as_tensor(alpha, dtype=torch.float32, device=device)
+
+
+def compute_bin_edges(alpha: Alpha, n_bins: int, n_freqs: int,
+                      epsilon: float = 1e-8, device="cpu") -> torch.Tensor:
+    """Exponential-warped bin edges, float32 (JAX ``compute_bin_edges``)."""
+    a = _alpha(alpha, device)
+    t = torch.linspace(0.0, 1.0, n_bins + 1, device=a.device)
+    edges = (torch.exp(a * t) - 1.0) / (torch.exp(a) - 1.0 + epsilon)
+    return edges * n_freqs
+
+
+def bin_assignment(alpha: Alpha, n_bins: int, n_freqs: int,
+                   epsilon: float = 1e-8, device="cpu") -> torch.Tensor:
+    """(n_freqs,) int64 bin of each frequency: searchsorted(edges, f,
+    right) − 1, clipped to [0, n_bins − 1]."""
+    edges = compute_bin_edges(alpha, n_bins, n_freqs, epsilon, device)
+    freqs = torch.arange(n_freqs, dtype=edges.dtype, device=edges.device)
+    assign = torch.searchsorted(edges, freqs, right=True) - 1
+    return torch.clamp(assign, 0, n_bins - 1)
+
+
+def binning_matrix(alpha: Alpha, n_bins: int, n_freqs: int,
+                   epsilon: float = 1e-8, device="cpu") -> torch.Tensor:
+    """(n_freqs, n_bins) float32 one-hot assignment matrix
+    (JAX ``binning_matrix``): ``hist = mags @ binning_matrix``."""
+    assign = bin_assignment(alpha, n_bins, n_freqs, epsilon, device)
+    return torch.nn.functional.one_hot(assign, n_bins).to(torch.float32)
+
+
+def pooling_matrix(n_elevation: int, target: int) -> np.ndarray:
+    """(target, n_elevation) row-pooling matrix with
+    ``adaptive_avg_pool2d`` row semantics: row i averages input rows
+    [floor(i·E/T), ceil((i+1)·E/T)). Copied from JAX
+    ``spectral.pooling_matrix`` (spectral.py:109)."""
+    P = np.zeros((target, n_elevation), dtype=np.float32)
+    for i in range(target):
+        start = (i * n_elevation) // target
+        end = -((-(i + 1) * n_elevation) // target)  # ceil
+        P[i, start:end] = 1.0 / (end - start)
+    return P
+
+
+def dft_bases(n_azimuth: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Real/imag DFT bases (A, n_freqs) so that for a real row x,
+    rfft(x)[k] = x·cos_base[:,k] − i·x·sin_base[:,k] (unnormalized).
+    Copied from JAX ``spectral.dft_bases`` (spectral.py:122)."""
+    n_freqs = n_azimuth // 2 + 1
+    n = np.arange(n_azimuth)[:, None]
+    k = np.arange(n_freqs)[None, :]
+    ang = 2.0 * np.pi * n * k / n_azimuth
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def dft_bases_tensors(n_azimuth: int, device: torch.device):
+    """``dft_bases`` as float32 tensors on ``device`` (cached)."""
+    cos_b, sin_b = dft_bases(n_azimuth)
+    return (torch.from_numpy(cos_b).to(device),
+            torch.from_numpy(sin_b).to(device))
+
+
+def _normalize_histogram(hist: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """Global sum-to-1 with uniform fallback (JAX ``_normalize_histogram``)."""
+    s = hist.sum(dim=-1, keepdim=True)
+    uniform = torch.ones_like(hist) / hist.shape[-1]
+    return torch.where(s > epsilon, hist / (s + epsilon), uniform)
+
+
+def encode_range_image_batch(imgs: torch.Tensor, alpha: Alpha,
+                             config: SpectralEncoderConfig) -> torch.Tensor:
+    """(B, E, A) → (B, target·n_bins): pool → |rfft| → bin → normalise
+    (JAX ``encode_range_image_batch``, spectral.py:154-171). No
+    interpolation here; see ``encode_images``."""
+    b, n_elev, _ = imgs.shape
+    if n_elev != config.target_elevation_bins:
+        P = torch.from_numpy(
+            pooling_matrix(n_elev, config.target_elevation_bins)).to(imgs.device)
+        imgs = torch.einsum("te,bea->bta", P, imgs)
+    mags = torch.fft.rfft(imgs, dim=-1).abs()
+    Bm = binning_matrix(alpha, config.n_bins, config.n_freqs, config.epsilon,
+                        imgs.device)
+    hist = torch.einsum("btf,fk->btk", mags, Bm).reshape(b, -1)
+    return _normalize_histogram(hist, config.epsilon)
+
+
+def encode_images_plain(imgs: torch.Tensor, alpha: Alpha,
+                        config: SpectralEncoderConfig) -> torch.Tensor:
+    """Plain PyTorch version of the fused spectral kernel: interpolation
+    (when ``config.interpolate_empty``) then ``encode_range_image_batch``."""
+    if config.interpolate_empty:
+        imgs = interpolate_range_image(imgs)
+    return encode_range_image_batch(imgs, alpha, config)
+
+
+def encode_images(imgs: torch.Tensor, alpha: Alpha,
+                  config: SpectralEncoderConfig) -> torch.Tensor:
+    """(B, E, A) float32 range images → (B, output_dim) descriptors. A CPU
+    tensor takes ``encode_images_plain``; a CUDA tensor launches the fused
+    kernel (``ops/spectral_kernel.py``); any other device raises."""
+    if imgs.device.type == "cpu":
+        return encode_images_plain(imgs, alpha, config)
+    from neural_spectral_codec_torch.ops.spectral_kernel import (
+        encode_images_cuda)
+    return encode_images_cuda(imgs, alpha, config)
+
+
+def encode_points_batch(points: torch.Tensor, alpha: Alpha,
+                        config: SpectralEncoderConfig) -> torch.Tensor:
+    """(B, N, 3|4) padded clouds → (B, output_dim) descriptors: general
+    projection, then the spectral encoder (JAX ``encode_points_batch``,
+    spectral.py:184)."""
+    imgs = project_points_batch(points, config.projection)
+    return encode_images(imgs, alpha, config)
