@@ -3,31 +3,49 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``neural_spectral_codec_torch``) the way a
-server would, at the full width of the model the repository supports,
-with weights and data made from seeds:
+Drives the port's paths (``neural_spectral_codec_torch``) the way a user
+would, at the full width of the model the repository supports, with
+weights and data made from seeds:
 
 1. device: requires a CUDA card and prints its name and power limit;
-2. build: compiles the three hand-written kernels from ``csrc/`` (nvcc);
+2. build: compiles the hand-written kernels from ``csrc/`` (one nvcc per
+   source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the same
-   CUDA tensors at the main path's shapes (8 full-density HDL-64E scans,
-   133,632 points each) and on edge cases (drop mode, other fold counts,
-   partial rows, no interpolation): the spectral kernel to <= 1e-5, the
-   two projection kernels bit-equal (and equal to the plain path run on
-   the CPU); median times over 25
-   CUDA-event-timed calls after warm-up, kernel beside plain;
+   CUDA tensors at its path's shapes. The serving kernels at 8
+   full-density HDL-64E scans (133,632 points each) and on edge cases
+   (drop mode, other fold counts, partial rows, no interpolation): the
+   spectral kernel to <= 1e-5, the two projection kernels bit-equal (and
+   equal to the plain path run on the CPU). The probe kernels at the
+   probe shapes (512 x 2176 keys, 512 x 768 and 512 x 2176 floors,
+   512 x 2112 chain): the ring-fold probe bit-equal for n_folds 1-3 and,
+   after the min over folds, equal to the ring kernel's image; every
+   phase-ablation variant launches and gives finite rows; both roll
+   kernels bit-equal. Times from CUDA events (``utils/timing.py``),
+   kernel beside plain;
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
-   (800 → 256 → 800, 3 GAT layers), a 100,000-row W₁ database on the card,
-   and 32 requests through ``serve_step`` (16 ring-structured, 16
+   (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
+   card, and 32 requests through ``serve_step`` (16 ring-structured, 16
    arbitrary-order scans), top-10 with a spatial filter, query and insert
    on. Each request's scan also sits in the database as a row computed by
    the plain path on the CPU, outside the spatial filter; it must come
    back as top-1, the descriptor must agree with the CPU's to 1e-4 and
-   the embeddings to 1e-3, and every kernel's launch count must rise.
+   the embeddings to 1e-3, and every serving kernel's launch count must
+   rise;
+5. probes: the two stage-profile entry points
+   (``experiments.ring_stage_probe``, ``experiments.profile_hotpath``)
+   with few iterations, each on its own: ring_stage_probe must launch the
+   ring probe, the roll floor and the ring kernel, profile_hotpath the
+   ring probe, the roll+min chain and the three serving kernels;
+6. structured: ``encode_structured`` on four full-density flat streams
+   (sweep order, firing-interleaved with and without a ring field, one
+   unstructured); the first three must take the ring path and the last
+   the general path, and each descriptor must be <= 1e-6 from
+   ``encode_points_batch`` on the same cloud.
 
-Any failure raises and the script exits nonzero, printing no result.
-Otherwise the line before the last is the kernels' JSON record and the
-last is ``{"ok": true, "device": {...}}``. It needs no JAX.
+Launch counts are set to 0 just before each path (4, each entry point of
+5, 6) and read just after. Any failure raises and the script exits nonzero, printing no
+result. Otherwise the line before the last is the kernels' JSON record
+and the last is ``{"ok": true, "device": {...}}``. It needs no JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +53,6 @@ from __future__ import annotations
 import copy
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -77,22 +94,8 @@ def _general_scans(n: int, seed: int):
 
 
 def _time_ms(fn) -> float:
-    """Median over TIMED_CALLS calls of ``fn``, each timed with CUDA
-    events, after three warm-up calls."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMED_CALLS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from neural_spectral_codec_torch.utils.timing import time_ms
+    return time_ms(fn, calls=TIMED_CALLS)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -173,6 +176,199 @@ def _edge_cases(device) -> None:
           "match their plain versions", flush=True)
 
 
+def _probe_kernels(device) -> dict:
+    """The three probe kernels against their plain versions at the probe
+    shapes; returns {name: (max abs err, kernel ms, plain ms)}."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.ops import probe_kernels as pk
+    from neural_spectral_codec_torch.ops.ring_kernel import project_rings_cuda
+    from neural_spectral_codec_torch.ops.ring_path import (
+        make_structured_ring_scans)
+    from neural_spectral_codec_torch.ops.spectral import SpectralEncoderConfig
+    from neural_spectral_codec_torch.utils.timing import time_loop_ms
+
+    proj = SpectralEncoderConfig().projection
+    rows = tuple(range(N_RINGS))
+    scans = make_structured_ring_scans(BATCH, N_RINGS, PER_RING, proj,
+                                       seed=SEED + 20)
+    extra = _sweep_rings(rows, PER_RING, 2.6, SEED + 21, proj)[0]
+    extra[::5, ::9] = np.nan                            # scattered holes
+    extra[3, :300] = np.nan                             # leading holes
+    extra[7, 900:1400] = np.nan                         # interior holes
+    scans[-1] = extra                                   # extra wrap events
+    scans = torch.from_numpy(scans).to(device)
+    key, vals = pk.ring_keys_padded(scans, proj)        # (512, 2176)
+    for n_folds in (1, 2, 3):
+        got = pk.ring_fold_probe(key, vals, proj.n_azimuth, n_folds)
+        want = pk.ring_fold_rows_plain(key, vals, proj.n_azimuth, n_folds)
+        _check(torch.equal(got, want), f"ring probe != plain version "
+               f"(n_folds={n_folds}, {int((got != want).sum())} slots)")
+        image = project_rings_cuda(scans, proj, rows, n_folds)
+        _check(torch.equal(pk.fold_min_rows(got, BATCH, N_RINGS,
+                                            proj.n_azimuth, n_folds), image),
+               f"ring probe's rows != ring kernel's image (n_folds="
+               f"{n_folds})")
+    n_variants = 0
+    for k in range(1, len(pk.PHASES) + 1):
+        for skip in itertools.combinations(pk.PHASES, k):
+            out = pk.ring_fold_probe(key, vals, proj.n_azimuth, 2, skip)
+            _check(bool(torch.isfinite(out).all()),
+                   f"ring probe without {skip}: non-finite rows")
+            n_variants += 1
+    print(f"ring probe: bit-equal to its plain version for n_folds 1-3 and "
+          f"to the ring kernel after the fold min; {n_variants} ablation "
+          f"variants launch with finite rows", flush=True)
+
+    rng = np.random.default_rng(SEED + 22)
+    wpad = pk.folded_width(proj.n_azimuth, 2)
+    floors = {}
+    for width in (key.shape[1], wpad):
+        u = torch.from_numpy(rng.uniform(0, 1, (key.shape[0], width))
+                             .astype(np.float32)).to(device)
+        floors[width] = (torch.round(u * 64) / 8, u)    # ties in x
+    for width, n_stages, n_arrays in ((key.shape[1], 12, 1),
+                                      (key.shape[1], 12, 2),
+                                      (key.shape[1], 40, 2), (wpad, 10, 2)):
+        x, y = floors[width]
+        got = pk.roll_floor(x, y, n_stages, n_arrays)
+        _check(torch.equal(got, pk.roll_floor_plain(x, y, n_stages,
+                                                    n_arrays)),
+               f"roll floor != plain version ({width} wide, {n_stages} "
+               f"stages, {n_arrays} arrays)")
+    xroll = torch.from_numpy(rng.uniform(0, 1, (BATCH * N_RINGS, 2112))
+                             .astype(np.float32)).to(device)
+    chain = pk.roll_min_chain(xroll, 64)
+    _check(torch.equal(chain, pk.roll_min_chain_plain(xroll, 64)),
+           "roll+min chain != plain version")
+    print("roll floor (1 and 2 arrays, 10-40 stages, 2176 and 768 wide) "
+          "and roll+min chain (64 stages, 512 x 2112): bit-equal to their "
+          "plain versions", flush=True)
+
+    x, y = floors[key.shape[1]]
+    pairs = {
+        "ring_probe": (lambda: pk.ring_fold_probe(key, vals, proj.n_azimuth,
+                                                  2),
+                       lambda: pk.ring_fold_rows_plain(
+                           key, vals, proj.n_azimuth, 2)),
+        "roll_floor": (lambda: pk.roll_floor(x, y, 12, 2),
+                       lambda: pk.roll_floor_plain(x, y, 12, 2)),
+        "roll_min_chain": (lambda: pk.roll_min_chain(xroll, 64),
+                           lambda: pk.roll_min_chain_plain(xroll, 64)),
+    }
+    out = {}
+    for name, (kernel, plain) in pairs.items():
+        err = float((kernel() - plain()).abs().max())
+        # plain, kernel, kernel, plain, in one call on one card
+        p0 = time_loop_ms(plain, n=20)
+        k0, k1 = time_loop_ms(kernel, n=200), time_loop_ms(kernel, n=200)
+        p1 = time_loop_ms(plain, n=20)
+        out[name] = (err, (k0 + k1) / 2, (p0 + p1) / 2)
+        print(f"kernel {name}: {out[name][1]:.5f} ms, plain "
+              f"{out[name][2]:.5f} ms (mean of two loop medians, B={BATCH}; "
+              f"kernel {k0:.5f}/{k1:.5f}, plain {p0:.5f}/{p1:.5f})",
+              flush=True)
+    return out
+
+
+def _probe_paths() -> dict:
+    """Phase 5: both stage-profile entry points, each with all six launch
+    counts set to 0 just before it and read just after; each must launch
+    the kernels its lines time. Returns the probe kernels' launches summed
+    over both."""
+    from neural_spectral_codec_torch.experiments import (
+        profile_hotpath, ring_stage_probe)
+    from neural_spectral_codec_torch.ops import (
+        probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
+    kernels = {"spectral": spectral_kernel.KERNEL,
+               "ring_fold": ring_kernel.KERNEL,
+               "project": projection_kernel.KERNEL,
+               "ring_probe": probe_kernels.RING_PROBE,
+               "roll_floor": probe_kernels.ROLL_FLOOR,
+               "roll_min_chain": probe_kernels.ROLL_MIN_CHAIN}
+    runs = (
+        ("ring_stage_probe", lambda: ring_stage_probe.main(
+            ["--iters", "20", "--rounds", "3"]),
+         ("ring_probe", "roll_floor", "ring_fold")),
+        ("profile_hotpath", lambda: profile_hotpath.main(["--iters", "5"]),
+         ("ring_probe", "roll_min_chain", "spectral", "ring_fold",
+          "project")),
+    )
+    total = dict.fromkeys(("ring_probe", "roll_floor", "roll_min_chain"), 0)
+    for name, run, needed in runs:
+        for k in kernels.values():
+            k.launches = 0
+        run()
+        launches = {n: k.launches for n, k in kernels.items()}
+        print(f"probes: {name} launches {launches}", flush=True)
+        _check(all(launches[n] > 0 for n in needed),
+               f"{name} never launched one of {needed}: {launches}")
+        for n in total:
+            total[n] += launches[n]
+    return total
+
+
+def _structured(device) -> None:
+    """Phase 6: ``encode_structured`` on four full-density flat streams,
+    each descriptor against ``encode_points_batch`` on the same cloud."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.ops import (
+        projection_kernel, ring_kernel, spectral_kernel)
+    from neural_spectral_codec_torch.ops.ring_path import (
+        encode_structured, infer_ring_ids_by_elevation,
+        infer_ring_ids_from_sweep, make_structured_ring_scans,
+        prepare_structured)
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoderConfig, encode_points_batch)
+
+    cfg = SpectralEncoderConfig()
+    scans = make_structured_ring_scans(4, N_RINGS, PER_RING, cfg.projection,
+                                       seed=SEED + 30)
+    sweep = scans[0].reshape(-1, 4)
+    nclt = scans[1].transpose(1, 0, 2).reshape(-1, 4)
+    helipr = scans[2].transpose(1, 0, 2).reshape(-1, 4)
+    # a scan in no sensor order (a NaN tail here would become one ring of
+    # every padding point, and the ring bucketing would allocate R x P)
+    cloud = scans[3].reshape(-1, 4)[
+        np.random.default_rng(SEED + 31).permutation(N_POINTS)]
+    streams = {
+        "sweep order (KITTI)": (sweep, infer_ring_ids_from_sweep(sweep), True),
+        "interleaved (NCLT)": (nclt, infer_ring_ids_by_elevation(nclt), True),
+        "ring field (HeLiPR)": (helipr, np.tile(np.arange(N_RINGS), PER_RING),
+                                True),
+        "unstructured": (cloud, infer_ring_ids_from_sweep(cloud), False),
+    }
+    want = {}
+    for name, (flat, rid, ring) in streams.items():
+        _check((prepare_structured(flat, rid, cfg) is not None) == ring,
+               f"structured: {name} took the wrong branch")
+        want[name] = encode_points_batch(
+            torch.from_numpy(flat[None]).to(device), cfg.alpha, cfg)[0]
+    kernels = {"spectral": spectral_kernel.KERNEL,
+               "ring_fold": ring_kernel.KERNEL,
+               "project": projection_kernel.KERNEL}
+    for k in kernels.values():
+        k.launches = 0
+    got = {name: encode_structured(flat, rid, cfg.alpha, cfg, device=device)
+           for name, (flat, rid, _) in streams.items()}
+    launches = {n: k.launches for n, k in kernels.items()}
+    for name, (flat, _, ring) in streams.items():
+        err = float((got[name] - want[name]).abs().max())
+        _check(got[name].device.type == "cuda" and err <= 1e-6 and
+               bool(torch.isfinite(got[name]).all()),
+               f"structured: {name} descriptor {err:.3e} from the general "
+               "path")
+        print(f"structured: {name}, {len(flat)} points, "
+              f"{'ring' if ring else 'general'} path, {err:.3e} from "
+              f"encode_points_batch", flush=True)
+    print(f"structured: launches {launches}", flush=True)
+    _check(launches == {"spectral": 4, "ring_fold": 3, "project": 1},
+           f"structured: unexpected launches {launches}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -194,14 +390,11 @@ def main() -> None:
     from neural_spectral_codec_torch.ops.spectral import (
         SpectralEncoderConfig, encode_images_plain)
     from neural_spectral_codec_torch.retrieval import WassersteinRetriever
+    from neural_spectral_codec_torch.utils.timing import gpu_label
 
     # -- 1. device ---------------------------------------------------------
     device = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(gpu_label(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -267,6 +460,7 @@ def main() -> None:
     for name, (k_ms, p_ms) in timing.items():
         print(f"kernel {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"(median of {TIMED_CALLS}, B={BATCH})", flush=True)
+    probes = _probe_kernels(device)
 
     # -- 4. serve ----------------------------------------------------------
     rng = np.random.default_rng(SEED + 4)
@@ -372,7 +566,15 @@ def main() -> None:
     _check(all(v > 0 for v in launches.values()),
            f"a kernel of the path never launched: {launches}")
 
-    # -- 5. record ---------------------------------------------------------
+    # -- 5. the stage-profile entry points ---------------------------------
+    launches.update(_probe_paths())
+
+    # -- 6. structured-scan entry point ------------------------------------
+    _structured(device)
+
+    # -- 7. record ---------------------------------------------------------
+    for name, (err, k_ms, p_ms) in probes.items():
+        timing[name] = (k_ms, p_ms)
     meta = {
         "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
                      "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",
@@ -383,6 +585,15 @@ def main() -> None:
         "project": ("neural_spectral_codec_torch/csrc/project.cu",
                     "neural_spectral_codec_tpu/ops/pallas_compact.py:142",
                     proj_err),
+        "ring_probe": ("neural_spectral_codec_torch/csrc/ring_probe.cu",
+                       "experiments/ring_stage_probe.py:163",
+                       probes["ring_probe"][0]),
+        "roll_floor": ("neural_spectral_codec_torch/csrc/roll_floor.cu",
+                       "experiments/ring_stage_probe.py:200",
+                       probes["roll_floor"][0]),
+        "roll_min_chain": ("neural_spectral_codec_torch/csrc/roll_floor.cu",
+                           "experiments/profile_hotpath.py:254",
+                           probes["roll_min_chain"][0]),
     }
     record = []
     for name, (source, replaces, err) in meta.items():

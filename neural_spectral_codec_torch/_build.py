@@ -1,10 +1,13 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` into ONE shared library with a plain C
-interface, loaded with ``ctypes``:
+Each source compiles with its own ``nvcc`` process, all started at once,
+and the objects link into ONE shared library with a plain C interface,
+loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libnsc_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu      (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libnsc_kernels_<hash>.so *.o
 
 The build runs at first use and again whenever the sources or flags
 change (the library name carries a hash of both), so a fresh checkout
@@ -32,7 +35,7 @@ _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 MAX_SHARED_BYTES = 232_448        # opt-in shared memory of one H100 CTA
 
 
@@ -78,21 +81,33 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[str(s) for s in sources()]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
+        _run_nvcc([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                   for src, obj in zip(sources(), objs)], log)
+        lib = str(Path(tmp) / "lib.so")
+        _run_nvcc([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]], log)
+        os.replace(lib, out)   # atomic: a concurrent loader never sees half
     (BUILD_DIR / "build.log").write_text(
-        f"{' '.join(cmd)}\n{time.perf_counter() - t0:.3f} s\n"
-        f"{proc.stdout}\n{proc.stderr}")
+        f"{time.perf_counter() - t0:.3f} s\n" + "\n".join(log))
     return out
+
+
+def _run_nvcc(cmds: list, log: list) -> None:
+    """Run the commands in parallel and wait for all of them; raise
+    ``RuntimeError`` with the output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        log.append(f"{' '.join(cmd)}\n{output}")
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{output}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,6 +30,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from neural_spectral_codec_torch.device import DeviceLike, resolve_device
+
 _BIG = 1 << 20  # distance sentinel for "no valid pixel found"
 
 
@@ -204,14 +206,15 @@ def _fill_empty_rows(img: torch.Tensor,
 
 def interpolate_range_image(img: torch.Tensor,
                             method: str = "linear") -> torch.Tensor:
-    """Circular linear interpolation of empty (not > 0) pixels per row,
-    then the empty-row fill. Accepts (E, A) or (B, E, A). Port of JAX
-    ``interpolate_range_image(method="linear")`` (range_image.py:518-574),
-    which reproduces the reference's ``np.interp`` over the circularly
-    extended valid samples."""
-    if method != "linear":
-        raise NotImplementedError(
-            f"interpolation method {method!r} is not ported yet")
+    """Circular interpolation of empty (not > 0) pixels per row, then the
+    empty-row fill. Accepts (E, A) or (B, E, A). Port of JAX
+    ``interpolate_range_image`` (range_image.py:518-574): ``"linear"``
+    reproduces the reference's ``np.interp`` over the circularly extended
+    valid samples; ``"nearest"`` takes the nearest valid pixel, and on a
+    distance tie the one at the smaller absolute column (the reference's
+    ``np.argmin`` over ascending valid indices)."""
+    if method not in ("linear", "nearest"):
+        raise ValueError(f"unknown interpolation method: {method!r}")
     single = img.dim() == 2
     if single:
         img = img[None]
@@ -221,15 +224,86 @@ def interpolate_range_image(img: torch.Tensor,
     val_l, d_l = _nearest_valid(img, d0, 2, width, 1, circular=True)
     val_r, d_r = _nearest_valid(img, d0, 2, width, -1, circular=True)
     row_has_valid = valid.any(dim=2, keepdim=True)
-    dl = d_l.to(img.dtype)
-    dr = d_r.to(img.dtype)
-    denom = dl + dr
-    safe = torch.where(denom > 0, denom, 1.0)
-    interp = (val_l * dr + val_r * dl) / safe
-    interp = torch.where(denom > 0, interp, val_l)
+    if method == "linear":
+        dl = d_l.to(img.dtype)
+        dr = d_r.to(img.dtype)
+        denom = dl + dr
+        safe = torch.where(denom > 0, denom, 1.0)
+        interp = (val_l * dr + val_r * dl) / safe
+        interp = torch.where(denom > 0, interp, val_l)
+    else:
+        cols = torch.arange(width, dtype=torch.int32, device=img.device)
+        idx_l = torch.remainder(cols - d_l, width)
+        idx_r = torch.remainder(cols + d_r, width)
+        take_left = (d_l < d_r) | ((d_l == d_r) & (idx_l <= idx_r))
+        interp = torch.where(take_left, val_l, val_r)
     out = torch.where(valid | ~row_has_valid, img, interp)
     out = _fill_empty_rows(out, row_has_valid[..., 0])
     return out[0] if single else out
+
+
+def project_points_with_intensity(points: torch.Tensor,
+                                  config: ProjectionConfig):
+    """(N, 3|4) float32 points → (range image, intensity image), each
+    (n_elevation, n_azimuth). A pixel's intensity is the MAX intensity
+    among the points whose range equals the pixel's minimum exactly,
+    floored at 0; non-finite intensities count as 0 (JAX
+    ``project_points_with_intensity``, range_image.py:578, the
+    reference's ``np.maximum.at`` over the closest-point mask). Plain
+    PyTorch on any device: two ``scatter_reduce_`` passes."""
+    check_points(points, 2, "project_points_with_intensity")
+    n_pix = config.n_elevation * config.n_azimuth
+    rng, azimuth, elevation, finite = _spherical(points)
+    valid = _valid_mask(rng, elevation, finite, config)
+    intens = points[:, 3] if points.shape[1] > 3 else torch.zeros_like(rng)
+    intens = torch.where(valid & torch.isfinite(intens), intens, 0.0)
+    pix = elevation_bins(elevation, config) * config.n_azimuth \
+        + azimuth_bins(azimuth, config.n_azimuth)
+    target = torch.where(valid, pix, n_pix)                # dump slot
+    vals = torch.where(valid, rng, math.inf)
+    rbuf = torch.full((n_pix + 1,), math.inf, dtype=torch.float32,
+                      device=points.device)
+    rbuf.scatter_reduce_(0, target, vals, "amin")
+    tie = valid & (vals == rbuf[target])
+    ibuf = torch.zeros((n_pix + 1,), dtype=torch.float32,
+                       device=points.device)
+    ibuf.scatter_reduce_(0, torch.where(tie, target, n_pix),
+                         torch.where(tie, intens, 0.0), "amax")
+    img = rbuf[:-1].reshape(config.n_elevation, config.n_azimuth)
+    iimg = ibuf[:-1].reshape(config.n_elevation, config.n_azimuth)
+    empty = torch.isinf(img)
+    return torch.where(empty, 0.0, img), torch.where(empty, 0.0, iimg)
+
+
+def unproject_range_image(img: torch.Tensor, config: ProjectionConfig):
+    """(E, A) range image → ``(points (E·A, 3), mask (E·A,))``: pixel
+    (e, a) at elevation ``el_min + e/E · span`` and azimuth ``a/A · 2π``
+    (the reference's grid, range_image.py:234-285), masked rows zeroed
+    (JAX ``unproject_range_image``, range_image.py:671)."""
+    n_elev, n_azim = img.shape
+    rows = torch.arange(n_elev, dtype=torch.float32, device=img.device)
+    cols = torch.arange(n_azim, dtype=torch.float32, device=img.device)
+    elevation = config.elevation_min \
+        + div_const(rows, float(n_elev))[:, None] * config.elevation_span
+    azimuth = div_const(cols, float(n_azim))[None, :] * 2.0 * math.pi
+    mask = (img > 0.0).reshape(-1)
+    x = img * torch.cos(elevation) * torch.cos(azimuth)
+    y = img * torch.cos(elevation) * torch.sin(azimuth)
+    z = img * torch.sin(elevation) * torch.ones_like(azimuth)
+    pts = torch.stack([x, y, z], dim=-1).reshape(-1, 3)
+    return torch.where(mask[:, None], pts, 0.0), mask
+
+
+def range_image_difference(img1: torch.Tensor, img2: torch.Tensor,
+                           threshold: float = 0.5) -> torch.Tensor:
+    """Fraction of jointly valid pixels that differ by more than
+    ``threshold``; 1.0 when no pixel is valid in both (JAX
+    ``range_image_difference``, range_image.py:699)."""
+    valid = (img1 > 0) & (img2 > 0)
+    n_valid = valid.sum()
+    diff_cnt = (valid & ((img1 - img2).abs() > threshold)).sum()
+    return torch.where(n_valid > 0, diff_cnt / n_valid.clamp(min=1),
+                       torch.ones((), device=img1.device))
 
 
 def pad_points(points: np.ndarray, max_points: int) -> np.ndarray:
@@ -242,3 +316,41 @@ def pad_points(points: np.ndarray, max_points: int) -> np.ndarray:
     if points.shape[1] == 3:
         out[:n, 3] = 0.0
     return out
+
+
+class RangeImageProjector:
+    """Numpy-in, numpy-out projector with the reference's surface
+    (``project`` / ``unproject``; JAX ``RangeImageProjector``,
+    range_image.py:724). Clouds are NaN-padded or cut to ``max_points``
+    and run on ``device``."""
+
+    def __init__(self, n_elevation: int = 64, n_azimuth: int = 360,
+                 elevation_range: Tuple[float, float] = (-24.8, 2.0),
+                 max_range: float = 80.0, min_range: float = 1.0,
+                 max_points: int = 131072, device: DeviceLike = "cpu"):
+        self.config = ProjectionConfig(
+            n_elevation=n_elevation, n_azimuth=n_azimuth,
+            elevation_range_deg=tuple(elevation_range),
+            max_range=max_range, min_range=min_range)
+        self.n_elevation = n_elevation
+        self.n_azimuth = n_azimuth
+        self.max_points = max_points
+        self.device = resolve_device(device)
+
+    def project(self, points: np.ndarray, keep_intensity: bool = False):
+        """(N, 3|4) → ``(range_image, intensity_image or None)`` as
+        numpy."""
+        padded = torch.from_numpy(pad_points(np.asarray(points),
+                                             self.max_points)).to(self.device)
+        if keep_intensity:
+            img, iimg = project_points_with_intensity(padded, self.config)
+            return img.cpu().numpy(), iimg.cpu().numpy()
+        img = project_points_batch(padded[None], self.config)[0]
+        return img.cpu().numpy(), None
+
+    def unproject(self, range_image: np.ndarray) -> np.ndarray:
+        """Range image → (N, 3) points of its non-empty pixels."""
+        pts, mask = unproject_range_image(
+            torch.from_numpy(np.asarray(range_image, np.float32)).to(
+                self.device), self.config)
+        return pts[mask].cpu().numpy()

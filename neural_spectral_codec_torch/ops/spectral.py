@@ -18,6 +18,7 @@ kernel.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Tuple, Union
 
 import numpy as np
@@ -171,6 +172,31 @@ def encode_images(imgs: torch.Tensor, alpha: Alpha,
     from neural_spectral_codec_torch.ops.spectral_kernel import (
         encode_images_cuda)
     return encode_images_cuda(imgs, alpha, config)
+
+
+def encode_range_image_numpy_50d(
+    img: np.ndarray, n_bins: int = 50, alpha: float = 2.0,
+    epsilon: float = 1e-8
+) -> np.ndarray:
+    """Torch-free 50-D variant of the reference's ``SpectralEncoderNumpy``:
+    magnitudes summed over ALL elevation rows into one 50-bin histogram
+    (no pooling). Copied from JAX ``spectral.encode_range_image_numpy_50d``
+    (spectral.py:210)."""
+    n_freqs = img.shape[1] // 2 + 1
+    mags = np.abs(np.fft.rfft(img, axis=1, norm="ortho")) \
+        * math.sqrt(img.shape[1])
+    t = np.linspace(0, 1, n_bins + 1)
+    edges = (np.exp(alpha * t) - 1) / (np.exp(alpha) - 1 + epsilon) * n_freqs
+    freqs = np.arange(n_freqs)
+    hist = np.zeros(n_bins)
+    for i in range(n_bins):
+        m = (freqs >= edges[i]) & (freqs < edges[i + 1])
+        if m.any():
+            hist[i] = mags[:, m].sum()
+    s = hist.sum()
+    if s > epsilon:
+        return hist / (s + epsilon)
+    return np.ones(n_bins) / n_bins
 
 
 def encode_points_batch(points: torch.Tensor, alpha: Alpha,

@@ -224,14 +224,22 @@ def test_resolve_device():
             resolve_device("cuda")
 
 
+NEW_MODULES = ("ops.probe_kernels", "utils.timing",
+               "experiments.ring_stage_probe", "experiments.profile_hotpath")
+
+
 def test_port_imports_without_jax():
-    """The port, every module of it, and chip_smoke.py import torch and
-    numpy but never jax (a fresh interpreter, so nothing is preloaded)."""
+    """The port, every module of it (the probe kernels, the timing helper
+    and the two measurement entry points included), and chip_smoke.py
+    import torch and numpy but never jax (a fresh interpreter, so nothing
+    is preloaded)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import neural_spectral_codec_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for m in {NEW_MODULES!r}:\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'flax', 'neural_spectral_codec_tpu')))\n"
@@ -241,4 +249,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 15
+    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 21
