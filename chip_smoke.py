@@ -40,20 +40,40 @@ weights and data made from seeds:
    (sweep order, firing-interleaved with and without a ring field, one
    unstructured); the first three must take the ring path and the last
    the general path, and each descriptor must be <= 1e-6 from
-   ``encode_points_batch`` on the same cloud.
+   ``encode_points_batch`` on the same cloud;
+7. training: (a) one full-width train step (512 nodes, dropout 0, TF32
+   off) on the card against the same step on the CPU from identical
+   state, after hard-negative mining on both (the card's anchors and hard
+   negatives must equal the CPU's): loss within 1e-4 relative, gradients
+   within 1e-4 of each tensor's largest entry, parameters within 1e-4
+   (except the gauge biases, whose true gradient is 0, and elements whose
+   gradient is below 1e-3 of their tensor's largest, where Adam's update
+   sign follows rounding); (b) the training entry point
+   (``train_multi_dataset.main``, 120 synthetic frames, 2 epochs, a config
+   dict with configs/training.yaml's values) once with the default encoder
+   (``project`` and ``spectral`` must launch) and once with
+   ``encoding.ring_major`` on 64-beam sweep-ordered sensor streams
+   (``ring_fold`` and ``spectral`` must launch): finite losses, and the
+   final checkpoint reloads to an equal state_dict; (c)
+   ``experiments.scale_100k`` at 20,000 nodes: stage times, Recall@{1,5,10}
+   and peak memory.
 
 Launch counts are set to 0 just before each path (4, each entry point of
-5, 6) and read just after. Any failure raises and the script exits nonzero, printing no
-result. Otherwise the line before the last is the kernels' JSON record
-and the last is ``{"ok": true, "device": {...}}``. It needs no JAX.
+5, 6, each entry-point run of 7) and read just after. Any failure raises
+and the script exits nonzero, printing no result. Otherwise the line
+before the last is the kernels' JSON record (launches per path and in
+total) and the last is ``{"ok": true, "device": {...}}``. It needs no
+JAX.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -74,6 +94,38 @@ TIMED_CALLS = 25
 SPECTRAL_TOL = 1e-5            # kernel vs plain on the card
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
+TRAIN_TOL = 1e-4               # train step: card vs CPU
+TRAIN_NODES = 512
+SCALE_NODES = 20_000
+
+# configs/training.yaml (with its parent default.yaml), the sections the
+# training pipeline reads, built in code: the card has no PyYAML
+TRAINING_CONFIG = {
+    "encoding": {"n_elevation": 16, "n_azimuth": 360,
+                 "elevation_range": [-24.8, 2.0], "max_range": 80.0,
+                 "min_range": 1.0, "elevation_mode": "clip",
+                 "target_elevation_bins": 16, "n_bins": 50, "alpha": 2.0,
+                 "epsilon": 1e-8, "interpolate_empty": True,
+                 "ring_major": False, "max_points": 131072},
+    "keyframe": {"distance_threshold": 0.5, "rotation_threshold": 15.0,
+                 "overlap_threshold": 0.7, "temporal_threshold": 5.0,
+                 "voxel_size": 0.2, "max_keyframes": 100000,
+                 "temporal_neighbors": 5},
+    "gnn": {"input_dim": 800, "hidden_dim": 256, "output_dim": 800,
+            "n_layers": 3, "dropout": 0.1, "residual": True, "edge_dim": 2},
+    "system": {"seed": 42, "checkpoint_dir": "checkpoints"},
+    "training": {"learning_rate": 5e-4, "weight_decay": 1e-5,
+                 "n_epochs": 50, "triplets_per_step": 4096,
+                 "early_stopping": True, "patience": 10, "grad_clip": 1.0,
+                 "mixed_precision": False},
+    "triplet": {"margin": 0.1, "positive_distance_max": 5.0,
+                "positive_temporal_min": 30, "negative_distance_min": 10.0,
+                "negative_distance_max": 50.0, "mining_strategy": "hard",
+                "n_negatives_per_anchor": 1},
+    "validation": {"recall_k_values": [1, 5, 10]},
+    "checkpoint": {"save_best": True, "save_last": True},
+    "ablation": {"disable_gnn": False, "disable_temporal_edges": False},
+}
 
 
 def _general_scans(n: int, seed: int):
@@ -276,18 +328,9 @@ def _probe_kernels(device) -> dict:
 def _probe_paths() -> dict:
     """Phase 5: both stage-profile entry points, each with all six launch
     counts set to 0 just before it and read just after; each must launch
-    the kernels its lines time. Returns the probe kernels' launches summed
-    over both."""
+    the kernels its lines time. Returns {entry point: launches}."""
     from neural_spectral_codec_torch.experiments import (
         profile_hotpath, ring_stage_probe)
-    from neural_spectral_codec_torch.ops import (
-        probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
-    kernels = {"spectral": spectral_kernel.KERNEL,
-               "ring_fold": ring_kernel.KERNEL,
-               "project": projection_kernel.KERNEL,
-               "ring_probe": probe_kernels.RING_PROBE,
-               "roll_floor": probe_kernels.ROLL_FLOOR,
-               "roll_min_chain": probe_kernels.ROLL_MIN_CHAIN}
     runs = (
         ("ring_stage_probe", lambda: ring_stage_probe.main(
             ["--iters", "20", "--rounds", "3"]),
@@ -296,27 +339,22 @@ def _probe_paths() -> dict:
          ("ring_probe", "roll_min_chain", "spectral", "ring_fold",
           "project")),
     )
-    total = dict.fromkeys(("ring_probe", "roll_floor", "roll_min_chain"), 0)
+    by_path = {}
     for name, run, needed in runs:
-        for k in kernels.values():
-            k.launches = 0
-        run()
-        launches = {n: k.launches for n, k in kernels.items()}
+        _, launches = _counted(run)
         print(f"probes: {name} launches {launches}", flush=True)
         _check(all(launches[n] > 0 for n in needed),
                f"{name} never launched one of {needed}: {launches}")
-        for n in total:
-            total[n] += launches[n]
-    return total
+        by_path[name] = launches
+    return by_path
 
 
-def _structured(device) -> None:
+def _structured(device) -> dict:
     """Phase 6: ``encode_structured`` on four full-density flat streams,
-    each descriptor against ``encode_points_batch`` on the same cloud."""
+    each descriptor against ``encode_points_batch`` on the same cloud;
+    returns the launches."""
     import numpy as np
     import torch
-    from neural_spectral_codec_torch.ops import (
-        projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.ops.ring_path import (
         encode_structured, infer_ring_ids_by_elevation,
         infer_ring_ids_from_sweep, make_structured_ring_scans,
@@ -347,14 +385,9 @@ def _structured(device) -> None:
                f"structured: {name} took the wrong branch")
         want[name] = encode_points_batch(
             torch.from_numpy(flat[None]).to(device), cfg.alpha, cfg)[0]
-    kernels = {"spectral": spectral_kernel.KERNEL,
-               "ring_fold": ring_kernel.KERNEL,
-               "project": projection_kernel.KERNEL}
-    for k in kernels.values():
-        k.launches = 0
-    got = {name: encode_structured(flat, rid, cfg.alpha, cfg, device=device)
-           for name, (flat, rid, _) in streams.items()}
-    launches = {n: k.launches for n, k in kernels.items()}
+    got, launches = _counted(lambda: {
+        name: encode_structured(flat, rid, cfg.alpha, cfg, device=device)
+        for name, (flat, rid, _) in streams.items()})
     for name, (flat, _, ring) in streams.items():
         err = float((got[name] - want[name]).abs().max())
         _check(got[name].device.type == "cuda" and err <= 1e-6 and
@@ -365,8 +398,170 @@ def _structured(device) -> None:
               f"{'ring' if ring else 'general'} path, {err:.3e} from "
               f"encode_points_batch", flush=True)
     print(f"structured: launches {launches}", flush=True)
-    _check(launches == {"spectral": 4, "ring_fold": 3, "project": 1},
+    _check({k: launches[k] for k in ("spectral", "ring_fold", "project")}
+           == {"spectral": 4, "ring_fold": 3, "project": 1},
            f"structured: unexpected launches {launches}")
+    return launches
+
+
+def _all_kernels() -> dict:
+    from neural_spectral_codec_torch.ops import (
+        probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
+    return {"spectral": spectral_kernel.KERNEL,
+            "ring_fold": ring_kernel.KERNEL,
+            "project": projection_kernel.KERNEL,
+            "ring_probe": probe_kernels.RING_PROBE,
+            "roll_floor": probe_kernels.ROLL_FLOOR,
+            "roll_min_chain": probe_kernels.ROLL_MIN_CHAIN}
+
+
+def _counted(run) -> tuple:
+    """(run's result, {kernel: launches}) with every count set to 0 just
+    before ``run`` and read just after."""
+    kernels = _all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    out = run()
+    return out, {n: k.launches for n, k in kernels.items()}
+
+
+def _train_step_vs_cpu(device) -> None:
+    """Phase 7a: hard-negative mining and one full-width train step on the
+    card against the same on the CPU, from identical state."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    from neural_spectral_codec_torch.keyframe.graph import (
+        build_graph, graph_to_tensors)
+    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.models.gnn import gauge_parameters
+    from neural_spectral_codec_torch.training.miner import TripletMiner
+    from neural_spectral_codec_torch.training.trainer import (
+        make_optimizer, train_step)
+
+    desc, poses, _ = synthetic_city(TRAIN_NODES, revisit_period=128)
+    mined = {d: TripletMiner(seed=SEED, device=d).mine_triplets(desc, poses)
+             for d in ("cpu", device)}
+    trip_cpu, trip_dev = mined["cpu"], mined[device]
+    _check(len(trip_cpu) > 100 and
+           np.array_equal(trip_cpu[:, [0, 2]], trip_dev[:, [0, 2]]),
+           f"train: the card's anchors / hard negatives differ from the "
+           f"CPU's ({len(trip_dev)} vs {len(trip_cpu)} triplets)")
+    batch = np.zeros((4096, 3), np.int64)
+    batch[:len(trip_cpu)] = trip_cpu
+    tmask = np.arange(4096) < len(trip_cpu)
+    graph_np = build_graph(desc, poses, temporal_neighbors=5)
+    model_cpu = SpectralGNN(dropout=0.0,
+                            generator=torch.Generator().manual_seed(SEED))
+    model_dev = copy.deepcopy(model_cpu).to(device)
+    gauge = gauge_parameters(model_cpu)
+    out = {}
+    for name, model, dev in (("cpu", model_cpu, "cpu"),
+                             ("card", model_dev, device)):
+        before = {k: v.detach().clone().cpu()
+                  for k, v in model.named_parameters()}
+        b = torch.from_numpy(batch).to(dev)
+        t0 = time.perf_counter()
+        loss = train_step(model, make_optimizer(model, 5e-4, 1e-5),
+                          graph_to_tensors(graph_np, dev), b[:, 0], b[:, 1],
+                          b[:, 2], torch.from_numpy(tmask).to(dev), 0.1,
+                          grad_clip=1.0)
+        loss = float(loss)
+        out[name] = (loss, before, {k: v.grad.cpu() for k, v in
+                                    model.named_parameters()},
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()},
+                     time.perf_counter() - t0)
+    (l_cpu, p0, g_cpu, s_cpu, t_cpu), (l_dev, _, g_dev, s_dev, t_dev) = \
+        out["cpu"], out["card"]
+    err = {"loss": abs(l_dev - l_cpu) / max(1.0, abs(l_cpu))}
+    for k, g in g_cpu.items():
+        if k not in gauge:
+            err[f"grad {k}"] = float((g_dev[k] - g).abs().max()) / max(
+                1e-12, float(g.abs().max()))
+    n_free = 0
+    for k, v in s_cpu.items():
+        if k in gauge or k.endswith("num_batches_tracked"):
+            continue
+        d = (s_dev[k] - v).abs()
+        if k in g_cpu:      # a parameter: skip elements of sign-free grads
+            free = g_cpu[k].abs() < 1e-3 * g_cpu[k].abs().max()
+            n_free += int(free.sum())
+            d = d[~free]
+        err[k] = float(d.max()) if d.numel() else 0.0
+    worst = max(err, key=err.get)
+    moved = max(float((s_cpu[k] - p0[k]).abs().max()) for k in p0)
+    print(f"train: {TRAIN_NODES} nodes, {len(trip_cpu)} triplets, anchors "
+          f"and hard negatives equal on card and CPU; one step: loss "
+          f"{l_dev:.6f} (CPU {l_cpu:.6f}), worst {worst} {err[worst]:.3e}; "
+          f"largest parameter move {moved:.3e}; {n_free} elements with "
+          f"sign-free gradients and {len(gauge)} gauge biases not held; "
+          f"host s card {t_dev:.3f}, CPU {t_cpu:.3f}", flush=True)
+    _check(math.isfinite(l_dev) and all(v <= TRAIN_TOL for v in err.values()),
+           f"train: card vs CPU {worst} {err[worst]:.3e} > {TRAIN_TOL}")
+
+
+def _train_entry(device) -> dict:
+    """Phase 7b: the training entry point, default and ring-major
+    encoders; returns {path: launches}."""
+    import torch
+    from neural_spectral_codec_torch import train_multi_dataset
+    from neural_spectral_codec_torch.models import SpectralGNN
+
+    try:
+        import yaml
+        print(f"train: PyYAML {yaml.__version__} is installed", flush=True)
+    except ImportError:
+        print("train: PyYAML is not installed; the config is a dict",
+              flush=True)
+    ring_cfg = copy.deepcopy(TRAINING_CONFIG)
+    ring_cfg["encoding"].update({"ring_major": True, "n_elevation": 64})
+    runs = (("train", TRAINING_CONFIG, [], ("project", "spectral"),
+             ("ring_fold",)),
+            ("train_ring", ring_cfg, ["--synthetic-beams", "64",
+                                      "--synthetic-sweep-order"],
+             ("ring_fold", "spectral"), ()))
+    by_path = {}
+    for name, cfg, extra, needed, unused in runs:
+        with tempfile.TemporaryDirectory(prefix="nsc_train_") as ckpt:
+            args = ["--synthetic", "120", "--epochs", "2", "--device",
+                    str(device), "--checkpoint-dir", ckpt] + extra
+            t0 = time.perf_counter()
+            trainer, launches = _counted(
+                lambda: train_multi_dataset.main(args, config=cfg))
+            wall = time.perf_counter() - t0
+            model = SpectralGNN()
+            model.load_state_dict(torch.load(
+                Path(ckpt) / "final_model.pt", weights_only=True)["model"])
+            same = all(torch.equal(v, trainer.model.state_dict()[k].cpu())
+                       for k, v in model.state_dict().items())
+        pipe = trainer.pipeline
+        stages = {k: round(v, 3) for k, v in pipe.stage_seconds.items()}
+        print(f"{name}: {wall:.2f} s, scans by path "
+              f"{pipe.encoder.path_counts}, losses {trainer.train_losses}, "
+              f"best R@1 {trainer.best_val_metric:.4f}, stage s {stages}, "
+              f"launches {launches}", flush=True)
+        _check(all(launches[k] > 0 for k in needed) and
+               all(launches[k] == 0 for k in unused),
+               f"{name}: unexpected launches {launches}")
+        _check(len(trainer.train_losses) == 2 and
+               all(math.isfinite(v) and v > 0 for v in trainer.train_losses),
+               f"{name}: losses {trainer.train_losses}")
+        _check(same, f"{name}: the checkpoint does not reload to the "
+               "trained state_dict")
+        by_path[name] = launches
+    return by_path
+
+
+def _scale(device) -> None:
+    """Phase 7c: the 100k-scale entry point at SCALE_NODES nodes."""
+    from neural_spectral_codec_torch.experiments import scale_100k
+    out = scale_100k.main(["--nodes", str(SCALE_NODES), "--device",
+                           str(device)])
+    _check(math.isfinite(out["avg_loss"]) and
+           all(0.0 <= out[f"recall@{k}"] <= 1.0 for k in (1, 5, 10)) and
+           out["n_queries"] > 0, f"scale: {out}")
 
 
 def main() -> None:
@@ -520,9 +715,7 @@ def main() -> None:
     graph = graph_to_tensors(graph_np, device)
     torch.cuda.synchronize()
 
-    kernels = {"spectral": spectral_kernel.KERNEL,
-               "ring_fold": ring_kernel.KERNEL,
-               "project": projection_kernel.KERNEL}
+    kernels = _all_kernels()
     for k in kernels.values():
         k.launches = 0
     lat_ms, results = [], []
@@ -563,16 +756,22 @@ def main() -> None:
            f"{desc_err:.3e} > {DESC_TOL}")
     _check(emb_err <= EMB_TOL, f"embeddings differ from the CPU path by "
            f"{emb_err:.3e} > {EMB_TOL}")
-    _check(all(v > 0 for v in launches.values()),
+    _check(all(launches[k] > 0 for k in ("spectral", "ring_fold", "project")),
            f"a kernel of the path never launched: {launches}")
+    by_path = {"serve": launches}
 
     # -- 5. the stage-profile entry points ---------------------------------
-    launches.update(_probe_paths())
+    by_path.update(_probe_paths())
 
     # -- 6. structured-scan entry point ------------------------------------
-    _structured(device)
+    by_path["structured"] = _structured(device)
 
-    # -- 7. record ---------------------------------------------------------
+    # -- 7. training -------------------------------------------------------
+    _train_step_vs_cpu(device)
+    by_path.update(_train_entry(device))
+    _scale(device)
+
+    # -- 8. record ---------------------------------------------------------
     for name, (err, k_ms, p_ms) in probes.items():
         timing[name] = (k_ms, p_ms)
     meta = {
@@ -598,7 +797,9 @@ def main() -> None:
     record = []
     for name, (source, replaces, err) in meta.items():
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces,
+                 "launches": sum(v[name] for v in by_path.values()),
+                 "launches_by_path": {p: v[name] for p, v in by_path.items()},
                  "max_abs_err": err, "ms": timing[name][0],
                  "plain_ms": timing[name][1]}
         if name == "project":

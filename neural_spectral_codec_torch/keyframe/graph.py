@@ -1,6 +1,6 @@
 """Temporal keyframe graph as padded dense neighbor tensors.
 
-Copied from ``neural_spectral_codec_tpu/keyframe/graph.py:34-124`` (numpy;
+Copied from ``neural_spectral_codec_tpu/keyframe/graph.py:34-173`` (numpy;
 the JAX package cannot be imported without importing jax):
 
     features   (n, d)      node descriptors
@@ -104,6 +104,51 @@ def build_graph(
         mask=mask,
         edge_feats=edge_feats,
     )
+
+
+def build_graph_from_keyframes(
+    keyframes: Sequence,
+    temporal_neighbors: int = 5,
+    loop_closures: Optional[Sequence[Tuple[int, int]]] = None,
+    max_loop_per_node: int = 4,
+) -> KeyframeGraph:
+    """``build_graph`` over ``Keyframe`` records (their descriptors and
+    poses). Copied from JAX ``build_graph_from_keyframes`` (graph.py:127)."""
+    desc = np.array([kf.descriptor for kf in keyframes], dtype=np.float32)
+    poses = np.array([kf.pose for kf in keyframes])
+    return build_graph(desc, poses, temporal_neighbors, loop_closures,
+                       max_loop_per_node)
+
+
+def pad_graph(g: KeyframeGraph, n_slots: int) -> KeyframeGraph:
+    """Pad the node axis to ``n_slots`` with isolated nodes (mask all
+    False: self-loop-only attention). Eval outputs of the real nodes do not
+    change. Copied from JAX ``pad_graph`` (graph.py:142)."""
+    n = g.n_nodes
+    if n_slots < n:
+        raise ValueError(f"n_slots {n_slots} < graph size {n}")
+    if n_slots == n:
+        return g
+    pad = n_slots - n
+    return KeyframeGraph(
+        features=np.concatenate(
+            [g.features, np.zeros((pad, g.features.shape[1]), np.float32)]),
+        neighbors=np.concatenate(
+            [g.neighbors, np.zeros((pad, g.max_degree), np.int32)]),
+        mask=np.concatenate([g.mask, np.zeros((pad, g.max_degree), bool)]),
+        edge_feats=np.concatenate(
+            [g.edge_feats, np.zeros((pad, g.max_degree,
+                                     g.edge_feats.shape[2]), np.float32)]),
+    )
+
+
+def graph_to_coo(g: KeyframeGraph) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense → COO: (2, E) edge_index and (E, 2) edge_attr in PyG's
+    convention (edge j→i is column [j, i]). Copied from JAX
+    ``graph_to_coo`` (graph.py:166)."""
+    dst, slot = np.nonzero(g.mask)
+    src = g.neighbors[dst, slot]
+    return np.stack([src, dst]), g.edge_feats[dst, slot]
 
 
 def graph_to_tensors(graph: KeyframeGraph, device) -> KeyframeGraph:

@@ -1,6 +1,6 @@
 """Spectral GNN: edge-conditioned GAT as dense masked attention.
 
-Port of ``neural_spectral_codec_tpu/models/gnn.py:37-165`` (and
+Port of ``neural_spectral_codec_tpu/models/gnn.py:37-182`` (and
 ``gnn_forward``, :297):
 
     Input(800) → Linear(256) + BatchNorm + ReLU
@@ -15,6 +15,11 @@ LeakyReLU(0.2), a masked softmax over the incoming edges of i, and a
 self-loop in the LAST slot whose edge feature is the mean of the node's
 valid incoming edge features. Graphs are the padded dense neighbor
 tensors of ``keyframe/graph.py``.
+
+Train mode follows Flax: BatchNorm normalises with the biased batch
+variance and averages the biased variance into ``running_var``
+(``FlaxBatchNorm1d``), and the GAT returns its attention after dropout.
+Dropout draws from an optional ``torch.Generator`` passed to ``forward``.
 
 State names differ from Flax's; ``models/convert.py`` maps Flax
 parameters onto this module.
@@ -43,6 +48,40 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int,
                    generator: Optional[torch.Generator]) -> None:
     with torch.no_grad():
         t.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
+
+
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1 − p, scale kept
+    entries by 1/(1 − p). The mask is drawn from ``generator`` (the global
+    generator when None), which must live on ``x``'s device."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with Flax's train mode: normalise with the
+    biased batch variance and average that same biased variance (not the
+    unbiased one PyTorch uses) into ``running_var``. The variance is
+    Flax's one-pass E[x²] − E[x]², clamped at 0. Where a feature's mean
+    is far above its spread that formula cancels, and the train forward
+    of either framework is then only good to about 1e-4. PyTorch momentum
+    0.1 is Flax momentum 0.9. Eval mode is PyTorch's, which is Flax's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=0)
+        var = ((x * x).mean(dim=0) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        # Flax's order: y = (x − mean) · (rsqrt(var + eps) · scale) + bias
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 class EdgeGATLayer(nn.Module):
@@ -81,10 +120,15 @@ class EdgeGATLayer(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, neighbors: torch.Tensor,
-                mask: torch.Tensor, edge_feats: Optional[torch.Tensor]):
+                mask: torch.Tensor, edge_feats: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
         n = neighbors.shape[0]
         h = self.lin(x)                                  # (n, C)
-        h_nbr = h[neighbors]                             # (n, D, C)
+        # index_select, not h[neighbors]: its backward is an index_add,
+        # where advanced indexing's sorts the indices (94% of a train
+        # step's device time at 20,000 nodes on an H100)
+        h_nbr = h.index_select(0, neighbors.reshape(-1)).view(
+            *neighbors.shape, -1)                        # (n, D, C)
         a_dst = h @ self.att_dst                         # (n,)
         logits = h_nbr @ self.att_src + a_dst[:, None]   # (n, D)
         self_logit = h @ self.att_src + a_dst            # (n,)
@@ -102,17 +146,18 @@ class EdgeGATLayer(nn.Module):
             [mask, torch.ones((n, 1), dtype=torch.bool, device=mask.device)],
             dim=1)
         all_logits = all_logits.masked_fill(~full_mask, -math.inf)
-        alpha = torch.softmax(all_logits, dim=1)
-        alpha_d = F.dropout(alpha, self.attn_dropout, self.training)
+        alpha = _dropout(torch.softmax(all_logits, dim=1), self.attn_dropout,
+                         self.training, generator)
         vals = torch.cat([h_nbr, h[:, None, :]], dim=1)  # (n, D+1, C)
-        out = torch.einsum("nd,ndc->nc", alpha_d, vals) + self.bias
+        out = torch.einsum("nd,ndc->nc", alpha, vals) + self.bias
         return out, alpha
 
 
 class SpectralGNN(nn.Module):
     """Full enhancement network (JAX ``SpectralGNN``). BatchNorm uses
     eps 1e-5 and PyTorch momentum 0.1 (Flax momentum 0.9); in eval mode
-    it normalises with the running statistics."""
+    it normalises with the running statistics, in train mode as Flax
+    does (``FlaxBatchNorm1d``)."""
 
     def __init__(self, input_dim: int = 800, hidden_dim: int = 256,
                  output_dim: int = 800, n_layers: int = 3,
@@ -125,12 +170,12 @@ class SpectralGNN(nn.Module):
         self.dropout = dropout
         self.residual = residual
         self.input_proj = nn.Linear(input_dim, hidden_dim)
-        self.input_bn = nn.BatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
+        self.input_bn = FlaxBatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
         self.gat_layers = nn.ModuleList(
             EdgeGATLayer(hidden_dim, hidden_dim, edge_dim,
                          attn_dropout=dropout) for _ in range(n_layers))
         self.gat_bns = nn.ModuleList(
-            nn.BatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
+            FlaxBatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
             for _ in range(n_layers))
         self.output_proj = nn.Linear(hidden_dim, output_dim)
         self.residual_proj = (nn.Linear(input_dim, output_dim)
@@ -155,17 +200,20 @@ class SpectralGNN(nn.Module):
 
     def forward(self, features: torch.Tensor, neighbors: torch.Tensor,
                 mask: torch.Tensor, edge_feats: Optional[torch.Tensor] = None,
-                return_attention: bool = False):
+                return_attention: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in train mode."""
         x_input = features
         x = F.relu(self.input_bn(self.input_proj(features)))
         attentions = []
         for i, (gat, bn) in enumerate(zip(self.gat_layers, self.gat_bns)):
             x_prev = x
-            x, alpha = gat(x, neighbors, mask, edge_feats)
+            x, alpha = gat(x, neighbors, mask, edge_feats, generator)
             attentions.append(alpha)
             x = bn(x)
             if i < self.n_layers - 1:
-                x = F.dropout(F.relu(x), self.dropout, self.training)
+                x = _dropout(F.relu(x), self.dropout, self.training,
+                             generator)
             if self.residual and 0 < i < self.n_layers - 1:
                 x = x + x_prev
         x = self.output_proj(x)
@@ -177,12 +225,51 @@ class SpectralGNN(nn.Module):
         return x
 
 
-def gnn_forward(model: SpectralGNN, graph: KeyframeGraph) -> torch.Tensor:
-    """Eval-mode forward over a graph of tensors (``graph_to_tensors``)
-    → (n, output_dim) embeddings (JAX ``gnn_forward`` with train=False)."""
-    if model.training:
-        raise ValueError("gnn_forward runs the eval forward; call "
-                         "model.eval() first")
+def gauge_parameters(model: SpectralGNN) -> tuple:
+    """Names of the biases a triplet loss on the train-mode embeddings
+    cannot see, so their true gradient is 0: each bias just before a
+    train-mode BatchNorm (the batch mean removes it) and each that only
+    shifts every embedding by one constant (the loss takes differences).
+    Adam moves them by ±lr along rounding noise, so two implementations
+    or devices part there; parity checks hold them through what they
+    feed instead."""
+    return ("input_proj.bias",
+            *(f"gat_layers.{i}.bias" for i in range(model.n_layers)),
+            f"gat_bns.{model.n_layers - 1}.bias", "output_proj.bias")
+
+
+def create_spectral_gnn(input_dim: int = 800, hidden_dim: int = 256,
+                        output_dim: int = 800, n_layers: int = 3,
+                        dropout: float = 0.1, residual: bool = True,
+                        edge_dim: Optional[int] = 2,
+                        mixed_precision: bool = False,
+                        generator: Optional[torch.Generator] = None
+                        ) -> SpectralGNN:
+    """Factory (JAX ``create_spectral_gnn``, gnn.py:171). The bf16
+    ``mixed_precision`` compute dtype is not ported and raises."""
+    if mixed_precision:
+        raise NotImplementedError("mixed_precision (bf16 matmuls) is not "
+                                  "ported yet; the port trains in float32")
+    return SpectralGNN(input_dim=input_dim, hidden_dim=hidden_dim,
+                       output_dim=output_dim, n_layers=n_layers,
+                       dropout=dropout, residual=residual, edge_dim=edge_dim,
+                       generator=generator)
+
+
+def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Forward over a graph of tensors (``graph_to_tensors``) → (n,
+    output_dim) embeddings (JAX ``gnn_forward``, gnn.py:297). Eval mode
+    (``train=False``, the model in eval mode) runs without autograd. Train
+    mode (the model in train mode) keeps the autograd graph, draws dropout
+    from ``generator`` and updates the BatchNorm buffers in place, where
+    JAX returns new ``batch_stats``."""
+    if model.training != train:
+        raise ValueError(f"gnn_forward(train={train}) needs the model in "
+                         f"{'train' if train else 'eval'} mode; call "
+                         f"model.{'train' if train else 'eval'}() first")
+    args = (graph.features, graph.neighbors, graph.mask, graph.edge_feats)
+    if train:
+        return model(*args, generator=generator)
     with torch.no_grad():
-        return model(graph.features, graph.neighbors, graph.mask,
-                     graph.edge_feats)
+        return model(*args)

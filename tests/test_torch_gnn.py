@@ -160,6 +160,107 @@ def test_gat_layer_matches_jax_with_isolated_node():
     np.testing.assert_allclose(a[2].numpy(), [0, 0, 0, 0, 1], atol=0)
 
 
+def test_bn_train_step_matches_flax_running_stats():
+    """One train-mode forward on 16 nodes (full width, dropout 0): every
+    BatchNorm's new running mean and variance are within 1e-6 of Flax's
+    new ``batch_stats``, the embeddings within 5e-5 (train-mode BatchNorm
+    on 16 nodes is ill-conditioned in float32: on this input the port is
+    1.39e-5 and Flax 1.15e-5 from a float64 forward, and 1.38e-5 from each
+    other). Flax normalises with, and averages in, the biased batch
+    variance; ``nn.BatchNorm1d`` averages in the unbiased one, 16/15 of it
+    here (6.7% too large, the fault this test pins). The parameters are
+    ``init_gnn``'s (zero biases: a perturbed Dense bias puts the first
+    BatchNorm's input mean ~300x above its spread, where the variance
+    cancels and both frameworks are good to 1e-4 only); the statistics
+    going in are perturbed."""
+    model = JaxGNN(dropout=0.0)
+    params, _ = init_gnn(model, jax.random.key(4))
+    _, stats = _perturbed_flax(model, 4)
+    g = _graph(n=16, seed=4)
+    want, upd = model.apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(g.features),
+        jnp.asarray(g.neighbors), jnp.asarray(g.mask),
+        jnp.asarray(g.edge_feats), train=True, mutable=["batch_stats"])
+    net = SpectralGNN(dropout=0.0)
+    net.load_state_dict(from_flax(params, stats))
+    net.train()
+    t = graph_to_tensors(g, "cpu")
+    with torch.no_grad():
+        got = net(t.features, t.neighbors, t.mask, t.edge_feats)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=5e-5)
+    new = upd["batch_stats"]
+    for i, bn in enumerate([net.input_bn, *net.gat_bns]):
+        w = new[f"BatchNorm_{i}"]
+        np.testing.assert_allclose(bn.running_mean.numpy(),
+                                   np.asarray(w["mean"]), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(bn.running_var.numpy(),
+                                   np.asarray(w["var"]), rtol=0, atol=1e-6)
+
+
+def test_gat_attention_returned_after_dropout():
+    """In train mode the layer returns the attention it applied, after
+    dropout (as Flax's ``EdgeGATLayer`` does): out = α·[h_nbr; h] + bias
+    with the returned α, whose kept entries are softmax / (1 − p) and
+    whose dropped entries are 0."""
+    rng = np.random.default_rng(5)
+    n, d, c, p = 40, 10, 7, 0.5
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    nbr = torch.from_numpy(rng.integers(0, n, (n, 4))).long()
+    mask = torch.from_numpy(rng.random((n, 4)) < 0.8)
+    ef = torch.from_numpy(rng.random((n, 4, 2)).astype(np.float32))
+    layer = EdgeGATLayer(d, c, edge_dim=2, attn_dropout=p)
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        layer.eval()
+        _, soft = layer(x, nbr, mask, ef)
+        layer.train()
+        torch.manual_seed(0)
+        out, alpha = layer(x, nbr, mask, ef)
+        h = layer.lin(x)
+        vals = torch.cat([h[nbr], h[:, None, :]], dim=1)
+        applied = torch.einsum("nd,ndc->nc", alpha, vals) + layer.bias
+    np.testing.assert_allclose(out.numpy(), applied.numpy(), rtol=0,
+                               atol=1e-6)
+    kept = alpha != 0
+    assert bool((~kept & (soft > 0)).any()), "no attention entry dropped"
+    np.testing.assert_allclose(alpha[kept].numpy(),
+                               (soft[kept] / (1 - p)).numpy(), rtol=1e-6)
+
+
+def test_gnn_forward_train_mode_matches_jax():
+    """``gnn_forward(train=True)`` against JAX's on 32 nodes (full width,
+    dropout 0, ``init_gnn`` parameters, perturbed statistics): embeddings
+    within 5e-5 (see the test above), the BatchNorm buffers updated in
+    place to within 1e-6 of JAX's new ``batch_stats``, the autograd graph
+    kept; a model in the other mode raises. ``create_spectral_gnn`` builds
+    the same network and refuses bf16 ``mixed_precision``."""
+    model = JaxGNN(dropout=0.0)
+    params, _ = init_gnn(model, jax.random.key(6))
+    _, stats = _perturbed_flax(model, 6)
+    g = _graph(n=32, seed=6)
+    want, new = gnn_forward(model, params, stats, g, train=True)
+    from neural_spectral_codec_torch.models.gnn import create_spectral_gnn
+    net = create_spectral_gnn(dropout=0.0)
+    net.load_state_dict(from_flax(params, stats))
+    t = graph_to_tensors(g, "cpu")
+    with pytest.raises(ValueError, match="train"):
+        torch_gnn_forward(net.eval(), t, train=True)
+    got = torch_gnn_forward(net.train(), t, train=True)
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=5e-5)
+    for i, bn in enumerate([net.input_bn, *net.gat_bns]):
+        for ours, theirs in (("running_mean", "mean"), ("running_var", "var")):
+            np.testing.assert_allclose(
+                getattr(bn, ours).numpy(),
+                np.asarray(new[f"BatchNorm_{i}"][theirs]), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="eval"):
+        torch_gnn_forward(net, t)
+    with pytest.raises(NotImplementedError):
+        create_spectral_gnn(mixed_precision=True)
+
+
 def test_seeded_init_is_reproducible():
     a = SpectralGNN(generator=torch.Generator().manual_seed(7))
     b = SpectralGNN(generator=torch.Generator().manual_seed(7))

@@ -225,14 +225,19 @@ def test_resolve_device():
 
 
 NEW_MODULES = ("ops.probe_kernels", "utils.timing",
-               "experiments.ring_stage_probe", "experiments.profile_hotpath")
+               "experiments.ring_stage_probe", "experiments.profile_hotpath",
+               "training.loss", "training.miner", "training.validation",
+               "training.trainer", "data.pose_utils", "data.synthetic",
+               "keyframe.criteria", "keyframe.selector", "utils.config",
+               "pipeline", "train_multi_dataset", "experiments.scale_100k")
 
 
 def test_port_imports_without_jax():
-    """The port, every module of it (the probe kernels, the timing helper
-    and the two measurement entry points included), and chip_smoke.py
-    import torch and numpy but never jax (a fresh interpreter, so nothing
-    is preloaded)."""
+    """The port, every module of it (the probe kernels, the timing helper,
+    the measurement entry points, the training modules, the pipeline and
+    the training entry point included), and chip_smoke.py import torch
+    and numpy but never jax, flax, optax or orbax (a fresh interpreter,
+    so nothing is preloaded)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import neural_spectral_codec_torch as p\n"
@@ -242,11 +247,12 @@ def test_port_imports_without_jax():
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
-        " m.startswith(('jax.', 'jaxlib', 'flax', 'neural_spectral_codec_tpu')))\n"
+        " m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax',"
+        " 'neural_spectral_codec_tpu')))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 21
+    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 39
