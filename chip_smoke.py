@@ -20,8 +20,18 @@ weights and data made from seeds:
    512 x 2112 chain): the ring-fold probe bit-equal for n_folds 1-3 and,
    after the min over folds, equal to the ring kernel's image; every
    phase-ablation variant launches and gives finite rows; both roll
-   kernels bit-equal. Times from CUDA events (``utils/timing.py``),
-   kernel beside plain;
+   kernels bit-equal. The spectral kernel also at the serve shape (B=1),
+   at E=16 (the training configuration) and E=20 (pooling windows that
+   straddle CTAs), each with interpolation on and off and alpha 2.0 and
+   1.3; the ring kernel also at B=1. One wrapper call of the spectral
+   and of the ring kernel must enqueue its kernel and no other device
+   operation (``torch.profiler``). Times (``utils/timing.py``), per
+   kernel: its own device time (``torch.profiler`` kernel time by name
+   over 50 wrapper calls, cross-checked by CUDA events around 200 bare
+   C-entry launches queued behind a spin kernel), at B=8 and, for the
+   three serving kernels, B=1; the wrapper's time per call (one event
+   pair per call); the plain version's; and the bound (bytes at
+   3.35 TB/s or fp32 operations at 67 TFLOP/s, from this run's shapes);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
    card, and 32 requests through ``serve_step`` (16 ring-structured, 16
@@ -62,8 +72,10 @@ Launch counts are set to 0 just before each path (4, each entry point of
 5, 6, each entry-point run of 7) and read just after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
-total) and the last is ``{"ok": true, "device": {...}}``. It needs no
-JAX.
+total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
+per call as earlier records held it, and ``library_ms`` null
+with the reason: no single PyTorch call computes any kernel's function)
+and the last is ``{"ok": true, "device": {...}}``. It needs no JAX.
 """
 
 from __future__ import annotations
@@ -92,6 +104,29 @@ MIN_DIST = 10.0                # spatial filter radius (m)
 TIMED_CALLS = 25
 
 SPECTRAL_TOL = 1e-5            # kernel vs plain on the card
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+PROFILED_CALLS = 50
+QUEUED_CALLS = 200
+# no single PyTorch call computes any kernel's whole function
+NO_LIBRARY = {
+    "spectral": "torch.fft.rfft covers one of six stages (interpolation, "
+                "row fill, pooling, |DFT|, binning, sum-to-1)",
+    "ring_fold": "per-point angle math, gates and the fold rule's min",
+    "project": "per-point angle math and gates before the scatter-min",
+    "ring_probe": "the fold rule's min over precomputed keys",
+    "roll_floor": "a chain of roll + compare + select",
+    "roll_min_chain": "a chain of roll + min",
+}
+# kernel function names as torch.profiler reports them
+KERNEL_NAMES = {
+    "spectral": ("spectral_encode_kernel",),
+    "ring_fold": ("ring_fold_kernel",),
+    "project": ("project_points_kernel", "inf_to_zero_kernel"),
+    "ring_probe": ("ring_probe_kernel",),
+    "roll_floor": ("roll_floor_kernel",),
+    "roll_min_chain": ("roll_min_chain_kernel",),
+}
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
 TRAIN_TOL = 1e-4               # train step: card vs CPU
@@ -148,6 +183,68 @@ def _general_scans(n: int, seed: int):
 def _time_ms(fn) -> float:
     from neural_spectral_codec_torch.utils.timing import time_ms
     return time_ms(fn, calls=TIMED_CALLS)
+
+
+def _bound(n_bytes: float, n_flops: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    each input read once and each output written once at the memory rate,
+    or the fp32 operations at the peak rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _spectral_ops(imgs, cfg) -> int:
+    """fp32 operations the spectral kernel's function needs on ``imgs``
+    (B, E, A): the |rDFT| with columns a and A - a of a row folded (2 FMAs
+    per pooled row, frequency and column pair, an add for the middle
+    column of an even A, 3 for the magnitude, 1 to bin it), the fold (2
+    per row and column pair), the pooling (an FMA per pixel of each
+    window) and the interpolation (4 per empty pixel of a row that holds a
+    valid one; rows the fill copies are not counted, so the bound stays a
+    least time)."""
+    import torch
+    b, n_elev, n_azim = imgs.shape
+    n_t, n_f = cfg.target_elevation_bins, cfg.n_freqs
+    half = (n_azim - 1) // 2
+    window = sum(-(-(t + 1) * n_elev // n_t) - t * n_elev // n_t
+                 for t in range(n_t))
+    per_scan = (n_t * n_f * (4 * half + (n_azim % 2 == 0) + 3 + 1)
+                + 2 * n_t * half + 2 * window * n_azim)
+    n_interp = 0
+    if cfg.interpolate_empty:
+        valid = imgs > 0
+        n_interp = int((~valid & valid.any(-1, keepdim=True)).sum())
+    return b * per_scan + 4 * n_interp
+
+
+def _device_times(name: str, wrapper) -> dict:
+    """A kernel's own device time, apart from its wrapper: torch.profiler
+    over PROFILED_CALLS wrapper calls (kernel time by name), and CUDA
+    events around QUEUED_CALLS bare C-entry launches of the last call's
+    arguments, queued behind a spin kernel."""
+    from neural_spectral_codec_torch.utils.timing import (
+        kernel_device_ms, time_queued_ms)
+    kernel = _all_kernels()[name]
+    keep = wrapper()            # its tensors stay alive for the bare loop
+    queued = time_queued_ms(kernel.bare(), n=QUEUED_CALLS)
+    del keep
+    prof, seen = kernel_device_ms(wrapper, KERNEL_NAMES[name],
+                                  calls=PROFILED_CALLS)
+    return {"profiler_ms": prof, "profiled_launches": seen,
+            "queued_ms": queued,
+            "device_ms": prof if prof is not None else queued}
+
+
+def _only_kernel(name: str, wrapper) -> None:
+    """One wrapper call enqueues its kernel and no other device
+    operation (the output allocation enqueues none)."""
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    wrapper()
+    ops = [op for op, _ in device_ops(wrapper)]
+    print(f"{name}: one wrapper call enqueues {ops}", flush=True)
+    _check(len(ops) == 1 and KERNEL_NAMES[name][0] in ops[0],
+           f"{name}: a wrapper call enqueues {ops}, not only its kernel")
 
 
 def _check(ok: bool, what: str) -> None:
@@ -228,9 +325,48 @@ def _edge_cases(device) -> None:
           "match their plain versions", flush=True)
 
 
+def _spectral_shapes(gen) -> None:
+    """The spectral kernel against its plain version at B=1 (the serve
+    shape) and B=8, at E=64, the training configuration's E=16 (T=16, no
+    pooling) and an E that T does not divide (E=20), each with
+    interpolation on and off and alpha 2.0 and 1.3; at B=8 with empty rows
+    and an all-empty scan."""
+    import itertools
+
+    import torch
+    from neural_spectral_codec_torch.ops import spectral_kernel
+    from neural_spectral_codec_torch.ops.range_image import (
+        project_points_batch_plain)
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoderConfig, encode_images_plain)
+    worst = 0.0
+    for n_elev, batch in itertools.product((64, 16, 20), (1, BATCH)):
+        base = SpectralEncoderConfig(n_elevation=n_elev)
+        imgs = project_points_batch_plain(gen[:batch], base.projection)
+        if batch > 1:
+            imgs[1, : n_elev // 4] = 0.0                # empty rows
+            imgs[2] = 0.0                               # empty scan
+        imgs = imgs.contiguous()
+        for interp in (True, False):
+            for alpha in (2.0, 1.3):
+                cfg = base._replace(interpolate_empty=interp)
+                got = spectral_kernel.encode_images_cuda(imgs, alpha, cfg)
+                err = float((got - encode_images_plain(imgs, alpha, cfg))
+                            .abs().max())
+                worst = max(worst, err)
+                _check(err <= SPECTRAL_TOL and
+                       bool(torch.isfinite(got).all()),
+                       f"spectral kernel vs plain {err:.3e} (E={n_elev}, "
+                       f"B={batch}, interpolate={interp}, alpha={alpha})")
+    print(f"spectral kernel: B=1 and B={BATCH}, E=64, 16 and 20, "
+          f"interpolation on and off, alpha 2.0 and 1.3: max abs err vs "
+          f"plain {worst:.3e}",
+          flush=True)
+
+
 def _probe_kernels(device) -> dict:
     """The three probe kernels against their plain versions at the probe
-    shapes; returns {name: (max abs err, kernel ms, plain ms)}."""
+    shapes; returns {name: record fields} (max abs err, times, bound)."""
     import itertools
 
     import numpy as np
@@ -300,28 +436,39 @@ def _probe_kernels(device) -> dict:
           "plain versions", flush=True)
 
     x, y = floors[key.shape[1]]
+    wpad = pk.folded_width(proj.n_azimuth, 2)
     pairs = {
         "ring_probe": (lambda: pk.ring_fold_probe(key, vals, proj.n_azimuth,
                                                   2),
                        lambda: pk.ring_fold_rows_plain(
-                           key, vals, proj.n_azimuth, 2)),
+                           key, vals, proj.n_azimuth, 2),
+                       4 * (key.numel() + vals.numel()
+                            + key.shape[0] * wpad)),
         "roll_floor": (lambda: pk.roll_floor(x, y, 12, 2),
-                       lambda: pk.roll_floor_plain(x, y, 12, 2)),
+                       lambda: pk.roll_floor_plain(x, y, 12, 2),
+                       4 * 3 * x.numel()),
         "roll_min_chain": (lambda: pk.roll_min_chain(xroll, 64),
-                           lambda: pk.roll_min_chain_plain(xroll, 64)),
+                           lambda: pk.roll_min_chain_plain(xroll, 64),
+                           4 * 2 * xroll.numel()),
     }
     out = {}
-    for name, (kernel, plain) in pairs.items():
+    for name, (kernel, plain, n_bytes) in pairs.items():
         err = float((kernel() - plain()).abs().max())
         # plain, kernel, kernel, plain, in one call on one card
         p0 = time_loop_ms(plain, n=20)
         k0, k1 = time_loop_ms(kernel, n=200), time_loop_ms(kernel, n=200)
         p1 = time_loop_ms(plain, n=20)
-        out[name] = (err, (k0 + k1) / 2, (p0 + p1) / 2)
-        print(f"kernel {name}: {out[name][1]:.5f} ms, plain "
-              f"{out[name][2]:.5f} ms (mean of two loop medians, B={BATCH}; "
-              f"kernel {k0:.5f}/{k1:.5f}, plain {p0:.5f}/{p1:.5f})",
-              flush=True)
+        bound_ms, bound_by = _bound(n_bytes)
+        out[name] = {"max_abs_err": err, "ms": (k0 + k1) / 2,
+                     "plain_ms": (p0 + p1) / 2, "wrapper_ms": _time_ms(kernel),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     **_device_times(name, kernel)}
+        print(f"kernel {name}: device {out[name]['device_ms']:.5f} ms "
+              f"(profiler {out[name]['profiler_ms']}, queued bare "
+              f"{out[name]['queued_ms']:.5f}), wrapper "
+              f"{out[name]['wrapper_ms']:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}); loops kernel {k0:.5f}/{k1:.5f}, plain "
+              f"{p0:.5f}/{p1:.5f} (B={BATCH})", flush=True)
     return out
 
 
@@ -639,23 +786,56 @@ def main() -> None:
            float((got[3] - 1.0 / cfg.output_dim).abs().max()) < 1e-9,
            "spectral kernel: non-finite output or no uniform fallback")
 
+    rings1 = rings[:1].contiguous()
+    got = ring_kernel.project_rings_cuda(rings1, proj, rows)
+    _check(torch.equal(got, project_rings_batch_plain(rings1, proj, rows)),
+           "ring kernel != plain version at B=1")
+    _spectral_shapes(gen)
     _edge_cases(device)
 
-    timing = {
-        "project": (_time_ms(lambda: projection_kernel.project_points_cuda(
-            gen, proj)), _time_ms(lambda: project_points_batch_plain(
-                gen, proj))),
-        "ring_fold": (_time_ms(lambda: ring_kernel.project_rings_cuda(
-            rings, proj, rows)), _time_ms(lambda: project_rings_batch_plain(
-                rings, proj, rows))),
-        "spectral": (_time_ms(lambda: spectral_kernel.encode_images_cuda(
-            imgs, alpha, cfg)), _time_ms(lambda: encode_images_plain(
-                imgs, alpha, cfg))),
+    # per kernel at B=8 (and B=1): wrapper, kernel alone, plain, bound
+    pix_bytes = 4 * cfg.n_elevation * cfg.n_azimuth
+    n_out = cfg.target_elevation_bins * cfg.n_bins
+    imgs1 = imgs[:1].contiguous()
+    gen1 = gen[:1].contiguous()
+    serving = {
+        "project": (lambda x: (lambda: projection_kernel.project_points_cuda(
+            x, proj)), lambda: project_points_batch_plain(gen, proj),
+            gen, gen1, lambda x: _bound(4 * x.numel()
+                                        + pix_bytes * x.shape[0])),
+        "ring_fold": (lambda x: (lambda: ring_kernel.project_rings_cuda(
+            x, proj, rows)), lambda: project_rings_batch_plain(
+                rings, proj, rows), rings, rings1,
+            lambda x: _bound(4 * x.numel() + pix_bytes * x.shape[0])),
+        "spectral": (lambda x: (lambda: spectral_kernel.encode_images_cuda(
+            x, alpha, cfg)), lambda: encode_images_plain(imgs, alpha, cfg),
+            imgs, imgs1, lambda x: _bound(4 * x.numel() + 4 * n_out
+                                          * x.shape[0],
+                                          _spectral_ops(x, cfg))),
     }
-    for name, (k_ms, p_ms) in timing.items():
-        print(f"kernel {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(median of {TIMED_CALLS}, B={BATCH})", flush=True)
-    probes = _probe_kernels(device)
+    _only_kernel("spectral", serving["spectral"][0](imgs))
+    _only_kernel("ring_fold", serving["ring_fold"][0](rings))
+    timing = {}
+    for name, (call, plain, x8, x1, bound) in serving.items():
+        bound_ms, bound_by = bound(x8)
+        b1 = _device_times(name, call(x1))
+        wrapper_ms = _time_ms(call(x8))
+        timing[name] = {"ms": wrapper_ms, "wrapper_ms": wrapper_ms,
+                        "plain_ms": _time_ms(plain),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bound_ms_b1": bound(x1)[0],
+                        "device_ms_b1": b1["device_ms"],
+                        "queued_ms_b1": b1["queued_ms"],
+                        **_device_times(name, call(x8))}
+        t = timing[name]
+        print(f"kernel {name}: B={BATCH} device {t['device_ms']:.5f} ms "
+              f"(profiler {t['profiler_ms']}, queued bare "
+              f"{t['queued_ms']:.5f}), wrapper {t['wrapper_ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}); B=1 device {t['device_ms_b1']:.5f} ms "
+              f"(queued bare {t['queued_ms_b1']:.5f}), bound "
+              f"{t['bound_ms_b1']:.5f} ms", flush=True)
+    timing.update(_probe_kernels(device))
 
     # -- 4. serve ----------------------------------------------------------
     rng = np.random.default_rng(SEED + 4)
@@ -772,8 +952,6 @@ def main() -> None:
     _scale(device)
 
     # -- 8. record ---------------------------------------------------------
-    for name, (err, k_ms, p_ms) in probes.items():
-        timing[name] = (k_ms, p_ms)
     meta = {
         "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
                      "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",
@@ -786,22 +964,33 @@ def main() -> None:
                     proj_err),
         "ring_probe": ("neural_spectral_codec_torch/csrc/ring_probe.cu",
                        "experiments/ring_stage_probe.py:163",
-                       probes["ring_probe"][0]),
+                       timing["ring_probe"]["max_abs_err"]),
         "roll_floor": ("neural_spectral_codec_torch/csrc/roll_floor.cu",
                        "experiments/ring_stage_probe.py:200",
-                       probes["roll_floor"][0]),
+                       timing["roll_floor"]["max_abs_err"]),
         "roll_min_chain": ("neural_spectral_codec_torch/csrc/roll_floor.cu",
                            "experiments/profile_hotpath.py:254",
-                           probes["roll_min_chain"][0]),
+                           timing["roll_min_chain"]["max_abs_err"]),
     }
+    # "ms" keeps the meaning it had in earlier records: the wrapper's time
+    # per call (one event pair per call; for the probes, loops of 200 calls)
     record = []
     for name, (source, replaces, err) in meta.items():
+        t = timing[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": sum(v[name] for v in by_path.values()),
                  "launches_by_path": {p: v[name] for p, v in by_path.items()},
-                 "max_abs_err": err, "ms": timing[name][0],
-                 "plain_ms": timing[name][1]}
+                 "max_abs_err": err, "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": None,
+                 "library_note": NO_LIBRARY[name],
+                 "device_ms": t["device_ms"], "wrapper_ms": t["wrapper_ms"],
+                 "profiler_ms": t["profiler_ms"],
+                 "queued_ms": t["queued_ms"]}
+        for key in ("device_ms_b1", "queued_ms_b1", "bound_ms_b1"):
+            if key in t:
+                entry[key] = t[key]
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"

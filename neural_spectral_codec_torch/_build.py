@@ -124,12 +124,16 @@ class CudaKernel:
 
     Every entry point returns the ``cudaError_t`` of its launch
     (``cudaGetLastError()`` right after it); a nonzero code raises.
-    ``launches`` counts successful launches and nothing else."""
+    ``launches`` counts successful launches and nothing else.
+    ``last_args`` keeps the arguments of the last call, so that ``bare``
+    can launch the same work again without the wrapper (to time the
+    kernel apart from it; such launches are not counted)."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.last_args: tuple = ()
 
     @functools.cached_property
     def _fn(self):
@@ -140,11 +144,22 @@ class CudaKernel:
         return fn
 
     def __call__(self, *args) -> None:
+        self._launch(args)
+        self.last_args = args
+        self.launches += 1
+
+    def _launch(self, args: tuple) -> None:
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err} ({error_string(err)})")
-        self.launches += 1
+
+    def bare(self):
+        """A callable that repeats the last call's launch: the C entry
+        point on the same pointers, sizes and stream, with no wrapper
+        around it. The tensors of that call must still be alive."""
+        args = self.last_args
+        return lambda: self._launch(args)
 
 
 def error_string(code: int) -> str:

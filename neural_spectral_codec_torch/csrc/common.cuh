@@ -43,6 +43,24 @@ __device__ __forceinline__ float atan2_f32(float y, float x) {
   return __double2float_rn(atan2((double)y, (double)x));
 }
 
+// fmodf(t, kTwoPi) for |t| < 2 * kTwoPi, exactly: there fmod subtracts at
+// most one kTwoPi, and that difference is exact (Sterbenz).
+__device__ __forceinline__ float mod_two_pi(float t) {
+  if (t >= kTwoPi) return __fsub_rn(t, kTwoPi);
+  if (t <= -kTwoPi) return __fadd_rn(t, kTwoPi);
+  return t;
+}
+
+// The azimuth bin of an angle in [-pi, pi]: mod 2*pi of angle + pi, then
+// floor(az / 2*pi * n_azim), clipped, each step rounded as the JAX
+// reference rounds it.
+__device__ __forceinline__ int azimuth_bin_of(float angle, int n_azim) {
+  float az = mod_two_pi(__fadd_rn(angle, kPi));
+  if (az != 0.0f && az < 0.0f) az = __fadd_rn(az, kTwoPi);
+  const int ab = (int)floorf(__fmul_rn(__fdiv_rn(az, kTwoPi), (float)n_azim));
+  return min(max(ab, 0), n_azim - 1);
+}
+
 __device__ __forceinline__ float clip_sq(float v) {
   return fminf(fmaxf(__fmul_rn(v, v), 0.0f), 1e10f);
 }
@@ -64,10 +82,7 @@ __device__ __forceinline__ bool project_point(float x, float y, float z,
     elev = atan2_f32(z, __fsqrt_rn(xy));
     if (g.drop && !(elev >= g.elev_min && elev <= g.elev_max)) return false;
   }
-  float az = fmodf(__fadd_rn(atan2_f32(y, x), kPi), kTwoPi);
-  if (az != 0.0f && az < 0.0f) az = __fadd_rn(az, kTwoPi);
-  int ab = (int)floorf(__fmul_rn(__fdiv_rn(az, kTwoPi), (float)g.n_azim));
-  *az_bin = min(max(ab, 0), g.n_azim - 1);
+  *az_bin = azimuth_bin_of(atan2_f32(y, x), g.n_azim);
   if (want_elev) {
     const float v = __fmul_rn(
         __fdiv_rn(__fsub_rn(elev, g.elev_min), g.elev_span), (float)g.n_elev);

@@ -327,7 +327,7 @@ class RangeImageProjector:
     def __init__(self, n_elevation: int = 64, n_azimuth: int = 360,
                  elevation_range: Tuple[float, float] = (-24.8, 2.0),
                  max_range: float = 80.0, min_range: float = 1.0,
-                 max_points: int = 131072, device: DeviceLike = "cpu"):
+                 max_points: int = 131072, device: DeviceLike = "cuda"):
         self.config = ProjectionConfig(
             n_elevation=n_elevation, n_azimuth=n_azimuth,
             elevation_range_deg=tuple(elevation_range),

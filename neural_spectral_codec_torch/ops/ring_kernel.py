@@ -4,12 +4,17 @@ It replaces the TPU kernel ``pallas_ring._ring_fold_kernel`` fused with
 ``ring_path._ring_keys``, ``_fold_min`` and the row placement. Its plain
 PyTorch version is ``ring_path.project_rings_batch_plain``;
 ``ring_path.project_rings_batch`` chooses between the two by device.
+
+A call enqueues the image allocation and the kernel and nothing else: the
+``row_of_ring`` table is cached on the device (``row_table``) and the
+kernel writes every pixel, the rows without a ring included.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
@@ -26,7 +31,13 @@ KERNEL = CudaKernel("nsc_ring_fold", [
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
-_THREADS = 256                    # kThreads in the kernel source
+
+@functools.lru_cache(maxsize=64)
+def row_table(rows: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``row_of_ring`` as an int32 tensor on ``device``, one per (rows,
+    device): the kernel reads it, and a cached table spares every call a
+    copy from pageable host memory."""
+    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def project_rings_cuda(points: torch.Tensor, config: ProjectionConfig,
@@ -43,15 +54,16 @@ def project_rings_cuda(points: torch.Tensor, config: ProjectionConfig,
     rows = check_rows(row_of_ring, n_rings, config)
     if n_folds < 1:
         raise ValueError("n_folds must be >= 1")
-    smem = 8 * per_ring + 4 * config.n_azimuth + 8 * _THREADS
+    smem = 8 * per_ring + 4 * config.n_azimuth
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"project_rings_cuda: {per_ring} points per ring "
                          f"need {smem} B of shared memory")
-    img = torch.zeros((b, config.n_elevation, config.n_azimuth),
-                      dtype=torch.float32, device=points.device)
     if b == 0 or n_rings == 0:
-        return img
-    rows_t = torch.tensor(rows, dtype=torch.int32, device=points.device)
+        return torch.zeros((b, config.n_elevation, config.n_azimuth),
+                           dtype=torch.float32, device=points.device)
+    img = torch.empty((b, config.n_elevation, config.n_azimuth),
+                      dtype=torch.float32, device=points.device)
+    rows_t = row_table(rows, points.device)
     with torch.cuda.device(points.device):
         KERNEL(points.data_ptr(), rows_t.data_ptr(), img.data_ptr(), b,
                n_rings, per_ring, n_chan, n_folds, config.n_elevation,

@@ -362,7 +362,7 @@ def prepare_structured(points: np.ndarray, ring_ids: np.ndarray, config,
 
 def encode_structured(points: np.ndarray, ring_ids: np.ndarray, alpha,
                       config, per_ring: Optional[int] = None,
-                      device: DeviceLike = "cpu") -> torch.Tensor:
+                      device: DeviceLike = "cuda") -> torch.Tensor:
     """Encode ONE flat (N, 3|4) host cloud with per-point ring ids into
     its (output_dim,) descriptor on ``device``: the ring path when the
     cloud meets the structure contract (:func:`prepare_structured`), else

@@ -17,7 +17,6 @@ kernel.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple, Tuple, Union
 
@@ -119,14 +118,6 @@ def dft_bases(n_azimuth: int) -> Tuple[np.ndarray, np.ndarray]:
     k = np.arange(n_freqs)[None, :]
     ang = 2.0 * np.pi * n * k / n_azimuth
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=16)
-def dft_bases_tensors(n_azimuth: int, device: torch.device):
-    """``dft_bases`` as float32 tensors on ``device`` (cached)."""
-    cos_b, sin_b = dft_bases(n_azimuth)
-    return (torch.from_numpy(cos_b).to(device),
-            torch.from_numpy(sin_b).to(device))
 
 
 def _normalize_histogram(hist: torch.Tensor, epsilon: float) -> torch.Tensor:

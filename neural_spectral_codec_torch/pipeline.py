@@ -52,7 +52,7 @@ class BatchEncoder:
 
     def __init__(self, config: SpectralEncoderConfig, alpha: float = 2.0,
                  max_points: int = 131072, batch_size: int = 64,
-                 device: DeviceLike = "cpu"):
+                 device: DeviceLike = "cuda"):
         self.config = config
         self.alpha = float(alpha)
         self.max_points = max_points
@@ -153,7 +153,7 @@ class NeuralSpectralCodecPipeline:
     ``stage_seconds`` holds host-clock seconds per stage (selection and
     encoding per sequence, graph build, training)."""
 
-    def __init__(self, config: Dict, device: DeviceLike = "cpu"):
+    def __init__(self, config: Dict, device: DeviceLike = "cuda"):
         self.config = config
         self.device = resolve_device(device)
         self.stage_seconds: Dict[str, float] = defaultdict(float)

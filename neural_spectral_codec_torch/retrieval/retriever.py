@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from neural_spectral_codec_torch.device import resolve_device
+from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.ops.wasserstein import histogram_cdf
 
 
@@ -69,7 +69,7 @@ class WassersteinRetriever:
 
     def __init__(self, n_bins: int = 800, capacity: int = 100_000,
                  epsilon: float = 1e-8, metric: str = "wasserstein",
-                 device="cpu"):
+                 device: DeviceLike = "cuda"):
         if metric not in ("wasserstein", "l2"):
             raise ValueError(f"unknown metric: {metric}")
         self.n_bins = n_bins

@@ -56,8 +56,8 @@ def main(argv=None, config: Optional[Dict] = None):
                              "(ring-major, azimuth increasing), as a "
                              "spinning LiDAR does, so encoding.ring_major "
                              "can take the ring path")
-    parser.add_argument("--device", default="cpu",
-                        help="'cpu' or 'cuda[:N]'; no fallback")
+    parser.add_argument("--device", default="cuda",
+                        help="'cuda[:N]' (default) or 'cpu'; no fallback")
     args = parser.parse_args(argv)
 
     from neural_spectral_codec_torch.data.synthetic import (

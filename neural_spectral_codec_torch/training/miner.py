@@ -129,7 +129,7 @@ class TripletMiner:
                  negative_distance_max: float = 50.0,
                  negative_temporal_min: int = 30,
                  mining_strategy: str = "hard",
-                 seed: int = 0, device: DeviceLike = "cpu"):
+                 seed: int = 0, device: DeviceLike = "cuda"):
         if mining_strategy not in STRATEGIES:
             raise ValueError(f"mining_strategy {mining_strategy!r} not in "
                              f"{STRATEGIES}")
@@ -181,7 +181,7 @@ def create_triplet_miner(positive_distance_max: float = 5.0,
                          negative_temporal_min: int = 30,
                          mining_strategy: str = "hard",
                          seed: int = 0,
-                         device: DeviceLike = "cpu") -> TripletMiner:
+                         device: DeviceLike = "cuda") -> TripletMiner:
     return TripletMiner(positive_distance_max, positive_temporal_min,
                         negative_distance_min, negative_distance_max,
                         negative_temporal_min, mining_strategy, seed, device)

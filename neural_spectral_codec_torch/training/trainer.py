@@ -105,7 +105,7 @@ class GNNTrainer:
                  lr_decay_epochs: Optional[List[int]] = None,
                  lr_decay_factor: float = 0.1, min_lr: float = 1e-6,
                  normalize_embeddings: bool = False,
-                 device: DeviceLike = "cpu"):
+                 device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         # initialised on the host from ``seed``, then moved
         self.model = (model or SpectralGNN()).cpu()

@@ -39,7 +39,7 @@ def _revisit_chunk(p: torch.Tensor, start: int, count: int, thr2: float,
 def find_revisit_queries(positions: np.ndarray,
                          distance_threshold: float = 5.0,
                          skip_frames: int = 30, row_chunk: int = 2048,
-                         device: DeviceLike = "cpu") -> np.ndarray:
+                         device: DeviceLike = "cuda") -> np.ndarray:
     """(Q, 2) int64 (query j, revisited i), in row chunks of
     ``row_chunk`` on ``device`` (JAX ``find_revisit_queries``,
     validation.py:38)."""
@@ -83,7 +83,7 @@ def _recall_math(embeddings: torch.Tensor, positions: torch.Tensor,
 def recall_loop_closure(embeddings: np.ndarray, poses: np.ndarray, k: int = 1,
                         distance_threshold: float = 5.0,
                         skip_frames: int = 30, query_chunk: int = 4096,
-                        device: DeviceLike = "cpu") -> Tuple[float, int]:
+                        device: DeviceLike = "cuda") -> Tuple[float, int]:
     """Recall@K over the revisit queries; returns (recall, n_queries).
     Queries run in chunks of ``query_chunk``, so the (Q, n) distance
     block stays bounded (JAX ``recall_loop_closure``, validation.py:110,

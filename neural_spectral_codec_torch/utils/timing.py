@@ -10,7 +10,19 @@ Two forms, both on the current CUDA stream and both after warm-up calls:
   kernels in the microsecond range, where one event pair per call would
   measure the launch gap as much as the kernel.
 
-Both need a CUDA device; there is no host-clock fallback. ``gpu_label``
+Two more read a kernel's own device time, apart from what its wrapper
+enqueues around it and from the host time between launches:
+
+- ``kernel_device_ms``: ``torch.profiler`` over ``calls`` calls; the
+  device time of the kernels whose names contain one of ``names``, summed
+  and divided by ``calls`` (the primary source). ``device_ops`` lists
+  every device operation one call enqueues.
+- ``time_queued_ms``: ``n`` calls enqueued behind a spin kernel
+  (``torch.cuda._sleep``), so that the host has queued them all before
+  the first runs; one pair of events around them, divided by ``n``. Given
+  the bare C entry point (``CudaKernel.bare``) it is the cross-check.
+
+All need a CUDA device; there is no host-clock fallback. ``gpu_label``
 names the card a number was taken on.
 """
 
@@ -18,7 +30,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
-from typing import Callable
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,6 +83,61 @@ def time_loop_ms(fn: Callable[[], object], n: int = 100, repeats: int = 5,
     times = []
     for _ in range(repeats):
         start, end = _events()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def device_ops(fn: Callable[[], object],
+               calls: int = 1) -> List[Tuple[str, float]]:
+    """(name, µs) of every device operation (kernel, copy, memset) that
+    ``calls`` calls of ``fn`` enqueue, from ``torch.profiler``."""
+    _check_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def kernel_device_ms(fn: Callable[[], object], names: Sequence[str],
+                     calls: int = 50,
+                     warmup: int = 3) -> Tuple[Optional[float], int]:
+    """(device ms per call of the kernels named, their launches) over
+    ``calls`` calls of ``fn``; (None, 0) when the profiler records no
+    device time for them."""
+    for _ in range(warmup):
+        fn()
+    ops = [us for name, us in device_ops(fn, calls)
+           if any(n in name for n in names)]
+    if not ops or sum(ops) <= 0.0:
+        return None, len(ops)
+    return sum(ops) / calls / 1e3, len(ops)
+
+
+def time_queued_ms(fn: Callable[[], object], n: int = 200, repeats: int = 5,
+                   hold_ms: float = 20.0, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` in ms: the median over
+    ``repeats`` runs of ``n`` calls enqueued while a spin kernel of about
+    ``hold_ms`` holds the stream, one pair of events around the calls."""
+    _check_cuda()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(hold_ms * 2e6)       # at least hold_ms at <= 2 GHz
+    times = []
+    for _ in range(repeats):
+        start, end = _events()
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(n):
             fn()

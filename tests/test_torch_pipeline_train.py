@@ -156,7 +156,7 @@ def test_process_sequence_matches_jax(tmp_path):
                                   radius=20.0, loops=1.0)
     jloader = jsyn.SyntheticLoader(n_frames=40, seed=0, n_points=2048,
                                    radius=20.0, loops=1.0)
-    pipe = NeuralSpectralCodecPipeline(cfg)
+    pipe = NeuralSpectralCodecPipeline(cfg, device="cpu")
     jpipe = JaxPipeline(cfg)
     kfs = pipe._process_sequence(loader)
     jkfs = jpipe._process_sequence(jloader)
@@ -186,8 +186,9 @@ def test_ring_major_encoder_matches_general():
                                   sweep_order=True)
     clouds = [loader[i]["points"] for i in range(10)]
     cfg = SpectralEncoderConfig(n_elevation=64)
-    ring = RingMajorBatchEncoder(cfg, max_points=8192)
-    base = BatchEncoder(cfg, max_points=8192, batch_size=4)
+    ring = RingMajorBatchEncoder(cfg, max_points=8192, device="cpu")
+    base = BatchEncoder(cfg, max_points=8192, batch_size=4,
+                        device="cpu")
     got, want = ring.encode(clouds), base.encode(clouds)
     assert ring.path_counts == {"ring": 10, "general": 0}
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
@@ -202,9 +203,9 @@ def test_mixed_precision_and_ablation_raise(tmp_path):
     has nothing to train (ValueError)."""
     with pytest.raises(NotImplementedError):
         NeuralSpectralCodecPipeline(_small_config(
-            tmp_path, training={"mixed_precision": True}))
+            tmp_path, training={"mixed_precision": True}), device="cpu")
     pipe = NeuralSpectralCodecPipeline(_small_config(
-        tmp_path, ablation={"disable_gnn": True}))
+        tmp_path, ablation={"disable_gnn": True}), device="cpu")
     with pytest.raises(ValueError, match="disable_gnn"):
         pipe.train_offline([tsyn.SyntheticLoader(4, n_points=256)])
 

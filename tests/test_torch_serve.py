@@ -69,7 +69,7 @@ def test_query_matches_jax(metric):
     n, cap, k = 60, 80, 7
     hists = _hists(rng, n)
     pos = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
-    ret = WassersteinRetriever(capacity=cap, metric=metric)
+    ret = WassersteinRetriever(capacity=cap, metric=metric, device="cpu")
     ret.add_to_database(hists[:20], pos[:20])
     ret.add_to_database(torch.from_numpy(hists[20:]), torch.from_numpy(pos[20:]))
     db, db_pos = _jax_db(hists, pos, cap, metric)
@@ -101,7 +101,7 @@ def test_query_matches_jax(metric):
 
 def test_query_masks_and_capacity():
     rng = np.random.default_rng(1)
-    ret = WassersteinRetriever(capacity=8)
+    ret = WassersteinRetriever(capacity=8, device="cpu")
     assert ret.query(_hists(rng, 1)[0])[0].size == 0
     hists = _hists(rng, 8)
     ret.add_to_database(hists, np.zeros((8, 3), np.float32))
@@ -151,7 +151,7 @@ def test_serve_step_matches_jax():
     cap, n0, k, window = 40, 25, 5, 3
     hists = _hists(rng, n0)
     pos = rng.uniform(-50, 50, (n0, 3)).astype(np.float32)
-    ret = WassersteinRetriever(capacity=cap)
+    ret = WassersteinRetriever(capacity=cap, device="cpu")
     ret.add_to_database(hists, pos)
     db, db_pos = _jax_db(hists, pos, cap, "wasserstein")
     from conftest import synthetic_scan
@@ -196,7 +196,7 @@ def test_serve_step_matches_jax():
 
 def test_serve_step_without_query_or_insert():
     rng, graph, _, _, _, net = _serving_setup(1)
-    ret = WassersteinRetriever(capacity=4)
+    ret = WassersteinRetriever(capacity=4, device="cpu")
     tgraph = graph_to_tensors(graph, "cpu")
     pts = torch.from_numpy(rng.normal(0, 20, (2048, 4)).astype(np.float32))
     desc, emb, idx, dist = serve_step(ret, net, pts, 2.0, tgraph, 0,

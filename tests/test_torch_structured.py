@@ -104,7 +104,7 @@ def test_encode_structured_matches_jax(name):
             jnp.asarray(flat[None]), JCFG.projection))
         assert (want > 0).sum() > 2000
         np.testing.assert_array_equal(img, want)
-    got = trp.encode_structured(flat, rid, 2.0, TCFG)
+    got = trp.encode_structured(flat, rid, 2.0, TCFG, device="cpu")
     assert got.shape == (800,) and got.device.type == "cpu"
     want = jrp.encode_structured(flat, rid, 2.0, JCFG)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
@@ -194,7 +194,7 @@ def test_unproject_and_difference_match_jax():
 def test_range_image_projector_matches_jax():
     pts = nudge_points(synthetic_scan(np.random.default_rng(10), 3000),
                        JCFG.projection)
-    tproj = tri.RangeImageProjector(max_points=4096)
+    tproj = tri.RangeImageProjector(max_points=4096, device="cpu")
     jproj = jri.RangeImageProjector(max_points=4096)
     img, none = tproj.project(pts)
     jimg, _ = jproj.project(pts)

@@ -189,8 +189,8 @@ def test_mine_triplets_keeps_sequences_apart():
     seq = np.repeat([3, 7], len(d1))
     want = jminer.TripletMiner(seed=0).mine_triplets(desc, poses,
                                                      sequence_ids=seq)
-    got = tminer.TripletMiner(seed=0).mine_triplets(desc, poses,
-                                                    sequence_ids=seq)
+    got = tminer.TripletMiner(seed=0, device="cpu").mine_triplets(
+        desc, poses, sequence_ids=seq)
     assert got.dtype == np.int64 and got.shape[1] == 3 and len(got) > 100
     assert np.all(seq[got] == seq[got[:, :1]])
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
@@ -227,7 +227,8 @@ def test_find_revisit_queries_matches_jax(row_chunk):
     poses = _loop_positions()
     pos = poses[:, :3, 3].astype(np.float32)
     want = jval.find_revisit_queries(pos, 5.0, 30, row_chunk=row_chunk)
-    got = tval.find_revisit_queries(pos, 5.0, 30, row_chunk=row_chunk)
+    got = tval.find_revisit_queries(pos, 5.0, 30, row_chunk=row_chunk,
+                                     device="cpu")
     assert len(want) > 20
     np.testing.assert_array_equal(got, want)
 
@@ -244,7 +245,8 @@ def test_recall_matches_jax(query_chunk):
     for k in (1, 5):
         want, nq_w = jval.recall_loop_closure(emb, poses, k)
         got, nq = tval.recall_loop_closure(emb, poses, k,
-                                           query_chunk=query_chunk)
+                                           query_chunk=query_chunk,
+                                           device="cpu")
         assert nq == nq_w > 20
         assert 0.0 < want < 1.0
         assert abs(got - want) <= 1e-7
@@ -455,8 +457,8 @@ def test_trainer_training_improves(tmp_path):
     value and Recall@5 exceeds 0.2 (as the JAX trainer's test)."""
     desc, poses, graph = _toy_task(np.random.default_rng(11))
     tr = GNNTrainer(model=_small_net(), checkpoint_dir=str(tmp_path),
-                    triplets_per_step=256, learning_rate=1e-3)
-    miner = tminer.TripletMiner(seed=1)
+                    triplets_per_step=256, learning_rate=1e-3, device="cpu")
+    miner = tminer.TripletMiner(seed=1, device="cpu")
     losses = []
     for epoch in range(10):
         tr.epoch = epoch
@@ -471,14 +473,15 @@ def test_trainer_checkpoint_roundtrip(tmp_path):
     model and optimizer state, counters and embeddings (exact)."""
     desc, poses, graph = _toy_task(np.random.default_rng(12), n=60, d=16)
     tr = GNNTrainer(model=SpectralGNN(16, 8, 16, n_layers=2, dropout=0.0),
-                    checkpoint_dir=str(tmp_path), triplets_per_step=128)
-    tr.train_epoch(graph, tminer.TripletMiner(), poses, desc)
+                    checkpoint_dir=str(tmp_path), triplets_per_step=128,
+                    device="cpu")
+    tr.train_epoch(graph, tminer.TripletMiner(device="cpu"), poses, desc)
     tr.best_val_metric, tr.global_step = 0.5, 7
     tr.save_checkpoint("best_model")
     assert (tmp_path / "best_model.pt").exists()
     tr2 = GNNTrainer(model=SpectralGNN(16, 8, 16, n_layers=2, dropout=0.0),
                      checkpoint_dir=str(tmp_path), triplets_per_step=128,
-                     seed=5)
+                     seed=5, device="cpu")
     tr2.load_checkpoint("best_model")
     assert (tr2.global_step, tr2.best_val_metric) == (7, 0.5)
     assert tr2.train_losses == tr.train_losses
@@ -502,7 +505,7 @@ def test_trainer_lr_decay_and_metrics_jsonl(tmp_path):
     tr = GNNTrainer(model=SpectralGNN(16, 8, 16, n_layers=2, dropout=0.0),
                     checkpoint_dir=str(tmp_path), triplets_per_step=128,
                     learning_rate=1e-3, lr_decay_epochs=[1, 2],
-                    lr_decay_factor=0.1, min_lr=1e-5)
+                    lr_decay_factor=0.1, min_lr=1e-5, device="cpu")
     tr.train(graph, poses, desc, val_graph=graph, val_poses=poses,
              n_epochs=3, save_every_epochs=0)
     assert tr.optimizer.param_groups[0]["lr"] == pytest.approx(1e-5)
