@@ -13,9 +13,12 @@ weights and data made from seeds:
 3. kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors at its path's shapes. The serving kernels at 8
    full-density HDL-64E scans (133,632 points each) and on edge cases
-   (drop mode, other fold counts, partial rows, no interpolation): the
-   spectral kernel to <= 1e-5, the two projection kernels bit-equal (and
-   equal to the plain path run on the CPU). The probe kernels at the
+   (drop mode, other fold counts, partial rows, no interpolation, points
+   on bin edges and axes): the spectral kernel to <= 1e-5, the two
+   projection kernels bit-equal (and equal to the plain path run on the
+   CPU). The general projection kernel on scans in random order and in a
+   sensor's sweep order (rings flattened ring-major, a NaN tail), each at
+   B=1 and B=8. The probe kernels at the
    probe shapes (512 x 2176 keys, 512 x 768 and 512 x 2176 floors,
    512 x 2112 chain): the ring-fold probe bit-equal for n_folds 1-3 and,
    after the min over folds, equal to the ring kernel's image; every
@@ -23,13 +26,14 @@ weights and data made from seeds:
    kernels bit-equal. The spectral kernel also at the serve shape (B=1),
    at E=16 (the training configuration) and E=20 (pooling windows that
    straddle CTAs), each with interpolation on and off and alpha 2.0 and
-   1.3; the ring kernel also at B=1. One wrapper call of the spectral
-   and of the ring kernel must enqueue its kernel and no other device
-   operation (``torch.profiler``). Times (``utils/timing.py``), per
+   1.3; the ring kernel also at B=1. One wrapper call of each serving
+   kernel must enqueue its kernel and no other device operation
+   (``torch.profiler``). Times (``utils/timing.py``), per
    kernel: its own device time (``torch.profiler`` kernel time by name
    over 50 wrapper calls, cross-checked by CUDA events around 200 bare
    C-entry launches queued behind a spin kernel), at B=8 and, for the
-   three serving kernels, B=1; the wrapper's time per call (one event
+   three serving kernels, B=1 (the general projection kernel in both
+   point orders); the wrapper's time per call (one event
    pair per call); the plain version's; and the bound (bytes at
    3.35 TB/s or fp32 operations at 67 TFLOP/s, from this run's shapes);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
@@ -122,7 +126,7 @@ NO_LIBRARY = {
 KERNEL_NAMES = {
     "spectral": ("spectral_encode_kernel",),
     "ring_fold": ("ring_fold_kernel",),
-    "project": ("project_points_kernel", "inf_to_zero_kernel"),
+    "project": ("project_points_kernel",),
     "ring_probe": ("ring_probe_kernel",),
     "roll_floor": ("roll_floor_kernel",),
     "roll_min_chain": ("roll_min_chain_kernel",),
@@ -177,6 +181,44 @@ def _general_scans(n: int, seed: int):
                    axis=-1).astype(np.float32)
     for i, tail in enumerate(rng.integers(0, N_POINTS // 8, n)):
         pts[i, N_POINTS - tail:] = np.nan
+    return pts
+
+
+def _sweep_scans(n: int, seed: int):
+    """Scans as a sensor's file stores them: the rings of
+    ``make_structured_ring_scans`` (N_RINGS x PER_RING, full density)
+    flattened ring-major to (N_POINTS, 4), consecutive points sharing an
+    azimuth column, with a NaN padding tail per scan."""
+    import numpy as np
+    from neural_spectral_codec_torch.ops.ring_path import (
+        make_structured_ring_scans)
+    from neural_spectral_codec_torch.ops.spectral import SpectralEncoderConfig
+    pts = make_structured_ring_scans(n, N_RINGS, PER_RING,
+                                     SpectralEncoderConfig().projection,
+                                     seed=seed).reshape(n, N_POINTS, 4)
+    rng = np.random.default_rng(seed + 1)
+    for i, tail in enumerate(rng.integers(0, N_POINTS // 8, n)):
+        pts[i, N_POINTS - tail:] = np.nan
+    return np.ascontiguousarray(pts)
+
+
+def _edge_points(n: int, seed: int, proj):
+    """Points at the plain version's bin edges (angles k/A of a turn and
+    the row boundaries, in float64), on the x and y axes, on z = 0 and at
+    the origin: where the kernel's bin test defers to float64 angles."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    az = -np.pi + rng.integers(0, proj.n_azimuth + 1, n) * (
+        2 * np.pi / proj.n_azimuth)
+    el = proj.elevation_min + rng.integers(0, proj.n_elevation + 1, n) * (
+        proj.elevation_span / proj.n_elevation)
+    r = rng.uniform(1.5, 70.0, n)
+    pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                    r * np.sin(el), np.zeros(n)], axis=-1).astype(np.float32)
+    pts[: n // 8, 1] = 0.0
+    pts[n // 8: n // 4, 0] = 0.0
+    pts[n // 4: 3 * n // 8, 2] = 0.0
+    pts[-3:] = [[0, 0, 0, 0], [0, 0, 5, 0], [-5, -0.0, 0, 0]]
     return pts
 
 
@@ -281,8 +323,9 @@ def _sweep_rings(rows, per_ring: int, n_turns: float, seed: int, proj):
 def _edge_cases(device) -> None:
     """Options and inputs the serving run does not reach, each kernel
     against its plain version on the card: drop mode, 3-channel points,
-    n_folds = 1 and 3 with extra wraps and leading holes, rings on a
-    subset of rows, no interpolation, another alpha."""
+    points on bin edges and axes (the general kernel's float64 path), an
+    empty batch of points, n_folds = 1 and 3 with extra wraps and leading
+    holes, rings on a subset of rows, no interpolation, another alpha."""
     import torch
     from neural_spectral_codec_torch.ops import (
         projection_kernel, ring_kernel, spectral_kernel)
@@ -296,9 +339,15 @@ def _edge_cases(device) -> None:
     drop = SpectralEncoderConfig(elevation_mode="drop",
                                  elevation_range_deg=(-20.0, 0.0))
     pts = torch.from_numpy(_general_scans(2, SEED + 11)).to(device)
+    edge = torch.from_numpy(_edge_points(40_000, SEED + 13,
+                                         drop.projection)).to(device)
     for name, p, proj in (("drop", pts, drop.projection),
                           ("xyz", pts[..., :3].contiguous(),
-                           SpectralEncoderConfig().projection)):
+                           SpectralEncoderConfig().projection),
+                          ("edges, drop", edge[None], drop.projection),
+                          ("edges, clip", torch.stack([edge, edge.flip(0)]),
+                           SpectralEncoderConfig().projection),
+                          ("N=0", pts[:, :0], drop.projection)):
         got = projection_kernel.project_points_cuda(p, proj)
         _check(torch.equal(got, project_points_batch_plain(p, proj)),
                f"projection kernel != plain version ({name})")
@@ -320,9 +369,10 @@ def _edge_cases(device) -> None:
                      - encode_images_plain(imgs, alpha, cfg)).abs().max())
         _check(err <= SPECTRAL_TOL, f"spectral kernel vs plain {err:.3e} "
                f"(interpolate={cfg.interpolate_empty}, alpha={alpha})")
-    print("edge cases: drop mode, xyz input, n_folds 1-3 with extra wraps "
-          "and holes, partial rows, no interpolation, alpha 1.3: kernels "
-          "match their plain versions", flush=True)
+    print("edge cases: drop mode, xyz input, points on bin edges and axes, "
+          "N=0, n_folds 1-3 with extra wraps and holes, partial rows, no "
+          "interpolation, alpha 1.3: kernels match their plain versions",
+          flush=True)
 
 
 def _spectral_shapes(gen) -> None:
@@ -763,6 +813,17 @@ def main() -> None:
     imgs = want.clone()
     _check_cpu_image("project", got, project_points_batch_plain(
         gen.cpu(), proj))
+    sweep = torch.from_numpy(_sweep_scans(BATCH, SEED + 8)).to(device)
+    for order, x in (("random", gen), ("sweep", sweep)):
+        for x_b in (x[:1].contiguous(), x):
+            got = projection_kernel.project_points_cuda(x_b, proj)
+            want_b = project_points_batch_plain(x_b, proj)
+            _check(torch.equal(got, want_b), f"projection kernel != plain "
+                   f"version ({order} order, B={x_b.shape[0]}, "
+                   f"{int((got != want_b).sum())} pixels differ)")
+            proj_err = max(proj_err, float((got - want_b).abs().max()))
+    print("project: bit-equal to the plain version in random and sweep "
+          "order at B=1 and B=8", flush=True)
 
     got = ring_kernel.project_rings_cuda(rings, proj, rows)
     want = project_rings_batch_plain(rings, proj, rows)
@@ -815,6 +876,7 @@ def main() -> None:
     }
     _only_kernel("spectral", serving["spectral"][0](imgs))
     _only_kernel("ring_fold", serving["ring_fold"][0](rings))
+    _only_kernel("project", serving["project"][0](gen))
     timing = {}
     for name, (call, plain, x8, x1, bound) in serving.items():
         bound_ms, bound_by = bound(x8)
@@ -835,6 +897,17 @@ def main() -> None:
               f"({bound_by}); B=1 device {t['device_ms_b1']:.5f} ms "
               f"(queued bare {t['queued_ms_b1']:.5f}), bound "
               f"{t['bound_ms_b1']:.5f} ms", flush=True)
+    sweep1 = sweep[:1].contiguous()
+    for key, x in (("sweep", sweep), ("sweep_b1", sweep1)):
+        t = _device_times("project", serving["project"][0](x))
+        timing["project"][f"device_ms_{key}"] = t["device_ms"]
+        timing["project"][f"queued_ms_{key}"] = t["queued_ms"]
+    t = timing["project"]
+    print(f"kernel project, sweep order: B={BATCH} device "
+          f"{t['device_ms_sweep']:.5f} ms (queued bare "
+          f"{t['queued_ms_sweep']:.5f}), B=1 device "
+          f"{t['device_ms_sweep_b1']:.5f} ms (queued bare "
+          f"{t['queued_ms_sweep_b1']:.5f})", flush=True)
     timing.update(_probe_kernels(device))
 
     # -- 4. serve ----------------------------------------------------------
@@ -988,7 +1061,9 @@ def main() -> None:
                  "device_ms": t["device_ms"], "wrapper_ms": t["wrapper_ms"],
                  "profiler_ms": t["profiler_ms"],
                  "queued_ms": t["queued_ms"]}
-        for key in ("device_ms_b1", "queued_ms_b1", "bound_ms_b1"):
+        for key in ("device_ms_b1", "queued_ms_b1", "bound_ms_b1",
+                    "device_ms_sweep", "queued_ms_sweep",
+                    "device_ms_sweep_b1", "queued_ms_sweep_b1"):
             if key in t:
                 entry[key] = t[key]
         if name == "project":
