@@ -70,10 +70,31 @@ weights and data made from seeds:
    (``ring_fold`` and ``spectral`` must launch): finite losses, and the
    final checkpoint reloads to an equal state_dict; (c)
    ``experiments.scale_100k`` at 20,000 nodes: stage times, Recall@{1,5,10}
-   and peak memory.
+   and peak memory;
+8. online: the online loop (``run_online`` through
+   ``experiments.online_latency.run``) with configs/inference.yaml over
+   default.yaml (built in code), full width (800-D descriptors, the
+   SpectralGNN with random weights, 131,072 points a scan, top-10,
+   context window 10, GICP at 30 iterations, 4,096 points and 0.3 m
+   voxels, one-dispatch serving, async loop closing, 8 verification
+   workers, warmup on), except the spatial filter (0), the synthetic
+   stream in place of a dataset and a capacity of the map plus the
+   session. It resumes a 100,000-record store written through the port's
+   ``save_database`` (random ^4 histograms over 20 km, no points) and
+   streams 200 pre-generated frames of two laps. Checks: loop closures on
+   the second lap, each within the gates, in the g2o file; every
+   descriptor within 1e-4 of the CPU plain encoder; the same edge set in
+   the synchronous ``fused_query: false`` mode; the native and torch (on
+   the card) verifier backends agree on the candidates of 10 queries;
+   100,000 + keyframes rows, restored by a save/load round trip; ``project``
+   and ``spectral`` launched. It prints per-keyframe latency p50/p95/max,
+   keyframes over 100 ms, stage means, GICP ms per pair of each backend,
+   warmup seconds, peak device memory, and (torch.profiler over a short
+   fresh session) the device time and operations per keyframe.
 
 Launch counts are set to 0 just before each path (4, each entry point of
-5, 6, each entry-point run of 7) and read just after. Any failure raises
+5, 6, each entry-point run of 7, 8's one-dispatch run) and read just
+after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
@@ -136,6 +157,13 @@ EMB_TOL = 1e-3
 TRAIN_TOL = 1e-4               # train step: card vs CPU
 TRAIN_NODES = 512
 SCALE_NODES = 20_000
+STORE_ROWS = 100_000           # phase 8: the resumed map's records
+ONLINE_FRAMES = 200            # phase 8: synthetic stream, two laps
+ONLINE_POINTS = 131_072        # configs/default.yaml encoding.max_points
+ONLINE_WARM_SCANS = 10         # reported apart from the steady scans
+VERIFY_QUERIES = 10            # phase 8: queries whose candidates both
+                               # verifier backends check
+TRACE_FRAMES = 30              # phase 8: keyframes under torch.profiler
 
 # configs/training.yaml (with its parent default.yaml), the sections the
 # training pipeline reads, built in code: the card has no PyYAML
@@ -761,6 +789,259 @@ def _scale(device) -> None:
            out["n_queries"] > 0, f"scale: {out}")
 
 
+def _write_store(path: Path, n_bins: int, seed: int) -> int:
+    """Phase 8's map: STORE_ROWS records through the port's
+    ``save_database``: random ^4 histograms, poses spread over 20 km
+    (random yaw), no points."""
+    import numpy as np
+    from neural_spectral_codec_torch.keyframe.selector import Keyframe
+    from neural_spectral_codec_torch.retrieval.two_stage import (
+        TwoStageRetrieval)
+    rng = np.random.default_rng(seed)
+    hist = rng.random((STORE_ROWS, n_bins), dtype=np.float32) ** 4
+    hist /= hist.sum(axis=1, keepdims=True)
+    yaw = rng.uniform(-np.pi, np.pi, STORE_ROWS)
+    poses = np.tile(np.eye(4), (STORE_ROWS, 1, 1))
+    poses[:, 0, 0] = poses[:, 1, 1] = np.cos(yaw)
+    poses[:, 0, 1], poses[:, 1, 0] = -np.sin(yaw), np.sin(yaw)
+    poses[:, :2, 3] = rng.uniform(-10_000.0, 10_000.0, (STORE_ROWS, 2))
+    store = TwoStageRetrieval(n_bins=n_bins, capacity=1, device="cpu")
+    store.keyframes = [Keyframe(i, i, None, poses[i], float(i),
+                                descriptor=hist[i])
+                       for i in range(STORE_ROWS)]
+    return store.save_database(str(path))
+
+
+def _cpu_descriptors(keyframes, cfg, max_points: int) -> "torch.Tensor":
+    """Each keyframe's descriptor by the plain encoder on the CPU, from
+    its points padded as the online loop pads them."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.ops.range_image import pad_points
+    from neural_spectral_codec_torch.ops.spectral import encode_points_batch
+    out = []
+    for lo in range(0, len(keyframes), 8):
+        pts = np.stack([pad_points(kf.points, max_points)
+                        for kf in keyframes[lo:lo + 8]])
+        out.append(encode_points_batch(torch.from_numpy(pts), cfg.alpha,
+                                       cfg))
+    return torch.cat(out)
+
+
+def _verifier_backends(pipe, device) -> dict:
+    """The stage-1 candidates of the last VERIFY_QUERIES queries, each
+    against the snapshot its query saw, verified by the native backend
+    (the run's) and by the torch backend on the card: the same verified
+    set, the largest transform difference, ms per pair of each."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.retrieval.verification import (
+        GeometricVerifier)
+    ret = pipe.retrieval
+    nat = ret.verifier
+    tv = GeometricVerifier(
+        method=nat.method, fitness_threshold=nat.fitness_threshold,
+        rmse_threshold=nat.rmse_threshold,
+        max_iterations=nat.max_iterations,
+        voxel_downsample=nat.voxel_downsample, max_points=nat.max_points,
+        backend="torch", device=device)
+    kfs = pipe.selector.keyframes
+    queries = [kf for i, kf in enumerate(kfs)
+               if (i + 1) % 10 == 0][-VERIFY_QUERIES:]
+    times = {"native": [], "torch": []}
+    pairs, t_diff, disagree = 0, 0.0, []
+    for kf in queries:
+        cands = ret.query(kf, verify=False, as_of_size=kf.keyframe_id + 1)
+        qn, qt = nat.prepare(kf.points), tv.prepare(kf.points)
+        for c in cands:
+            target = ret.keyframes[c.database_idx]
+            if target.points is None:           # a resumed record
+                continue
+            dn, dt = nat.prepare(target.points), tv.prepare(target.points)
+            t0 = time.perf_counter()
+            ok_n, T_n, info_n = nat.verify(qn, dn)
+            times["native"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ok_t, T_t, info_t = tv.verify(qt, dt)
+            torch.cuda.synchronize()
+            times["torch"].append(time.perf_counter() - t0)
+            pairs += 1
+            if ok_n != ok_t:
+                disagree.append((kf.keyframe_id, target.keyframe_id,
+                                 info_n["fitness"], info_n["rmse"],
+                                 info_t["fitness"], info_t["rmse"]))
+            elif ok_n:
+                t_diff = max(t_diff, float(np.abs(T_n - T_t).max()))
+    out = {"pairs": pairs, "max_transform_diff": t_diff,
+           "disagreements": disagree,
+           "gicp_ms_native": 1e3 * statistics.median(times["native"])
+           if times["native"] else None,
+           "gicp_ms_torch": 1e3 * statistics.median(times["torch"])
+           if times["torch"] else None}
+    print(f"online: verifier backends on the stage-1 candidates of "
+          f"{len(queries)} queries: {pairs} pairs, disagreements "
+          f"{disagree}, largest transform difference {t_diff:.3e}; GICP "
+          f"ms per pair (median, prepared clouds) native "
+          f"{out['gicp_ms_native']}, torch on the card "
+          f"{out['gicp_ms_torch']}", flush=True)
+    _check(pairs > 0 and not disagree,
+           f"online: verifier backends disagree on {disagree}")
+    return out
+
+
+def _serve_trace(device, frames, cap: int, serve_ms: float) -> None:
+    """Device operations of the one-dispatch serving step: a fresh
+    session of TRACE_FRAMES keyframes (sync loop closing, no warmup, the
+    same capacity, so each query scans as many rows) under torch.profiler;
+    per keyframe the device time, the operations and the largest ones by
+    time, and the device's busy share of the main run's serve_step."""
+    from collections import defaultdict
+
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        inference_config, run)
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    cfg = inference_config(retrieval={"database_capacity": cap},
+                           deployment={"warmup": False,
+                                       "async_loop_closing": False},
+                           monitoring={"enabled": False})
+    ops = device_ops(lambda: run(frames[:TRACE_FRAMES], cfg, device,
+                                 warmup_scans=0))
+    by_name = defaultdict(float)
+    for name, us in ops:
+        by_name[name[:60]] += us / TRACE_FRAMES
+    dev_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"online: torch.profiler over {TRACE_FRAMES} keyframes: "
+          f"{len(ops) / TRACE_FRAMES:.1f} device operations and "
+          f"{dev_ms:.4f} ms of device time per keyframe, "
+          f"{100 * dev_ms / serve_ms:.1f}% of the main run's serve_step "
+          f"({serve_ms:.3f} ms); largest, µs per keyframe: "
+          f"{[(n, round(us, 2)) for n, us in top]}", flush=True)
+
+
+def _online(device) -> dict:
+    """Phase 8: the online loop (``run_online``) at full width against a
+    resumed 100,000-record map; returns its launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.data.synthetic import SyntheticLoader
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        inference_config, run)
+    from neural_spectral_codec_torch.retrieval.two_stage import (
+        TwoStageRetrieval)
+
+    cap = STORE_ROWS + ONLINE_FRAMES
+    cfg = inference_config(retrieval={"database_capacity": cap})
+    print("online: configs/inference.yaml over default.yaml, except "
+          "retrieval.spatial_filter_distance 0 (with ground-truth poses "
+          "the 50 m filter drops every true revisit), the synthetic stream "
+          f"in place of a dataset, and retrieval.database_capacity {cap} "
+          f"(the {STORE_ROWS}-record map plus this session's keyframes)",
+          flush=True)
+    dim = (cfg["encoding"]["target_elevation_bins"]
+           * cfg["encoding"]["n_bins"])
+    with tempfile.TemporaryDirectory(prefix="nsc_online_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        n = _write_store(tmp / "map.bin", dim, SEED + 40)
+        size = (tmp / "map.bin").stat().st_size
+        print(f"online: store of {n} records, {size / 1e6:.1f} MB, written "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        base = SyntheticLoader(n_frames=ONLINE_FRAMES, seed=SEED + 41,
+                               n_points=ONLINE_POINTS, loops=2.0)
+        frames = [base[i] for i in range(ONLINE_FRAMES)]
+        print(f"online: {ONLINE_FRAMES} frames of {ONLINE_POINTS} points "
+              f"generated in {time.perf_counter() - t0:.2f} s", flush=True)
+        for name in ("run1.bin", "run2.bin"):
+            shutil.copyfile(tmp / "map.bin", tmp / name)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (pipe, edges, rep), launches = _counted(lambda: run(
+            frames, cfg, device, warmup_scans=ONLINE_WARM_SCANS,
+            database_path=str(tmp / "run1.bin"), resume_database=True,
+            output_g2o=str(tmp / "loops.g2o")))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kfs = pipe.selector.keyframes
+        ret = pipe.retrieval.retriever
+        print(f"online: one-dispatch serving, async loop closing, "
+              f"{len(kfs)} keyframes, {len(edges)} loop closures, database "
+              f"{ret.database_size} rows, wall {rep['wall_s']:.2f} s, "
+              f"warmup {rep['warmup_s']:.3f} s, peak device memory "
+              f"{peak:.3f} GiB, launches {launches}", flush=True)
+        print(f"online: per-keyframe latency (host clock between fetches, "
+              f"after {ONLINE_WARM_SCANS} warm-up scans) "
+              f"{json.dumps(rep['keyframe'])}; warm-up scans "
+              f"{json.dumps(rep['warmup_scans'])}; keyframes over "
+              f"{rep['budget_ms']:.0f} ms: {rep['keyframes_over_budget']}",
+              flush=True)
+        print(f"online: stage means ms {json.dumps(rep['stage_mean_ms'])}, "
+              f"calls {json.dumps(rep['stage_calls'])}", flush=True)
+        _check(len(edges) > 0, "online: the second lap closed no loop")
+        _check(all(e["fitness"] >= 0.3 and e["rmse"] <= 0.5
+                   for e in edges), "online: an edge below the gates")
+        _check("EDGE_SE3:QUAT" in (tmp / "loops.g2o").read_text(),
+               "online: no EDGE_SE3:QUAT in the g2o export")
+        _check(ret.database_size == STORE_ROWS + len(kfs),
+               f"online: database {ret.database_size} rows, not "
+               f"{STORE_ROWS} + {len(kfs)}")
+        _check(launches["project"] > 0 and launches["spectral"] > 0,
+               f"online: a kernel of the path never launched: {launches}")
+
+        t0 = time.perf_counter()
+        want = _cpu_descriptors(kfs, pipe.encoder_config,
+                                pipe.encoder.max_points)
+        got = torch.from_numpy(np.stack([kf.descriptor for kf in kfs]))
+        err = float((got - want).abs().max())
+        print(f"online: descriptors vs the CPU plain encoder max abs "
+              f"{err:.3e} ({time.perf_counter() - t0:.2f} s)", flush=True)
+        _check(err <= DESC_TOL, f"online: descriptors differ from the CPU "
+               f"path by {err:.3e} > {DESC_TOL}")
+
+        _verifier_backends(pipe, device)
+        _serve_trace(device, frames, cap, rep["stage_mean_ms"]["serve_step"])
+
+        split_cfg = inference_config(retrieval={"database_capacity": cap},
+                                     deployment={"fused_query": False,
+                                                 "async_loop_closing":
+                                                 False})
+        _, split_edges, split_rep = run(
+            frames, split_cfg, device, warmup_scans=ONLINE_WARM_SCANS,
+            database_path=str(tmp / "run2.bin"), resume_database=True)
+        key = lambda es: sorted((e["source_id"], e["target_id"]) for e in es)
+        print(f"online: sync split mode {len(split_edges)} loop closures, "
+              f"per-keyframe latency {json.dumps(split_rep['keyframe'])}, "
+              f"stage means ms {json.dumps(split_rep['stage_mean_ms'])}",
+              flush=True)
+        _check(key(split_edges) == key(edges), "online: the split mode's "
+               "edge set differs from the one-dispatch mode's")
+
+        t0 = time.perf_counter()
+        back = TwoStageRetrieval(n_bins=dim, capacity=cap,
+                                 device=device)
+        n_back = back.load_database(str(tmp / "run1.bin"))
+        rows, rows0 = back.retriever._db_rows, ret._db_rows
+        same_map = torch.equal(rows[:STORE_ROWS], rows0[:STORE_ROWS])
+        new_err = float((rows[STORE_ROWS:n_back]
+                         - rows0[STORE_ROWS:n_back]).abs().max())
+        same_pos = torch.equal(back.retriever._db_pos[:n_back],
+                               ret._db_pos[:n_back])
+        same_ids = [k.keyframe_id for k in back.keyframes] == \
+            [k.keyframe_id for k in pipe.retrieval.keyframes]
+        print(f"online: save/load round trip of the final store: {n_back} "
+              f"records in {time.perf_counter() - t0:.2f} s; the map's rows "
+              f"bit-equal {same_map}, this session's rows within "
+              f"{new_err:.3e} (the uint16 codec), positions equal "
+              f"{same_pos}, ids equal {same_ids}", flush=True)
+        _check(n_back == ret.database_size and same_map and same_pos
+               and same_ids and new_err <= dim / 65535.0,
+               "online: the saved store does not restore the rows")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1024,7 +1305,10 @@ def main() -> None:
     by_path.update(_train_entry(device))
     _scale(device)
 
-    # -- 8. record ---------------------------------------------------------
+    # -- 8. the online loop ------------------------------------------------
+    by_path["online"] = _online(device)
+
+    # -- 9. record ---------------------------------------------------------
     meta = {
         "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
                      "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",

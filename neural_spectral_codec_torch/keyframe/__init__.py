@@ -1,4 +1,5 @@
-"""Keyframe graph (numpy construction, torch tensors for the GNN)."""
+"""Keyframe graph (numpy construction, torch tensors for the GNN) and the
+online graph manager."""
 
 from neural_spectral_codec_torch.keyframe.graph import (  # noqa: F401
-    KeyframeGraph, build_graph, graph_to_tensors)
+    KeyframeGraph, TemporalGraphManager, build_graph, graph_to_tensors)

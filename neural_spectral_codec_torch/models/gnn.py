@@ -1,7 +1,7 @@
 """Spectral GNN: edge-conditioned GAT as dense masked attention.
 
 Port of ``neural_spectral_codec_tpu/models/gnn.py:37-182`` (and
-``gnn_forward``, :297):
+``gnn_forward``, :297, and ``LocalUpdateGNN``, :311):
 
     Input(800) → Linear(256) + BatchNorm + ReLU
       → n_layers × [GAT(256, heads=1, edge_dim=2) → BatchNorm
@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -273,3 +274,156 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
         return model(*args, generator=generator)
     with torch.no_grad():
         return model(*args)
+
+
+class LocalUpdateGNN:
+    """k-hop local refresh (JAX ``models.gnn.LocalUpdateGNN``,
+    gnn.py:311-461): the GNN runs on the k-hop subgraph around the node
+    that changed, padded to a power of two of at least 8 nodes, and only
+    the nodes whose whole receptive field lies inside that subgraph get
+    their embeddings written back. The model is in eval mode (BatchNorm
+    uses its running statistics), so a refreshed embedding equals the
+    full-graph forward's.
+
+    Every step makes ONE device→host fetch: the descriptor, the refreshed
+    embeddings and, on a query, the top-k, packed into one float64 tensor
+    (exact for float32 values and for indices below 2**53)."""
+
+    def __init__(self, model: SpectralGNN, k_hops: int = 3):
+        if model.training:
+            raise ValueError("LocalUpdateGNN runs the eval forward; call "
+                             "model.eval() first")
+        self.model = model
+        self.k_hops = k_hops
+        self.device = next(model.parameters()).device
+
+    def forward_full(self, graph: KeyframeGraph) -> torch.Tensor:
+        """(n, output_dim) eval embeddings of a numpy graph."""
+        from neural_spectral_codec_torch.keyframe.graph import (
+            graph_to_tensors)
+        return gnn_forward(self.model, graph_to_tensors(graph, self.device))
+
+    @staticmethod
+    def _padded(sub: KeyframeGraph) -> KeyframeGraph:
+        """Pad the subgraph's node axis to the next power of two (at least
+        8), the bucket sizes of the JAX package's compiled forwards."""
+        from neural_spectral_codec_torch.keyframe.graph import pad_graph
+        n = max(sub.n_nodes, 8)
+        return pad_graph(sub, 1 << (n - 1).bit_length())
+
+    def forward_local(self, manager, center_node: int,
+                      k_hops: Optional[int] = None) -> torch.Tensor:
+        """(1, output_dim) embedding of ``center_node`` from its k-hop
+        subgraph only."""
+        k = self.k_hops if k_hops is None else k_hops
+        sub, mapping = manager.get_local_subgraph(center_node, k)
+        return self.forward_full(self._padded(sub))[mapping[center_node]][None]
+
+    def _core(self, manager, center_node: int, k: int) -> list:
+        """The (k − n_layers)-hop core: a node h hops from the center has
+        its whole n_layers-deep receptive field inside the k-hop subgraph
+        only when h + n_layers ≤ k (at k = n_layers, the center alone)."""
+        return sorted(manager.get_k_hop_neighbors(
+            center_node, max(k - self.model.n_layers, 0)))
+
+    def update_embeddings_local(self, manager, center_node: int,
+                                k_hops: Optional[int] = None) -> list:
+        """Refresh the core's embeddings in the graph manager; returns the
+        refreshed window indices."""
+        k = self.k_hops if k_hops is None else k_hops
+        sub, mapping = manager.get_local_subgraph(center_node, k)
+        core = self._core(manager, center_node, k)
+        emb = self.forward_full(self._padded(sub))
+        rows = emb[[mapping[n] for n in core]].cpu().numpy()
+        for node, e in zip(core, rows):
+            manager.keyframes[node].embedding = e
+        return core
+
+    def _subgraph(self, manager, center_node: int):
+        from neural_spectral_codec_torch.keyframe.graph import (
+            graph_to_tensors)
+        sub, mapping = manager.get_local_subgraph(center_node, self.k_hops)
+        core = self._core(manager, center_node, self.k_hops)
+        return (graph_to_tensors(self._padded(sub), self.device), mapping,
+                core)
+
+    @staticmethod
+    def _write_back(manager, center_node: int, core: list, desc: np.ndarray,
+                    emb: np.ndarray) -> None:
+        manager.set_node_features(center_node, desc)
+        for node, e in zip(core, emb):
+            manager.keyframes[node].embedding = e
+
+    def serve_step(self, manager, center_node: int, points_padded, alpha,
+                   enc_config, retrieval, do_query: bool,
+                   query_pose_position=None):
+        """One online keyframe step (JAX gnn.py:372-435): encode the scan,
+        write the descriptor into the center's feature row of the padded
+        k-hop subgraph, run the eval forward, query the stage-1 database
+        BEFORE the insert against ``size − (context_window − 1)`` rows
+        (the split path's insert-then-query with
+        ``exclude_last=context_window`` sees the same rows), insert the
+        row; then one fetch. ``retrieval`` is a ``TwoStageRetrieval``.
+
+        Returns (descriptor, refreshed window indices, stage1), stage1
+        being None without a query, else (indices, distances) of the
+        finite entries, as ``retriever.query`` returns them."""
+        from neural_spectral_codec_torch.models.serving import serve_step
+        graph, mapping, core = self._subgraph(manager, center_node)
+        ret = retrieval.retriever
+        qp = np.zeros(4, np.float32)
+        if do_query and query_pose_position is not None:
+            qp[:3] = np.asarray(query_pose_position)
+            qp[3] = retrieval.spatial_filter_distance
+        insert_pos = (np.asarray(query_pose_position, np.float32)
+                      if query_pose_position is not None
+                      else np.zeros(3, np.float32))
+        points = torch.as_tensor(np.asarray(points_padded, np.float32),
+                                 device=self.device)
+        desc, emb, idx, dist = serve_step(
+            ret, self.model, points, alpha, graph, mapping[center_node],
+            torch.from_numpy(qp).to(self.device),
+            int(min(retrieval.top_k, ret.capacity)), do_query=do_query,
+            do_insert=True, config=enc_config,
+            context_window=retrieval.context_window,
+            insert_pos=torch.from_numpy(insert_pos).to(self.device))
+        parts = [desc, emb[[mapping[n] for n in core]].reshape(-1)]
+        if do_query:
+            parts += [idx.to(torch.float64), dist]
+        flat = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
+        d = desc.shape[0]
+        n_emb = len(core) * emb.shape[1]
+        desc_np = flat[:d].astype(np.float32)
+        emb_np = flat[d:d + n_emb].astype(np.float32).reshape(len(core), -1)
+        stage1 = None
+        if do_query:
+            k = idx.shape[0]
+            idx_np = flat[d + n_emb:d + n_emb + k].astype(np.int64)
+            dist_np = flat[d + n_emb + k:].astype(np.float32)
+            keep = np.isfinite(dist_np)
+            stage1 = (idx_np[keep], dist_np[keep])
+        self._write_back(manager, center_node, core, desc_np, emb_np)
+        return desc_np, core, stage1
+
+    def encode_update_local(self, manager, center_node: int, points_padded,
+                            alpha, enc_config):
+        """The node's descriptor and its k-hop local refresh in one step
+        and one fetch (JAX gnn.py:437-461). The node was added with a
+        placeholder descriptor; the computed one replaces it. Returns
+        (descriptor, refreshed window indices)."""
+        from neural_spectral_codec_torch.models.serving import encode_scan
+        graph, mapping, core = self._subgraph(manager, center_node)
+        points = torch.as_tensor(np.asarray(points_padded, np.float32),
+                                 device=self.device)
+        with torch.no_grad():
+            desc = encode_scan(points, alpha, enc_config)
+            graph.features[mapping[center_node]] = desc
+            emb = self.model(graph.features, graph.neighbors, graph.mask,
+                             graph.edge_feats)
+            flat = torch.cat([desc, emb[[mapping[n] for n in core]].reshape(
+                -1)]).cpu().numpy()
+        d = desc.shape[0]
+        desc_np = flat[:d].copy()
+        self._write_back(manager, center_node, core, desc_np,
+                         flat[d:].reshape(len(core), -1))
+        return desc_np, core

@@ -13,7 +13,9 @@ Semantics of ``neural_spectral_codec_tpu/models/gnn._jitted_serving_step``
      under L2) with its position.
 
 Eager PyTorch needs no single executable, so the steps are a sequence of
-calls; on a CUDA tensor the encoder runs the hand-written kernels.
+calls, made under the retriever's lock (``fused_dispatch``), which hands
+out the insert row and the effective size; on a CUDA tensor the encoder
+runs the hand-written kernels.
 The center feature row is written IN PLACE into ``graph.features``: the
 server's graph keeps the node's true descriptor, as the JAX serving loop
 writes it back after the step.
@@ -70,19 +72,25 @@ def serve_step(retriever: WassersteinRetriever, model: SpectralGNN,
     if model.training:
         raise ValueError("serve_step runs the eval forward; call "
                          "model.eval() first")
-    with torch.no_grad():
-        desc = encode_scan(points, alpha, config, row_of_ring, n_folds)
-        graph.features[center] = desc
-        emb = model(graph.features, graph.neighbors, graph.mask,
-                    graph.edge_feats)
-        vec = emb[center] if retriever.metric == "l2" else desc
-        idx = dist = None
-        if do_query:
-            eff = retriever.effective_size(exclude_last=context_window - 1)
-            idx, dist = retriever.rank(vec[None], qp.reshape(1, 4), top_k,
-                                       eff)
-            idx, dist = idx[0], dist[0]
-        if do_insert:
-            pos = qp[:3] if insert_pos is None else insert_pos
-            retriever.add_to_database(vec[None], pos.reshape(1, 3))
-    return desc, emb, idx, dist
+
+    def step(insert_at: int, eff: int):
+        with torch.no_grad():
+            desc = encode_scan(points, alpha, config, row_of_ring, n_folds)
+            graph.features[center] = desc
+            emb = model(graph.features, graph.neighbors, graph.mask,
+                        graph.edge_feats)
+            vec = emb[center] if retriever.metric == "l2" else desc
+            idx = dist = None
+            if do_query:
+                idx, dist = retriever.rank(vec[None], qp.reshape(1, 4),
+                                           top_k, eff)
+                idx, dist = idx[0], dist[0]
+            if do_insert:
+                pos = qp[:3] if insert_pos is None else insert_pos
+                retriever.write_rows(insert_at, retriever.encode_rows(
+                    vec[None]), pos.reshape(1, 3).to(torch.float32))
+        return desc, emb, idx, dist
+
+    return retriever.fused_dispatch(
+        step, insert=do_insert,
+        exclude_last=context_window - 1 if do_query else 0)

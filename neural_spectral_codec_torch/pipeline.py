@@ -21,6 +21,7 @@ import logging
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -30,16 +31,20 @@ from neural_spectral_codec_torch.data.pose_utils import (
     is_valid_transformation)
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.keyframe.graph import (
-    build_graph_from_keyframes)
+    TemporalGraphManager, build_graph_from_keyframes, pad_graph)
 from neural_spectral_codec_torch.keyframe.selector import (
     Keyframe, KeyframeSelector)
-from neural_spectral_codec_torch.models.gnn import create_spectral_gnn
+from neural_spectral_codec_torch.models.gnn import (
+    LocalUpdateGNN, create_spectral_gnn)
 from neural_spectral_codec_torch.ops.range_image import pad_points
 from neural_spectral_codec_torch.ops.spectral import (
     SpectralEncoderConfig, encode_points_batch)
+from neural_spectral_codec_torch.retrieval.g2o import save_loop_closures_g2o
+from neural_spectral_codec_torch.retrieval.two_stage import TwoStageRetrieval
 from neural_spectral_codec_torch.training.miner import create_triplet_miner
 from neural_spectral_codec_torch.training.trainer import GNNTrainer
 from neural_spectral_codec_torch.utils.config import get as cfg_get
+from neural_spectral_codec_torch.utils.profiler import Profiler
 
 logger = logging.getLogger(__name__)
 
@@ -77,7 +82,8 @@ class BatchEncoder:
 
     def encode_one(self, cloud: np.ndarray,
                    ring_ids: Optional[np.ndarray] = None) -> np.ndarray:
-        return self.encode([cloud])[0]
+        return self.encode([cloud], ring_ids=None if ring_ids is None
+                           else [ring_ids])[0]
 
 
 class RingMajorBatchEncoder(BatchEncoder):
@@ -149,9 +155,10 @@ class RingMajorBatchEncoder(BatchEncoder):
 
 
 class NeuralSpectralCodecPipeline:
-    """Config-driven wiring of the offline training path on ``device``.
-    ``stage_seconds`` holds host-clock seconds per stage (selection and
-    encoding per sequence, graph build, training)."""
+    """Config-driven wiring of every layer on ``device``.
+    ``stage_seconds`` holds host-clock seconds per stage of offline
+    training (selection and encoding per sequence, graph build,
+    training); ``profiler`` the online loop's stage times."""
 
     def __init__(self, config: Dict, device: DeviceLike = "cuda"):
         self.config = config
@@ -196,6 +203,11 @@ class NeuralSpectralCodecPipeline:
                                                False)
                                    else kf.get("temporal_neighbors", 5))
 
+        self.graph_manager = TemporalGraphManager(
+            temporal_neighbors=self.temporal_neighbors,
+            max_active_nodes=kf.get("max_active_nodes", 1000),
+            freeze_old_embeddings=kf.get("freeze_old_embeddings", True))
+
         g = config.get("gnn", {})
         self.model = create_spectral_gnn(
             input_dim=g.get("input_dim", self.encoder_config.output_dim),
@@ -205,6 +217,57 @@ class NeuralSpectralCodecPipeline:
             residual=g.get("residual", True), edge_dim=g.get("edge_dim", 2),
             mixed_precision=cfg_get(config, "training.mixed_precision",
                                     g.get("mixed_precision", False)))
+        # True once train_offline or load_checkpoint set the weights
+        self.weights_loaded = False
+        self.local_update_hops = g.get("local_update_hops", 3)
+        self.use_local_updates = g.get("use_local_updates", True)
+
+        r = config.get("retrieval", {})
+        # retrieval.use_embeddings: stage 1 ranks GNN embeddings by L2
+        # instead of raw histograms by W1
+        self.use_embeddings_for_retrieval = r.get("use_embeddings", False)
+        if self.ablate_gnn and self.use_embeddings_for_retrieval:
+            logger.warning("ablation.disable_gnn: retrieval.use_embeddings "
+                           "has no embeddings to use; using raw W1 "
+                           "histograms")
+            self.use_embeddings_for_retrieval = False
+        if cfg_get(config, "parallel.shard_retrieval_db", False):
+            raise NotImplementedError(
+                "parallel.shard_retrieval_db: the sharded stage-1 database "
+                "is not ported yet (multi-GPU, ROADMAP queue 1)")
+        stage1_metric = ("l2" if (self.use_embeddings_for_retrieval
+                                  or not r.get("use_wasserstein", True))
+                         else "wasserstein")
+        stage1_storage = r.get("storage", "float32")
+        if stage1_metric != "wasserstein" and stage1_storage != "float32":
+            logger.warning("retrieval.storage=%s requires the W1 metric; "
+                           "using float32 rows", stage1_storage)
+            stage1_storage = "float32"
+        self.retrieval = TwoStageRetrieval(
+            stage1_metric=stage1_metric, stage1_storage=stage1_storage,
+            top_k=r.get("top_k", 10),
+            # loop_closing.min_loop_distance is the reference's name for
+            # the stage-1 spatial exclusion radius
+            spatial_filter_distance=r.get(
+                "spatial_filter_distance",
+                cfg_get(config, "loop_closing.min_loop_distance", 50.0)),
+            context_window=(0 if ab.get("disable_context", False)
+                            else r.get("context_window", 10)),
+            fitness_threshold=r.get("icp_fitness_threshold", 0.3),
+            rmse_threshold=r.get("icp_rmse_threshold", 0.5),
+            verification_method=r.get("verification_method", "gicp"),
+            n_bins=self.encoder_config.output_dim,
+            capacity=r.get("database_capacity",
+                           cfg_get(config, "database.max_database_size",
+                                   100_000)),
+            icp_max_iterations=r.get("icp_max_iterations", 30),
+            voxel_downsample=r.get("voxel_downsample", 0.3),
+            verification_max_points=r.get("verification_max_points", 4096),
+            verification_backend=r.get("verification_backend", "auto"),
+            parallel_verification=r.get("parallel_verification", False),
+            verification_workers=r.get("verification_workers", 4),
+            device=self.device)
+        self.profiler = Profiler()
 
     @contextmanager
     def _stage(self, name: str):
@@ -346,4 +409,352 @@ class NeuralSpectralCodecPipeline:
                 save_last=ckpt.get("save_last", True))
         logger.info("Stage seconds: %s",
                     {k: round(v, 3) for k, v in self.stage_seconds.items()})
+        self.weights_loaded = True
         return trainer
+
+    # ------------------------------------------------------------------
+    # online loop closing
+    # ------------------------------------------------------------------
+
+    def load_checkpoint(self, path: str) -> None:
+        """Load GNN weights from a checkpoint of the port's trainer: a
+        ``.pt`` file (``training/trainer.py`` ``save_checkpoint``), given
+        with or without its suffix. An Orbax checkpoint directory of the
+        JAX package raises: its conversion is not ported yet (ROADMAP
+        queue 1 item 5)."""
+        p = Path(path)
+        if p.suffix != ".pt" and p.with_suffix(".pt").exists():
+            p = p.with_suffix(".pt")
+        if p.is_dir():
+            raise NotImplementedError(
+                f"{path} is a directory (an Orbax checkpoint of the JAX "
+                "package?): the Orbax → torch import is not ported yet "
+                "(ROADMAP queue 1 item 5); pass a .pt file of the port's "
+                "trainer")
+        if not p.exists():
+            raise FileNotFoundError(f"Checkpoint not found: {path}")
+        state = torch.load(p, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state["model"] if "model" in state
+                                   else state)
+        self.weights_loaded = True
+        logger.info("Loaded GNN checkpoint from %s", p)
+
+    def _serving_model(self):
+        self.model.to(self.device).eval()
+        return self.model
+
+    def warmup(self) -> None:
+        """Make the first keyframe as fast as the rest: build the CUDA
+        kernels and the geometry library, encode once at B=1, run one local
+        forward at every padded bucket a session reaches (a short replay
+        on a scratch graph manager, loop edges included, and one bucket
+        beyond) and run the stage-1 query once. The live database and
+        graph are left as they were."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from neural_spectral_codec_torch import _build
+            _build.load_library()
+        if self.retrieval.verifier.backend == "native":
+            from neural_spectral_codec_torch.native import geom
+            geom.load()
+        self.encoder.encode_one(np.zeros((64, 4), np.float32))
+        if not self.ablate_gnn:
+            mgr = TemporalGraphManager(
+                temporal_neighbors=self.temporal_neighbors,
+                max_active_nodes=self.graph_manager.max_active_nodes)
+            local = LocalUpdateGNN(self._serving_model(),
+                                   k_hops=self.local_update_hops)
+            dim = self.encoder_config.output_dim
+            desc = np.full(dim, 1.0 / dim, np.float32)
+            node = 0
+            for i in range(18):
+                node = mgr.add_keyframe(Keyframe(
+                    keyframe_id=i, scan_id=i, timestamp=float(i),
+                    pose=np.eye(4, dtype=np.float32), points=None,
+                    descriptor=desc.copy()))
+                local.update_embeddings_local(mgr, node)
+            mgr.add_loop_closure_edge(17, 0)
+            mgr.add_loop_closure_edge(17, 8)
+            local.update_embeddings_local(mgr, node)
+            sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
+            n = max(sub.n_nodes, 8)
+            local.forward_full(pad_graph(sub, 1 << ((n - 1).bit_length()
+                                                    + 1)))
+        self.retrieval.retriever.warm_query(self.retrieval.top_k)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.warmup_seconds = time.perf_counter() - t0
+        logger.info("warmup: serving ready in %.1f s", self.warmup_seconds)
+
+    def run_online(self, loader, checkpoint_path: Optional[str] = None,
+                   loop_closure_interval: int = 10,
+                   output_g2o: Optional[str] = None,
+                   database_path: Optional[str] = None,
+                   resume_database: bool = False,
+                   async_loop_closing: Optional[bool] = None) -> List[Dict]:
+        """Streaming loop closing over ``loader`` (indexed scan by scan);
+        returns the verified loop-closure edges as g2o edge dicts.
+
+        Every ``loop_closure_interval``-th keyframe queries. With
+        ``database_path`` the record store is written at the end (or
+        appended every ``database.autosave_interval`` keyframes), and with
+        ``resume_database`` an existing store there is loaded first: its
+        records serve stage 1 (they carry no points, so candidates against
+        them stay unverified) and the new keyframes are numbered after
+        them, so a keyframe id is its database row.
+
+        ``async_loop_closing`` (default ``deployment.async_loop_closing``)
+        moves loop closing to one background worker: after a one-dispatch
+        serving step only verification, else stage 1 against the
+        submit-time snapshot of the database and verification. Finished
+        edges are applied to the graph as they come and all are drained
+        before returning, so the edge set equals the synchronous one; an
+        edge whose query keyframe left the active window first is still
+        returned but counted in ``self._n_graph_edge_misses``."""
+        self._n_graph_edge_misses = 0
+        db_base = 0
+        if (resume_database and database_path
+                and Path(database_path).exists()):
+            db_base = self.retrieval.load_database(database_path)
+            self.selector.keyframe_id_counter = db_base
+            logger.info("Resumed descriptor database: %d records from %s",
+                        db_base, database_path)
+        autosave_iv = cfg_get(self.config, "database.autosave_interval", 0)
+        db_persisted = db_base
+        if database_path and autosave_iv:
+            file_records = self.retrieval.database_file_records(database_path)
+            if db_base != file_records:
+                if resume_database and file_records:
+                    # a capacity-clipped resume: appending would duplicate
+                    # the records that were not loaded
+                    logger.warning(
+                        "autosave disabled: store has %d records but %d "
+                        "were resumed (capacity clip); will rewrite on "
+                        "finish", file_records, db_base)
+                    autosave_iv = 0
+                elif file_records:
+                    Path(database_path).unlink()   # a stale store
+        mon = self.config.get("monitoring", {})
+        mon_enabled = mon.get("enabled", False)
+        mon_interval = mon.get("log_interval", 100)
+        max_latency_ms = cfg_get(self.config, "deployment.max_latency_ms",
+                                 None)
+        if checkpoint_path:
+            self.load_checkpoint(checkpoint_path)
+        if not self.weights_loaded and not self.ablate_gnn:
+            logger.warning("Running online with randomly initialized GNN")
+        if cfg_get(self.config, "deployment.warmup", False):
+            self.warmup()
+        local_gnn = (None if self.ablate_gnn else
+                     LocalUpdateGNN(self._serving_model(),
+                                    k_hops=self.local_update_hops))
+        if async_loop_closing is None:
+            async_loop_closing = cfg_get(
+                self.config, "deployment.async_loop_closing", False)
+        executor = None
+        pending: List = []    # (query keyframe_id, Future[List[Dict]])
+        if async_loop_closing:
+            from concurrent.futures import ThreadPoolExecutor
+            executor = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="loop-closing")
+        all_loop_closures: List[Dict] = []
+        n_queries = 0
+        dev = self.device
+        ret = self.retrieval.retriever
+
+        def _apply_edges(query_id: int, edges: List[Dict]) -> None:
+            n_missed = sum(not self.graph_manager.add_loop_closure_edge(
+                query_id, e["target_id"]) for e in edges)
+            if n_missed:
+                self._n_graph_edge_misses += n_missed
+                logger.warning(
+                    "query kf %d: %d/%d loop-closure edges not inserted "
+                    "into the GNN graph (endpoint frozen out of the active "
+                    "window before harvest)", query_id, n_missed, len(edges))
+            if edges:
+                all_loop_closures.extend(edges)
+                logger.info("query kf %d: %d loop closures", query_id,
+                            len(edges))
+
+        def _harvest(block: bool = False) -> None:
+            remaining = []
+            for query_id, fut in pending:
+                if block or fut.done():
+                    _apply_edges(query_id, fut.result())
+                else:
+                    remaining.append((query_id, fut))
+            pending[:] = remaining
+
+        def _verify(kf, cands):
+            with self.profiler.profile("verification"):
+                return self.retrieval.loop_closures_from_candidates(
+                    kf, cands, kf.points)
+
+        def _check_budget(scan_id: int, t0: float) -> None:
+            query_ms = 1e3 * (time.perf_counter() - t0)
+            if max_latency_ms and query_ms > max_latency_ms:
+                logger.warning("scan %d: loop-closing latency %.1f ms "
+                               "exceeds budget %.0f ms", scan_id, query_ms,
+                               max_latency_ms)
+
+        fused = ((not self.ablate_gnn) and self.use_local_updates and
+                 cfg_get(self.config, "deployment.fused_encode", True))
+        one_dispatch = fused and cfg_get(self.config,
+                                         "deployment.fused_query", True)
+        placeholder = np.zeros(self.encoder_config.output_dim, np.float32)
+        try:
+            for scan_id in range(len(loader)):
+                frame = loader[scan_id]
+                with self.profiler.profile("select"):
+                    selected, kf, _ = self.selector.process_scan(
+                        scan_id, frame["points"], frame["pose"],
+                        frame["timestamp"])
+                if not selected:
+                    continue
+                will_query = (len(self.selector.keyframes)
+                              % loop_closure_interval == 0)
+                stage1 = None
+                fused_inserted = False
+                t_step = time.perf_counter()
+                if one_dispatch and self.retrieval.can_fuse_serving():
+                    with self.profiler.profile("serve_step", sync=dev):
+                        kf.descriptor = placeholder
+                        node = self.graph_manager.add_keyframe(kf)
+                        pos = kf.pose[:3, 3] if kf.pose is not None else None
+                        desc, refreshed_nodes, stage1 = local_gnn.serve_step(
+                            self.graph_manager, node,
+                            pad_points(kf.points, self.encoder.max_points),
+                            self.encoder.alpha, self.encoder_config,
+                            self.retrieval, will_query,
+                            query_pose_position=pos)
+                        kf.descriptor = desc
+                        fused_inserted = True
+                elif fused:
+                    with self.profiler.profile("encode_graph_update",
+                                               sync=dev):
+                        kf.descriptor = placeholder
+                        node = self.graph_manager.add_keyframe(kf)
+                        desc, refreshed_nodes = local_gnn.encode_update_local(
+                            self.graph_manager, node,
+                            pad_points(kf.points, self.encoder.max_points),
+                            self.encoder.alpha, self.encoder_config)
+                        kf.descriptor = desc
+                else:
+                    with self.profiler.profile("encode", sync=dev):
+                        kf.descriptor = self.encoder.encode_one(
+                            kf.points, ring_ids=frame.get("ring_ids"))
+                    with self.profiler.profile("graph_update", sync=dev):
+                        node = self.graph_manager.add_keyframe(kf)
+                        refreshed_nodes = []
+                        if self.ablate_gnn:
+                            pass    # raw histograms go to retrieval as is
+                        elif self.use_local_updates:
+                            refreshed_nodes = \
+                                local_gnn.update_embeddings_local(
+                                    self.graph_manager, node)
+                        else:
+                            emb = local_gnn.forward_full(
+                                self.graph_manager.get_graph()).cpu().numpy()
+                            self.graph_manager.update_embeddings(emb)
+                            refreshed_nodes = list(range(len(
+                                self.graph_manager.keyframes)))
+                if (database_path and autosave_iv and
+                        len(self.retrieval.keyframes) - db_persisted
+                        >= autosave_iv):
+                    with self.profiler.profile("db_autosave"):
+                        db_persisted = self.retrieval.append_database(
+                            database_path, db_persisted)
+                with self.profiler.profile("retrieval_add", sync=dev):
+                    if fused_inserted:
+                        self.retrieval.register_fused_insert(kf)
+                    else:
+                        self.retrieval.add_keyframe(kf)
+                    if self.use_embeddings_for_retrieval and refreshed_nodes:
+                        # db row == keyframe_id (ids continue after a
+                        # resumed store)
+                        self.retrieval.refresh_keyframes([
+                            self.graph_manager.keyframes[i].keyframe_id
+                            for i in refreshed_nodes])
+
+                if will_query:
+                    n_queries += 1
+                    if stage1 is not None:
+                        # stage 1 ran inside the serving step
+                        cands = self.retrieval.candidates_from_stage1(
+                            *stage1)
+                        if executor is not None:
+                            with self.profiler.profile(
+                                    "loop_closing_submit"):
+                                pending.append((kf.keyframe_id,
+                                                executor.submit(
+                                                    _verify, kf, cands)))
+                        else:
+                            with self.profiler.profile("loop_closing"):
+                                edges = _verify(kf, cands)
+                            # the budget counts the serving step that ran
+                            # stage 1, and the verification
+                            _check_budget(scan_id, t_step)
+                            _apply_edges(kf.keyframe_id, edges)
+                    elif executor is not None:
+                        with self.profiler.profile("loop_closing_submit"):
+                            # the size read and the enqueue under one lock:
+                            # the worker queries the database as it stood
+                            # at submit time
+                            with ret._buffer_lock:
+                                snapshot = ret.database_size
+                                pending.append((kf.keyframe_id,
+                                                executor.submit(
+                                    self.retrieval.get_loop_closures, kf,
+                                    kf.points, snapshot)))
+                    else:
+                        with self.profiler.profile("loop_closing"):
+                            t0 = time.perf_counter()
+                            edges = self.retrieval.get_loop_closures(
+                                kf, kf.points)
+                        _check_budget(scan_id, t0)
+                        _apply_edges(kf.keyframe_id, edges)
+                if executor is not None:
+                    _harvest()
+
+                if mon_enabled and (scan_id + 1) % mon_interval == 0:
+                    self._log_monitor(scan_id, mon)
+        finally:
+            if executor is not None:
+                try:
+                    _harvest(block=True)
+                finally:
+                    executor.shutdown(wait=True)
+        if database_path:
+            if autosave_iv:
+                n = self.retrieval.append_database(database_path,
+                                                   db_persisted)
+            else:
+                n = self.retrieval.save_database(database_path)
+            logger.info("Saved %d descriptor records to %s", n, database_path)
+        if output_g2o and all_loop_closures:
+            save_loop_closures_g2o(all_loop_closures, output_g2o)
+            logger.info("Saved %d loop-closure edges to %s",
+                        len(all_loop_closures), output_g2o)
+        self.profiler.log_summary()
+        logger.info("Online run: %d scans, %d keyframes, %d queries, "
+                    "%d loop closures", len(loader),
+                    len(self.selector.keyframes), n_queries,
+                    len(all_loop_closures))
+        return all_loop_closures
+
+    def _log_monitor(self, scan_id: int, mon: Dict) -> None:
+        means = self.profiler.means_ms()
+        mem = ""
+        if ("memory_usage" in mon.get("metrics", ())
+                and self.device.type == "cuda"):
+            mem = (f" | mem {torch.cuda.memory_allocated(self.device) / 2**20:.0f}"
+                   f" MiB")
+        logger.info(
+            "monitor @%d | %s | db=%d%s", scan_id + 1,
+            " | ".join(f"{k} {means[k]:.2f} ms/call"
+                       for k in ("select", "encode", "graph_update",
+                                 "encode_graph_update", "serve_step",
+                                 "db_autosave", "loop_closing",
+                                 "loop_closing_submit", "verification")
+                       if k in means),
+            self.retrieval.retriever.database_size, mem)

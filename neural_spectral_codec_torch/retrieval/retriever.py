@@ -1,18 +1,25 @@
 """Device-resident W₁ retrieval database.
 
 Port of ``neural_spectral_codec_tpu/retrieval/retriever.py``
-(``WassersteinRetriever``, float32 storage). A preallocated
-(capacity, n_bins) row buffer and (capacity, 3) position buffer live on
-the device and are updated in place. A query is W₁ (or L2) against every
-row, a mask that sends rows ≥ the effective size and rows spatially
-nearer than ``min_d`` (when ``min_d > 0``) to +inf, then an exact
-smallest-k with ``torch.topk``. uint16 storage and ``update_rows`` are
-not ported yet.
+(``WassersteinRetriever``). A preallocated (capacity, n_bins) row buffer
+and (capacity, 3) position buffer live on the device and are updated in
+place. A query is W₁ (or L2) against every row, a mask that sends rows ≥
+the effective size and rows spatially nearer than ``min_d`` (when
+``min_d > 0``) to +inf, then an exact smallest-k with ``torch.topk``.
+
+``storage="uint16"`` keeps each CDF row as ``round(cdf · 65535)`` codes
+(W₁ only: half the device memory, a W₁ error of at most
+n_bins · 0.5/65535, about 6e-3 at 800 bins) and dequantises them inside
+the query. A re-entrant lock orders size bookkeeping, inserts and queries
+between threads (the online loop's background worker queries while the
+main thread inserts); both use the default stream, so the device runs
+their work in the order it was enqueued.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +29,27 @@ from neural_spectral_codec_torch.ops.wasserstein import histogram_cdf
 
 
 _MAX_TEMP = 1 << 28   # elements of one (queries, rows, n_bins) temporary
+CDF_QUANT = 65535.0
+
+
+def quantize_cdf(cdf: torch.Tensor) -> torch.Tensor:
+    """CDF rows in [0, 1] → uint16 codes ``round(cdf · 65535)`` (JAX
+    ``_quantize_cdf``, retriever.py:51)."""
+    return torch.round(cdf * CDF_QUANT).to(torch.int32).to(
+        torch.int16).view(torch.uint16)
+
+
+def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
+    """uint16 codes → float32 ``code · float32(1/65535)`` (JAX
+    ``_dequant_rows``, retriever.py:55); float32 rows pass through. The
+    codes are read through an int16 view, which every torch operator
+    takes."""
+    if rows.dtype != torch.uint16:
+        return rows
+    codes = (rows.view(torch.int16).to(torch.int32) & 0xFFFF).to(
+        torch.float32)
+    return codes * torch.tensor(1.0 / CDF_QUANT, dtype=torch.float32,
+                                device=rows.device)
 
 
 def _distances(db_rows: torch.Tensor, queries: torch.Tensor, metric: str,
@@ -47,9 +75,9 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size: int,
     """Fused ranking (JAX ``_query_math`` / ``_query_batch_kernel``,
     retriever.py:107-159) for (Q, n_bins) queries and (Q, 4)
     [x, y, z, min_d] filters → (Q, k) indices and distances, smallest
-    first; masked rows carry +inf."""
+    first; masked rows carry +inf. uint16 rows are dequantised here."""
     n = db_rows.shape[0]
-    dists = _distances(db_rows, queries, metric, epsilon)
+    dists = _distances(dequantize_rows(db_rows), queries, metric, epsilon)
     invalid = (torch.arange(n, device=db_rows.device) >= size)[None, :]
     qp = query_pos_and_filters[:, :3]
     min_d = query_pos_and_filters[:, 3:4]
@@ -65,22 +93,36 @@ class WassersteinRetriever:
 
     ``metric="wasserstein"`` stores normalised-histogram CDFs and ranks by
     1-D W₁; ``metric="l2"`` stores raw vectors (e.g. GNN embeddings) and
-    ranks by L2."""
+    ranks by L2. ``storage="uint16"`` (W₁ only) stores the CDFs as
+    fixed-point codes."""
 
     def __init__(self, n_bins: int = 800, capacity: int = 100_000,
                  epsilon: float = 1e-8, metric: str = "wasserstein",
-                 device: DeviceLike = "cuda"):
+                 storage: str = "float32", device: DeviceLike = "cuda"):
         if metric not in ("wasserstein", "l2"):
             raise ValueError(f"unknown metric: {metric}")
+        if storage not in ("float32", "uint16"):
+            raise ValueError(f"unknown storage: {storage}")
+        if storage == "uint16" and metric != "wasserstein":
+            raise ValueError(
+                "uint16 storage quantizes CDFs in [0, 1]; the l2 metric "
+                "stores unbounded raw vectors: use storage='float32'")
         self.n_bins = n_bins
         self.capacity = capacity
         self.epsilon = epsilon
         self.metric = metric
+        self.storage = storage
         self.device = resolve_device(device)
+        self._row_dtype = (torch.uint16 if storage == "uint16"
+                           else torch.float32)
+        self._buffer_lock = threading.RLock()
         self.database_size = 0
-        self._db_rows = torch.zeros((capacity, n_bins), dtype=torch.float32,
-                                    device=self.device)
-        self._db_pos = torch.zeros((capacity, 3), dtype=torch.float32,
+        self._allocate()
+
+    def _allocate(self) -> None:
+        self._db_rows = torch.zeros((self.capacity, self.n_bins),
+                                    dtype=self._row_dtype, device=self.device)
+        self._db_pos = torch.zeros((self.capacity, 3), dtype=torch.float32,
                                    device=self.device)
 
     def _as_tensor(self, a, width: int) -> torch.Tensor:
@@ -88,24 +130,74 @@ class WassersteinRetriever:
         return t.reshape(-1, width)
 
     def encode_rows(self, vectors: torch.Tensor) -> torch.Tensor:
-        """Histogram rows → stored rows (CDFs under W₁, raw under L2)."""
+        """Histogram rows → stored rows (CDFs, or their uint16 codes, under
+        W₁; raw vectors under L2)."""
         if self.metric == "wasserstein":
-            return histogram_cdf(vectors, self.epsilon)
+            cdf = histogram_cdf(vectors, self.epsilon)
+            return quantize_cdf(cdf) if self.storage == "uint16" else cdf
         return vectors
+
+    def write_rows(self, start: int, rows: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None) -> None:
+        """Write encoded rows (and positions) at ``start`` in place; no
+        size bookkeeping. uint16 codes go through an int16 view."""
+        sl = slice(start, start + rows.shape[0])
+        if rows.dtype == torch.uint16:
+            self._db_rows.view(torch.int16)[sl] = rows.view(torch.int16)
+        else:
+            self._db_rows[sl] = rows
+        if positions is not None:
+            self._db_pos[sl] = positions
 
     def add_to_database(self, histograms, positions=None) -> None:
         """Insert (n, n_bins) vectors (numpy or tensors) in place, with
         optional (n, 3) positions for spatial filtering."""
         h = self._as_tensor(histograms, self.n_bins)
+        pos = None if positions is None else self._as_tensor(positions, 3)
         n = h.shape[0]
-        if self.database_size + n > self.capacity:
-            raise ValueError(f"Database capacity exceeded: "
-                             f"{self.database_size}+{n} > {self.capacity}")
-        sl = slice(self.database_size, self.database_size + n)
-        self._db_rows[sl] = self.encode_rows(h)
-        if positions is not None:
-            self._db_pos[sl] = self._as_tensor(positions, 3)
-        self.database_size += n
+        with self._buffer_lock:
+            if self.database_size + n > self.capacity:
+                raise ValueError(f"Database capacity exceeded: "
+                                 f"{self.database_size}+{n} > {self.capacity}")
+            self.write_rows(self.database_size, self.encode_rows(h), pos)
+            self.database_size += n
+
+    def update_rows(self, indices, vectors) -> None:
+        """Overwrite existing rows in place (the GNN refreshed the
+        embeddings of keyframes already inserted)."""
+        idx = np.atleast_1d(np.asarray(indices, np.int64))
+        if len(idx) == 0:
+            return
+        rows = self.encode_rows(self._as_tensor(vectors, self.n_bins))
+        with self._buffer_lock:
+            if idx.max() >= self.database_size:
+                raise IndexError("update_rows beyond database size")
+            t = torch.from_numpy(idx).to(self.device)
+            if rows.dtype == torch.uint16:
+                self._db_rows.view(torch.int16)[t] = rows.view(torch.int16)
+            else:
+                self._db_rows[t] = rows
+
+    def fused_dispatch(self, dispatch: Callable, insert: bool = True,
+                       exclude_last: int = 0):
+        """Run a serving step that owns the database for its duration.
+
+        ``dispatch(insert_at, eff_size)`` gets the next free row and the
+        effective size ``size − exclude_last`` and returns whatever the
+        caller needs; it writes the new row itself (``write_rows``) and
+        the buffers are updated in place, so nothing is left dangling when
+        it raises. Under the lock; ``database_size`` grows by one only when
+        ``insert`` and ``dispatch`` returned."""
+        with self._buffer_lock:
+            if insert and self.database_size >= self.capacity:
+                raise ValueError("Database capacity exceeded: "
+                                 f"{self.database_size}+1 > {self.capacity}")
+            insert_at = self.database_size
+            eff = max(self.database_size - max(exclude_last, 0), 0)
+            out = dispatch(insert_at, eff)
+            if insert:
+                self.database_size += 1
+            return out
 
     def effective_size(self, exclude_last: int = 0,
                        as_of_size: Optional[int] = None) -> int:
@@ -118,9 +210,10 @@ class WassersteinRetriever:
         """Device-side ranking of (Q, n_bins) queries with (Q, 4) filters
         against the first ``eff_size`` rows → (Q, k) tensors; k is clamped
         by capacity, and slots past the valid rows carry +inf."""
-        return query_math(self._db_rows, self._db_pos, eff_size, queries,
-                          filters, int(min(top_k, self.capacity)),
-                          self.metric, self.epsilon)
+        with self._buffer_lock:
+            return query_math(self._db_rows, self._db_pos, eff_size, queries,
+                              filters, int(min(top_k, self.capacity)),
+                              self.metric, self.epsilon)
 
     def _filters(self, q: int, positions, spatial_min_distance: float):
         qp = np.zeros((q, 4), np.float32)
@@ -135,14 +228,15 @@ class WassersteinRetriever:
               as_of_size: Optional[int] = None
               ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k matches of one query → (indices, distances) as numpy,
-        trimmed to finite entries."""
-        eff = self.effective_size(exclude_last, as_of_size)
-        if eff == 0:
-            return np.array([], np.int64), np.array([])
+        trimmed to finite entries. ``as_of_size`` queries the snapshot of
+        that size (``exclude_last`` counts back from it)."""
         q = self._as_tensor(query_hist, self.n_bins)
-        idx, dist = self.rank(q, self._filters(1, query_position,
-                                               spatial_min_distance),
-                              top_k, eff)
+        filters = self._filters(1, query_position, spatial_min_distance)
+        with self._buffer_lock:
+            eff = self.effective_size(exclude_last, as_of_size)
+            if eff == 0:
+                return np.array([], np.int64), np.array([])
+            idx, dist = self.rank(q, filters, top_k, eff)
         idx, dist = idx[0].cpu().numpy(), dist[0].cpu().numpy()
         keep = np.isfinite(dist)
         return idx[keep], dist[keep]
@@ -155,12 +249,30 @@ class WassersteinRetriever:
         """(Q, n_bins) queries → (Q, k) indices and distances as numpy;
         excluded or empty slots carry distance inf and index −1."""
         q = self._as_tensor(query_hists, self.n_bins)
-        eff = self.effective_size(exclude_last, as_of_size)
-        if eff == 0:
-            return (np.zeros((q.shape[0], 0), np.int64),
-                    np.zeros((q.shape[0], 0)))
-        idx, dist = self.rank(q, self._filters(q.shape[0], query_positions,
-                                               spatial_min_distance),
-                              top_k, eff)
+        filters = self._filters(q.shape[0], query_positions,
+                                spatial_min_distance)
+        with self._buffer_lock:
+            eff = self.effective_size(exclude_last, as_of_size)
+            if eff == 0:
+                return (np.zeros((q.shape[0], 0), np.int64),
+                        np.zeros((q.shape[0], 0)))
+            idx, dist = self.rank(q, filters, top_k, eff)
         idx, dist = idx.cpu().numpy().astype(np.int64), dist.cpu().numpy()
         return np.where(np.isfinite(dist), idx, -1), dist
+
+    def warm_query(self, top_k: int) -> None:
+        """Run the single and the batched query once against the live
+        buffers with the effective size forced to 1, and discard the
+        result: the first query's one-time device set-up happens here, and
+        nothing is inserted or allocated beyond a query's temporaries."""
+        q = torch.full((1, self.n_bins), 1.0 / self.n_bins,
+                       dtype=torch.float32, device=self.device)
+        qp = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=self.device)
+        with self._buffer_lock:
+            self.rank(q, qp, top_k, 1)
+            self.rank(q.expand(2, -1), qp.expand(2, -1), top_k, 1)
+
+    def clear_database(self) -> None:
+        with self._buffer_lock:
+            self.database_size = 0
+            self._allocate()

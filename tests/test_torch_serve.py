@@ -229,13 +229,17 @@ NEW_MODULES = ("ops.probe_kernels", "utils.timing",
                "training.loss", "training.miner", "training.validation",
                "training.trainer", "data.pose_utils", "data.synthetic",
                "keyframe.criteria", "keyframe.selector", "utils.config",
-               "pipeline", "train_multi_dataset", "experiments.scale_100k")
+               "pipeline", "train_multi_dataset", "experiments.scale_100k",
+               "ops.quantization", "retrieval.g2o", "retrieval.verification",
+               "retrieval.two_stage", "utils.profiler", "native.geom",
+               "experiments.online_latency")
 
 
 def test_port_imports_without_jax():
     """The port, every module of it (the probe kernels, the timing helper,
-    the measurement entry points, the training modules, the pipeline and
-    the training entry point included), and chip_smoke.py import torch
+    the measurement entry points, the training modules, the pipeline, the
+    training entry point and the online loop's modules included), and
+    chip_smoke.py import torch
     and numpy but never jax, flax, optax or orbax (a fresh interpreter,
     so nothing is preloaded)."""
     code = (
@@ -255,4 +259,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 39
+    assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 47
