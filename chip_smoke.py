@@ -23,7 +23,11 @@ weights and data made from seeds:
    512 x 2112 chain): the ring-fold probe bit-equal for n_folds 1-3 and,
    after the min over folds, equal to the ring kernel's image; every
    phase-ablation variant launches and gives finite rows; both roll
-   kernels bit-equal. The spectral kernel also at the serve shape (B=1),
+   kernels bit-equal (int32 views) there and in ROLL_CASES: windows
+   shorter than the row, rows with NaN, ±0 and ±inf, widths 2175 and
+   2110, rows off a 16-byte boundary, single rows; their device time also
+   with a cold L2 (a 64 MB write before each launch, not counted). The
+   spectral kernel also at the serve shape (B=1),
    at E=16 (the training configuration) and E=20 (pooling windows that
    straddle CTAs), each with interpolation on and off and alpha 2.0 and
    1.3; the ring kernel also at B=1. One wrapper call of each serving
@@ -133,6 +137,24 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 PROFILED_CALLS = 50
 QUEUED_CALLS = 200
+COLD_FLUSH_BYTES = 64 << 20    # written between launches: > the 50 MB L2
+# roll-kernel cases beyond the probe shapes, (rows, width, stages, arrays,
+# misaligned), arrays 0 = the P3 chain: windows shorter than the row (P2
+# at 4, 8 and 6 stages, P3 at 5 and 16), saturated ones, rows with NaN, ±0
+# and ±inf (``_special_rows``), widths that are not a multiple of 4, rows
+# 4 bytes off a 16-byte boundary (the scalar loads), single rows
+ROLL_CASES = (
+    (512, 2176, 4, 2, False), (512, 2176, 8, 2, False),
+    (512, 768, 6, 2, False), (512, 2176, 8, 1, False),
+    (512, 2176, 12, 2, False), (512, 2176, 12, 1, False),
+    (512, 2176, 40, 2, False), (64, 2175, 12, 2, False),
+    (64, 2175, 11, 1, False), (64, 2176, 8, 2, True), (1, 2176, 12, 2, False),
+    (1, 768, 6, 1, False),
+    (512, 2112, 5, 0, False), (512, 2112, 16, 0, False),
+    (512, 2112, 64, 0, False), (64, 2110, 16, 0, False),
+    (64, 2110, 64, 0, False), (64, 2112, 16, 0, True),
+    (1, 2112, 64, 0, False), (1, 2112, 16, 0, False),
+)
 # no single PyTorch call computes any kernel's whole function
 NO_LIBRARY = {
     "spectral": "torch.fft.rfft covers one of six stages (interpolation, "
@@ -140,8 +162,12 @@ NO_LIBRARY = {
     "ring_fold": "per-point angle math, gates and the fold rule's min",
     "project": "per-point angle math and gates before the scatter-min",
     "ring_probe": "the fold rule's min over precomputed keys",
-    "roll_floor": "a chain of roll + compare + select",
-    "roll_min_chain": "a chain of roll + min",
+    "roll_floor": "the first minimum of a circular window with its "
+                  "payload (argmin at the smallest forward offset, then "
+                  "a[j] + b[j]); no PyTorch call takes a windowed argmin",
+    "roll_min_chain": "torch.amin gives the saturated chain's row min, but "
+                      "neither its + 1 nor its broadcast, nor a window "
+                      "shorter than the row",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -444,7 +470,9 @@ def _spectral_shapes(gen) -> None:
 
 def _probe_kernels(device) -> dict:
     """The three probe kernels against their plain versions at the probe
-    shapes; returns {name: record fields} (max abs err, times, bound)."""
+    shapes, the roll kernels also in ROLL_CASES; returns {name: record
+    fields} (max abs err, times, bound; for the roll kernels also the
+    device time with a cold L2)."""
     import itertools
 
     import numpy as np
@@ -512,6 +540,7 @@ def _probe_kernels(device) -> dict:
     print("roll floor (1 and 2 arrays, 10-40 stages, 2176 and 768 wide) "
           "and roll+min chain (64 stages, 512 x 2112): bit-equal to their "
           "plain versions", flush=True)
+    _roll_cases(device)
 
     x, y = floors[key.shape[1]]
     wpad = pk.folded_width(proj.n_azimuth, 2)
@@ -529,6 +558,7 @@ def _probe_kernels(device) -> dict:
                            lambda: pk.roll_min_chain_plain(xroll, 64),
                            4 * 2 * xroll.numel()),
     }
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, device=device)
     out = {}
     for name, (kernel, plain, n_bytes) in pairs.items():
         err = float((kernel() - plain()).abs().max())
@@ -541,13 +571,101 @@ def _probe_kernels(device) -> dict:
                      "plain_ms": (p0 + p1) / 2, "wrapper_ms": _time_ms(kernel),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      **_device_times(name, kernel)}
-        print(f"kernel {name}: device {out[name]['device_ms']:.5f} ms "
-              f"(profiler {out[name]['profiler_ms']}, queued bare "
-              f"{out[name]['queued_ms']:.5f}), wrapper "
-              f"{out[name]['wrapper_ms']:.5f} ms, bound {bound_ms:.5f} ms "
+        if name != "ring_probe":
+            # a cold L2: a 64 MB write before each call, not counted
+            out[name]["device_ms_cold"] = _profiled_ms(
+                name, lambda kernel=kernel: (flush.zero_(), kernel()))
+        t = out[name]
+        cold = (f", cold L2 {_fmt_ms(t['device_ms_cold'])} ms"
+                if "device_ms_cold" in t else "")
+        print(f"kernel {name}: device {t['device_ms']:.5f} ms "
+              f"(profiler {t['profiler_ms']}, queued bare "
+              f"{t['queued_ms']:.5f}){cold}, wrapper "
+              f"{t['wrapper_ms']:.5f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}); loops kernel {k0:.5f}/{k1:.5f}, plain "
               f"{p0:.5f}/{p1:.5f} (B={BATCH})", flush=True)
     return out
+
+
+def _special_rows(n_rows: int, width: int, seed: int, first: int = 0):
+    """(x, y) float32 rows for the roll kernels' edge cases: x in steps of
+    1/8 over [-1, 2] (ties); with r = row + ``first``, rows r = 1 mod 4
+    have runs of +0 and -0 as their min, r = 2 mod 4 scattered +inf and
+    -inf, r = 3 mod 4 one NaN, r = 7 mod 8 a NaN every 97 columns; y
+    uniform with -0 every 13th column (it tells the chosen index apart)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 25, (n_rows, width)) / 8 - 1).astype(np.float32)
+    y = rng.uniform(-1, 1, (n_rows, width)).astype(np.float32)
+    y[:, ::13] = -0.0
+    r = np.arange(n_rows) + first
+    zeros = np.flatnonzero(r % 4 == 1)
+    x[zeros] = np.abs(x[zeros]) + np.float32(0.125)
+    x[np.ix_(zeros, np.arange(0, width, 11))] = -0.0
+    x[np.ix_(zeros, np.arange(5, width, 17))] = 0.0
+    inf = np.flatnonzero(r % 4 == 2)
+    x[np.ix_(inf, rng.integers(0, width, width // 50 + 1))] = np.inf
+    x[np.ix_(inf, rng.integers(0, width, width // 80 + 1))] = -np.inf
+    nan = np.flatnonzero(r % 4 == 3)
+    x[nan, rng.integers(0, width, len(nan))] = np.nan
+    x[np.ix_(np.flatnonzero(r % 8 == 7), np.arange(0, width, 97))] = np.nan
+    return x, y
+
+
+def _on_card(a, device, misaligned: bool):
+    """A contiguous CUDA copy of ``a``; with ``misaligned`` its data starts
+    4 bytes past a 16-byte boundary."""
+    import torch
+    t = torch.from_numpy(a)
+    if not misaligned:
+        return t.to(device)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _roll_cases(device) -> None:
+    """Both roll kernels bit-equal (int32 views) to their plain versions
+    on the card in every case of ROLL_CASES."""
+    import torch
+    from neural_spectral_codec_torch.ops import probe_kernels as pk
+    for i, (rows, width, n_stages, n_arrays, misaligned) in enumerate(
+            ROLL_CASES):
+        x, y = _special_rows(rows, width, SEED + 40 + i, first=i % 4)
+        x, y = _on_card(x, device, misaligned), _on_card(y, device, misaligned)
+        if n_arrays:
+            got = pk.roll_floor(x, y, n_stages, n_arrays)
+            want = pk.roll_floor_plain(x, y, n_stages, n_arrays)
+        else:
+            got = pk.roll_min_chain(x, n_stages)
+            want = pk.roll_min_chain_plain(x, n_stages)
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        _check(diff == 0, f"roll kernel != plain version ({rows} x {width}, "
+               f"{n_stages} stages, arrays {n_arrays}, misaligned "
+               f"{misaligned}: {diff} elements)")
+    print(f"roll kernels: {len(ROLL_CASES)} more cases bit-equal to their "
+          "plain versions (windows shorter than the row, NaN, +-0 and "
+          "+-inf rows, widths 2175 and 2110, misaligned rows, single rows)",
+          flush=True)
+
+
+def _profiled_ms(name: str, call):
+    """torch.profiler device ms per call of kernel ``name`` over
+    PROFILED_CALLS calls of ``call``; a window that records no device
+    time for it (it happens now and then) is taken again, up to three
+    times, then None."""
+    from neural_spectral_codec_torch.utils.timing import kernel_device_ms
+    for _ in range(3):
+        ms, _ = kernel_device_ms(call, KERNEL_NAMES[name],
+                                 calls=PROFILED_CALLS)
+        if ms is not None:
+            return ms
+    return None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def _probe_paths() -> dict:
@@ -1347,7 +1465,8 @@ def main() -> None:
                  "queued_ms": t["queued_ms"]}
         for key in ("device_ms_b1", "queued_ms_b1", "bound_ms_b1",
                     "device_ms_sweep", "queued_ms_sweep",
-                    "device_ms_sweep_b1", "queued_ms_sweep_b1"):
+                    "device_ms_sweep_b1", "queued_ms_sweep_b1",
+                    "device_ms_cold"):
             if key in t:
                 entry[key] = t[key]
         if name == "project":

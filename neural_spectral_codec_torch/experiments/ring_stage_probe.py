@@ -13,10 +13,14 @@ the time of the variant without it, taken in rounds (every variant in
 turn, ``--rounds`` times, after a warm-up) as the median over rounds of
 the difference within a round, with its quartiles; the variant with
 every phase off is the kernel's skeleton (load, row init, store). Floors
-from the roll + compare +
-select kernel (``roll_floor``) at 12 stages over 1 and 2 arrays (p =
-2176) and at 10 stages over 2 arrays (w = 768) give the unit each phase
-is expressed in, matched to the TPU classes it replaces.
+from the roll + compare + select kernel (``roll_floor``) with the
+schedules of 12 stages over 1 and 2 arrays (p = 2176) and 10 stages over
+2 arrays (w = 768) give the unit each phase is expressed in, matched to
+the TPU classes it replaces. On the TPU a floor was 10-12 roll stages; on
+Hopper it is one windowed pass over a row of the same width (the chain's
+function, the first minimum of a circular window, ``csrc/roll_floor.cu``),
+so a ratio says how a phase compares with one such pass, not with a
+number of stages.
 
 Input: ``make_structured_ring_scans`` at B scans of 64 rings × 2088
 points, keys from ``ops.ring_path._ring_keys`` padded to 2176 with key −1
@@ -159,7 +163,7 @@ def main(argv=None) -> dict:
           f"quartiles {all_phases[1]:.3f} .. {all_phases[2]:.3f}); "
           f"ring_fold.cu with keys from xyz {us['ring_fold_cu']:.3f}\n")
     print("| phase | replaces (TPU classes) | cost µs/scan (quartiles) | "
-          "matched floor | floor µs/scan | ratio |")
+          "matched floor (one windowed pass) | floor µs/scan | ratio |")
     print("|---|---|---|---|---|---|")
     for ph in PHASES:
         fl = MATCHED_FLOOR[ph]

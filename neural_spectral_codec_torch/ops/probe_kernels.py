@@ -15,6 +15,12 @@ each with its plain PyTorch version beside its wrapper:
   ``profile_hotpath.main``: y = x + 1, then ``n_stages`` steps of
   ``y = min(roll(y, 2^(s mod 11)), y)``.
 
+Each roll chain is one circular window (``roll_window``). Where it
+covers the row, as every entry point's schedule does, the kernels walk no
+stage on a row without a NaN: P3 is the row minimum, P2 the first minimum
+at or after each element. A row that holds a NaN, and every row of a
+window shorter than the row, runs the stages inside the kernel.
+
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel
 (a failed build or launch raises), any other device raises. Rolls follow
 ``np.roll``: ``roll(a, s)[i] = a[(i − s) mod W]``. Shift schedules are
@@ -26,8 +32,9 @@ and would overflow an int32 after 31 stages).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Iterable, List
+from typing import Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -211,6 +218,47 @@ def chain_shifts(width: int, n_stages: int) -> List[int]:
     return [(1 << (s % 11)) % width for s in range(n_stages)]
 
 
+def roll_window(offsets: Sequence[int], width: int) -> Tuple[int, bool]:
+    """(L, saturated) of a roll chain whose stages reach ``offsets`` (each
+    in [0, width)): P3's shifts, which look back, or P2's forward offsets
+    ``(width − shift) mod width``. A chain of min-stages reaches every
+    subset sum of its offsets; sorted, each offset at most 1 + the sum of
+    those before it makes that set the range [0, Σ], so the chain is a
+    circular window of ``L = min(Σ + 1, width)`` elements, and
+    ``saturated`` says it covers the row (``L == width``). Raises where
+    the set is not one range (no schedule of ``floor_shifts`` or
+    ``chain_shifts`` does: ``tests/test_torch_roll_window.py``)."""
+    offsets = sorted(offsets)
+    if width < 1 or offsets and not 0 <= offsets[0] <= offsets[-1] < width:
+        raise ValueError(f"roll_window: offsets {offsets} outside [0, "
+                         f"{width})")
+    total = 0
+    for o in offsets:
+        if o > total + 1:
+            raise ValueError(f"roll_window: offsets {offsets} reach no "
+                             f"single range (gap after {total})")
+        total += o
+    window = min(total + 1, width)
+    return window, window == width
+
+
+@functools.lru_cache(maxsize=256)
+def _floor_plan(width: int, n_stages: int):
+    """(window, ctypes shift array) of the floor kernel, per width and
+    stage count, its offsets checked to form one range (the array is read
+    by the C entry point, never written)."""
+    shifts = floor_shifts(width, n_stages)
+    window, _ = roll_window([(width - s) % width for s in shifts], width)
+    return window, _shift_array(shifts)
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_plan(width: int, n_stages: int):
+    """(window, ctypes shift array) of the chain kernel."""
+    shifts = chain_shifts(width, n_stages)
+    return roll_window(shifts, width)[0], _shift_array(shifts)
+
+
 def roll_floor_plain(x: torch.Tensor, y: torch.Tensor, n_stages: int,
                      n_arrays: int) -> torch.Tensor:
     """Plain version of the floor kernel: carry ``a = x`` (and ``b = y``
@@ -230,7 +278,11 @@ def roll_floor_plain(x: torch.Tensor, y: torch.Tensor, n_stages: int,
 def roll_floor(x: torch.Tensor, y: torch.Tensor, n_stages: int,
                n_arrays: int) -> torch.Tensor:
     """(N, W) float32 ``x``, ``y`` → (N, W): ``roll_floor_plain`` on a CPU
-    tensor, the floor kernel on a CUDA tensor."""
+    tensor, the floor kernel on a CUDA tensor (one pass per row where the
+    window covers the row, the stages themselves on a row whose ``x``
+    holds a NaN or where it does not). A row takes 16·W bytes of shared
+    memory: on an H100 rows up to about 14,500 columns; the C entry point
+    refuses wider ones with an error, which raises here."""
     _check_rows("roll_floor", x, y)
     if n_arrays not in (1, 2) or n_stages < 0:
         raise ValueError("roll_floor: n_arrays must be 1 or 2 and n_stages "
@@ -239,13 +291,10 @@ def roll_floor(x: torch.Tensor, y: torch.Tensor, n_stages: int,
         return roll_floor_plain(x, y, n_stages, n_arrays)
     check_contiguous(y, "roll_floor")
     n, w = x.shape
-    shifts = _shift_array(floor_shifts(w, n_stages))
-    if 16 * w > MAX_SHARED_BYTES:
-        raise ValueError(f"roll_floor: rows of {w} do not fit in shared "
-                         "memory")
     out = torch.empty_like(x)
     if n == 0 or w == 0:
         return out
+    shifts = _floor_plan(w, n_stages)[1]
     with torch.cuda.device(x.device):
         ROLL_FLOOR(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, w,
                    n_stages, n_arrays, shifts, _stream(x))
@@ -264,20 +313,21 @@ def roll_min_chain_plain(x: torch.Tensor, n_stages: int = 64) -> torch.Tensor:
 
 def roll_min_chain(x: torch.Tensor, n_stages: int = 64) -> torch.Tensor:
     """(N, W) float32 → (N, W): ``roll_min_chain_plain`` on a CPU tensor,
-    the chain kernel on a CUDA tensor."""
+    the chain kernel on a CUDA tensor (the row minimum where the window
+    covers the row, the stages themselves on a row that holds a NaN or
+    where it does not). A row takes 8·W bytes of shared memory: on an
+    H100 rows up to about 29,000 columns; the C entry point refuses wider
+    ones with an error, which raises here."""
     _check_rows("roll_min_chain", x)
     if n_stages < 0:
         raise ValueError("roll_min_chain: n_stages must be >= 0")
     if not _kernel_device("roll_min_chain", x):
         return roll_min_chain_plain(x, n_stages)
     n, w = x.shape
-    shifts = _shift_array(chain_shifts(w, n_stages))
-    if 8 * w > MAX_SHARED_BYTES:
-        raise ValueError(f"roll_min_chain: rows of {w} do not fit in "
-                         "shared memory")
     out = torch.empty_like(x)
     if n == 0 or w == 0:
         return out
+    shifts = _chain_plan(w, n_stages)[1]
     with torch.cuda.device(x.device):
         ROLL_MIN_CHAIN(x.data_ptr(), out.data_ptr(), n, w, n_stages, shifts,
                        _stream(x))
