@@ -22,11 +22,15 @@ weights and data made from seeds:
    probe shapes (512 x 2176 keys, 512 x 768 and 512 x 2176 floors,
    512 x 2112 chain): the ring-fold probe bit-equal for n_folds 1-3 and,
    after the min over folds, equal to the ring kernel's image; every
-   phase-ablation variant launches and gives finite rows; both roll
-   kernels bit-equal (int32 views) there and in ROLL_CASES: windows
-   shorter than the row, rows with NaN, ±0 and ±inf, widths 2175 and
-   2110, rows off a 16-byte boundary, single rows; their device time also
-   with a cold L2 (a 64 MB write before each launch, not counted). The
+   phase-ablation variant launches and gives finite rows; the ring-fold
+   probe also bit-equal at B=1, on a single row, width 2175, rows off a
+   16-byte boundary, all-invalid rows, rows that wrap at every point and
+   the widest rows it takes, the next width refused; both roll kernels
+   bit-equal (int32 views) there and in ROLL_CASES: windows shorter than
+   the row, rows with NaN, ±0 and ±inf, widths 2175 and 2110, rows off a
+   16-byte boundary, single rows; the three probes' device time also with
+   a cold L2 (a 64 MB write before each launch, not counted), the
+   ring-fold probe's also at B=1. The
    spectral kernel also at the serve shape (B=1),
    at E=16 (the training configuration) and E=20 (pooling windows that
    straddle CTAs), each with interpolation on and off and alpha 2.0 and
@@ -515,6 +519,7 @@ def _probe_kernels(device) -> dict:
     print(f"ring probe: bit-equal to its plain version for n_folds 1-3 and "
           f"to the ring kernel after the fold min; {n_variants} ablation "
           f"variants launch with finite rows", flush=True)
+    _ring_probe_cases(device, key, vals)
 
     rng = np.random.default_rng(SEED + 22)
     wpad = pk.folded_width(proj.n_azimuth, 2)
@@ -559,6 +564,7 @@ def _probe_kernels(device) -> dict:
                            4 * 2 * xroll.numel()),
     }
     flush = torch.empty(COLD_FLUSH_BYTES // 4, device=device)
+    key1, vals1 = key[:N_RINGS].contiguous(), vals[:N_RINGS].contiguous()
     out = {}
     for name, (kernel, plain, n_bytes) in pairs.items():
         err = float((kernel() - plain()).abs().max())
@@ -571,16 +577,27 @@ def _probe_kernels(device) -> dict:
                      "plain_ms": (p0 + p1) / 2, "wrapper_ms": _time_ms(kernel),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      **_device_times(name, kernel)}
-        if name != "ring_probe":
-            # a cold L2: a 64 MB write before each call, not counted
-            out[name]["device_ms_cold"] = _profiled_ms(
-                name, lambda kernel=kernel: (flush.zero_(), kernel()))
+        # a cold L2: a 64 MB write before each call, not counted
+        out[name]["device_ms_cold"] = _profiled_ms(
+            name, lambda kernel=kernel: (flush.zero_(), kernel()))
         t = out[name]
-        cold = (f", cold L2 {_fmt_ms(t['device_ms_cold'])} ms"
-                if "device_ms_cold" in t else "")
+        b1 = ""
+        if name == "ring_probe":
+            # B=1: the 64 rings of one scan
+            def call1():
+                return pk.ring_fold_probe(key1, vals1, proj.n_azimuth, 2)
+            t.update({"bound_ms_b1": _bound(4 * (key1.numel() + vals1.numel()
+                                                 + N_RINGS * wpad))[0],
+                      "device_ms_b1": _profiled_ms(name, call1),
+                      "device_ms_cold_b1": _profiled_ms(
+                          name, lambda: (flush.zero_(), call1()))})
+            b1 = (f"; B=1 device {_fmt_ms(t['device_ms_b1'])} ms, cold L2 "
+                  f"{_fmt_ms(t['device_ms_cold_b1'])} ms, bound "
+                  f"{t['bound_ms_b1']:.5f} ms")
         print(f"kernel {name}: device {t['device_ms']:.5f} ms "
               f"(profiler {t['profiler_ms']}, queued bare "
-              f"{t['queued_ms']:.5f}){cold}, wrapper "
+              f"{t['queued_ms']:.5f}), cold L2 "
+              f"{_fmt_ms(t['device_ms_cold'])} ms{b1}, wrapper "
               f"{t['wrapper_ms']:.5f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}); loops kernel {k0:.5f}/{k1:.5f}, plain "
               f"{p0:.5f}/{p1:.5f} (B={BATCH})", flush=True)
@@ -648,6 +665,78 @@ def _roll_cases(device) -> None:
           "plain versions (windows shorter than the row, NaN, +-0 and "
           "+-inf rows, widths 2175 and 2110, misaligned rows, single rows)",
           flush=True)
+
+
+def _probe_key_rows(n_rows: int, width: int, seed: int):
+    """(keys, ranges) float32 rows for the ring probe's edge cases: sweeps
+    of 2.6 turns (extra wrap events) from random starts with scattered
+    holes, a leading, an interior and a trailing invalid run on rows 1-3
+    mod 8, rows 4 mod 8 with no valid point, rows 5 mod 8 falling one bin
+    a point (every valid point after the first a wrap), keys outside
+    [0, 360) as holes; ranges in [0.5, 80) with ties, +inf at holes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(0, 360, (n_rows, 1)) + np.linspace(0, 2.6 * 360, width)
+    key = (np.floor(az) % 360).astype(np.float32)
+    key[rng.uniform(size=key.shape) < 0.1] = -1.0
+    kind = np.arange(n_rows) % 8
+    key[kind == 1, : (2 * width) // 5] = -1.0
+    key[kind == 2, width // 3: (2 * width) // 3] = 400.0
+    key[kind == 3, width - width // 4:] = -1.0
+    key[kind == 4] = -1.0
+    key[kind == 5] = (359 - np.arange(width)) % 360
+    vals = (rng.integers(1, 160, key.shape) / 2).astype(np.float32)
+    vals[~((key >= 0) & (key < 360))] = np.inf
+    return key, vals
+
+
+def _ring_probe_cases(device, key, vals) -> None:
+    """The ring probe bit-equal to its plain version for n_folds 1-3 on:
+    B=1 (64 rows, 512 threads a CTA), a single row, a width that is not
+    a multiple of 4 (the scalar loads), rows 4 bytes off a 16-byte
+    boundary, all-invalid rows and rows whose points all wrap
+    (``_probe_key_rows``), and the widest rows the kernel takes (12
+    points a thread at 512 threads) and one point less (the scalar
+    loads); the next width must be refused with the wrapper's error, and
+    a call after it must still be right."""
+    import torch
+    from neural_spectral_codec_torch.ops import probe_kernels as pk
+    n_azim = 360
+    widest = 12 * 512      # kPer points a thread at kManyThreads threads
+    rows = {name: _probe_key_rows(n, w, SEED + 50 + i)
+            for i, (name, n, w) in enumerate((
+                ("2175 wide", 512, 2175), ("misaligned", 512, 2176),
+                ("edge rows, B=1", N_RINGS, 2176), ("edge rows", 512, 2176),
+                (f"widest {widest}", 3, widest),
+                (f"widest - 1 {widest - 1}", 3, widest - 1)))}
+    cases = {"B=1": (key[:N_RINGS].contiguous(), vals[:N_RINGS].contiguous()),
+             "single row": (key[:1].contiguous(), vals[:1].contiguous())}
+    for name, (k, v) in rows.items():
+        misaligned = name == "misaligned"
+        cases[name] = (_on_card(k, device, misaligned),
+                       _on_card(v, device, misaligned))
+    for name, (k, v) in cases.items():
+        for n_folds in (1, 2, 3):
+            got = pk.ring_fold_probe(k, v, n_azim, n_folds)
+            want = pk.ring_fold_rows_plain(k, v, n_azim, n_folds)
+            diff = int((got.view(torch.int32)
+                        != want.view(torch.int32)).sum())
+            _check(diff == 0, f"ring probe != plain version ({name}, "
+                   f"{tuple(k.shape)}, n_folds={n_folds}: {diff} slots)")
+    wide = _probe_key_rows(2, widest + 1, SEED + 60)
+    try:
+        pk.ring_fold_probe(torch.from_numpy(wide[0]).to(device),
+                           torch.from_numpy(wide[1]).to(device), n_azim, 2)
+        refused = False
+    except RuntimeError as e:
+        refused = "nsc_ring_probe" in str(e)
+    _check(refused, f"ring probe: rows of {widest + 1} not refused")
+    k, v = cases["edge rows"]
+    _check(torch.equal(pk.ring_fold_probe(k, v, n_azim, 2),
+                       pk.ring_fold_rows_plain(k, v, n_azim, 2)),
+           "ring probe: wrong after a refused layout")
+    print(f"ring probe: {len(cases)} more cases bit-equal for n_folds 1-3 "
+          f"({', '.join(cases)}); rows of {widest + 1} refused", flush=True)
 
 
 def _profiled_ms(name: str, call):
@@ -1466,7 +1555,7 @@ def main() -> None:
         for key in ("device_ms_b1", "queued_ms_b1", "bound_ms_b1",
                     "device_ms_sweep", "queued_ms_sweep",
                     "device_ms_sweep_b1", "queued_ms_sweep_b1",
-                    "device_ms_cold"):
+                    "device_ms_cold", "device_ms_cold_b1"):
             if key in t:
                 entry[key] = t[key]
         if name == "project":

@@ -6,29 +6,41 @@
 Counterpart of the JAX repository's ``experiments/ring_stage_probe.py``,
 which switched off the TPU ring kernel's six stage classes one at a time.
 Here the probed kernel is the port's fold on precomputed keys
-(``ops.probe_kernels.ring_fold_probe``, ``csrc/ring_probe.cu``), whose
-phases are those of ``csrc/ring_fold.cu``: ``scan``, ``fold``,
-``scatter``, ``write``. A phase's cost is the full kernel's time minus
-the time of the variant without it, taken in rounds (every variant in
-turn, ``--rounds`` times, after a warm-up) as the median over rounds of
-the difference within a round, with its quartiles; the variant with
-every phase off is the kernel's skeleton (load, row init, store). Floors
-from the roll + compare + select kernel (``roll_floor``) with the
-schedules of 12 stages over 1 and 2 arrays (p = 2176) and 10 stages over
-2 arrays (w = 768) give the unit each phase is expressed in, matched to
-the TPU classes it replaces. On the TPU a floor was 10-12 roll stages; on
-Hopper it is one windowed pass over a row of the same width (the chain's
-function, the first minimum of a circular window, ``csrc/roll_floor.cu``),
-so a ratio says how a phase compares with one such pass, not with a
-number of stages.
+(``ops.probe_kernels.ring_fold_probe``, ``csrc/ring_probe.cu``), built as
+``csrc/ring_fold.cu`` is: each thread summarises a contiguous chunk of the
+row as {first valid bin, last valid bin, wrap events}, one exclusive scan
+(warp shuffles, then across warps) gives every chunk its start, and the
+kept ranges go to a shared-memory row by ``atomicMin``. Its phases:
+``scan`` (the first/last half of the summary; off: every chunk starts
+after bin −1), ``fold`` (the wrap-event half; off: every chunk starts at
+fold 0), ``scatter`` (the ``atomicMin``; off: a plain store), ``write``
+(+inf → 0 on the way out; off: an integer clamp). A phase's cost is the
+full kernel's time minus the time of the variant without it, taken in
+rounds (every variant in turn, ``--rounds`` times, after a warm-up) as
+the median over rounds of the difference within a round, with its
+quartiles; the variant with every phase off is the kernel's skeleton
+(the row loads, the row init, the store). Floors from the roll + compare
++ select kernel (``roll_floor``) give the unit each phase is expressed
+in, matched to the TPU classes it replaces (``REPLACES``): ``scan``
+(the jump-fill) and ``fold`` (fold index, rank prefix) against 12 stages
+over 1 array (p = 2176), ``scatter`` (run-min, compaction) against 12
+stages over 2 arrays, ``write`` against 10 stages over 2 arrays at the
+folded row's width (w = 768), where the TPU's expansion worked. On the
+TPU a floor was 10-12 roll stages; on Hopper it is one windowed pass over
+a row of the same width (the chain's function, the first minimum of a
+circular window, ``csrc/roll_floor.cu``), so a ratio says how a phase
+compares with one such pass, not with a number of stages.
 
 Input: ``make_structured_ring_scans`` at B scans of 64 rings × 2088
 points, keys from ``ops.ring_path._ring_keys`` padded to 2176 with key −1
 and range +inf (``ops.probe_kernels.ring_keys_padded``), n_folds = 2.
 Before timing, the full variant must equal ``ring_fold_rows_plain`` bit
 for bit, and after the min over folds (``fold_min_rows``) and the row
-placement ``project_rings_cuda``'s image. Times: CUDA events around
-loops of ``--iters`` launches (``utils.timing.time_loop_ms``). Stage
+placement ``project_rings_cuda``'s image. Times: each kernel's own
+device time, CUDA events around ``--iters`` launches of its C entry point
+(``CudaKernel.bare``, on the arguments of one wrapper call) queued behind
+a spin kernel (``utils.timing.time_queued_ms``), so that no wrapper's
+host time (30-60 µs a call against kernels of a few µs) enters. Stage
 counts are the full depths: the TPU's host-certified bounds are not
 ported. Prints its record as JSON and a markdown table; writes a file
 only under ``--out``. Needs a CUDA card.
@@ -46,20 +58,22 @@ import torch
 
 from neural_spectral_codec_torch.device import resolve_device
 from neural_spectral_codec_torch.ops.probe_kernels import (
-    PHASES, REPLACES, fold_min_rows, folded_width, ring_fold_probe,
-    ring_fold_rows_plain, ring_keys_padded, roll_floor)
+    PHASES, REPLACES, RING_PROBE, ROLL_FLOOR, fold_min_rows, folded_width,
+    ring_fold_probe, ring_fold_rows_plain, ring_keys_padded, roll_floor)
 from neural_spectral_codec_torch.ops.range_image import ProjectionConfig
+from neural_spectral_codec_torch.ops.ring_kernel import KERNEL as RING_KERNEL
 from neural_spectral_codec_torch.ops.ring_kernel import project_rings_cuda
 from neural_spectral_codec_torch.ops.ring_path import (
     make_structured_ring_scans)
-from neural_spectral_codec_torch.utils.timing import gpu_label, time_loop_ms
+from neural_spectral_codec_torch.utils.timing import gpu_label, time_queued_ms
 
 N_RINGS, PER_RING = 64, 2088
 N_FOLDS = 2
 # floor kernel per phase: (stages, arrays, width), after the TPU classes
-# each phase replaces (jump-fill and rank prefix: 1-array chains over the
-# ring; run-min and compaction: 2-array chains; expansion: 2 arrays over
-# the folded row)
+# each phase replaces: the scan half of the summary the jump-fill and the
+# fold half the rank prefix (1-array chains over the ring); the scatter
+# run-min and compaction (2-array chains); the write works at the folded
+# row's width, as the expansion did (2 arrays over 768)
 FLOORS = {"floor_12stage_1array": (12, 1, "p"),
           "floor_12stage_2array": (12, 2, "p"),
           "floor_10stage_2array_w768": (10, 2, "w")}
@@ -100,14 +114,24 @@ def main(argv=None) -> dict:
         raise RuntimeError("ring_stage_probe: the full variant's rows differ "
                            "from project_rings_cuda's image")
 
-    def timed(fn):
-        return time_loop_ms(fn, n=args.iters)
+    keep = []        # outputs of the wrapper calls the bare launches reuse
 
-    variants = {"full": lambda: ring_fold_probe(key, vals, n_azim, N_FOLDS)}
+    def bare(call, kernel):
+        """The C entry point alone on the arguments of one wrapper call:
+        timed queued (``time_queued_ms``), its launches carry no host
+        time (a wrapper call costs 30-60 µs of it, the kernel a few)."""
+        keep.append(call())
+        return kernel.bare()
+
+    def timed(fn):
+        return time_queued_ms(fn, n=args.iters)
+
+    variants = {"full": bare(lambda: ring_fold_probe(key, vals, n_azim,
+                                                     N_FOLDS), RING_PROBE)}
     for skip in [(ph,) for ph in PHASES] + [PHASES]:
         name = "minus_all" if len(skip) > 1 else f"minus_{skip[0]}"
-        variants[name] = lambda skip=skip: ring_fold_probe(
-            key, vals, n_azim, N_FOLDS, skip=skip)
+        variants[name] = bare(lambda skip=skip: ring_fold_probe(
+            key, vals, n_azim, N_FOLDS, skip=skip), RING_PROBE)
     for _ in range(20 * args.iters):           # bring the clocks up
         variants["full"]()
     # the variants in turn, round after round: a phase's cost is the
@@ -116,10 +140,10 @@ def main(argv=None) -> dict:
     samples = {name: [] for name in variants}
     for _ in range(args.rounds):
         for name, fn in variants.items():
-            samples[name].append(time_loop_ms(fn, n=args.iters, repeats=1))
+            samples[name].append(time_queued_ms(fn, n=args.iters, repeats=1))
     ms = {name: statistics.median(v) for name, v in samples.items()}
-    ms["ring_fold_cu"] = timed(lambda: project_rings_cuda(
-        scans, config, tuple(range(N_RINGS)), N_FOLDS))
+    ms["ring_fold_cu"] = timed(bare(lambda: project_rings_cuda(
+        scans, config, tuple(range(N_RINGS)), N_FOLDS), RING_KERNEL))
     rng = np.random.default_rng(0)
     arrays = {}
     for w in (ppad, wpad):
@@ -128,8 +152,8 @@ def main(argv=None) -> dict:
         arrays[w] = (x, x + 1.0)
     for name, (stages, n_arrays, which) in FLOORS.items():
         x, y = arrays[ppad if which == "p" else wpad]
-        ms[name] = timed(lambda x=x, y=y, s=stages, a=n_arrays:
-                         roll_floor(x, y, s, a))
+        ms[name] = timed(bare(lambda x=x, y=y, s=stages, a=n_arrays:
+                              roll_floor(x, y, s, a), ROLL_FLOOR))
 
     us = {k: 1e3 * v / b for k, v in ms.items()}
 

@@ -38,18 +38,21 @@ from typing import Iterable, List, Sequence, Tuple
 
 import torch
 
-from neural_spectral_codec_torch._build import (
-    MAX_SHARED_BYTES, CudaKernel, check_contiguous)
+from neural_spectral_codec_torch._build import CudaKernel, check_contiguous
 from neural_spectral_codec_torch.ops.range_image import ProjectionConfig
 from neural_spectral_codec_torch.ops.ring_path import _ring_keys, wrap_folds
 
+# the phases of csrc/ring_probe.cu: the first/last half of the chunk
+# summary and its scan, the wrap-event half, the shared-memory atomicMin,
+# the +inf -> 0 write (ring_fold_probe)
 PHASES = ("scan", "fold", "scatter", "write")
 # the TPU kernel's stage classes that each Hopper phase replaces
-# (ring_stage_probe.CLASSES)
+# (ring_stage_probe.CLASSES): the last valid bin before each point (the
+# jump-fill), the wrap count before it (fold index, rank prefix), the
+# per-slot min and its placement (run-min, compaction, expansion)
 REPLACES = {"scan": ("jump",), "fold": ("fold", "rank"),
             "scatter": ("runmin", "compact", "expand"), "write": ()}
 MAX_STAGES = 128                 # kMaxStages in csrc/roll_floor.cu
-_THREADS = 256                   # kThreads in both sources
 
 RING_PROBE = CudaKernel("nsc_ring_probe", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -156,20 +159,26 @@ def ring_fold_probe(key: torch.Tensor, vals: torch.Tensor, n_azim: int,
     → (N, wpad) folded rows, as ``ring_fold_rows_plain``. Ranges must be
     >= 0 or +inf (the kernel orders them by their bits).
 
-    ``skip`` names phases of the kernel to replace by a trivial stand-in,
-    so that the others run the same instructions:
-      * ``scan`` (each thread's chunk gets the bin of the valid point
-        before it: the chunk's last valid bin, then a block-wide scan) →
+    Each thread of the kernel owns a contiguous chunk of a row and
+    summarises it as {first valid bin, last valid bin, wrap events}; one
+    exclusive scan of those summaries gives every chunk the bin of the
+    valid point before it and the events before it. ``skip`` names phases
+    to replace by a trivial stand-in, so that the others run the same
+    instructions:
+      * ``scan`` (the first/last half of the summary and its scan) →
         every chunk starts after bin −1;
-      * ``fold`` (wrap events per chunk, then a block-wide prefix sum) →
-        every chunk starts at fold 0;
+      * ``fold`` (the wrap-event half) → every chunk starts at fold 0;
+        with both off there is no scan at all;
       * ``scatter`` (shared-memory ``atomicMin`` on the range's bits into
         slot ``fold·n_azim + bin``) → a plain store;
       * ``write`` (+inf → 0 on the way out) → an integer clamp of +inf to
         the largest finite float.
     With ``skip=()`` the output equals ``ring_fold_rows_plain`` bit for
     bit. Switching phases off exists only in the kernel: a CPU tensor
-    with ``skip`` raises."""
+    with ``skip`` raises. A thread of the kernel holds at most 12 points
+    of a row in registers, at most 512 threads a row: rows up to 6,144
+    points; the C entry point refuses wider ones with an error, which
+    raises here."""
     skip = tuple(skip)
     unknown = set(skip) - set(PHASES)
     if unknown:
@@ -185,10 +194,6 @@ def ring_fold_probe(key: torch.Tensor, vals: torch.Tensor, n_azim: int,
     check_contiguous(vals, "ring_fold_probe")
     n, p = key.shape
     wpad = folded_width(n_azim, n_folds)
-    smem = 8 * p + 4 * wpad + 8 * _THREADS
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"ring_fold_probe: rows of {p} need {smem} B of "
-                         "shared memory")
     out = torch.empty((n, wpad), dtype=torch.float32, device=key.device)
     if n == 0:
         return out
