@@ -98,11 +98,29 @@ weights and data made from seeds:
    and ``spectral`` launched. It prints per-keyframe latency p50/p95/max,
    keyframes over 100 ms, stage means, GICP ms per pair of each backend,
    warmup seconds, peak device memory, and (torch.profiler over a short
-   fresh session) the device time and operations per keyframe.
+   fresh session) the device time and operations per keyframe;
+9. datasets and evaluation: three sequences written in their datasets'
+   on-disk formats from seeded SyntheticWorld streams through simulated
+   sensors (``DATA_SEQS``: KITTI 150 frames of 131,072 points in sweep
+   order, NCLT 64 frames of an HDL-32E, HeLiPR 64 frames of 16 beams with
+   ring ids), then the user's entry points on them: ``run_benchmark``
+   (configs/inference.yaml, phase 7b's trained full-width GNN, the
+   rotation check, native read-ahead "always") with the default encoder
+   (``project`` and ``spectral`` must launch, ``ring_fold`` not) and with
+   ``encoding.ring_major`` (``ring_fold`` and ``spectral`` must launch);
+   ``_process_sequence`` with read-ahead "always" and "off" in turns
+   (scans/s, descriptors bit-equal); ``pipeline --mode online`` on the
+   KITTI sequence (a g2o file whose loop closures all join a second-lap
+   scan to its place on the first lap; per-keyframe latency) and
+   ``pipeline --mode train`` for one epoch on the three sequences (a
+   checkpoint, a finite loss). Every keyframe descriptor of both
+   benchmark runs within 1e-4 of the CPU plain encoder; each evaluation
+   on the card equal to the same function on the CPU over the same
+   embeddings (``_eval_same``); the rotation check passed.
 
 Launch counts are set to 0 just before each path (4, each entry point of
-5, 6, each entry-point run of 7, 8's one-dispatch run) and read just
-after. Any failure raises
+5, 6, each entry-point run of 7, 8's one-dispatch run, each entry-point
+run of 9) and read just after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
@@ -194,6 +212,28 @@ ONLINE_WARM_SCANS = 10         # reported apart from the steady scans
 VERIFY_QUERIES = 10            # phase 8: queries whose candidates both
                                # verifier backends check
 TRACE_FRAMES = 30              # phase 8: keyframes under torch.profiler
+# phase 9: sequences written in their datasets' formats, each drawn from
+# one seeded SyntheticWorld along two laps of a 120 m circle through a
+# simulated sensor: (beam elevations in degrees, points a scan, frames).
+# KITTI: 64 beams at the centres of the 64 image rows over the configs'
+# -24.8..2 deg, 131,072 points in sweep order; NCLT: an HDL-32E's 32 beams
+# over -30.67..10.67 deg; HeLiPR: 16 beams with ring ids, every 4th of
+# KITTI's, so that the ring-major encoder can take them (with
+# elevation_mode "clip" a VLP-16's beams above +2 deg would share the top
+# row and break the ring contract). NCLT and HeLiPR are firing-
+# interleaved. 64 frames (laps of 32) put a revisit 32 frames back, beyond
+# validation.skip_frames (30).
+_ROW_DEG = 26.8 / 64
+DATA_SEQS = {
+    "kitti": (tuple(-24.8 + (i + 0.5) * _ROW_DEG for i in range(64)),
+              131_072, 150),
+    "nclt": (tuple(-30.67 + i * 41.34 / 31 for i in range(32)), 69_632, 64),
+    "helipr": (tuple(-24.8 + (4 * i + 2.5) * _ROW_DEG for i in range(16)),
+               28_800, 64),
+}
+NCLT_DATE = "2012-01-08"
+HELIPR_SEQ = "Roundabout01"
+TAU2_ULPS = 16                 # phase 9: tau², card vs CPU (see _eval_same)
 
 # configs/training.yaml (with its parent default.yaml), the sections the
 # training pipeline reads, built in code: the card has no PyYAML
@@ -934,9 +974,12 @@ def _train_step_vs_cpu(device) -> None:
            f"train: card vs CPU {worst} {err[worst]:.3e} > {TRAIN_TOL}")
 
 
-def _train_entry(device) -> dict:
+def _train_entry(device, keep_pt: Path) -> dict:
     """Phase 7b: the training entry point, default and ring-major
-    encoders; returns {path: launches}."""
+    encoders; returns {path: launches}. The default run's final
+    checkpoint is copied to ``keep_pt`` for phase 9."""
+    import shutil
+
     import torch
     from neural_spectral_codec_torch import train_multi_dataset
     from neural_spectral_codec_torch.models import SpectralGNN
@@ -968,6 +1011,8 @@ def _train_entry(device) -> dict:
                 Path(ckpt) / "final_model.pt", weights_only=True)["model"])
             same = all(torch.equal(v, trainer.model.state_dict()[k].cpu())
                        for k, v in model.state_dict().items())
+            if name == "train":
+                shutil.copyfile(Path(ckpt) / "final_model.pt", keep_pt)
         pipe = trainer.pipeline
         stages = {k: round(v, 3) for k, v in pipe.stage_seconds.items()}
         print(f"{name}: {wall:.2f} s, scans by path "
@@ -1249,6 +1294,480 @@ def _online(device) -> dict:
     return launches
 
 
+def _sensor_scan(pose, elev_deg, n_points: int, world, seed: int, device,
+                 sweep: bool):
+    """(n_points, 5) float32 sensor-frame [x, y, z, intensity, beam] of
+    one scan of ``world`` (``SyntheticWorld``'s cylinders, its sampling:
+    surface points within 70 m drawn in proportion to 1 / distance, 2 cm
+    of noise) through a sensor with beams at ``elev_deg``, drawn on
+    ``device`` from ``seed``: each point snapped to its nearest beam,
+    points outside the beams' field of view dropped, and ``n_points`` of
+    the rest kept. ``sweep`` orders them ring-major from the lowest beam
+    up, azimuth increasing (a KITTI ``.bin``); otherwise by azimuth step,
+    all beams at each step (firing-interleaved)."""
+    import numpy as np
+    import torch
+    f64 = dict(dtype=torch.float64, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    px, py = float(pose[0, 3]), float(pose[1, 3])
+    reach = int(math.ceil(70.0 / world.cell))
+    ci0, cj0 = math.floor(px / world.cell), math.floor(py / world.cell)
+    ci, cj = np.meshgrid(np.arange(ci0 - reach, ci0 + reach + 1),
+                         np.arange(cj0 - reach, cj0 + reach + 1),
+                         indexing="ij")
+    present, cx, cy, rad, height = world._cell_landmark(ci.ravel(),
+                                                        cj.ravel())
+    cx, cy, rad, height = (torch.as_tensor(v[present], **f64)
+                           for v in (cx, cy, rad, height))
+    w = torch.clamp(1.0 / (torch.hypot(cx - px, cy - py) + 1e-6), max=1.0)
+    beams = torch.deg2rad(torch.as_tensor(elev_deg, **f64))
+    R = torch.as_tensor(pose[:3, :3], **f64)
+    t = torch.as_tensor(pose[:3, 3], **f64)
+    parts, kept = [], 0
+    while kept < n_points:                 # about 3 draws a kept point
+        n = 3 * n_points
+        pick = torch.multinomial(w, n, replacement=True, generator=gen)
+        ang = 2 * math.pi * torch.rand(n, generator=gen, **f64)
+        zz = torch.rand(n, generator=gen, **f64) * height[pick] - 1.7
+        world_pts = torch.stack([cx[pick] + rad[pick] * torch.cos(ang),
+                                 cy[pick] + rad[pick] * torch.sin(ang),
+                                 zz], dim=1)
+        world_pts += 0.02 * torch.randn(world_pts.shape, generator=gen,
+                                        **f64)
+        local = (world_pts - t) @ R
+        rho = torch.hypot(local[:, 0], local[:, 1])
+        el = torch.atan2(local[:, 2], rho)
+        beam = torch.bucketize(el, (beams[1:] + beams[:-1]) / 2)
+        ok = ((el >= beams[0] - 0.01) & (el <= beams[-1] + 0.01)
+              & (torch.linalg.vector_norm(local, dim=1) <= 70.0))
+        local, rho, beam = local[ok], rho[ok], beam[ok]
+        local[:, 2] = rho * torch.tan(beams[beam])
+        parts.append(torch.cat([local, beam[:, None].to(torch.float64)],
+                               dim=1))
+        kept += len(local)
+    pts = torch.cat(parts)[:n_points]
+    az = torch.atan2(pts[:, 1], pts[:, 0]) + math.pi      # [0, 2 pi]
+    if sweep:
+        key = pts[:, 3] * 8 + az
+    else:
+        key = torch.floor(az * (1800 / (2 * math.pi))) * 256 + pts[:, 3]
+    pts = pts[torch.argsort(key)]
+    inten = torch.clamp(
+        1.0 - torch.linalg.vector_norm(pts[:, :3], dim=1) / 70.0, 0.0, 1.0)
+    return torch.cat([pts[:, :3], inten[:, None], pts[:, 3:]], dim=1).to(
+        torch.float32).cpu().numpy()
+
+
+def _write_datasets(root: Path, device) -> dict:
+    """Phase 9's three sequences on disk (DATA_SEQS): KITTI
+    ``sequences/00`` (``.bin`` float32 rows, ``poses.txt``), NCLT
+    (12-byte records at 5 mm, a ground-truth CSV of ZYX Euler angles),
+    HeLiPR (22-byte records with ring ids, quaternion ground truth);
+    returns {name: (frames, points a scan)}."""
+    import numpy as np
+    from neural_spectral_codec_torch.data.synthetic import (
+        SyntheticWorld, loop_trajectory)
+    out = {}
+    for k, (name, (elev, n_pts, n)) in enumerate(DATA_SEQS.items()):
+        world = SyntheticWorld(seed=SEED + 90 + k)
+        poses = loop_trajectory(n, radius=120.0, loops=2.0)
+        n_points = 0
+        if name == "kitti":
+            seq = root / "kitti" / "sequences" / "00"
+            (seq / "velodyne").mkdir(parents=True)
+            (seq / "poses.txt").write_text("\n".join(
+                " ".join(f"{v:.17g}" for v in T[:3].reshape(-1))
+                for T in poses) + "\n")
+        elif name == "nclt":
+            seq = root / "nclt" / NCLT_DATE
+            (seq / "velodyne_sync").mkdir(parents=True)
+            ts = 1326059182636482 + 100_000 * np.arange(n)
+            yaw = np.arctan2(poses[:, 1, 0], poses[:, 0, 0])
+            (seq / f"groundtruth_{NCLT_DATE}.csv").write_text("\n".join(
+                ",".join(f"{v:.17g}" for v in (t, *T[:3, 3], 0.0, 0.0, y))
+                for t, T, y in zip(ts, poses, yaw)) + "\n")
+            rec_t = np.dtype([("x", "<u2"), ("y", "<u2"), ("z", "<u2"),
+                              ("i", "u1"), ("p", "u1"), ("e", "<u4")])
+        else:
+            seq = root / "helipr" / HELIPR_SEQ
+            (seq / "LiDAR" / "Velodyne").mkdir(parents=True)
+            (seq / "LiDAR_GT").mkdir()
+            ts = 1_600_000_000_000_000_000 + 100_000_000 * np.arange(n)
+            half = np.arctan2(poses[:, 1, 0], poses[:, 0, 0]) / 2
+            (seq / "LiDAR_GT" / "Velodyne_gt.txt").write_text("\n".join(
+                " ".join([str(t)] + [f"{v:.17g}" for v in (
+                    *T[:3, 3], 0.0, 0.0, np.sin(h), np.cos(h))])
+                for t, T, h in zip(ts, poses, half)) + "\n")
+            rec_t = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                              ("i", "<f4"), ("r", "<u2"), ("t", "<f4")])
+        for i in range(n):
+            scan = _sensor_scan(poses[i], elev, n_pts, world,
+                                SEED * 100_003 + 1000 * k + i, device,
+                                sweep=name == "kitti")
+            pts = np.ascontiguousarray(scan[:, :4])
+            if name == "kitti":
+                pts.tofile(seq / "velodyne" / f"{i:06d}.bin")
+            elif name == "nclt":               # all within 70 m
+                rec = np.zeros(len(pts), rec_t)
+                for j, f in enumerate("xyz"):
+                    rec[f] = np.round((pts[:, j] + 100.0) / 0.005)
+                rec["i"] = np.round(pts[:, 3] * 255)
+                rec.tofile(seq / "velodyne_sync" / f"{ts[i]}.bin")
+            elif name == "helipr":
+                rec = np.zeros(len(pts), rec_t)
+                for j, f in enumerate("xyzi"):
+                    rec[f] = pts[:, j]
+                rec["r"] = scan[:, 4]
+                rec["t"] = np.linspace(0.0, 0.1, len(pts))
+                rec.tofile(seq / "LiDAR" / "Velodyne" / f"{ts[i]}.bin")
+            n_points += len(pts)
+        out[name] = (n, n_points / n)
+    return out
+
+
+def _data_config(base: str, root: Path, **sections) -> dict:
+    """``configs/<base>`` (over default.yaml) with the three sequences as
+    its test (and train) datasets and the given sections updated."""
+    from neural_spectral_codec_torch.utils.config import load_config
+    cfg = load_config(str(ROOT / "configs" / base))
+    seqs = [{"type": "kitti", "root": str(root / "kitti"),
+             "sequences": ["00"]},
+            {"type": "nclt", "root": str(root / "nclt"),
+             "sequences": [NCLT_DATE]},
+            {"type": "helipr", "root": str(root / "helipr"),
+             "sequences": [HELIPR_SEQ]}]
+    cfg["data"]["datasets"] = {"train": seqs, "val": seqs[:1],
+                               "test": seqs}
+    for k, v in sections.items():
+        cfg.setdefault(k, {}).update(v)
+    return cfg
+
+
+def _write_yaml(cfg: dict, path: Path) -> str:
+    import yaml
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+class _Spy:
+    """Records what the pipeline's sequence pass and the evaluation
+    return inside a ``with`` block (the entry points keep both to
+    themselves); the originals are restored on exit."""
+
+    def __init__(self):
+        from neural_spectral_codec_torch import evaluation, pipeline
+        self._targets = ((pipeline.NeuralSpectralCodecPipeline,
+                          "_process_sequence", self.keyframes_of),
+                         (evaluation, "evaluate_place_recognition",
+                          self.metrics_of))
+        self.sequences, self.evaluations = [], []
+
+    def keyframes_of(self, orig):
+        def run(pipe, loader, *a, **kw):
+            kfs = orig(pipe, loader, *a, **kw)
+            self.sequences.append((pipe, kfs))
+            return kfs
+        return run
+
+    def metrics_of(self, orig):
+        def run(emb, poses, *a, **kw):
+            out = orig(emb, poses, *a, **kw)
+            self.evaluations.append((emb, poses, a, kw, out))
+            return out
+        return run
+
+    def __enter__(self):
+        self._saved = [(obj, name, getattr(obj, name))
+                       for obj, name, _ in self._targets]
+        for (obj, name, wrap), (_, _, orig) in zip(self._targets,
+                                                    self._saved):
+            setattr(obj, name, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self._saved:
+            setattr(obj, name, orig)
+
+
+class _RestoreLogging:
+    """The CLIs configure the root logger (console and a file under
+    ./logs); put it back afterwards so later phases print as before."""
+
+    def __enter__(self):
+        import logging
+        root = logging.getLogger()
+        self._saved = (root, root.handlers[:], root.level)
+        return self
+
+    def __exit__(self, *exc):
+        root, handlers, level = self._saved
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+
+def _eval_same(got: dict, want: dict, emb) -> float:
+    """Card vs CPU ``evaluate_place_recognition`` on the same embeddings:
+    recall@k, precision@1 and the query count exact, precision, recall and
+    F1 along the curve within 1e-6. The thresholds tau are top-1 distances
+    through |q|² + |e|² − 2 q·e in float32, which cancels near 0 and which
+    cuBLAS and the CPU accumulate in different orders, so tau² is held to
+    TAU2_ULPS ulps of the largest squared norm. Returns the largest tau²
+    difference."""
+    import numpy as np
+    for k in ("n_queries", "recall@1", "recall@5", "recall@10",
+              "precision@1", "f1@1"):
+        _check(got[k] == want[k], f"evaluation: card {k} {got[k]} != CPU "
+               f"{want[k]}")
+    gc, wc = got["precision_recall_curve"], want["precision_recall_curve"]
+    for k in ("precision", "recall", "f1"):
+        _check(len(gc[k]) == len(wc[k]) and np.allclose(
+            gc[k], wc[k], rtol=0, atol=1e-6), f"evaluation: card {k} curve "
+            f"{gc[k]} != CPU {wc[k]}")
+    gt, wt = np.array(gc["tau"]), np.array(wc["tau"])
+    fin = np.isfinite(wt)
+    tol = TAU2_ULPS * float(np.spacing(np.float32(
+        (np.asarray(emb, np.float64) ** 2).sum(axis=1).max())))
+    err = float(np.abs(gt[fin] ** 2 - wt[fin] ** 2).max()) if fin.any() \
+        else 0.0
+    _check(np.array_equal(np.isfinite(gt), fin) and err <= tol,
+           f"evaluation: card tau² off the CPU's by {err:.3e} > {tol:.3e}")
+    return err
+
+
+def _bench_run(name: str, cfg_path: str, gnn_pt: str, out: Path, device,
+               cpu_cfgs: dict) -> tuple:
+    """One ``run_benchmark`` CLI run on the card with the spies on; checks
+    descriptors against the CPU plain encoder, the evaluation against the
+    CPU's and the rotation check; returns (results, launches, spy)."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch import evaluation, run_benchmark
+    with _Spy() as spy, _RestoreLogging():
+        t0 = time.perf_counter()
+        res, launches = _counted(lambda: run_benchmark.main(
+            ["--config", cfg_path, "--checkpoint", gnn_pt, "--output",
+             str(out), "--device", str(device)]))
+        wall = time.perf_counter() - t0
+    _check(json.loads(out.read_text())["mean"] == res["mean"],
+           f"{name}: the results JSON differs from the returned results")
+    pipe = spy.sequences[0][0]
+    print(f"{name}: run_benchmark {wall:.2f} s, scans by encoder path "
+          f"{pipe.encoder.path_counts}, launches {launches}", flush=True)
+    for seq, m in res["sequences"].items():
+        print(f"{name}: sequence {seq}: {m['n_keyframes']} keyframes, "
+              f"{m['n_queries']} queries, recall@1/5/10 {m['recall@1']:.4f}/"
+              f"{m['recall@5']:.4f}/{m['recall@10']:.4f}, best F1 "
+              f"{m['best_f1']:.4f}, encode {m['encode_time_s']:.3f} s, "
+              f"query {m['avg_query_time_ms']:.4f} ms", flush=True)
+    inv = res["rotation_invariance"]
+    print(f"{name}: rotation invariance max {inv['max_difference']:.3e}, "
+          f"mean {inv['mean_difference']:.3e}, passed {inv['passed']}; "
+          f"mean {json.dumps(res['mean'])}", flush=True)
+    _check(inv["passed"], f"{name}: rotation invariance failed {inv}")
+    _check(len(res["sequences"]) == 3 and all(
+        m["n_queries"] > 0 for m in res["sequences"].values()),
+        f"{name}: a sequence without queries {res['sequences']}")
+
+    t0 = time.perf_counter()
+    err = 0.0
+    for pipe, kfs in spy.sequences:
+        want = _cpu_descriptors(kfs, cpu_cfgs[name], pipe.encoder.max_points)
+        got = torch.from_numpy(np.stack([kf.descriptor for kf in kfs]))
+        err = max(err, float((got - want).abs().max()))
+    t_err = 0.0
+    for emb, poses, a, kw, got in spy.evaluations:
+        want = evaluation.evaluate_place_recognition(
+            emb, poses, *a, **{**kw, "device": "cpu"})
+        t_err = max(t_err, _eval_same(got, want, emb))
+    print(f"{name}: {sum(len(k) for _, k in spy.sequences)} keyframe "
+          f"descriptors vs the CPU plain encoder max abs {err:.3e}; "
+          f"evaluation on the card equals the CPU's (tau² within "
+          f"{t_err:.3e}) ({time.perf_counter() - t0:.2f} s)", flush=True)
+    _check(err <= DESC_TOL, f"{name}: descriptors differ from the CPU path "
+           f"by {err:.3e} > {DESC_TOL}")
+    return res, launches, spy
+
+
+def _ingest(cfg: dict, device, want_kfs) -> dict:
+    """``_process_sequence`` over the three sequences, a fresh pipeline
+    each pass (as ``run_benchmark`` has), with ``system.io_prefetch``
+    "always", "off", "off", "always": scans/s of each (host clock; the
+    pass ends with the descriptors on the host), descriptors bit-equal
+    across modes; their distance from the benchmark run's is printed."""
+    import numpy as np
+    from neural_spectral_codec_torch.pipeline import (
+        NeuralSpectralCodecPipeline, _loaders_from_config)
+    cfg = copy.deepcopy(cfg)
+    rates = {"always": [], "off": []}
+    want = [np.stack([kf.descriptor for kf in kfs]) for kfs in want_kfs]
+    first, vs_bench = None, 0.0
+    for mode in ("always", "off", "off", "always"):
+        cfg["system"]["io_prefetch"] = mode
+        pipe = NeuralSpectralCodecPipeline(cfg, device=device)
+        loaders = _loaders_from_config(cfg, "test")
+        n = sum(len(ld) for ld in loaders)
+        t0 = time.perf_counter()
+        got = [np.stack([kf.descriptor for kf in
+                         pipe._process_sequence(ld, sequence_id=i)])
+               for i, ld in enumerate(loaders)]
+        rates[mode].append(n / (time.perf_counter() - t0))
+        first = first or got
+        _check(all(np.array_equal(g, f) for g, f in zip(got, first)),
+               f"ingest: io_prefetch {mode} changed a descriptor")
+        vs_bench = max(vs_bench, max(float(np.abs(g - w).max())
+                                     for g, w in zip(got, want)))
+        del pipe
+    print(f"ingest: _process_sequence over {n} scans, scans/s (always, "
+          f"off, off, always): {rates['always'][0]:.1f}, "
+          f"{rates['off'][0]:.1f}, {rates['off'][1]:.1f}, "
+          f"{rates['always'][1]:.1f}; descriptors bit-equal with read-ahead "
+          f"on and off, {vs_bench:.3e} from the benchmark run's", flush=True)
+    return rates
+
+
+def _online_cli(cfg_path: str, device) -> tuple:
+    """``pipeline.main --mode online`` on the KITTI sequence; returns
+    (pipeline, launches, per-keyframe latency report). Each frame
+    fetch is stamped on the host clock (a wrapper around
+    ``frame_source``'s getter) for the per-keyframe latency."""
+    import contextlib
+    import types
+
+    from neural_spectral_codec_torch import pipeline
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        latency_report)
+    stamps = types.SimpleNamespace(fetch_times=[])
+    orig = pipeline.frame_source
+
+    @contextlib.contextmanager
+    def stamped(loader, config=None):
+        with orig(loader, config) as get:
+            def timed(idx):
+                stamps.fetch_times.append(time.perf_counter())
+                return get(idx)
+            yield timed
+
+    pipeline.frame_source = stamped
+    try:
+        with _RestoreLogging():
+            pipe, launches = _counted(lambda: pipeline.main(
+                ["--config", cfg_path, "--mode", "online", "--device",
+                 str(device)]))
+    finally:
+        pipeline.frame_source = orig
+    rep = latency_report(stamps, pipe, 10,
+                         float(pipe.config["deployment"]["max_latency_ms"]))
+    return pipe, launches, rep
+
+
+def _datasets_and_evaluation(device, gnn_pt: str) -> dict:
+    """Phase 9: the dataset front end and the evaluation suite from
+    dataset directories: ``run_benchmark`` (default and ring-major
+    encoders), read-ahead on and off, ``pipeline --mode online`` and
+    ``--mode train``; returns {path: launches}."""
+    from neural_spectral_codec_torch import pipeline
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoderConfig)
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="nsc_data_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        sizes = _write_datasets(root, device)
+        print("data: " + ", ".join(f"{k} {n} frames of {p:.0f} points"
+                                   for k, (n, p) in sizes.items())
+              + f" written in {time.perf_counter() - t0:.2f} s", flush=True)
+        bench = {"quality": {"check_rotation_invariance": True},
+                 "system": {"io_prefetch": "always"}}
+        cfgs = {"bench": _data_config("inference.yaml", root, **bench),
+                "bench_ring": _data_config(
+                    "inference.yaml", root, **bench,
+                    encoding={"ring_major": True, "n_elevation": 64})}
+        cpu_cfgs = {}
+        for name, cfg in cfgs.items():
+            enc = cfg["encoding"]
+            cpu_cfgs[name] = SpectralEncoderConfig(
+                n_elevation=enc["n_elevation"], n_azimuth=enc["n_azimuth"],
+                n_bins=enc["n_bins"],
+                target_elevation_bins=enc["target_elevation_bins"],
+                alpha=enc["alpha"], epsilon=enc["epsilon"],
+                interpolate_empty=enc["interpolate_empty"],
+                elevation_range_deg=tuple(enc["elevation_range"]),
+                max_range=enc["max_range"], min_range=enc["min_range"],
+                elevation_mode=enc["elevation_mode"])
+        spies = {}
+        for name, need, unused in (("bench", ("project", "spectral"),
+                                    ("ring_fold",)),
+                                   ("bench_ring", ("ring_fold", "spectral"),
+                                    ())):
+            path = _write_yaml(cfgs[name], root / f"{name}.yaml")
+            res, launches, spies[name] = _bench_run(
+                name, path, gnn_pt, root / f"{name}.json", device, cpu_cfgs)
+            _check(all(launches[k] > 0 for k in need) and
+                   all(launches[k] == 0 for k in unused),
+                   f"{name}: unexpected launches {launches}")
+            by_path[name] = launches
+        _ingest(cfgs["bench"], device,
+                [k for _, k in spies["bench"].sequences])
+
+        lap = DATA_SEQS["kitti"][2] // 2
+        online = _data_config("inference.yaml", root,
+                              retrieval={"spatial_filter_distance": 0.0},
+                              model={"checkpoint_path": gnn_pt},
+                              loop_closing={"output_path":
+                                            str(root / "loops.g2o")},
+                              database={"storage_path": str(root / "db.bin")},
+                              system={"io_prefetch": "always"})
+        online["data"]["datasets"]["test"] = online["data"]["datasets"][
+            "test"][:1]
+        pipe, launches, rep = _online_cli(
+            _write_yaml(online, root / "online.yaml"), device)
+        by_path["online_cli"] = launches
+        _check((root / "loops.g2o").exists(),
+               "online_cli: no g2o file (no loop closure)")
+        edges = [ln.split() for ln in (root / "loops.g2o").read_text()
+                 .splitlines() if ln.startswith("EDGE_SE3:QUAT")]
+        scan_of = {kf.keyframe_id: kf.scan_id
+                   for kf in pipe.selector.keyframes}
+        pairs = [(scan_of[int(e[1])], scan_of[int(e[2])]) for e in edges]
+        print(f"online_cli: {len(pipe.selector.keyframes)} keyframes, "
+              f"{len(edges)} loop closures (scan pairs {pairs}), "
+              f"per-keyframe latency {json.dumps(rep['keyframe'])}, stage "
+              f"means ms {json.dumps(rep['stage_mean_ms'])}, launches "
+              f"{launches}", flush=True)
+        _check(len(edges) > 0 and all(s >= lap > t and abs(s - t - lap) <= 1
+                                      for s, t in pairs),
+               f"online_cli: loop closures {pairs} not from the second lap "
+               "to its place on the first")
+        _check(launches["project"] > 0 and launches["spectral"] > 0,
+               f"online_cli: a kernel of the path never launched {launches}")
+
+        train = _data_config("training.yaml", root,
+                             training={"n_epochs": 1},
+                             system={"checkpoint_dir": str(root / "ckpt")})
+        with _RestoreLogging():
+            t0 = time.perf_counter()
+            trainer, launches = _counted(lambda: pipeline.main(
+                ["--config", _write_yaml(train, root / "train.yaml"),
+                 "--mode", "train", "--device", str(device)]))
+            wall = time.perf_counter() - t0
+        by_path["train_cli"] = launches
+        ckpt = root / "ckpt" / "final_model.pt"
+        print(f"train_cli: one epoch over {sum(n for n, _ in sizes.values())}"
+              f" frames in {wall:.2f} s, losses {trainer.train_losses}, best "
+              f"R@1 {trainer.best_val_metric:.4f}, launches {launches}",
+              flush=True)
+        _check(ckpt.exists() and len(trainer.train_losses) == 1 and
+               all(math.isfinite(v) for v in trainer.train_losses),
+               f"train_cli: losses {trainer.train_losses}, checkpoint "
+               f"{ckpt.exists()}")
+        _check(launches["project"] > 0 and launches["spectral"] > 0,
+               f"train_cli: a kernel of the path never launched {launches}")
+    return by_path
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1507,15 +2026,23 @@ def main() -> None:
     # -- 6. structured-scan entry point ------------------------------------
     by_path["structured"] = _structured(device)
 
-    # -- 7. training -------------------------------------------------------
-    _train_step_vs_cpu(device)
-    by_path.update(_train_entry(device))
-    _scale(device)
+    keep = tempfile.TemporaryDirectory(prefix="nsc_gnn_")
+    gnn_pt = Path(keep.name) / "gnn.pt"
+    try:
+        # -- 7. training ---------------------------------------------------
+        _train_step_vs_cpu(device)
+        by_path.update(_train_entry(device, gnn_pt))
+        _scale(device)
 
-    # -- 8. the online loop ------------------------------------------------
-    by_path["online"] = _online(device)
+        # -- 8. the online loop --------------------------------------------
+        by_path["online"] = _online(device)
 
-    # -- 9. record ---------------------------------------------------------
+        # -- 9. datasets and evaluation ------------------------------------
+        by_path.update(_datasets_and_evaluation(device, str(gnn_pt)))
+    finally:
+        keep.cleanup()
+
+    # -- 10. record --------------------------------------------------------
     meta = {
         "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
                      "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",

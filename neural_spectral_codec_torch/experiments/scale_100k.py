@@ -9,7 +9,7 @@ hard-negative mining over all anchors, one epoch of 4096-triplet steps on
 the full-width SpectralGNN (800 → 256 → 800, 3 GAT layers, dropout 0.1)
 after one warm-up step, the eval embedding and Recall@{1,5,10} over all
 revisit queries (``training.validation.recall_loop_closure``; the JAX
-script ranks with ``evaluation.py``, which is not ported). On a CUDA
+script ranks with ``evaluation.evaluate_place_recognition``). On a CUDA
 device it reads peak memory from ``torch.cuda.max_memory_allocated``.
 """
 

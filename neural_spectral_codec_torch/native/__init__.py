@@ -1,7 +1,6 @@
-"""Host C++ helpers of the port: the geometry library (``geom``).
-
-``geom`` compiles the repository's ``native/nsc_geom.cpp`` with g++ into
-``neural_spectral_codec_torch/_build/`` and binds it with ctypes. The IO
-half of the JAX package's native code (``libnsc_io.so``, the read-ahead
-frame source) is not ported yet.
+"""Host C++ helpers of the port, built with g++ from the repository's
+``native/`` sources into ``neural_spectral_codec_torch/_build/``
+(``_gxx.py``) and bound with ctypes: the geometry library (``geom``,
+``native/nsc_geom.cpp``) and the IO library (``io``, ``native/nsc_io.cpp``:
+record decode and the read-ahead frame source).
 """

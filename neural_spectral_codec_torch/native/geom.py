@@ -8,11 +8,10 @@ library at first use with the flags of ``native/Makefile``
         -o neural_spectral_codec_torch/_build/libnsc_geom_<hash>.so
         native/nsc_geom.cpp
 
-and loads it once per process. The hash covers the source, the flags and
-the host CPU (``-march=native`` code may not run on another CPU), so a
-changed source or another machine builds anew. Nothing is written into
-``native/``. A failed build or load raises: there is no fallback here;
-callers choose the plain PyTorch backend explicitly.
+and loads it once per process (``native/_gxx.py``: the hash covers the
+source, the flags and the host CPU; nothing is written into ``native/``).
+A failed build or load raises: there is no fallback here; callers choose
+the plain PyTorch backend explicitly.
 
 Entry points (all on host numpy float32 arrays; ctypes releases the GIL,
 so verification threads run in parallel): ``voxel_downsample``,
@@ -22,68 +21,13 @@ so verification threads run in parallel): ``voxel_downsample``,
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import platform
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR.parent / "native" / "nsc_geom.cpp"
-BUILD_DIR = _PKG_DIR / "_build"
-CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
-             "-shared")
+from neural_spectral_codec_torch.native._gxx import CXX_FLAGS, NativeLibrary
 
 _f32p = ctypes.POINTER(ctypes.c_float)
-_lock = threading.Lock()
-
-
-def _host_cpu() -> str:
-    try:
-        with open("/proc/cpuinfo") as f:
-            lines = [ln for ln in f if ln.startswith(("model name", "flags"))]
-        return "".join(sorted(set(lines)))
-    except OSError:
-        return platform.processor() or platform.machine()
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    h.update(_host_cpu().encode())
-    return BUILD_DIR / f"libnsc_geom_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the library unless this source, these flags and this CPU
-    were built already; returns its path. Raises ``RuntimeError`` with the
-    compiler's output when g++ fails or is missing."""
-    out = library_path()
-    if out.exists():
-        return out
-    if not SOURCE.exists():
-        raise RuntimeError(f"native geometry source missing: {SOURCE}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = os.environ.get("CXX", "g++")
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        lib = Path(tmp) / "lib.so"
-        try:
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(lib),
-                                   str(SOURCE)], capture_output=True,
-                                  text=True, timeout=300)
-        except OSError as e:
-            raise RuntimeError(f"cannot build the geometry library: {e}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed ({proc.returncode}) on {SOURCE}:"
-                               f"\n{proc.stdout}{proc.stderr}")
-        os.replace(lib, out)   # atomic: a concurrent loader never sees half
-    return out
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -107,17 +51,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         _f32p, ctypes.c_int, ctypes.c_float, _f32p, _f32p, _f32p]
 
 
-@functools.lru_cache(maxsize=None)
-def _load_cached() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    _configure(lib)
-    return lib
-
-
-def load() -> ctypes.CDLL:
-    """Build if needed, then load the library (once per process)."""
-    with _lock:
-        return _load_cached()
+_LIB = NativeLibrary("libnsc_geom", "nsc_geom.cpp", CXX_FLAGS, _configure)
+library_path = _LIB.library_path
+build = _LIB.build
+load = _LIB.load
 
 
 def _c3(a: np.ndarray) -> np.ndarray:

@@ -1,18 +1,20 @@
-"""Offline training pipeline: loader → keyframe selection → batched
-descriptors on the device → keyframe graph → GNN training. Port of the
-training half of ``neural_spectral_codec_tpu/pipeline.py`` (``BatchEncoder``
-and ``RingMajorBatchEncoder``, :79-229; the config wiring of
-``NeuralSpectralCodecPipeline.__init__`` that training reads, :235-310;
-``_process_sequence``, :378; ``train_offline``, :428) on one device.
+"""Config-driven pipeline of the port (``neural_spectral_codec_tpu/
+pipeline.py``) on one device: the batch encoders (``BatchEncoder`` and
+``RingMajorBatchEncoder``, JAX :79-229), ``NeuralSpectralCodecPipeline``
+(offline training: ``_process_sequence`` and ``train_offline``; the online
+loop: ``run_online``), and the CLI (``_loaders_from_config``,
+``run_pipeline``, ``main``):
 
-On a CUDA device the general encoder launches ``csrc/project.cu`` and
-``csrc/spectral.cu``, the ring-major encoder ``csrc/ring_fold.cu`` and
-``csrc/spectral.cu`` for the scans that meet the ring contract. The
-pipeline takes a config dict (``utils.config.load_config`` reads one from
-YAML). Not ported here: the online half (graph manager, two-stage
-retrieval, ``run_online``), the native read-ahead (scans are read by
-indexing the loader), bf16 ``training.mixed_precision`` (raises) and
-mesh training.
+    python -m neural_spectral_codec_torch.pipeline --config C \\
+        --mode {train,online} [--device cuda|cpu]
+
+Scans are read through ``data.native_io.frame_source`` (native read-ahead
+as ``system.io_prefetch`` allows). On a CUDA device the general encoder
+launches ``csrc/project.cu`` and ``csrc/spectral.cu``, the ring-major
+encoder ``csrc/ring_fold.cu`` and ``csrc/spectral.cu`` for the scans that
+meet the ring contract. The pipeline takes a config dict
+(``utils.config.load_config`` reads one from YAML). Not ported here: bf16
+``training.mixed_precision`` (raises) and mesh training.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from neural_spectral_codec_torch.data.native_io import frame_source
 from neural_spectral_codec_torch.data.pose_utils import (
     is_valid_transformation)
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
@@ -44,6 +47,7 @@ from neural_spectral_codec_torch.retrieval.two_stage import TwoStageRetrieval
 from neural_spectral_codec_torch.training.miner import create_triplet_miner
 from neural_spectral_codec_torch.training.trainer import GNNTrainer
 from neural_spectral_codec_torch.utils.config import get as cfg_get
+from neural_spectral_codec_torch.utils.config import load_config
 from neural_spectral_codec_torch.utils.profiler import Profiler
 
 logger = logging.getLogger(__name__)
@@ -282,19 +286,20 @@ class NeuralSpectralCodecPipeline:
     def _process_sequence(self, loader, sequence_id: int = 0,
                           selector: Optional[KeyframeSelector] = None
                           ) -> List[Keyframe]:
-        """Select keyframes from a loader (indexed scan by scan) and attach
-        their descriptors, encoded in device batches. Scans that raise are
-        logged and skipped; with ``quality.validate_poses`` so are scans
-        whose pose is not SE(3)."""
+        """Select keyframes from a loader (read scan by scan through
+        ``frame_source``) and attach their descriptors, encoded in device
+        batches. Scans that raise are logged and skipped; with
+        ``quality.validate_poses`` so are scans whose pose is not SE(3)."""
         sel = selector or self.selector
         new_kfs: List[Keyframe] = []
         new_ring_ids: List[Optional[np.ndarray]] = []
         n_skipped = 0
         check_poses = cfg_get(self.config, "quality.validate_poses", False)
-        with self._stage(f"select_seq{sequence_id}"):
+        with frame_source(loader, self.config) as get_frame, \
+                self._stage(f"select_seq{sequence_id}"):
             for scan_id in range(len(loader)):
                 try:
-                    frame = loader[scan_id]
+                    frame = get_frame(scan_id)
                     if check_poses and not is_valid_transformation(
                             np.asarray(frame["pose"], np.float64)):
                         n_skipped += 1
@@ -492,8 +497,9 @@ class NeuralSpectralCodecPipeline:
                    database_path: Optional[str] = None,
                    resume_database: bool = False,
                    async_loop_closing: Optional[bool] = None) -> List[Dict]:
-        """Streaming loop closing over ``loader`` (indexed scan by scan);
-        returns the verified loop-closure edges as g2o edge dicts.
+        """Streaming loop closing over ``loader`` (read scan by scan
+        through ``frame_source``); returns the verified loop-closure edges
+        as g2o edge dicts.
 
         Every ``loop_closure_interval``-th keyframe queries. With
         ``database_path`` the record store is written at the end (or
@@ -603,121 +609,129 @@ class NeuralSpectralCodecPipeline:
                                          "deployment.fused_query", True)
         placeholder = np.zeros(self.encoder_config.output_dim, np.float32)
         try:
-            for scan_id in range(len(loader)):
-                frame = loader[scan_id]
-                with self.profiler.profile("select"):
-                    selected, kf, _ = self.selector.process_scan(
-                        scan_id, frame["points"], frame["pose"],
-                        frame["timestamp"])
-                if not selected:
-                    continue
-                will_query = (len(self.selector.keyframes)
-                              % loop_closure_interval == 0)
-                stage1 = None
-                fused_inserted = False
-                t_step = time.perf_counter()
-                if one_dispatch and self.retrieval.can_fuse_serving():
-                    with self.profiler.profile("serve_step", sync=dev):
-                        kf.descriptor = placeholder
-                        node = self.graph_manager.add_keyframe(kf)
-                        pos = kf.pose[:3, 3] if kf.pose is not None else None
-                        desc, refreshed_nodes, stage1 = local_gnn.serve_step(
-                            self.graph_manager, node,
-                            pad_points(kf.points, self.encoder.max_points),
-                            self.encoder.alpha, self.encoder_config,
-                            self.retrieval, will_query,
-                            query_pose_position=pos)
-                        kf.descriptor = desc
-                        fused_inserted = True
-                elif fused:
-                    with self.profiler.profile("encode_graph_update",
-                                               sync=dev):
-                        kf.descriptor = placeholder
-                        node = self.graph_manager.add_keyframe(kf)
-                        desc, refreshed_nodes = local_gnn.encode_update_local(
-                            self.graph_manager, node,
-                            pad_points(kf.points, self.encoder.max_points),
-                            self.encoder.alpha, self.encoder_config)
-                        kf.descriptor = desc
-                else:
-                    with self.profiler.profile("encode", sync=dev):
-                        kf.descriptor = self.encoder.encode_one(
-                            kf.points, ring_ids=frame.get("ring_ids"))
-                    with self.profiler.profile("graph_update", sync=dev):
-                        node = self.graph_manager.add_keyframe(kf)
-                        refreshed_nodes = []
-                        if self.ablate_gnn:
-                            pass    # raw histograms go to retrieval as is
-                        elif self.use_local_updates:
-                            refreshed_nodes = \
-                                local_gnn.update_embeddings_local(
-                                    self.graph_manager, node)
-                        else:
-                            emb = local_gnn.forward_full(
-                                self.graph_manager.get_graph()).cpu().numpy()
-                            self.graph_manager.update_embeddings(emb)
-                            refreshed_nodes = list(range(len(
-                                self.graph_manager.keyframes)))
-                if (database_path and autosave_iv and
-                        len(self.retrieval.keyframes) - db_persisted
-                        >= autosave_iv):
-                    with self.profiler.profile("db_autosave"):
-                        db_persisted = self.retrieval.append_database(
-                            database_path, db_persisted)
-                with self.profiler.profile("retrieval_add", sync=dev):
-                    if fused_inserted:
-                        self.retrieval.register_fused_insert(kf)
+            with frame_source(loader, self.config) as get_frame:
+                for scan_id in range(len(loader)):
+                    frame = get_frame(scan_id)
+                    with self.profiler.profile("select"):
+                        selected, kf, _ = self.selector.process_scan(
+                            scan_id, frame["points"], frame["pose"],
+                            frame["timestamp"])
+                    if not selected:
+                        continue
+                    will_query = (len(self.selector.keyframes)
+                                  % loop_closure_interval == 0)
+                    stage1 = None
+                    fused_inserted = False
+                    t_step = time.perf_counter()
+                    if one_dispatch and self.retrieval.can_fuse_serving():
+                        with self.profiler.profile("serve_step", sync=dev):
+                            kf.descriptor = placeholder
+                            node = self.graph_manager.add_keyframe(kf)
+                            pos = (kf.pose[:3, 3] if kf.pose is not None
+                                   else None)
+                            padded = pad_points(kf.points,
+                                                self.encoder.max_points)
+                            desc, refreshed_nodes, stage1 = \
+                                local_gnn.serve_step(
+                                    self.graph_manager, node, padded,
+                                    self.encoder.alpha, self.encoder_config,
+                                    self.retrieval, will_query,
+                                    query_pose_position=pos)
+                            kf.descriptor = desc
+                            fused_inserted = True
+                    elif fused:
+                        with self.profiler.profile("encode_graph_update",
+                                                   sync=dev):
+                            kf.descriptor = placeholder
+                            node = self.graph_manager.add_keyframe(kf)
+                            padded = pad_points(kf.points,
+                                                self.encoder.max_points)
+                            desc, refreshed_nodes = \
+                                local_gnn.encode_update_local(
+                                    self.graph_manager, node, padded,
+                                    self.encoder.alpha, self.encoder_config)
+                            kf.descriptor = desc
                     else:
-                        self.retrieval.add_keyframe(kf)
-                    if self.use_embeddings_for_retrieval and refreshed_nodes:
-                        # db row == keyframe_id (ids continue after a
-                        # resumed store)
-                        self.retrieval.refresh_keyframes([
-                            self.graph_manager.keyframes[i].keyframe_id
-                            for i in refreshed_nodes])
+                        with self.profiler.profile("encode", sync=dev):
+                            kf.descriptor = self.encoder.encode_one(
+                                kf.points, ring_ids=frame.get("ring_ids"))
+                        with self.profiler.profile("graph_update", sync=dev):
+                            node = self.graph_manager.add_keyframe(kf)
+                            refreshed_nodes = []
+                            if self.ablate_gnn:
+                                pass    # raw histograms go to retrieval as is
+                            elif self.use_local_updates:
+                                refreshed_nodes = \
+                                    local_gnn.update_embeddings_local(
+                                        self.graph_manager, node)
+                            else:
+                                emb = local_gnn.forward_full(
+                                    self.graph_manager.get_graph()
+                                ).cpu().numpy()
+                                self.graph_manager.update_embeddings(emb)
+                                refreshed_nodes = list(range(len(
+                                    self.graph_manager.keyframes)))
+                    if (database_path and autosave_iv and
+                            len(self.retrieval.keyframes) - db_persisted
+                            >= autosave_iv):
+                        with self.profiler.profile("db_autosave"):
+                            db_persisted = self.retrieval.append_database(
+                                database_path, db_persisted)
+                    with self.profiler.profile("retrieval_add", sync=dev):
+                        if fused_inserted:
+                            self.retrieval.register_fused_insert(kf)
+                        else:
+                            self.retrieval.add_keyframe(kf)
+                        if (self.use_embeddings_for_retrieval
+                                and refreshed_nodes):
+                            # db row == keyframe_id (ids continue after a
+                            # resumed store)
+                            self.retrieval.refresh_keyframes([
+                                self.graph_manager.keyframes[i].keyframe_id
+                                for i in refreshed_nodes])
 
-                if will_query:
-                    n_queries += 1
-                    if stage1 is not None:
-                        # stage 1 ran inside the serving step
-                        cands = self.retrieval.candidates_from_stage1(
-                            *stage1)
-                        if executor is not None:
-                            with self.profiler.profile(
-                                    "loop_closing_submit"):
-                                pending.append((kf.keyframe_id,
-                                                executor.submit(
-                                                    _verify, kf, cands)))
+                    if will_query:
+                        n_queries += 1
+                        if stage1 is not None:
+                            # stage 1 ran inside the serving step
+                            cands = self.retrieval.candidates_from_stage1(
+                                *stage1)
+                            if executor is not None:
+                                with self.profiler.profile(
+                                        "loop_closing_submit"):
+                                    pending.append((kf.keyframe_id,
+                                                    executor.submit(
+                                                        _verify, kf, cands)))
+                            else:
+                                with self.profiler.profile("loop_closing"):
+                                    edges = _verify(kf, cands)
+                                # the budget counts the serving step that ran
+                                # stage 1, and the verification
+                                _check_budget(scan_id, t_step)
+                                _apply_edges(kf.keyframe_id, edges)
+                        elif executor is not None:
+                            with self.profiler.profile("loop_closing_submit"):
+                                # the size read and the enqueue under one lock:
+                                # the worker queries the database as it stood
+                                # at submit time
+                                with ret._buffer_lock:
+                                    snapshot = ret.database_size
+                                    pending.append((kf.keyframe_id,
+                                                    executor.submit(
+                                        self.retrieval.get_loop_closures, kf,
+                                        kf.points, snapshot)))
                         else:
                             with self.profiler.profile("loop_closing"):
-                                edges = _verify(kf, cands)
-                            # the budget counts the serving step that ran
-                            # stage 1, and the verification
-                            _check_budget(scan_id, t_step)
+                                t0 = time.perf_counter()
+                                edges = self.retrieval.get_loop_closures(
+                                    kf, kf.points)
+                            _check_budget(scan_id, t0)
                             _apply_edges(kf.keyframe_id, edges)
-                    elif executor is not None:
-                        with self.profiler.profile("loop_closing_submit"):
-                            # the size read and the enqueue under one lock:
-                            # the worker queries the database as it stood
-                            # at submit time
-                            with ret._buffer_lock:
-                                snapshot = ret.database_size
-                                pending.append((kf.keyframe_id,
-                                                executor.submit(
-                                    self.retrieval.get_loop_closures, kf,
-                                    kf.points, snapshot)))
-                    else:
-                        with self.profiler.profile("loop_closing"):
-                            t0 = time.perf_counter()
-                            edges = self.retrieval.get_loop_closures(
-                                kf, kf.points)
-                        _check_budget(scan_id, t0)
-                        _apply_edges(kf.keyframe_id, edges)
-                if executor is not None:
-                    _harvest()
+                    if executor is not None:
+                        _harvest()
 
-                if mon_enabled and (scan_id + 1) % mon_interval == 0:
-                    self._log_monitor(scan_id, mon)
+                    if mon_enabled and (scan_id + 1) % mon_interval == 0:
+                        self._log_monitor(scan_id, mon)
         finally:
             if executor is not None:
                 try:
@@ -758,3 +772,73 @@ class NeuralSpectralCodecPipeline:
                                  "loop_closing_submit", "verification")
                        if k in means),
             self.retrieval.retriever.database_size, mem)
+
+
+def _loaders_from_config(config: Dict, split: str) -> List:
+    """The dataset loaders of a config split, ``data.datasets.<split>``
+    (kitti, nclt, helipr, synthetic; JAX pipeline.py:1020)."""
+    from neural_spectral_codec_torch.data.multi_dataset import _make_loader
+    out = []
+    for ds in cfg_get(config, f"data.datasets.{split}", []) or []:
+        for seq in ds.get("sequences", []):
+            out.append(_make_loader(ds["type"], ds["root"], str(seq),
+                                    ds.get("lazy_load", True)))
+    return out
+
+
+def run_pipeline(config_path: str, mode: str = "train",
+                 device: DeviceLike = "cuda"):
+    """CLI body (JAX pipeline.py:1033): ``train`` trains on the config's
+    train and val splits and returns the trainer; ``online`` runs
+    ``run_online`` over each test (else val) sequence, with the loop
+    closures exported as g2o, and returns the pipeline."""
+    config = load_config(config_path)
+    pipeline = NeuralSpectralCodecPipeline(config, device=device)
+    if mode == "train":
+        return pipeline.train_offline(
+            _loaders_from_config(config, "train"),
+            _loaders_from_config(config, "val"))
+    if mode != "online":
+        raise ValueError(f"Unknown mode: {mode}")
+    loaders = (_loaders_from_config(config, "test")
+               or _loaders_from_config(config, "val"))
+    ckpt = cfg_get(config, "model.checkpoint_path")
+    # g2o is the only edge format; any other value disables the export
+    # rather than mislabel it
+    fmt = cfg_get(config, "loop_closing.output_format", "g2o")
+    out = (cfg_get(config, "loop_closing.output_path",
+                   "outputs/loop_closures.g2o") if fmt == "g2o" else None)
+    if fmt != "g2o":
+        logger.warning("loop_closing.output_format=%s not supported; edge "
+                       "export disabled (only g2o)", fmt)
+    for loader in loaders:
+        pipeline.run_online(
+            loader, checkpoint_path=ckpt,
+            loop_closure_interval=cfg_get(
+                config, "deployment.loop_closing_interval", 10),
+            output_g2o=out,
+            database_path=cfg_get(config, "database.storage_path"))
+    return pipeline
+
+
+def main(argv=None):
+    """``python -m neural_spectral_codec_torch.pipeline --config C --mode
+    {train,online} [--device cuda|cpu]``. Returns what ``run_pipeline``
+    returns."""
+    import argparse
+
+    from neural_spectral_codec_torch.utils.logging_setup import (
+        setup_logging)
+    p = argparse.ArgumentParser(
+        description="Neural Spectral Codec (PyTorch port)")
+    p.add_argument("--config", required=True)
+    p.add_argument("--mode", default="train", choices=["train", "online"])
+    p.add_argument("--device", default="cuda",
+                   help="'cuda[:N]' (default) or 'cpu'; no fallback")
+    args = p.parse_args(argv)
+    setup_logging()
+    return run_pipeline(args.config, args.mode, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,8 +10,9 @@ and checkpoints (``<checkpoint_dir>/<name>.pt``, ``metrics.jsonl``).
 ``main(argv, config=...)`` takes a config dict in place of ``--config``
 and returns the trainer, whose ``pipeline`` attribute is the pipeline
 that fed it (its encoder's ``path_counts``, its ``stage_seconds``).
-The dataset loaders (KITTI, NCLT, HeLiPR) are not ported: the streams
-are synthetic (``--synthetic N``).
+Without ``--synthetic`` the streams are the config's
+``data.datasets.{train,val}`` sequences (KITTI, NCLT, HeLiPR), read
+through ``pipeline._loaders_from_config``.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def main(argv=None, config: Optional[Dict] = None):
     from neural_spectral_codec_torch.data.synthetic import (
         SensorSimLoader, SyntheticLoader)
     from neural_spectral_codec_torch.pipeline import (
-        NeuralSpectralCodecPipeline)
+        NeuralSpectralCodecPipeline, _loaders_from_config)
     from neural_spectral_codec_torch.utils.config import (
         load_config, validate_config)
 
@@ -86,9 +87,9 @@ def main(argv=None, config: Optional[Dict] = None):
                     or args.synthetic_val_beams is not None
                     or args.synthetic_fov is not None
                     or args.synthetic_val_fov is not None)
-    if not args.synthetic:
-        parser.error("the dataset loaders are not ported; train on a "
-                     "synthetic stream with --synthetic N")
+    if sensor_flags and not args.synthetic:
+        parser.error("--synthetic-beams/--synthetic-fov flags require "
+                     "--synthetic N (they configure the synthetic sensors)")
     if args.synthetic_sweep_order and not sensor_flags:
         parser.error("--synthetic-sweep-order needs a simulated sensor "
                      "(--synthetic-beams B)")
@@ -116,9 +117,14 @@ def main(argv=None, config: Optional[Dict] = None):
                                          sweep_order=order)]
         val_loaders = [SensorSimLoader(n_frames=n_val, seed=1, n_beams=vb,
                                        beam_fov_deg=vf, sweep_order=order)]
-    else:
+    elif args.synthetic:
         train_loaders = [SyntheticLoader(n_frames=args.synthetic, seed=0)]
         val_loaders = [SyntheticLoader(n_frames=n_val, seed=1)]
+    else:
+        train_loaders = _loaders_from_config(config, "train")
+        val_loaders = _loaders_from_config(config, "val")
+    if not train_loaders:
+        parser.error("no training datasets in config (data.datasets.train)")
 
     trainer = pipeline.train_offline(train_loaders, val_loaders,
                                      n_epochs=args.epochs,

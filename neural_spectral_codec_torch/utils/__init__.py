@@ -1,1 +1,3 @@
-"""Utilities of the port: CUDA-event timing (``timing``)."""
+"""Utilities of the port: configs (``config``), stage timing
+(``profiler``), CUDA-event timing (``timing``) and logging set-up
+(``logging_setup``)."""

@@ -232,7 +232,10 @@ NEW_MODULES = ("ops.probe_kernels", "utils.timing",
                "pipeline", "train_multi_dataset", "experiments.scale_100k",
                "ops.quantization", "retrieval.g2o", "retrieval.verification",
                "retrieval.two_stage", "utils.profiler", "native.geom",
-               "experiments.online_latency")
+               "experiments.online_latency", "data.kitti", "data.nclt",
+               "data.helipr", "data.multi_dataset", "data.native_io",
+               "native.io", "evaluation", "run_benchmark",
+               "utils.logging_setup")
 
 
 def test_port_imports_without_jax():
