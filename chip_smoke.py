@@ -116,11 +116,37 @@ weights and data made from seeds:
    checkpoint, a finite loss). Every keyframe descriptor of both
    benchmark runs within 1e-4 of the CPU plain encoder; each evaluation
    on the card equal to the same function on the CPU over the same
-   embeddings (``_eval_same``); the rotation check passed.
+   embeddings (``_eval_same``); the rotation check passed;
+10. multi-device and bf16 (``parallel/``, one controller, ``Mesh``):
+   ``create_mesh()`` over every card (printed), four logical shards of
+   the first (``Mesh([cuda:0] * 4)``) and, on a machine with more cards,
+   up to four distinct ones. The batch-sharded encoders on 32 full-
+   density scans, 8 a shard (general path at 131,072 points in random
+   and sweep order, ring path 64 x 2088): equal to the unsharded batch
+   encoder (<= 1e-7, 0 expected), within 1e-4 of the CPU plain path,
+   4 K3 + 4 K1 or 4 K2 + 4 K1 a call. The row-sharded W1 database at
+   100,000 x 800 in 4 slabs, float32 W1, uint16 W1 and float32 L2: 32
+   planted queries top-1 with the spatial filter, indices equal to the
+   unsharded retriever's (ties by the lower row), distances within
+   1e-6 (uint16: one code), ``update_rows`` on four slabs,
+   ``exclude_last``, ``as_of_size``; query ms p50 of both. Two-stage
+   retrieval on the mesh loaded from phase 8's final store: every
+   session keyframe's candidates equal the unsharded ones;
+   ``can_fuse_serving()`` false. Training: the full-width SpectralGNN on
+   a 20,000-node graph, 4096 triplets, DP and node-sharded against the
+   single-device step (loss 1e-5 relative, gradients 3e-5 +
+   1e-5·max|g| except the gauge biases), the sharded eval forward within
+   1e-5 and the sharded recall equal, ms per step of each; bf16: the
+   step's loss and gradients float32 and finite, the forward within
+   3e-2·max(|out|, 1) of float32 and 1e-2·max(|out|, 1) of the CPU's
+   bf16 forward, ms per step against float32, and a bf16 ``serve_step``
+   ranking its own planted embedding top-1 in an L2 database;
+   ``dryrun_multichip(4, devices=[cuda:0] * 4)``.
 
 Launch counts are set to 0 just before each path (4, each entry point of
 5, 6, each entry-point run of 7, 8's one-dispatch run, each entry-point
-run of 9) and read just after. Any failure raises
+run of 9, each sharded encoder call and the dry run of 10) and read just
+after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
@@ -234,6 +260,15 @@ DATA_SEQS = {
 NCLT_DATE = "2012-01-08"
 HELIPR_SEQ = "Roundabout01"
 TAU2_ULPS = 16                 # phase 9: tau², card vs CPU (see _eval_same)
+PAR_SHARDS = 4                 # phase 10: logical shards of the one card
+PAR_SCANS = 32                 # phase 10: 8 full-density scans a shard
+PAR_POINTS = 131_072           # configs/default.yaml encoding.max_points
+PAR_ROWS = 100_000             # phase 10: sharded database, 4 x 25,000
+PAR_QUERIES = 32
+PAR_NODES = 20_000             # phase 10: sharded training graph
+PAR_TRIPLETS = 4096
+PAR_STEPS = 5                  # timed steps per mode after one warm-up
+SHARD_TOL = 1e-7               # sharded vs unsharded encoder (0 expected)
 
 # configs/training.yaml (with its parent default.yaml), the sections the
 # training pipeline reads, built in code: the card has no PyYAML
@@ -1171,9 +1206,10 @@ def _serve_trace(device, frames, cap: int, serve_ms: float) -> None:
           f"{[(n, round(us, 2)) for n, us in top]}", flush=True)
 
 
-def _online(device) -> dict:
+def _online(device, keep_store: Path) -> dict:
     """Phase 8: the online loop (``run_online``) at full width against a
-    resumed 100,000-record map; returns its launches."""
+    resumed 100,000-record map; returns its launches. The final store is
+    copied to ``keep_store`` for phase 10."""
     import shutil
 
     import numpy as np
@@ -1291,6 +1327,7 @@ def _online(device) -> dict:
         _check(n_back == ret.database_size and same_map and same_pos
                and same_ids and new_err <= dim / 65535.0,
                "online: the saved store does not restore the rows")
+        shutil.copyfile(tmp / "run1.bin", keep_store)
     return launches
 
 
@@ -1768,6 +1805,459 @@ def _datasets_and_evaluation(device, gnn_pt: str) -> dict:
     return by_path
 
 
+def _meshes(device) -> list:
+    """Phase 10's meshes: every CUDA card (printed), four logical shards
+    of the first, and, where the machine has more than one card, up to
+    four distinct cards."""
+    import torch
+    from neural_spectral_codec_torch.parallel import Mesh, create_mesh
+    every = create_mesh()
+    print(f"parallel: create_mesh() over {[str(d) for d in every.devices]}",
+          flush=True)
+    meshes = [("logical", Mesh([device] * PAR_SHARDS))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("cards", create_mesh(min(PAR_SHARDS,
+                                                torch.cuda.device_count()))))
+    return meshes
+
+
+def _sharded_encoders(device, meshes) -> dict:
+    """Phase 10: both sharded encoders on PAR_SCANS full-density scans,
+    PAR_SCANS / PAR_SHARDS a shard, against the unsharded batch encoder
+    on the card (SHARD_TOL; each scan is encoded on its own) and the CPU
+    plain path (DESC_TOL); returns {path: launches}."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.ops.ring_path import (
+        encode_points_ring_batch, make_structured_ring_scans)
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoderConfig, encode_points_batch)
+    from neural_spectral_codec_torch.parallel import make_sharded_encoder
+    from neural_spectral_codec_torch.parallel.encode import (
+        make_sharded_ring_encoder)
+
+    cfg = SpectralEncoderConfig()
+    rows = tuple(range(N_RINGS))
+    inputs = (
+        ("sharded_encode", "random order",
+         _general_scans(PAR_SCANS, SEED + 50)[:, :PAR_POINTS], None),
+        ("sharded_encode", "sweep order",
+         _sweep_scans(PAR_SCANS, SEED + 51)[:, :PAR_POINTS], None),
+        ("sharded_ring_encode", "ring rows", make_structured_ring_scans(
+            PAR_SCANS, N_RINGS, PER_RING, cfg.projection, seed=SEED + 52),
+         rows))
+    by_path = {}
+    for path, name, pts, r in inputs:
+        x = torch.from_numpy(np.ascontiguousarray(pts))
+
+        def single(t):
+            return (encode_points_batch(t, cfg.alpha, cfg) if r is None else
+                    encode_points_ring_batch(t, cfg.alpha, cfg, r))
+        xd = x.to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = single(xd)
+        torch.cuda.synchronize()
+        single_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = single(x)
+        for mname, mesh in meshes:
+            enc = (make_sharded_encoder(cfg, mesh) if r is None else
+                   make_sharded_ring_encoder(cfg, mesh, r))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, launches = _counted(lambda: enc(xd, cfg.alpha))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            err = float((got - want).abs().max())
+            err_cpu = float((got.cpu() - cpu).abs().max())
+            kernel = "project" if r is None else "ring_fold"
+            print(f"parallel: {path} {name} on {mname} {mesh}: "
+                  f"{tuple(got.shape)} on {got.device}, {err:.3e} from the "
+                  f"unsharded encoder, {err_cpu:.3e} from the CPU plain "
+                  f"path; host ms {ms:.2f} (unsharded {single_ms:.2f}, "
+                  f"scans on {device}); launches {launches}", flush=True)
+            _check(got.device == mesh.devices[0] and
+                   tuple(got.shape) == (PAR_SCANS, cfg.output_dim) and
+                   err <= SHARD_TOL and err_cpu <= DESC_TOL,
+                   f"{path} {name}: {err:.3e} / {err_cpu:.3e}")
+            _check(launches[kernel] == mesh.size and
+                   launches["spectral"] == mesh.size,
+                   f"{path} {name}: launches {launches}")
+            acc = by_path.setdefault(path, dict.fromkeys(launches, 0))
+            for k, v in launches.items():
+                acc[k] += v
+    return by_path
+
+
+def _planted_rows(device, metric: str, seed: int):
+    """PAR_ROWS rows (^4 histograms or normal embeddings) and positions
+    over 20 km, in chunks on the card, with PAR_QUERIES of them planted
+    as the queries' answers 5 · MIN_DIST from each query's position."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    planted = (np.arange(PAR_QUERIES) * 3121 + 17) % PAR_ROWS
+    chunks, queries, qpos = [], [None] * PAR_QUERIES, [None] * PAR_QUERIES
+    for lo in range(0, PAR_ROWS, 10_000):
+        h = (torch.rand((10_000, 800), generator=gen, device=device) ** 4
+             if metric == "wasserstein" else
+             torch.randn((10_000, 800), generator=gen, device=device))
+        pos = (torch.rand((10_000, 3), generator=gen, device=device)
+               - 0.5) * 20_000.0
+        for j in np.flatnonzero((planted >= lo) & (planted < lo + 10_000)):
+            queries[j] = h[planted[j] - lo].clone()
+            qpos[j] = (pos[planted[j] - lo]
+                       - torch.tensor([5 * MIN_DIST, 0, 0], device=device))
+        chunks.append((h, pos))
+    return (chunks, planted, torch.stack(queries).cpu().numpy(),
+            torch.stack(qpos).cpu().numpy())
+
+
+def _p50_ms(fn, calls: int = 20) -> float:
+    """Median host ms of ``fn`` (a query, which fetches its answer) over
+    ``calls`` calls after one warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _sharded_retrieval(device, mesh) -> dict:
+    """Phase 10: the row-sharded database against the unsharded one at
+    PAR_ROWS × 800 in three modes: PAR_QUERIES planted queries (spatial
+    filter MIN_DIST), ``update_rows`` on four slabs, ``exclude_last`` and
+    ``as_of_size``; indices equal (ties included), distances within 1e-6
+    (uint16: one code). Returns {mode: (sharded, unsharded) query ms}."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.parallel import (
+        ShardedWassersteinRetriever)
+    from neural_spectral_codec_torch.retrieval import WassersteinRetriever
+
+    out = {}
+    for i, (metric, storage) in enumerate((("wasserstein", "float32"),
+                                           ("wasserstein", "uint16"),
+                                           ("l2", "float32"))):
+        mode = f"{metric}/{storage}"
+        tol = 4 / 65535 if storage == "uint16" else 1e-6
+        chunks, planted, q, qpos = _planted_rows(device, metric,
+                                                 SEED + 53 + i)
+        rets = (ShardedWassersteinRetriever(
+                    mesh, n_bins=800, capacity=PAR_ROWS, metric=metric,
+                    storage=storage),
+                WassersteinRetriever(n_bins=800, capacity=PAR_ROWS,
+                                     metric=metric, storage=storage,
+                                     device=device))
+        _check(rets[0].rows_per_shard * mesh.size == PAR_ROWS,
+               f"retrieval: slabs of {rets[0].rows_per_shard} rows")
+        for h, pos in chunks:
+            for r in rets:
+                r.add_to_database(h, pos)
+        del chunks
+        kw = dict(top_k=TOP_K, query_positions=qpos,
+                  spatial_min_distance=MIN_DIST)
+        (ia, da), (ib, db) = (r.query_batch(q, **kw) for r in rets)
+        _check(np.array_equal(ia, ib) and np.array_equal(ia[:, 0], planted)
+               and float(np.abs(da - db).max()) <= tol,
+               f"retrieval {mode}: sharded != unsharded or planted row not "
+               f"top-1 ({int((ia != ib).sum())} indices differ)")
+        fresh = (torch.rand((4, 800), device=device) ** 4
+                 if metric == "wasserstein"
+                 else torch.randn((4, 800), device=device)).cpu().numpy()
+        rows = np.array([1, PAR_ROWS // 4 + 1, PAR_ROWS // 2 + 2,
+                         PAR_ROWS - 1])
+        for r in rets:
+            r.update_rows(rows, fresh)
+        (ua, _), (ub, _) = (r.query_batch(fresh, top_k=TOP_K) for r in rets)
+        excl = [r.query_batch(q, top_k=TOP_K, exclude_last=30_000)[0]
+                for r in rets]
+        snap = [r.query(q[5], top_k=TOP_K, as_of_size=60_000,
+                        exclude_last=5)[0] for r in rets]
+        _check(np.array_equal(ua, ub) and np.array_equal(ua[:, 0], rows),
+               f"retrieval {mode}: update_rows")
+        _check(np.array_equal(*excl) and excl[0].max() < 70_000,
+               f"retrieval {mode}: exclude_last")
+        _check(np.array_equal(*snap) and snap[0].max() < 59_995,
+               f"retrieval {mode}: as_of_size")
+        ms = [_p50_ms(lambda: r.query(q[3], top_k=TOP_K,
+                                      query_position=qpos[3],
+                                      spatial_min_distance=MIN_DIST))
+              for r in rets]
+        batch_ms = [_p50_ms(lambda: r.query_batch(q, **kw), calls=5)
+                    for r in rets]
+        out[mode] = {"query_ms_p50": ms[0], "unsharded_query_ms_p50": ms[1],
+                     "batch_ms_p50": batch_ms[0],
+                     "unsharded_batch_ms_p50": batch_ms[1]}
+        print(f"parallel: retrieval {mode}, {PAR_ROWS} rows in "
+              f"{mesh.size} slabs of {rets[0].rows_per_shard}: "
+              f"{PAR_QUERIES} planted queries top-1, indices equal to the "
+              f"unsharded retriever's, distances {float(np.abs(da - db).max()):.3e}"
+              f" apart; update_rows, exclude_last, as_of_size equal; one "
+              f"query p50 {ms[0]:.3f} ms (unsharded {ms[1]:.3f}), "
+              f"{PAR_QUERIES} queries {batch_ms[0]:.3f} ms (unsharded "
+              f"{batch_ms[1]:.3f})", flush=True)
+        del rets
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_two_stage(device, mesh, store: Path) -> None:
+    """Phase 10: two-stage retrieval on the sharded mesh against the
+    unsharded one, both loaded from phase 8's final store (the map and
+    the session's keyframes); every session keyframe queried against the
+    snapshot it was inserted into, as the online loop queries."""
+    import numpy as np
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        inference_config)
+    from neural_spectral_codec_torch.retrieval.two_stage import (
+        TwoStageRetrieval)
+
+    r = inference_config()["retrieval"]
+    opts = dict(n_bins=800, capacity=STORE_ROWS + ONLINE_FRAMES,
+                top_k=r["top_k"], context_window=r["context_window"],
+                spatial_filter_distance=r["spatial_filter_distance"],
+                device=device)
+    t0 = time.perf_counter()
+    plain = TwoStageRetrieval(**opts)
+    sharded = TwoStageRetrieval(mesh=mesh, **opts)
+    n = [ts.load_database(str(store)) for ts in (plain, sharded)]
+    load_s = time.perf_counter() - t0
+    _check(n[0] == n[1] > STORE_ROWS and not sharded.can_fuse_serving(),
+           f"two-stage: loaded {n}, can_fuse_serving "
+           f"{sharded.can_fuse_serving()}")
+    n_cand = 0
+    for i in range(STORE_ROWS, n[0]):
+        c1, c2 = (ts._global_retrieval(ts.keyframes[i], as_of_size=i + 1)
+                  for ts in (plain, sharded))
+        _check([c.database_idx for c in c1] == [c.database_idx for c in c2]
+               and np.allclose([c.distance for c in c1],
+                               [c.distance for c in c2], rtol=0, atol=1e-6),
+               f"two-stage: keyframe {i} candidates differ")
+        n_cand += len(c1)
+    print(f"parallel: two-stage on {mesh}: phase 8's store ({n[0]} records, "
+          f"both loaded in {load_s:.2f} s), {n[0] - STORE_ROWS} session "
+          f"keyframes queried at their snapshots, {n_cand} candidates equal "
+          f"to the unsharded ones; can_fuse_serving False", flush=True)
+
+
+def _step_ms(step, steps: int = PAR_STEPS) -> float:
+    """ms per call of ``step`` (a train step) over ``steps`` calls after
+    one warm-up, host clock, synchronised."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _sharded_training(device, mesh) -> dict:
+    """Phase 10: the full-width SpectralGNN on a PAR_NODES-node graph with
+    PAR_TRIPLETS triplets, DP and node-sharded on ``mesh`` against the
+    single-device step from the same weights and dropout generator: loss
+    within 1e-5 relative, each gradient within 3e-5 + 1e-5·max|g|
+    (tests/test_parallel.py's bar) except the gauge biases (true gradient
+    0: rounding noise on both sides, as in phase 7a); the sharded eval
+    forward within 1e-5, the sharded recall equal; then bf16. Returns ms
+    per step by mode."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    from neural_spectral_codec_torch.keyframe.graph import (
+        build_graph, graph_to_tensors)
+    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.models.gnn import (
+        gauge_parameters, gnn_forward)
+    from neural_spectral_codec_torch.parallel import make_sharded_train_step
+    from neural_spectral_codec_torch.parallel.train import (
+        make_sharded_eval_step, place_graph)
+    from neural_spectral_codec_torch.training.trainer import (
+        make_optimizer, train_step)
+    from neural_spectral_codec_torch.training.validation import (
+        recall_loop_closure)
+
+    desc, poses, _ = synthetic_city(PAR_NODES)
+    graph = build_graph(desc, poses, temporal_neighbors=5)
+    tri = torch.from_numpy(np.random.default_rng(SEED + 54).integers(
+        0, PAR_NODES, (PAR_TRIPLETS, 3))).to(device)
+    mask = torch.ones(PAR_TRIPLETS, dtype=torch.bool, device=device)
+    base = SpectralGNN(generator=torch.Generator().manual_seed(SEED))
+    g1 = graph_to_tensors(graph, device)
+
+    def make(mode, opt_cls, compute_dtype=None):
+        model = SpectralGNN(compute_dtype=compute_dtype)
+        model.load_state_dict(base.state_dict())
+        model.to(device)
+        opt = (torch.optim.SGD(model.parameters(), lr=0.0) if opt_cls is None
+               else make_optimizer(model))
+        gen = torch.Generator(device=device).manual_seed(SEED + 55)
+        clip = None if opt_cls is None else 1.0
+        if mode == "single":
+            return model, lambda: train_step(
+                model, opt, g1, tri[:, 0], tri[:, 1], tri[:, 2], mask, 0.1,
+                grad_clip=clip, generator=gen)
+        placed = place_graph(graph, mesh, mode == "nodes")
+        step = make_sharded_train_step(model, opt, mesh,
+                                       shard_nodes=mode == "nodes",
+                                       grad_clip=clip)
+        return model, lambda: step(placed, tri[:, 0], tri[:, 1], tri[:, 2],
+                                   mask, 0.1, gen)
+
+    got = {}
+    for mode in ("single", "dp", "nodes"):
+        model, step = make(mode, None)
+        loss = float(step())
+        got[mode] = (loss, {k: p.grad.detach().cpu()
+                            for k, p in model.named_parameters()})
+    l1, g1s = got["single"]
+    gauge = gauge_parameters(base)
+    for mode in ("dp", "nodes"):
+        loss, grads = got[mode]
+        worst = max((float((grads[k] - g).abs().max())
+                     / (3e-5 + 1e-5 * float(g.abs().max())), k)
+                    for k, g in g1s.items() if k not in gauge)
+        noise = max(float((grads[k] - g1s[k]).abs().max()) for k in gauge)
+        print(f"parallel: train {mode} on {mesh}, {PAR_NODES} nodes, "
+              f"{PAR_TRIPLETS} triplets: loss {loss:.6f} (one device "
+              f"{l1:.6f}), worst gradient {worst[1]} at {worst[0]:.3f} of "
+              f"the bar; the {len(gauge)} gauge biases (true gradient 0, "
+              f"not held) differ by up to {noise:.3e}", flush=True)
+        _check(abs(loss - l1) <= 1e-5 * abs(l1) and worst[0] <= 1.0,
+               f"train {mode}: loss {loss} vs {l1}, gradient {worst}")
+
+    ms = {mode: _step_ms(make(mode, "adam")[1])
+          for mode in ("single", "dp", "nodes")}
+    model, _ = make("single", None)
+    emb_1 = gnn_forward(model.eval(), g1)
+    emb_sh = make_sharded_eval_step(model, mesh, shard_nodes=True)(
+        place_graph(graph, mesh, True))
+    eval_err = float((emb_sh - emb_1).abs().max())
+    kw = dict(k=1, distance_threshold=5.0, skip_frames=30)
+    r1 = recall_loop_closure(emb_1.cpu().numpy(), poses, device=device, **kw)
+    rm = recall_loop_closure(emb_1.cpu().numpy(), poses, mesh=mesh, **kw)
+    print(f"parallel: ms per step single {ms['single']:.3f}, DP "
+          f"{ms['dp']:.3f}, node-sharded {ms['nodes']:.3f}; sharded eval "
+          f"forward {eval_err:.3e} from one device; recall@1 {rm[0]:.4f} "
+          f"over {rm[1]} queries (one device {r1[0]:.4f} over {r1[1]})",
+          flush=True)
+    _check(eval_err <= 1e-5 and rm == r1 and rm[1] > 0,
+           f"sharded eval {eval_err:.3e}, recall {rm} vs {r1}")
+
+    # -- bf16: the same step and forward with mixed precision ------------
+    m16, step16 = make("single", None, torch.bfloat16)
+    out16 = gnn_forward(m16.eval(), g1)
+    cpu16 = SpectralGNN(compute_dtype=torch.bfloat16)
+    cpu16.load_state_dict(m16.state_dict())
+    out_cpu = gnn_forward(cpu16.eval(), graph_to_tensors(graph, "cpu"))
+    scale = max(float(emb_1.abs().max()), 1.0)
+    err32 = float((out16 - emb_1).abs().max())
+    err_cpu = float((out16.cpu() - out_cpu).abs().max())
+    loss16 = step16()
+    grads_ok = all(p.grad.dtype == torch.float32 and
+                   bool(torch.isfinite(p.grad).all())
+                   for p in m16.parameters())
+    ms["bf16"] = _step_ms(make("single", "adam", torch.bfloat16)[1])
+    print(f"parallel: bf16 step loss {float(loss16):.6f} "
+          f"({loss16.dtype}), gradients float32 and finite {grads_ok}; "
+          f"bf16 forward {err32:.3e} from float32 (bar "
+          f"{3e-2 * scale:.3e}), {err_cpu:.3e} from the CPU's bf16 forward "
+          f"(bar {1e-2 * scale:.3e}); ms per step float32 "
+          f"{ms['single']:.3f}, bf16 {ms['bf16']:.3f}", flush=True)
+    _check(math.isfinite(float(loss16)) and loss16.dtype == torch.float32
+           and grads_ok and out16.dtype == torch.float32
+           and err32 <= 3e-2 * scale and err_cpu <= 1e-2 * scale,
+           f"bf16: loss {float(loss16)}, grads {grads_ok}, forward "
+           f"{err32:.3e} / {err_cpu:.3e}")
+    return ms
+
+
+def _bf16_serving(device) -> None:
+    """Phase 10: ``serve_step`` with a bf16 model ranks by its own
+    embeddings (an L2 database): each request's center embedding,
+    computed beforehand by the bf16 eval forward and planted among
+    10,000 random rows outside the spatial filter, comes back top-1."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.keyframe.graph import (
+        build_graph, graph_to_tensors)
+    from neural_spectral_codec_torch.models import SpectralGNN, serve_step
+    from neural_spectral_codec_torch.ops.spectral import SpectralEncoderConfig
+    from neural_spectral_codec_torch.models.serving import encode_scan
+    from neural_spectral_codec_torch.retrieval import WassersteinRetriever
+
+    cfg = SpectralEncoderConfig()
+    rng = np.random.default_rng(SEED + 56)
+    desc0 = rng.random((N_NODES, cfg.output_dim)).astype(np.float32) ** 4
+    desc0 /= desc0.sum(axis=1, keepdims=True)
+    poses = np.tile(np.eye(4), (N_NODES, 1, 1))
+    poses[:, 0, 3] = np.arange(N_NODES) * 2.0
+    graph_np = build_graph(desc0, poses)
+    model = SpectralGNN(generator=torch.Generator().manual_seed(SEED),
+                        compute_dtype=torch.bfloat16).to(device).eval()
+    scans = torch.from_numpy(_general_scans(8, SEED + 57)).to(device)
+    centers = [100 + 100 * j for j in range(8)]
+    ret = WassersteinRetriever(n_bins=cfg.output_dim, capacity=10_008,
+                               metric="l2", device=device)
+    ret.add_to_database(torch.randn((10_000, cfg.output_dim),
+                                    device=device),
+                        (torch.rand((10_000, 3), device=device) - 0.5)
+                        * 20_000.0)
+    qps = []
+    for j, c in enumerate(centers):
+        g = graph_to_tensors(graph_np, device)
+        with torch.no_grad():
+            g.features[c] = encode_scan(scans[j], cfg.alpha, cfg)
+            emb = model(g.features, g.neighbors, g.mask, g.edge_feats)[c]
+        qp = torch.tensor([poses[c, 0, 3], 0.0, 0.0, MIN_DIST],
+                          device=device)
+        ret.add_to_database(emb[None], (qp[:3] + torch.tensor(
+            [5 * MIN_DIST, 0, 0], device=device))[None])
+        qps.append(qp)
+    for j, c in enumerate(centers):
+        graph = graph_to_tensors(graph_np, device)
+        _, emb, idx, dist = serve_step(ret, model, scans[j], cfg.alpha,
+                                       graph, c, qps[j], TOP_K,
+                                       do_insert=False, config=cfg)
+        _check(emb.dtype == torch.float32 and int(idx[0]) == 10_000 + j,
+               f"bf16 serve: request {j} top-1 {int(idx[0])} "
+               f"({float(dist[0]):.3e}), not {10_000 + j}")
+    print(f"parallel: bf16 serve_step on {len(centers)} requests: the "
+          f"planted embedding top-1 of an L2 database of "
+          f"{ret.database_size} rows each time", flush=True)
+
+
+def _parallel(device, store: Path) -> dict:
+    """Phase 10: the multi-device layer on the card; returns the launches
+    of its kernel paths."""
+    from neural_spectral_codec_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    meshes = _meshes(device)
+    by_path = _sharded_encoders(device, meshes)
+    mesh = meshes[0][1]
+    query_ms = _sharded_retrieval(device, mesh)
+    _sharded_two_stage(device, mesh, store)
+    step_ms = _sharded_training(device, mesh)
+    _bf16_serving(device)
+    out, by_path["dryrun"] = _counted(lambda: dryrun_multichip(
+        PAR_SHARDS, devices=[device] * PAR_SHARDS))
+    _check(all(by_path["dryrun"][k] > 0
+               for k in ("project", "ring_fold", "spectral")),
+           f"dryrun launches {by_path['dryrun']}")
+    print("parallel: " + json.dumps({"query": query_ms, "ms_per_step":
+                                     step_ms, "dryrun": out}), flush=True)
+    print(f"parallel: phase 10 wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return by_path
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2035,14 +2525,18 @@ def main() -> None:
         _scale(device)
 
         # -- 8. the online loop --------------------------------------------
-        by_path["online"] = _online(device)
+        store = Path(keep.name) / "map.bin"
+        by_path["online"] = _online(device, store)
 
         # -- 9. datasets and evaluation ------------------------------------
         by_path.update(_datasets_and_evaluation(device, str(gnn_pt)))
+
+        # -- 10. the multi-device layer, bf16 --------------------------------
+        by_path.update(_parallel(device, store))
     finally:
         keep.cleanup()
 
-    # -- 10. record --------------------------------------------------------
+    # -- 11. record --------------------------------------------------------
     meta = {
         "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
                      "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",

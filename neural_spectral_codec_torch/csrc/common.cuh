@@ -1,4 +1,5 @@
-// Shared device helpers for the projection kernels (project.cu, ring_fold.cu).
+// Shared device helpers for the projection kernels (project.cu, ring_fold.cu),
+// and the per-device launch state every source keeps (current_device).
 //
 // The per-point formulas reproduce neural_spectral_codec_tpu/ops/range_image.py
 // (_spherical, _valid_mask and the bin formulas of project_points) and
@@ -90,6 +91,22 @@ __device__ __forceinline__ bool project_point(float x, float y, float z,
   }
   *range = rng;
   return true;
+}
+
+// Facts a launch needs that differ between devices (SM count, occupancy, the
+// dynamic shared memory a kernel was opted into, which cudaFuncSetAttribute
+// sets for the current device only) are kept in arrays of kMaxDevices
+// entries, indexed by the device a launch runs on, and filled on that
+// device's first launch.
+constexpr int kMaxDevices = 64;
+
+// The current device's ordinal in [0, kMaxDevices), or the error
+// (cudaErrorInvalidDevice for an ordinal beyond the arrays).
+inline cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  return *dev >= 0 && *dev < kMaxDevices ? cudaSuccess
+                                         : cudaErrorInvalidDevice;
 }
 
 }  // namespace nsc

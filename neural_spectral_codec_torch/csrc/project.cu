@@ -299,7 +299,8 @@ project_points_kernel(const float* __restrict__ pts, float* __restrict__ img,
   }
 }
 
-int g_grid = 0;   // CTAs that fit the card at once, read once
+// CTAs that fit each device at once, read on its first launch (0: not yet)
+int g_grid[nsc::kMaxDevices] = {};
 
 }  // namespace
 
@@ -315,16 +316,18 @@ extern "C" int nsc_project_points(
     int n_elev, int n_azim, float min_range, float max_range, float elev_min,
     float elev_max, float elev_span, int drop, void* stream) {
   if (per_chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
-  if (g_grid == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int dev = 0;
+  cudaError_t dev_err = nsc::current_device(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (g_grid[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, project_points_kernel, kThreads, 0);
     if (err != cudaSuccess) return (int)err;
-    g_grid = per_sm * sms;
+    g_grid[dev] = per_sm * sms;
   }
   const nsc::Geometry g{n_elev, n_azim, min_range, max_range,
                         elev_min, elev_max, elev_span, drop};
@@ -335,7 +338,7 @@ extern "C" int nsc_project_points(
                 static_cast<const float4*>(el_edges), n_el,
                 (float)n_azim * 0.159154943f, (float)n_elev / elev_span};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g_grid, 1, 1);     // co-resident: the barrier needs it
+  cfg.gridDim = dim3(g_grid[dev], 1, 1);  // co-resident: the barrier needs it
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];

@@ -46,7 +46,8 @@
 //      own (the last ring: and the rows after its own), so the wrapper
 //      allocates the image without a memset.
 // The wrapper caches row_of_ring on the device; cudaFuncSetAttribute runs
-// only when a launch needs more dynamic shared memory than any before it.
+// only when a launch needs more dynamic shared memory than any before it on
+// the same device.
 //
 // ptxas (nvcc -Xptxas -v with _build.NVCC_FLAGS, sm_90a, CUDA 12.8, on an
 // H100): 39 registers (256 threads) and 36 (1024 threads), 0 bytes of
@@ -192,20 +193,22 @@ ring_fold_kernel(const float* __restrict__ pts, const int* __restrict__ row_of_r
 // against 22.8 us.
 constexpr int kFewThreads = 256;
 constexpr int kManyThreads = 1024;
-int g_sms = 0;                       // SMs of the device, read once
-size_t g_smem_allowed[2] = {48 * 1024, 48 * 1024};
+// per device: its SMs (0: not yet read) and, per thread count, the dynamic
+// shared memory allowed so far (0: the default 48 KB)
+int g_sms[nsc::kMaxDevices] = {};
+size_t g_smem_allowed[nsc::kMaxDevices][2] = {};
 
 template <int kThreads>
-cudaError_t launch(int slot, const float* pts, const int* rows, float* img,
-                   int grid, int n_rings, int per_ring, int n_chan, int vec4,
-                   int n_folds, const nsc::Geometry& g, size_t smem,
+cudaError_t launch(int dev, int slot, const float* pts, const int* rows,
+                   float* img, int grid, int n_rings, int per_ring, int n_chan,
+                   int vec4, int n_folds, const nsc::Geometry& g, size_t smem,
                    cudaStream_t stream) {
-  if (smem > g_smem_allowed[slot]) {
+  if (smem > 48 * 1024 && smem > g_smem_allowed[dev][slot]) {
     cudaError_t err = cudaFuncSetAttribute(
         ring_fold_kernel<kThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    g_smem_allowed[slot] = smem;
+    g_smem_allowed[dev][slot] = smem;
   }
   ring_fold_kernel<kThreads><<<grid, kThreads, smem, stream>>>(
       pts, rows, img, n_rings, per_ring, n_chan, vec4, n_folds, g);
@@ -227,13 +230,12 @@ extern "C" int nsc_ring_fold(const void* points, const void* row_of_ring,
                         elev_min, elev_max, elev_span, drop};
   const size_t smem = (size_t)per_ring * (sizeof(int) + sizeof(float)) +
                       (size_t)n_azim * sizeof(unsigned);
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  int dev = 0;
+  cudaError_t err = nsc::current_device(&dev);
+  if (err == cudaSuccess && g_sms[dev] == 0)
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err != cudaSuccess) return (int)err;
   const int vec4 =
       n_chan == 4 && reinterpret_cast<std::uintptr_t>(points) % 16 == 0;
   const int grid = batch * n_rings;
@@ -241,11 +243,11 @@ extern "C" int nsc_ring_fold(const void* points, const void* row_of_ring,
   const auto* rows = static_cast<const int*>(row_of_ring);
   auto* out = static_cast<float*>(img);
   const auto s = static_cast<cudaStream_t>(stream);
-  return (int)(grid <= g_sms
-                   ? launch<kManyThreads>(1, pts, rows, out, grid, n_rings,
-                                          per_ring, n_chan, vec4, n_folds, g,
-                                          smem, s)
-                   : launch<kFewThreads>(0, pts, rows, out, grid, n_rings,
-                                         per_ring, n_chan, vec4, n_folds, g,
-                                         smem, s));
+  return (int)(grid <= g_sms[dev]
+                   ? launch<kManyThreads>(dev, 1, pts, rows, out, grid,
+                                          n_rings, per_ring, n_chan, vec4,
+                                          n_folds, g, smem, s)
+                   : launch<kFewThreads>(dev, 0, pts, rows, out, grid,
+                                         n_rings, per_ring, n_chan, vec4,
+                                         n_folds, g, smem, s));
 }

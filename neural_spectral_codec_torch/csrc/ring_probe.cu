@@ -272,7 +272,7 @@ ProbeFn variant_of(int skip) {
   return table[skip];
 }
 
-int g_sms = 0;                   // SMs of the device, read once
+int g_sms[nsc::kMaxDevices] = {};   // SMs of each device, read once
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -293,17 +293,16 @@ extern "C" int nsc_ring_probe(const void* key, const void* val, void* out,
       width > kPer * kManyThreads || n_azim < 1 || n_folds < 1 ||
       wpad % 4 != 0 || (long long)n_folds * n_azim > wpad)
     return (int)cudaErrorInvalidValue;
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  int dev = 0;
+  cudaError_t dev_err = nsc::current_device(&dev);
+  if (dev_err == cudaSuccess && g_sms[dev] == 0)
+    dev_err = cudaDeviceGetAttribute(&g_sms[dev],
+                                     cudaDevAttrMultiProcessorCount, dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
   if (n_rows == 0) return (int)cudaSuccess;
 
   const int vec_in = width % 4 == 0 && aligned16(key) && aligned16(val);
-  const bool many = n_rows <= g_sms || width > kPer * kFewThreads;
+  const bool many = n_rows <= g_sms[dev] || width > kPer * kFewThreads;
   const ProbeFn fn = many ? variant_of<kManyThreads>(skip_mask)
                           : variant_of<kFewThreads>(skip_mask);
   // an output row past 48 KB (wpad > 12,240) needs the opt-in; past what a

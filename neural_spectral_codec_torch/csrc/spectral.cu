@@ -64,7 +64,7 @@
 // The wrapper caches the table and the bin ranges, so a call enqueues the
 // output allocation and this kernel and nothing else;
 // cudaFuncSetAttribute runs only when a launch needs more dynamic shared
-// memory than any launch before it.
+// memory than any launch before it on the same device.
 //
 // ptxas (nvcc -Xptxas -v with _build.NVCC_FLAGS, sm_90a, CUDA 12.8, on an
 // H100): 79 registers, 0 bytes of stack, 0 spill stores or loads, one
@@ -75,6 +75,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -364,7 +366,8 @@ size_t smem_bytes(int n_elev, int n_azim, int n_bins, int n_freqs,
          sizeof(int) * ((size_t)n_bins + 1 + n_elev);
 }
 
-int g_smem_allowed = 48 * 1024;   // dynamic shared memory allowed so far
+// dynamic shared memory allowed so far, per device (0: the default 48 KB)
+int g_smem_allowed[nsc::kMaxDevices] = {};
 
 }  // namespace
 
@@ -383,12 +386,15 @@ extern "C" int nsc_spectral_encode(const void* imgs, const void* bounds,
   if (n_azim > 32 * kMaxChunks) return (int)cudaErrorInvalidValue;
   const size_t smem =
       smem_bytes(n_elev, n_azim, n_bins, n_freqs, max_in, max_t);
-  if ((int)smem > g_smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        spectral_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  int dev = 0;
+  cudaError_t err = nsc::current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if ((int)smem > 48 * 1024 && (int)smem > g_smem_allowed[dev]) {
+    err = cudaFuncSetAttribute(spectral_encode_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
-    g_smem_allowed = (int)smem;
+    g_smem_allowed[dev] = (int)smem;
   }
   spectral_encode_kernel<<<batch * kCluster, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(

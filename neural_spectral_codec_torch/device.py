@@ -24,7 +24,10 @@ def resolve_device(device: DeviceLike) -> torch.device:
     (``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False``): the port's parity bars
     assume full float32 products, as the JAX package's
-    ``Precision.HIGHEST`` does. These are process-wide switches.
+    ``Precision.HIGHEST`` does. It also keeps bf16 products' split-K
+    partial sums in float32
+    (``allow_bf16_reduced_precision_reduction = False``), so a bf16
+    product rounds once, as XLA's does. These are process-wide switches.
     """
     dev = torch.device(device)
     if dev.type == "cpu":
@@ -41,4 +44,5 @@ def resolve_device(device: DeviceLike) -> torch.device:
                            f"{torch.cuda.device_count()} CUDA device(s) exist")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", index)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
+from neural_spectral_codec_torch.retrieval.retriever import (  # noqa: F401
+    smallest_k)
 
 logger = logging.getLogger(__name__)
 
@@ -39,21 +41,6 @@ def _sync(dev: torch.device) -> None:
 # ---------------------------------------------------------------------------
 # metrics
 # ---------------------------------------------------------------------------
-
-def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` smallest entries of each row of float32 ``d``, ascending,
-    equal values by the lower index first: the order of JAX's
-    ``lax.top_k`` on ``-d`` (``torch.topk`` leaves ties unordered). Each
-    entry becomes one int64 key, its float32 bits mapped to a signed
-    integer of the same total order (-0 before +0) in the high word and
-    its column in the low word, so the keys are distinct."""
-    bits = d.contiguous().view(torch.int32)
-    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    col = torch.arange(d.shape[-1], device=d.device, dtype=torch.int64)
-    keys = torch.topk((order << 32) | col, k, dim=-1, largest=False).values
-    idx = keys & 0xFFFFFFFF
-    return d.gather(-1, idx), idx
-
 
 def _hit_chunk(emb64: torch.Tensor, sq: torch.Tensor, pos: torch.Tensor,
                q: torch.Tensor, kmax: int, distance_threshold: float,

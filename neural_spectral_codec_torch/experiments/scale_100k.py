@@ -3,6 +3,7 @@
 
     python -m neural_spectral_codec_torch.experiments.scale_100k \\
         --nodes 100000 --device cuda [--steps S] [--json out.json]
+        [--compare-sharded [--shards 4]]
 
 Times, on the host clock with the device synchronised: the graph build,
 hard-negative mining over all anchors, one epoch of 4096-triplet steps on
@@ -11,6 +12,8 @@ after one warm-up step, the eval embedding and Recall@{1,5,10} over all
 revisit queries (``training.validation.recall_loop_closure``; the JAX
 script ranks with ``evaluation.evaluate_place_recognition``). On a CUDA
 device it reads peak memory from ``torch.cuda.max_memory_allocated``.
+``--compare-sharded`` times the single-device step against the
+node-sharded one instead (``compare_sharded``).
 """
 
 from __future__ import annotations
@@ -145,16 +148,83 @@ def _run(nodes, steps, device, ckpt, log) -> dict:
     return out
 
 
+def compare_sharded(nodes: int, steps=None, device="cuda", shards: int = 4,
+                    log=print) -> dict:
+    """The single-device trainer against the node-sharded one on
+    ``shards`` logical shards of ``device`` (JAX ``--compare-sharded``,
+    scale_100k.py:86-112), full-width SpectralGNN (dropout 0.1), the same
+    seed: a first one-step epoch of 4096 random triplets, whose losses
+    must agree (rtol 2e-5, atol 1e-6, the JAX script's bar; both start
+    from the same state), then a timed epoch of ``steps`` × 4096 (1 by
+    default) for ms per step. Later losses are reported, not held: Adam's
+    first update moves each weight by about lr·sign(g), so gradients that
+    differ in their rounding (a sum in another order, the card's atomics)
+    send the two runs apart."""
+    from neural_spectral_codec_torch.device import resolve_device
+    from neural_spectral_codec_torch.keyframe.graph import build_graph
+    from neural_spectral_codec_torch.models.gnn import SpectralGNN
+    from neural_spectral_codec_torch.parallel import Mesh
+    from neural_spectral_codec_torch.training.trainer import GNNTrainer
+
+    dev = resolve_device(device)
+    desc, poses, _ = synthetic_city(nodes,
+                                    revisit_period=max(nodes // 4, 10))
+    g = build_graph(desc, poses, temporal_neighbors=5)
+    rng = np.random.default_rng(0)
+    trip = np.stack([rng.integers(0, nodes, 4096 * (steps or 1))
+                     for _ in range(3)], 1)
+    out = {"nodes": nodes, "device": str(dev), "shards": shards,
+           "steps": steps or 1}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for name, mesh in (("single", None), ("sharded", Mesh([dev] * shards))):
+        with tempfile.TemporaryDirectory(prefix="scale_ckpt_") as ckpt:
+            tr = GNNTrainer(model=SpectralGNN(), checkpoint_dir=ckpt,
+                            triplets_per_step=4096, seed=0, device=dev,
+                            mesh=mesh, shard_nodes=mesh is not None)
+            first = tr.train_epoch(g, _Fixed(trip[:4096]), poses, desc)
+            tr.epoch = 1
+            sync()
+            t0 = time.perf_counter()
+            loss = tr.train_epoch(g, _Fixed(trip), poses, desc)
+            sync()
+            seconds = time.perf_counter() - t0
+        out[f"{name}_first_loss"] = first
+        out[f"{name}_epoch_loss"] = loss
+        out[f"{name}_ms_per_step"] = 1e3 * seconds / out["steps"]
+        log(f"compare-sharded: {name} ({shards if mesh else 1} shard(s) on "
+            f"{dev}, {nodes} nodes): first step loss {first}, then "
+            f"{out['steps']} step(s) avg loss {loss}, "
+            f"{out[f'{name}_ms_per_step']:.3f} ms/step")
+    np.testing.assert_allclose(out["sharded_first_loss"],
+                               out["single_first_loss"], rtol=2e-5,
+                               atol=1e-6)
+    log("compare-sharded OK: node-sharded training matches the single "
+        "device")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=100_000)
     ap.add_argument("--steps", type=int, default=None,
                     help="cap the epoch at this many steps")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--compare-sharded", action="store_true",
+                    help="single-device against node-sharded training on "
+                         "--shards logical shards of --device")
+    ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--json", default=None,
                     help="write the numbers to this JSON file")
     args = ap.parse_args(argv)
-    out = run(args.nodes, args.steps, args.device)
+    if args.compare_sharded:
+        out = compare_sharded(args.nodes, args.steps, args.device,
+                              args.shards)
+    else:
+        out = run(args.nodes, args.steps, args.device)
     if args.device.startswith("cuda"):
         from neural_spectral_codec_torch.utils.timing import gpu_label
         out["gpu"] = gpu_label()

@@ -15,8 +15,10 @@ nested dicts; pass them as numpy arrays (``np.asarray`` of each leaf, or
 ``from_flax`` also maps a params-shaped tree alone (gradients, Adam
 moments); ``from_optax_adam`` maps the state of the JAX package's
 optimizer (``optax`` clip → decayed weights → adam) onto a
-``torch.optim.Adam``. Reading an Orbax checkpoint needs jax: restore it
-with the JAX package, then convert its numpy leaves here.
+``torch.optim.Adam``. Reading an Orbax checkpoint needs jax and orbax,
+which the port does not import: ``convert_orbax_checkpoint.py`` (at the
+repository's root) restores one there and writes the port trainer's
+``.pt`` through these two functions.
 """
 
 from __future__ import annotations

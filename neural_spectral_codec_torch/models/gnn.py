@@ -28,7 +28,7 @@ parameters onto this module.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,15 +51,43 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int,
         t.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
 
 
-def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Flax ``nn.Dropout``: keep with probability 1 − p, scale kept
-    entries by 1/(1 − p). The mask is drawn from ``generator`` (the global
-    generator when None), which must live on ``x``'s device."""
+def _keep_masks(sizes: Sequence[int], devices: Sequence[torch.device],
+                width: int, p: float, training: bool,
+                generator: Optional[torch.Generator]
+                ) -> Optional[List[torch.Tensor]]:
+    """Flax ``nn.Dropout``'s keep masks (keep with probability 1 − p) for
+    node slabs of ``sizes`` rows on ``devices``, or None when nothing is
+    dropped. One (Σ sizes, width) draw on the first slab's device from
+    ``generator`` (the global generator when None), cut into the slabs'
+    rows: slabs draw the bits one graph would draw."""
     if not training or p == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), 0.0)
+        return None
+    keep = torch.rand((sum(sizes), width), generator=generator,
+                      device=devices[0]) >= p
+    return [k.to(d) for k, d in zip(keep.split(list(sizes)), devices)]
+
+
+def _dropped(x: torch.Tensor, keep: Optional[torch.Tensor],
+             p: float) -> torch.Tensor:
+    """Kept entries scaled by 1/(1 − p), dropped ones 0."""
+    return x if keep is None else torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` on ``like``'s device: a parameter's replica (differentiable;
+    the parameter itself where it already lives there)."""
+    return t.to(like.device)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor,
+           dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """Flax ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to
+    ``dtype``, the product rounded to it, then the bias added in it
+    (float32 accumulation inside the product). ``dtype`` None: float32."""
+    w, b = _on(lin.weight, x), _on(lin.bias, x)
+    if dtype is None:
+        return F.linear(x, w, b)
+    return F.linear(x.to(dtype), w.to(dtype)) + b.to(dtype)
 
 
 class FlaxBatchNorm1d(nn.BatchNorm1d):
@@ -69,33 +97,70 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     Flax's one-pass E[x²] − E[x]², clamped at 0. Where a feature's mean
     is far above its spread that formula cancels, and the train forward
     of either framework is then only good to about 1e-4. PyTorch momentum
-    0.1 is Flax momentum 0.9. Eval mode is PyTorch's, which is Flax's."""
+    0.1 is Flax momentum 0.9. Eval mode is PyTorch's, which is Flax's.
+    Input of another type (bf16) is normalised in float32, as Flax's
+    ``BatchNorm(dtype=float32)`` does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if not self.training:
             return super().forward(x)
         mean = x.mean(dim=0)
         var = ((x * x).mean(dim=0) - mean * mean).clamp(min=0.0)
+        return self._train_normalize([x], mean, var)[0]
+
+    def _train_normalize(self, xs: List[torch.Tensor], mean: torch.Tensor,
+                         var: torch.Tensor) -> List[torch.Tensor]:
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         # Flax's order: y = (x − mean) · (rsqrt(var + eps) · scale) + bias
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
-            + self.bias
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return [(x - _on(mean, x)) * _on(scale, x) + _on(self.bias, x)
+                for x in xs]
+
+    def forward_slabs(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The same over node slabs (one device each): train mode takes
+        the statistics of all slabs together, their sums gathered on the
+        module's device, and updates the running statistics once."""
+        if len(xs) == 1:
+            return [self(xs[0])]
+        xs = [x.float() for x in xs]
+        if not self.training:
+            return [F.batch_norm(x, _on(self.running_mean, x),
+                                 _on(self.running_var, x),
+                                 _on(self.weight, x), _on(self.bias, x),
+                                 False, 0.0, self.eps) for x in xs]
+        dev = self.weight.device
+        n = sum(x.shape[0] for x in xs)
+        mean = sum(x.sum(dim=0).to(dev) for x in xs) / n
+        sq = sum((x * x).sum(dim=0).to(dev) for x in xs) / n
+        return self._train_normalize(xs, mean,
+                                     (sq - mean * mean).clamp(min=0.0))
 
 
 class EdgeGATLayer(nn.Module):
     """Single-head GAT with optional edge conditioning over padded dense
     neighbors. ``forward`` returns (out, attention); attention is (n, D+1)
-    with the self-loop in the last slot."""
+    with the self-loop in the last slot.
+
+    ``compute_dtype`` (JAX ``EdgeGATLayer.compute_dtype``): None computes
+    in float32; bf16 casts the input and weights, rounds the transform,
+    the attention projections and the edge terms to bf16 and takes the
+    logits in float32; the softmax and its masking stay float32, and the
+    value sum takes the attention rounded to bf16 against the bf16 values
+    with a float32 sum (JAX's ``preferred_element_type=float32``), exact
+    products of bf16 values summed in float32."""
 
     def __init__(self, in_features: int, features: int,
                  edge_dim: Optional[int] = 2, negative_slope: float = 0.2,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.negative_slope = negative_slope
         self.attn_dropout = attn_dropout
+        self.compute_dtype = compute_dtype
         self.lin = nn.Linear(in_features, features, bias=False)
         self.att_src = nn.Parameter(torch.empty(features))
         self.att_dst = nn.Parameter(torch.empty(features))
@@ -120,61 +185,96 @@ class EdgeGATLayer(nn.Module):
         with torch.no_grad():
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, neighbors: torch.Tensor,
-                mask: torch.Tensor, edge_feats: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None):
+    def _c(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.compute_dtype is None else t.to(self.compute_dtype)
+
+    def transform(self, x: torch.Tensor) -> torch.Tensor:
+        """h = x W (no bias), on ``x``'s device, in the compute dtype."""
+        return F.linear(self._c(x), self._c(_on(self.lin.weight, x)))
+
+    def attend(self, h: torch.Tensor, h_all: torch.Tensor,
+               neighbors: torch.Tensor, mask: torch.Tensor,
+               edge_feats: Optional[torch.Tensor],
+               keep: Optional[torch.Tensor] = None):
+        """(out, attention) of the nodes whose transforms are ``h``;
+        ``neighbors`` index ``h_all``, every node's transform on ``h``'s
+        device (``h`` itself on one device). ``keep`` is the attention's
+        dropout mask (``_keep_masks``)."""
         n = neighbors.shape[0]
-        h = self.lin(x)                                  # (n, C)
-        # index_select, not h[neighbors]: its backward is an index_add,
-        # where advanced indexing's sorts the indices (94% of a train
-        # step's device time at 20,000 nodes on an H100)
-        h_nbr = h.index_select(0, neighbors.reshape(-1)).view(
+        c, f32 = self._c, (lambda t: t.to(torch.float32))
+        att_src, att_dst = c(_on(self.att_src, h)), c(_on(self.att_dst, h))
+        # index_select, not h_all[neighbors]: its backward is an
+        # index_add, where advanced indexing's sorts the indices (94% of a
+        # train step's device time at 20,000 nodes on an H100)
+        h_nbr = h_all.index_select(0, neighbors.reshape(-1)).view(
             *neighbors.shape, -1)                        # (n, D, C)
-        a_dst = h @ self.att_dst                         # (n,)
-        logits = h_nbr @ self.att_src + a_dst[:, None]   # (n, D)
-        self_logit = h @ self.att_src + a_dst            # (n,)
+        a_dst = f32(h @ att_dst)                         # (n,)
+        logits = f32(h_nbr @ att_src) + a_dst[:, None]   # (n, D)
+        self_logit = f32(h @ att_src) + a_dst            # (n,)
         if self.lin_edge is not None and edge_feats is not None:
-            logits = logits + self.lin_edge(edge_feats) @ self.att_edge
+            w_e = c(_on(self.lin_edge.weight, h))
+            att_e = c(_on(self.att_edge, h))
+            ef = c(edge_feats)
+            logits = logits + f32(F.linear(ef, w_e) @ att_e)
             # self-loop edge feature = mean of the valid incoming edge
             # features (zeros for an isolated node), PyG fill_value='mean'
             cnt = mask.sum(dim=1, keepdim=True).clamp(min=1)
-            mean_ef = torch.where(mask[..., None], edge_feats, 0.0).sum(
-                dim=1) / cnt
-            self_logit = self_logit + self.lin_edge(mean_ef) @ self.att_edge
+            mean_ef = torch.where(mask[..., None], ef, 0.0).sum(dim=1) / cnt
+            self_logit = self_logit + f32(F.linear(mean_ef, w_e) @ att_e)
         all_logits = torch.cat([logits, self_logit[:, None]], dim=1)
         all_logits = F.leaky_relu(all_logits, self.negative_slope)
         full_mask = torch.cat(
             [mask, torch.ones((n, 1), dtype=torch.bool, device=mask.device)],
             dim=1)
         all_logits = all_logits.masked_fill(~full_mask, -math.inf)
-        alpha = _dropout(torch.softmax(all_logits, dim=1), self.attn_dropout,
-                         self.training, generator)
+        alpha = _dropped(torch.softmax(all_logits, dim=1), keep,
+                         self.attn_dropout)
         vals = torch.cat([h_nbr, h[:, None, :]], dim=1)  # (n, D+1, C)
-        out = torch.einsum("nd,ndc->nc", alpha, vals) + self.bias
-        return out, alpha
+        if self.compute_dtype is None:
+            out = torch.einsum("nd,ndc->nc", alpha, vals)
+        else:
+            out = torch.einsum("nd,ndc->nc", f32(c(alpha)), f32(vals))
+        return out + _on(self.bias, h), alpha
+
+    def forward(self, x: torch.Tensor, neighbors: torch.Tensor,
+                mask: torch.Tensor, edge_feats: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        h = self.transform(x)
+        keep = _keep_masks([x.shape[0]], [x.device], neighbors.shape[1] + 1,
+                           self.attn_dropout, self.training, generator)
+        return self.attend(h, h, neighbors, mask, edge_feats,
+                           None if keep is None else keep[0])
 
 
 class SpectralGNN(nn.Module):
     """Full enhancement network (JAX ``SpectralGNN``). BatchNorm uses
     eps 1e-5 and PyTorch momentum 0.1 (Flax momentum 0.9); in eval mode
     it normalises with the running statistics, in train mode as Flax
-    does (``FlaxBatchNorm1d``)."""
+    does (``FlaxBatchNorm1d``).
+
+    ``compute_dtype`` (JAX ``SpectralGNN.compute_dtype``): None is float32
+    throughout; ``torch.bfloat16`` runs the Dense and GAT products in bf16
+    (``_dense``, ``EdgeGATLayer``) while the parameters, BatchNorm, the
+    softmax, the residual adds, the output and the loss stay float32."""
 
     def __init__(self, input_dim: int = 800, hidden_dim: int = 256,
                  output_dim: int = 800, n_layers: int = 3,
                  dropout: float = 0.1, residual: bool = True,
                  edge_dim: Optional[int] = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.input_dim, self.output_dim = input_dim, output_dim
         self.n_layers = n_layers
         self.dropout = dropout
         self.residual = residual
+        self.compute_dtype = compute_dtype
         self.input_proj = nn.Linear(input_dim, hidden_dim)
         self.input_bn = FlaxBatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
         self.gat_layers = nn.ModuleList(
             EdgeGATLayer(hidden_dim, hidden_dim, edge_dim,
-                         attn_dropout=dropout) for _ in range(n_layers))
+                         attn_dropout=dropout, compute_dtype=compute_dtype)
+            for _ in range(n_layers))
         self.gat_bns = nn.ModuleList(
             FlaxBatchNorm1d(hidden_dim, eps=1e-5, momentum=0.1)
             for _ in range(n_layers))
@@ -204,26 +304,68 @@ class SpectralGNN(nn.Module):
                 return_attention: bool = False,
                 generator: Optional[torch.Generator] = None):
         """``generator`` draws the dropout masks in train mode."""
-        x_input = features
-        x = F.relu(self.input_bn(self.input_proj(features)))
+        out, attentions = self.forward_slabs(
+            [features], [neighbors], [mask], [edge_feats], generator)
+        if return_attention:
+            return out[0], [a[0] for a in attentions]
+        return out[0]
+
+    def forward_slabs(self, features: List[torch.Tensor],
+                      neighbors: List[torch.Tensor],
+                      masks: List[torch.Tensor],
+                      edge_feats: List[Optional[torch.Tensor]],
+                      generator: Optional[torch.Generator] = None):
+        """The forward over contiguous node slabs, each on its own device
+        (one slab: the whole graph), its rows' ``neighbors`` holding
+        global node indices; returns (embeddings, attentions) per slab.
+        Each layer's (n, C) transform is all-gathered onto every slab's
+        device for the neighbour gather; BatchNorm takes the statistics
+        of all slabs; dropout draws what one graph would draw; the
+        parameters are replicated by differentiable copies, so a backward
+        sums every slab's gradient into them."""
+        dt = self.compute_dtype
+        sizes = [f.shape[0] for f in features]
+        devices = [f.device for f in features]
+        x = self.input_bn.forward_slabs(
+            [_dense(self.input_proj, f, dt) for f in features])
+        x = [F.relu(v) for v in x]
         attentions = []
         for i, (gat, bn) in enumerate(zip(self.gat_layers, self.gat_bns)):
             x_prev = x
-            x, alpha = gat(x, neighbors, mask, edge_feats, generator)
-            attentions.append(alpha)
-            x = bn(x)
+            h = [gat.transform(v) for v in x]
+            h_all = _all_gathered(h)
+            keep = _keep_masks(sizes, devices, neighbors[0].shape[1] + 1,
+                               gat.attn_dropout, self.training, generator)
+            outs = [gat.attend(h[s], h_all[s], neighbors[s], masks[s],
+                               edge_feats[s], keep and keep[s])
+                    for s in range(len(h))]
+            attentions.append([a for _, a in outs])
+            x = bn.forward_slabs([o for o, _ in outs])
             if i < self.n_layers - 1:
-                x = _dropout(F.relu(x), self.dropout, self.training,
-                             generator)
+                keep = _keep_masks(sizes, devices, x[0].shape[1],
+                                   self.dropout, self.training, generator)
+                x = [_dropped(F.relu(v), keep and keep[s], self.dropout)
+                     for s, v in enumerate(x)]
             if self.residual and 0 < i < self.n_layers - 1:
-                x = x + x_prev
-        x = self.output_proj(x)
+                x = [v + p for v, p in zip(x, x_prev)]
+        out = [_dense(self.output_proj, v, dt).float() for v in x]
         if self.residual:
-            x = x + (self.residual_proj(x_input)
-                     if self.residual_proj is not None else x_input)
-        if return_attention:
-            return x, attentions
-        return x
+            out = [o + (f if self.residual_proj is None
+                        else _dense(self.residual_proj, f, dt).float())
+                   for o, f in zip(out, features)]
+        return out, attentions
+
+
+def _all_gathered(h: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Per slab, the concatenation of every slab's rows on that slab's
+    device (one slab: itself)."""
+    if len(h) == 1:
+        return h
+    full = torch.cat([v.to(h[0].device) for v in h])
+    on = {}
+    for v in h:
+        on.setdefault(v.device, full.to(v.device))
+    return [on[v.device] for v in h]
 
 
 def gauge_parameters(model: SpectralGNN) -> tuple:
@@ -246,15 +388,14 @@ def create_spectral_gnn(input_dim: int = 800, hidden_dim: int = 256,
                         mixed_precision: bool = False,
                         generator: Optional[torch.Generator] = None
                         ) -> SpectralGNN:
-    """Factory (JAX ``create_spectral_gnn``, gnn.py:171). The bf16
-    ``mixed_precision`` compute dtype is not ported and raises."""
-    if mixed_precision:
-        raise NotImplementedError("mixed_precision (bf16 matmuls) is not "
-                                  "ported yet; the port trains in float32")
+    """Factory (JAX ``create_spectral_gnn``, gnn.py:171).
+    ``mixed_precision`` computes in bf16 (``SpectralGNN.compute_dtype``)."""
     return SpectralGNN(input_dim=input_dim, hidden_dim=hidden_dim,
                        output_dim=output_dim, n_layers=n_layers,
                        dropout=dropout, residual=residual, edge_dim=edge_dim,
-                       generator=generator)
+                       generator=generator,
+                       compute_dtype=torch.bfloat16 if mixed_precision
+                       else None)
 
 
 def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,

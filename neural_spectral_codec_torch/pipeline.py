@@ -1,5 +1,5 @@
 """Config-driven pipeline of the port (``neural_spectral_codec_tpu/
-pipeline.py``) on one device: the batch encoders (``BatchEncoder`` and
+pipeline.py``): the batch encoders (``BatchEncoder`` and
 ``RingMajorBatchEncoder``, JAX :79-229), ``NeuralSpectralCodecPipeline``
 (offline training: ``_process_sequence`` and ``train_offline``; the online
 loop: ``run_online``), and the CLI (``_loaders_from_config``,
@@ -13,8 +13,14 @@ as ``system.io_prefetch`` allows). On a CUDA device the general encoder
 launches ``csrc/project.cu`` and ``csrc/spectral.cu``, the ring-major
 encoder ``csrc/ring_fold.cu`` and ``csrc/spectral.cu`` for the scans that
 meet the ring contract. The pipeline takes a config dict
-(``utils.config.load_config`` reads one from YAML). Not ported here: bf16
-``training.mixed_precision`` (raises) and mesh training.
+(``utils.config.load_config`` reads one from YAML). ``training.
+mixed_precision`` computes the GNN in bf16, in training and serving.
+With more than one device of the pipeline's type, ``parallel.
+data_parallel`` (default on) trains over a mesh of ``system.mesh_devices``
+devices (``parallel.shard_graph_nodes``: nodes sharded too) and
+``parallel.shard_retrieval_db`` row-shards the stage-1 database; with
+one, both keep the single device (the latter with a warning), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -235,10 +241,13 @@ class NeuralSpectralCodecPipeline:
                            "has no embeddings to use; using raw W1 "
                            "histograms")
             self.use_embeddings_for_retrieval = False
+        retrieval_mesh = None
         if cfg_get(config, "parallel.shard_retrieval_db", False):
-            raise NotImplementedError(
-                "parallel.shard_retrieval_db: the sharded stage-1 database "
-                "is not ported yet (multi-GPU, ROADMAP queue 1)")
+            retrieval_mesh = self._mesh("parallel.shard_retrieval_db")
+            if retrieval_mesh is None:
+                logger.warning("parallel.shard_retrieval_db requested but "
+                               "only one device present; using the "
+                               "unsharded retriever")
         stage1_metric = ("l2" if (self.use_embeddings_for_retrieval
                                   or not r.get("use_wasserstein", True))
                          else "wasserstein")
@@ -270,8 +279,20 @@ class NeuralSpectralCodecPipeline:
             verification_backend=r.get("verification_backend", "auto"),
             parallel_verification=r.get("parallel_verification", False),
             verification_workers=r.get("verification_workers", 4),
-            device=self.device)
+            device=self.device, mesh=retrieval_mesh)
         self.profiler = Profiler()
+
+    def _mesh(self, key: str):
+        """A mesh over ``system.mesh_devices`` devices of the pipeline's
+        device type (all by default) when that type has more than one
+        device, else None (JAX ``pipeline.py:323-333,465-469``)."""
+        from neural_spectral_codec_torch.parallel import mesh as pmesh
+        if len(pmesh.devices_of(self.device.type)) < 2:
+            return None
+        mesh = pmesh.create_mesh(cfg_get(self.config, "system.mesh_devices"),
+                                 device=self.device.type)
+        logger.info("%s: mesh over %s", key, [str(d) for d in mesh.devices])
+        return mesh
 
     @contextmanager
     def _stage(self, name: str):
@@ -364,6 +385,9 @@ class NeuralSpectralCodecPipeline:
                 val_kfs, temporal_neighbors=self.temporal_neighbors)
                 if val_kfs else None)
 
+        mesh = (self._mesh("parallel.data_parallel")
+                if cfg_get(self.config, "parallel.data_parallel", True)
+                else None)
         trainer = GNNTrainer(
             model=self.model,
             learning_rate=tr.get("learning_rate", 5e-4),
@@ -379,7 +403,9 @@ class NeuralSpectralCodecPipeline:
             lr_decay_factor=tr.get("lr_decay_factor", 0.1),
             min_lr=tr.get("min_lr", 1e-6),
             normalize_embeddings=tr.get("normalize_embeddings", False),
-            device=self.device)
+            device=self.device if mesh is None else mesh.devices[0],
+            mesh=mesh, shard_nodes=cfg_get(
+                self.config, "parallel.shard_graph_nodes", False))
         miner = create_triplet_miner(
             positive_distance_max=trip.get("positive_distance_max", 5.0),
             negative_distance_min=trip.get("negative_distance_min", 10.0),
@@ -425,17 +451,18 @@ class NeuralSpectralCodecPipeline:
         """Load GNN weights from a checkpoint of the port's trainer: a
         ``.pt`` file (``training/trainer.py`` ``save_checkpoint``), given
         with or without its suffix. An Orbax checkpoint directory of the
-        JAX package raises: its conversion is not ported yet (ROADMAP
-        queue 1 item 5)."""
+        JAX package raises: the port reads no Orbax; convert it first with
+        ``convert_orbax_checkpoint.py`` (where jax and orbax are
+        installed) into such a ``.pt``."""
         p = Path(path)
         if p.suffix != ".pt" and p.with_suffix(".pt").exists():
             p = p.with_suffix(".pt")
         if p.is_dir():
             raise NotImplementedError(
                 f"{path} is a directory (an Orbax checkpoint of the JAX "
-                "package?): the Orbax → torch import is not ported yet "
-                "(ROADMAP queue 1 item 5); pass a .pt file of the port's "
-                "trainer")
+                "package?): the port reads .pt checkpoints only; convert it "
+                f"with `python convert_orbax_checkpoint.py {path} "
+                f"{Path(path).name}.pt` where jax and orbax are installed")
         if not p.exists():
             raise FileNotFoundError(f"Checkpoint not found: {path}")
         state = torch.load(p, map_location="cpu", weights_only=True)

@@ -5,7 +5,8 @@ Port of ``neural_spectral_codec_tpu/retrieval/retriever.py``
 and (capacity, 3) position buffer live on the device and are updated in
 place. A query is W₁ (or L2) against every row, a mask that sends rows ≥
 the effective size and rows spatially nearer than ``min_d`` (when
-``min_d > 0``) to +inf, then an exact smallest-k with ``torch.topk``.
+``min_d > 0``) to +inf, then an exact smallest-k in ``lax.top_k``'s
+order (``smallest_k``).
 
 ``storage="uint16"`` keeps each CDF row as ``round(cdf · 65535)`` codes
 (W₁ only: half the device memory, a W₁ error of at most
@@ -52,6 +53,21 @@ def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
                                 device=rows.device)
 
 
+def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row of float32 ``d``, ascending,
+    equal values by the lower index first: the order of JAX's
+    ``lax.top_k`` on ``-d`` (``torch.topk`` leaves ties unordered). Each
+    entry becomes one int64 key, its float32 bits mapped to a signed
+    integer of the same total order (-0 before +0) in the high word and
+    its column in the low word, so the keys are distinct."""
+    bits = d.contiguous().view(torch.int32)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    col = torch.arange(d.shape[-1], device=d.device, dtype=torch.int64)
+    keys = torch.topk((order << 32) | col, k, dim=-1, largest=False).values
+    idx = keys & 0xFFFFFFFF
+    return d.gather(-1, idx), idx
+
+
 def _distances(db_rows: torch.Tensor, queries: torch.Tensor, metric: str,
                epsilon: float) -> torch.Tensor:
     """(Q, n_bins) queries vs (N, n_bins) rows → (Q, N) distances. The
@@ -75,7 +91,8 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size: int,
     """Fused ranking (JAX ``_query_math`` / ``_query_batch_kernel``,
     retriever.py:107-159) for (Q, n_bins) queries and (Q, 4)
     [x, y, z, min_d] filters → (Q, k) indices and distances, smallest
-    first; masked rows carry +inf. uint16 rows are dequantised here."""
+    first, equal distances by the lower row as ``lax.top_k`` orders them;
+    masked rows carry +inf. uint16 rows are dequantised here."""
     n = db_rows.shape[0]
     dists = _distances(dequantize_rows(db_rows), queries, metric, epsilon)
     invalid = (torch.arange(n, device=db_rows.device) >= size)[None, :]
@@ -84,8 +101,8 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size: int,
     spatial = torch.linalg.vector_norm(
         db_pos[None, :, :] - qp[:, None, :], dim=2) < min_d
     masked = torch.where(invalid | ((min_d > 0) & spatial), torch.inf, dists)
-    top_dist, top_idx = torch.topk(masked, top_k, dim=1, largest=False)
-    return torch.clamp(top_idx, max=n - 1), top_dist
+    top_dist, top_idx = smallest_k(masked, top_k)
+    return top_idx, top_dist
 
 
 class WassersteinRetriever:
@@ -126,6 +143,8 @@ class WassersteinRetriever:
                                    device=self.device)
 
     def _as_tensor(self, a, width: int) -> torch.Tensor:
+        if isinstance(a, np.ndarray):       # views with negative strides
+            a = np.ascontiguousarray(a)
         t = torch.as_tensor(a, dtype=torch.float32, device=self.device)
         return t.reshape(-1, width)
 

@@ -1,7 +1,7 @@
 """Two-stage loop closing: stage 1 is the device-side W₁ (or L2) top-k
 with the spatial filter and the temporal-context exclusion, stage 2 the
 geometric verification of its candidates. Port of
-``neural_spectral_codec_tpu/retrieval/two_stage.py`` on one device, with
+``neural_spectral_codec_tpu/retrieval/two_stage.py``, with
 its fixed-size record store (``save_database``, ``append_database``,
 ``load_database``; records byte-identical to the JAX package's).
 """
@@ -44,8 +44,11 @@ class TwoStageRetrieval:
     """Stage-1 database and stage-2 verifier of the online loop.
 
     ``device`` holds the stage-1 database (and the verifier's tensors
-    under ``verification_backend="torch"``). ``stage1_storage="uint16"``
-    stores the CDF rows as fixed-point codes (W₁ only)."""
+    under ``verification_backend="torch"``); a ``mesh``
+    (``parallel.Mesh``) row-shards the database over its devices instead
+    (``parallel.ShardedWassersteinRetriever``, the pipeline's
+    ``parallel.shard_retrieval_db``). ``stage1_storage="uint16"`` stores
+    the CDF rows as fixed-point codes (W₁ only)."""
 
     def __init__(self, top_k: int = 10, spatial_filter_distance: float = 50.0,
                  context_window: int = 10, fitness_threshold: float = 0.3,
@@ -58,14 +61,21 @@ class TwoStageRetrieval:
                  stage1_storage: str = "float32",
                  parallel_verification: bool = False,
                  verification_workers: int = 4,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         self.top_k = top_k
         self.spatial_filter_distance = spatial_filter_distance
         self.context_window = context_window
         self.stage1_metric = stage1_metric
-        self.retriever = WassersteinRetriever(
-            n_bins=n_bins, capacity=capacity, metric=stage1_metric,
-            storage=stage1_storage, device=device)
+        if mesh is not None:
+            from neural_spectral_codec_torch.parallel.retrieval import (
+                ShardedWassersteinRetriever)
+            self.retriever = ShardedWassersteinRetriever(
+                mesh, n_bins=n_bins, capacity=capacity, metric=stage1_metric,
+                storage=stage1_storage)
+        else:
+            self.retriever = WassersteinRetriever(
+                n_bins=n_bins, capacity=capacity, metric=stage1_metric,
+                storage=stage1_storage, device=device)
         self.verifier = GeometricVerifier(
             method=verification_method, fitness_threshold=fitness_threshold,
             rmse_threshold=rmse_threshold, max_iterations=icp_max_iterations,
@@ -119,8 +129,12 @@ class TwoStageRetrieval:
         return True
 
     def can_fuse_serving(self) -> bool:
-        """Whether the one-dispatch serving step may insert: a free row."""
-        return self.retriever.database_size < self.retriever.capacity
+        """Whether the one-dispatch serving step may drive this instance:
+        a single-device ``WassersteinRetriever`` (the sharded one keeps
+        its own insert and query dispatch, as in the JAX package) with a
+        free row."""
+        return (type(self.retriever) is WassersteinRetriever
+                and self.retriever.database_size < self.retriever.capacity)
 
     def register_fused_insert(self, keyframe: Keyframe) -> None:
         """Track a keyframe whose row the serving step already inserted."""

@@ -21,6 +21,20 @@ def l2_normalize(x: torch.Tensor, epsilon: float = 1e-12) -> torch.Tensor:
         min=epsilon)
 
 
+def triplet_terms(anchors: torch.Tensor, positives: torch.Tensor,
+                  negatives: torch.Tensor, margin: float = 0.1,
+                  normalize: bool = False) -> torch.Tensor:
+    """Each triplet's relu(‖a − p‖² − ‖a − n‖² + margin); ``normalize``
+    L2-normalises the embeddings first."""
+    if normalize:
+        anchors = l2_normalize(anchors)
+        positives = l2_normalize(positives)
+        negatives = l2_normalize(negatives)
+    pos_d = ((anchors - positives) ** 2).sum(dim=1)
+    neg_d = ((anchors - negatives) ** 2).sum(dim=1)
+    return torch.clamp(pos_d - neg_d + margin, min=0.0)
+
+
 def triplet_loss(anchors: torch.Tensor, positives: torch.Tensor,
                  negatives: torch.Tensor, margin: float = 0.1,
                  mask: Optional[torch.Tensor] = None,
@@ -29,13 +43,7 @@ def triplet_loss(anchors: torch.Tensor, positives: torch.Tensor,
     embeddings before the squared-distance margin (off by default, as in
     the reference); ``mask`` (bool, one per triplet) averages over the
     valid triplets, at least one."""
-    if normalize:
-        anchors = l2_normalize(anchors)
-        positives = l2_normalize(positives)
-        negatives = l2_normalize(negatives)
-    pos_d = ((anchors - positives) ** 2).sum(dim=1)
-    neg_d = ((anchors - negatives) ** 2).sum(dim=1)
-    per = torch.clamp(pos_d - neg_d + margin, min=0.0)
+    per = triplet_terms(anchors, positives, negatives, margin, normalize)
     if mask is None:
         return per.mean()
     m = mask.to(per.dtype)

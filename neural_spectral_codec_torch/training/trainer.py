@@ -1,5 +1,5 @@
 """GNN trainer: full-graph train steps with the triplet loss. Port of
-``neural_spectral_codec_tpu/training/trainer.py`` on one device.
+``neural_spectral_codec_tpu/training/trainer.py``.
 
 Each optimizer step runs one full-graph train-mode forward, gathers the
 anchor, positive and negative rows of 4096 triplets (padded, with a
@@ -20,6 +20,7 @@ the training counters.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import time
@@ -91,10 +92,17 @@ def train_step(model: SpectralGNN, optimizer: torch.optim.Optimizer,
 
 
 class GNNTrainer:
-    """Offline trainer (JAX ``GNNTrainer``, trainer.py:97, without the
-    mesh options). The model's parameters are initialised from ``seed``
-    (as ``init_gnn`` does in the JAX package) and live on ``device``;
-    dropout draws from a generator on the device seeded from ``seed``."""
+    """Offline trainer (JAX ``GNNTrainer``, trainer.py:97). The model's
+    parameters are initialised from ``seed`` (as ``init_gnn`` does in the
+    JAX package) and live on ``device``; dropout draws from a generator on
+    the device seeded from ``seed``.
+
+    ``mesh`` (``parallel.Mesh``, whose first device must be ``device``)
+    trains over its devices (``parallel.make_sharded_train_step``): the
+    triplet batch, padded to a multiple of the mesh size, is split over
+    the devices, and with ``shard_nodes`` the graph's nodes too. The
+    embedding pass then runs the sharded eval forward on the graph padded
+    to a multiple of the mesh size, and validation shards its queries."""
 
     def __init__(self, model: Optional[SpectralGNN] = None,
                  learning_rate: float = 5e-4, weight_decay: float = 1e-5,
@@ -105,8 +113,12 @@ class GNNTrainer:
                  lr_decay_epochs: Optional[List[int]] = None,
                  lr_decay_factor: float = 0.1, min_lr: float = 1e-6,
                  normalize_embeddings: bool = False,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None,
+                 shard_nodes: bool = False):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.devices[0] != self.device:
+            raise ValueError(f"the mesh starts at {mesh.devices[0]}, the "
+                             f"trainer's device is {self.device}")
         # initialised on the host from ``seed``, then moved
         self.model = (model or SpectralGNN()).cpu()
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -121,6 +133,20 @@ class GNNTrainer:
         self.optimizer = make_optimizer(self.model, learning_rate,
                                         weight_decay)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.mesh = mesh
+        self.shard_nodes = shard_nodes
+        self._divisor = 1
+        if mesh is not None:
+            from neural_spectral_codec_torch.parallel.train import (
+                make_sharded_eval_step, make_sharded_train_step)
+            self._sharded_step = make_sharded_train_step(
+                self.model, self.optimizer, mesh, shard_nodes=shard_nodes,
+                normalize=normalize_embeddings, grad_clip=grad_clip)
+            self._sharded_eval = make_sharded_eval_step(
+                self.model, mesh, shard_nodes=shard_nodes)
+            self._divisor = mesh.size
+            logger.info("Training over %d devices (%s)", mesh.size,
+                        "nodes sharded" if shard_nodes else "data-parallel")
 
         self.checkpoint_dir = Path(checkpoint_dir)
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
@@ -170,8 +196,19 @@ class GNNTrainer:
 
         perm = np.random.default_rng(self.epoch).permutation(len(triplets))
         triplets = triplets[perm]
-        dev_graph = graph_to_tensors(graph, self.device)
-        B = self.triplets_per_step
+        if self.mesh is None:
+            dev_graph = graph_to_tensors(graph, self.device)
+            step_fn = functools.partial(
+                train_step, self.model, self.optimizer,
+                grad_clip=self.grad_clip,
+                normalize=self.normalize_embeddings)
+        else:
+            from neural_spectral_codec_torch.parallel.train import (
+                place_graph)
+            dev_graph = place_graph(graph, self.mesh, self.shard_nodes)
+            step_fn = self._sharded_step
+        # padded so that every step (and every device's share) is full
+        B = -(-self.triplets_per_step // self._divisor) * self._divisor
         n_steps = -(-len(triplets) // B)
         pad = n_steps * B - len(triplets)
         tmask = np.ones(len(triplets), bool)
@@ -184,11 +221,9 @@ class GNNTrainer:
         losses = []
         for s in range(n_steps):
             batch = trip_d[s * B:(s + 1) * B]
-            loss = train_step(self.model, self.optimizer, dev_graph,
-                              batch[:, 0], batch[:, 1], batch[:, 2],
-                              mask_d[s * B:(s + 1) * B], self.margin,
-                              self.grad_clip, self._gen,
-                              self.normalize_embeddings)
+            loss = step_fn(dev_graph, batch[:, 0], batch[:, 1], batch[:, 2],
+                           mask_d[s * B:(s + 1) * B], self.margin,
+                           generator=self._gen)
             self.global_step += 1
             losses.append(loss)
             if self.global_step % self.log_interval == 0:
@@ -204,7 +239,19 @@ class GNNTrainer:
         """Eval-mode embeddings of every node (L2-normalised with
         ``normalize_embeddings``), as numpy."""
         self.model.eval()
-        emb = gnn_forward(self.model, graph_to_tensors(graph, self.device))
+        if self.mesh is None:
+            emb = gnn_forward(self.model,
+                              graph_to_tensors(graph, self.device))
+        else:
+            # isolated padding nodes (self-loop-only attention) leave the
+            # real nodes' eval outputs as they are
+            from neural_spectral_codec_torch.keyframe.graph import pad_graph
+            from neural_spectral_codec_torch.parallel.train import (
+                place_graph)
+            n = graph.n_nodes
+            padded = pad_graph(graph, -(-n // self._divisor) * self._divisor)
+            emb = self._sharded_eval(place_graph(
+                padded, self.mesh, self.shard_nodes))[:n]
         emb = emb.cpu().numpy()
         if self.normalize_embeddings:
             emb = emb / np.maximum(
@@ -222,7 +269,7 @@ class GNNTrainer:
         for k in sorted(ks):
             r, nq = recall_loop_closure(emb, val_poses, k,
                                         distance_threshold, skip_frames,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
             metrics[f"recall@{k}"] = r
             metrics["n_queries"] = nq
         logger.info("Validation | %s | Q=%d",

@@ -1,5 +1,5 @@
 """Loop-closure Recall@K validation. Port of ``neural_spectral_codec_tpu/
-training/validation.py`` on one device.
+training/validation.py``.
 
 Reference semantics (``trainer.py:306-387``):
   * queries are revisits: for each earlier frame i, the FIRST later frame
@@ -83,24 +83,36 @@ def _recall_math(embeddings: torch.Tensor, positions: torch.Tensor,
 def recall_loop_closure(embeddings: np.ndarray, poses: np.ndarray, k: int = 1,
                         distance_threshold: float = 5.0,
                         skip_frames: int = 30, query_chunk: int = 4096,
-                        device: DeviceLike = "cuda") -> Tuple[float, int]:
+                        device: DeviceLike = "cuda",
+                        mesh=None) -> Tuple[float, int]:
     """Recall@K over the revisit queries; returns (recall, n_queries).
     Queries run in chunks of ``query_chunk``, so the (Q, n) distance
-    block stays bounded (JAX ``recall_loop_closure``, validation.py:110,
-    without its mesh option)."""
+    block stays bounded (JAX ``recall_loop_closure``, validation.py:110).
+
+    ``mesh`` (``parallel.Mesh``, in place of ``device``) shards each
+    chunk's query axis over its devices, the embeddings replicated: each
+    device ranks its contiguous share of the queries and the hit counts
+    are summed. The shares may differ by one query, so no repeat-query
+    padding (JAX's, for equal shards) is needed and the count equals the
+    single-device pass's."""
     if torch.is_tensor(embeddings):
         embeddings = embeddings.detach().cpu().numpy()
-    dev = resolve_device(device)
+    devices = (list(mesh.devices) if mesh is not None
+               else [resolve_device(device)])
     positions = poses[:, :3, 3].astype(np.float32)
     queries = find_revisit_queries(positions, distance_threshold,
-                                   skip_frames, device=dev)
+                                   skip_frames, device=devices[0])
     nq = len(queries)
     if nq == 0:
         return 0.0, 0
-    emb = torch.from_numpy(np.asarray(embeddings, np.float32)).to(dev)
-    pos = torch.from_numpy(positions).to(dev)
-    qs = torch.from_numpy(queries).to(dev)
-    hits = sum(int(_recall_math(emb, pos, qs[s:s + query_chunk], k,
-                                distance_threshold, skip_frames))
-               for s in range(0, nq, query_chunk))
+    emb = torch.from_numpy(np.asarray(embeddings, np.float32))
+    pos = torch.from_numpy(positions)
+    on = {d: (emb.to(d), pos.to(d)) for d in devices}
+    hits = 0
+    for s in range(0, nq, query_chunk):
+        shares = np.array_split(queries[s:s + query_chunk], len(devices))
+        counts = [_recall_math(*on[d], torch.from_numpy(q).to(d), k,
+                               distance_threshold, skip_frames)
+                  for d, q in zip(devices, shares) if len(q)]
+        hits += sum(int(c) for c in counts)
     return hits / nq, nq

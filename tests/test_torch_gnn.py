@@ -234,7 +234,8 @@ def test_gnn_forward_train_mode_matches_jax():
     within 5e-5 (see the test above), the BatchNorm buffers updated in
     place to within 1e-6 of JAX's new ``batch_stats``, the autograd graph
     kept; a model in the other mode raises. ``create_spectral_gnn`` builds
-    the same network and refuses bf16 ``mixed_precision``."""
+    the same network, and with ``mixed_precision`` the same parameters
+    with a bf16 compute dtype (its numbers: test_torch_mixed_precision)."""
     model = JaxGNN(dropout=0.0)
     params, _ = init_gnn(model, jax.random.key(6))
     _, stats = _perturbed_flax(model, 6)
@@ -257,8 +258,11 @@ def test_gnn_forward_train_mode_matches_jax():
                 np.asarray(new[f"BatchNorm_{i}"][theirs]), rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="eval"):
         torch_gnn_forward(net, t)
-    with pytest.raises(NotImplementedError):
-        create_spectral_gnn(mixed_precision=True)
+    bf16 = create_spectral_gnn(dropout=0.0, mixed_precision=True)
+    assert net.compute_dtype is None
+    assert bf16.compute_dtype is torch.bfloat16
+    assert all(g.compute_dtype is torch.bfloat16 for g in bf16.gat_layers)
+    assert bf16.state_dict().keys() == net.state_dict().keys()
 
 
 def test_seeded_init_is_reproducible():

@@ -68,7 +68,7 @@ def test_checkpoint_roundtrip_through_pipeline(tmp_path):
     """train_offline writes the trainer's .pt checkpoint; load_checkpoint
     (with or without the suffix, or through run_online) restores the same
     weights; a directory (an Orbax checkpoint) raises and names the
-    missing import."""
+    converter command (its conversion: test_torch_orbax_import)."""
     cfg = small_config(tmp_path)
     pipe = _pipe(cfg)
     pipe.train_offline([SyntheticLoader(n_frames=60, seed=0,
@@ -85,7 +85,8 @@ def test_checkpoint_roundtrip_through_pipeline(tmp_path):
                                          "final_model.pt"))
     assert pipe3.weights_loaded
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="python convert_orbax_checkpoint.py"):
         pipe2.load_checkpoint(str(tmp_path / "orbax_dir"))
     with pytest.raises(FileNotFoundError):
         pipe2.load_checkpoint(str(tmp_path / "nothing"))

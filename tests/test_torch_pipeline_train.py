@@ -199,11 +199,16 @@ def test_ring_major_encoder_matches_general():
 
 
 def test_mixed_precision_and_ablation_raise(tmp_path):
-    """bf16 training is not ported (NotImplementedError); a disabled GNN
-    has nothing to train (ValueError)."""
-    with pytest.raises(NotImplementedError):
-        NeuralSpectralCodecPipeline(_small_config(
-            tmp_path, training={"mixed_precision": True}), device="cpu")
+    """``training.mixed_precision`` builds the GNN with a bf16 compute
+    dtype (float32 parameters; the numbers: test_torch_mixed_precision);
+    a disabled GNN has nothing to train (ValueError)."""
+    mp = NeuralSpectralCodecPipeline(_small_config(
+        tmp_path, training={"mixed_precision": True}), device="cpu")
+    assert mp.model.compute_dtype is torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in mp.model.parameters())
+    assert NeuralSpectralCodecPipeline(_small_config(tmp_path),
+                                       device="cpu").model.compute_dtype \
+        is None
     pipe = NeuralSpectralCodecPipeline(_small_config(
         tmp_path, ablation={"disable_gnn": True}), device="cpu")
     with pytest.raises(ValueError, match="disable_gnn"):

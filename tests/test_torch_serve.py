@@ -235,7 +235,9 @@ NEW_MODULES = ("ops.probe_kernels", "utils.timing",
                "experiments.online_latency", "data.kitti", "data.nclt",
                "data.helipr", "data.multi_dataset", "data.native_io",
                "native.io", "evaluation", "run_benchmark",
-               "utils.logging_setup")
+               "utils.logging_setup", "parallel.mesh", "parallel.encode",
+               "parallel.retrieval", "parallel.train", "parallel.dryrun",
+               "experiments.kernel_ab", "experiments.parallel_profile")
 
 
 def test_port_imports_without_jax():
