@@ -141,12 +141,30 @@ weights and data made from seeds:
    3e-2·max(|out|, 1) of float32 and 1e-2·max(|out|, 1) of the CPU's
    bf16 forward, ms per step against float32, and a bf16 ``serve_step``
    ranking its own planted embedding top-1 in an L2 database;
-   ``dryrun_multichip(4, devices=[cuda:0] * 4)``.
+   ``dryrun_multichip(4, devices=[cuda:0] * 4)``;
+11. the rest of the API: ``SpectralEncoder.encode_points`` on one
+   full-density scan (133,632 points, cut to its 131,072) and ``forward``
+   on 8 random-order scans, each equal to ``encode_points_batch`` on the
+   same padded input and within 1e-4 of the CPU plain path, one
+   projection and one spectral launch a call; ``encode_range_image``
+   (method and function, one spectral launch) and ``project_points`` (one
+   projection launch, equal to the CPU image); the port's ``entry()``
+   (8 scans of 16,384 points, the full-width GNN with seeded weights)
+   against the same function on the CPU (descriptors 1e-4, embeddings
+   1e-3), its p50 wall and device ms; the experiments
+   ``retrieval_latency`` at 100,000 rows (float32 and uint16 per-query
+   ms; uint16 rankings within the one-code rule), ``density_defense``'s
+   ray cast of a scene and of a loop pose on the card bit-equal to the
+   CPU's, the script at its defaults, ``degraded_recall`` (200 frames, 3 epochs),
+   ``cross_sensor_uplift`` and ``selection_divergence`` small, each with
+   finite numbers (the first four must launch the projection and
+   spectral kernels); ``native.voxel_overlap`` within 1e-6 of the numpy
+   ``compute_overlap`` on the same stride-subsampled clouds.
 
 Launch counts are set to 0 just before each path (4, each entry point of
 5, 6, each entry-point run of 7, 8's one-dispatch run, each entry-point
-run of 9, each sharded encoder call and the dry run of 10) and read just
-after. Any failure raises
+run of 9, each sharded encoder call and the dry run of 10, each call and
+experiment of 11) and read just after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
@@ -269,6 +287,8 @@ PAR_NODES = 20_000             # phase 10: sharded training graph
 PAR_TRIPLETS = 4096
 PAR_STEPS = 5                  # timed steps per mode after one warm-up
 SHARD_TOL = 1e-7               # sharded vs unsharded encoder (0 expected)
+ENTRY_CALLS = 20               # phase 11: timed calls of entry()'s fn
+OVERLAP_TOL = 1e-6             # phase 11: native voxel IoU vs numpy
 
 # configs/training.yaml (with its parent default.yaml), the sections the
 # training pipeline reads, built in code: the card has no PyYAML
@@ -413,11 +433,15 @@ def _device_times(name: str, wrapper) -> dict:
 
 def _only_kernel(name: str, wrapper) -> None:
     """One wrapper call enqueues its kernel and no other device
-    operation (the output allocation enqueues none)."""
+    operation (the output allocation enqueues none): its launch counter
+    counts one launch per profiled call, and the profiler's record holds
+    that kernel alone."""
     from neural_spectral_codec_torch.utils.timing import device_ops
     wrapper()
-    ops = [op for op, _ in device_ops(wrapper)]
+    ops, launches = _counted(lambda: [op for op, _ in device_ops(wrapper)])
     print(f"{name}: one wrapper call enqueues {ops}", flush=True)
+    _check(launches[name] >= 1 and launches[name] == sum(launches.values()),
+           f"{name}: profiled wrapper calls launched {launches}")
     _check(len(ops) == 1 and KERNEL_NAMES[name][0] in ops[0],
            f"{name}: a wrapper call enqueues {ops}, not only its kernel")
 
@@ -1581,10 +1605,10 @@ def _bench_run(name: str, cfg_path: str, gnn_pt: str, out: Path, device,
     CPU's and the rotation check; returns (results, launches, spy)."""
     import numpy as np
     import torch
-    from neural_spectral_codec_torch import evaluation, run_benchmark
+    from neural_spectral_codec_torch import benchmark_cli, evaluation
     with _Spy() as spy, _RestoreLogging():
         t0 = time.perf_counter()
-        res, launches = _counted(lambda: run_benchmark.main(
+        res, launches = _counted(lambda: benchmark_cli.main(
             ["--config", cfg_path, "--checkpoint", gnn_pt, "--output",
              str(out), "--device", str(device)]))
         wall = time.perf_counter() - t0
@@ -2258,6 +2282,245 @@ def _parallel(device, store: Path) -> dict:
     return by_path
 
 
+def _one_call(name: str, run, launches: dict) -> tuple:
+    """``run`` under ``_counted``; its launches must be one of each
+    kernel in ``launches`` and none of the others."""
+    out, got = _counted(run)
+    want = {k: launches.get(k, 0) for k in got}
+    _check(got == want, f"{name}: launches {got}, expected {want}")
+    return out, got
+
+
+def _single_scan(device) -> dict:
+    """Phase 11: the single-scan API on the card. ``SpectralEncoder`` on
+    one full-density ring-major scan (133,632 points, cut to 131,072) and
+    ``forward`` on BATCH random-order scans: equal to
+    ``encode_points_batch`` on the same padded input (difference 0),
+    within DESC_TOL of the CPU plain path, one projection and one
+    spectral launch a call; ``encode_range_image`` and the functional
+    ``encode_range_image`` one spectral launch; ``project_points`` equal
+    to the CPU image. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.ops.range_image import (
+        pad_points, project_points)
+    from neural_spectral_codec_torch.ops.ring_path import (
+        make_structured_ring_scans)
+    from neural_spectral_codec_torch.ops.spectral import (
+        SpectralEncoder, encode_points_batch, encode_range_image)
+
+    enc, cpu_enc = SpectralEncoder(device=device), SpectralEncoder(
+        device="cpu")
+    cfg = enc.config
+    _check(enc.max_points == 131_072, "SpectralEncoder.max_points is "
+           f"{enc.max_points}, not 131,072")
+    full = make_structured_ring_scans(1, N_RINGS, PER_RING, cfg.projection,
+                                      seed=SEED + 40)[0].reshape(-1, 4)
+    by_path = {}
+    got, by_path["encode_points"] = _one_call(
+        "encode_points", lambda: enc.encode_points(full),
+        {"project": 1, "spectral": 1})
+    padded = torch.from_numpy(pad_points(full, enc.max_points)).to(device)
+    want = encode_points_batch(padded[None], cfg.alpha, cfg)[0].cpu().numpy()
+    uncut = encode_points_batch(torch.from_numpy(full[None]).to(device),
+                                cfg.alpha, cfg)[0].cpu().numpy()
+    on_cpu = cpu_enc.encode_points(full)
+    err, cut = float(np.abs(got - on_cpu).max()), float(
+        np.abs(got - uncut).max())
+    print(f"single scan: encode_points on {len(full)} points (cut to "
+          f"{enc.max_points}): {float(np.abs(got - want).max()):.3e} from "
+          f"encode_points_batch, {err:.3e} from the CPU, {cut:.3e} from "
+          "the uncut scan", flush=True)
+    _check(np.array_equal(got, want) and err <= DESC_TOL and cut > 0,
+           "encode_points: not the batch encoder's descriptor of the cut "
+           f"scan (CPU {err:.3e}, uncut {cut:.3e})")
+
+    clouds = list(_general_scans(BATCH, SEED + 41))
+    got, by_path["forward"] = _one_call(
+        "forward", lambda: enc(clouds), {"project": 1, "spectral": 1})
+    batch = torch.from_numpy(np.stack([pad_points(c, enc.max_points)
+                                       for c in clouds])).to(device)
+    want = encode_points_batch(batch, cfg.alpha, cfg).cpu().numpy()
+    err = float(np.abs(got - cpu_enc.forward(clouds)).max())
+    print(f"single scan: forward on {BATCH} scans: "
+          f"{float(np.abs(got - want).max()):.3e} from encode_points_batch, "
+          f"{err:.3e} from the CPU", flush=True)
+    _check(np.array_equal(got, want) and err <= DESC_TOL
+           and got.shape == (BATCH, enc.output_dim),
+           f"forward: not the batch encoder's descriptors (CPU {err:.3e})")
+
+    x = torch.from_numpy(clouds[0]).to(device)
+    img, by_path["project_points"] = _one_call(
+        "project_points", lambda: project_points(x, cfg.projection),
+        {"project": 1})
+    n_diff = int((img.cpu() != project_points(x.cpu(),
+                                              cfg.projection)).sum())
+    print(f"single scan: project_points, {n_diff} of {img.numel()} pixels "
+          "differ from the CPU image", flush=True)
+    _check(n_diff == 0, "project_points: the card's image differs from "
+           "the CPU's")
+    img_np = img.cpu().numpy()
+    got, by_path["encode_range_image"] = _one_call(
+        "encode_range_image", lambda: enc.encode_range_image(img_np),
+        {"spectral": 1})
+    err = float(np.abs(got - cpu_enc.encode_range_image(img_np)).max())
+    got_f, by_path["encode_range_image_fn"] = _one_call(
+        "encode_range_image (function)",
+        lambda: encode_range_image(img, cfg.alpha, cfg), {"spectral": 1})
+    err_f = float((got_f.cpu() - encode_range_image(
+        img.cpu(), cfg.alpha, cfg)).abs().max())
+    print(f"single scan: encode_range_image {err:.3e} from the CPU, the "
+          f"function (no interpolation) {err_f:.3e}", flush=True)
+    _check(max(err, err_f) <= DESC_TOL, "encode_range_image: card vs CPU "
+           f"{err:.3e} / {err_f:.3e}")
+    return by_path
+
+
+def _entry(device) -> dict:
+    """Phase 11: the port's ``entry()`` on the card against the same
+    function on the CPU (the model copied): descriptors within DESC_TOL,
+    embeddings within EMB_TOL; one projection and one spectral launch a
+    call; p50 wall ms over ENTRY_CALLS calls and the device time of one
+    call (torch.profiler). Returns its launches."""
+    import torch
+    from neural_spectral_codec_torch.entry import entry
+    from neural_spectral_codec_torch.utils.timing import device_ops
+
+    fn, args = entry(device)
+    cpu_args = tuple(copy.deepcopy(a).cpu() for a in args)
+    (desc, emb), launches = _one_call("entry", lambda: fn(*args),
+                                      {"project": 1, "spectral": 1})
+    want_d, want_e = fn(*cpu_args)
+    d_err = float((desc.cpu() - want_d).abs().max())
+    e_err = float((emb.cpu() - want_e).abs().max())
+    _check(d_err <= DESC_TOL and e_err <= EMB_TOL
+           and bool(torch.isfinite(emb).all()),
+           f"entry: descriptors {d_err:.3e}, embeddings {e_err:.3e} from "
+           "the CPU")
+    wall = []
+    for _ in range(ENTRY_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    ops = device_ops(lambda: fn(*args), calls=5)
+    dev_ms = sum(us for _, us in ops) / 5 / 1e3
+    print(f"entry: {tuple(args[0].shape)} scans, descriptors {d_err:.3e} "
+          f"and embeddings {e_err:.3e} from the CPU; p50 wall "
+          f"{statistics.median(wall):.3f} ms, device {dev_ms:.3f} ms in "
+          f"{len(ops) / 5:.0f} operations a call", flush=True)
+    return launches
+
+
+def _finite(what: str, obj) -> None:
+    """Every number in a (nested) result is finite."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            _finite(what, v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _finite(what, v)
+    elif isinstance(obj, float):
+        _check(math.isfinite(obj), f"{what}: a non-finite number")
+
+
+def _experiments(device) -> dict:
+    """Phase 11: the ported root experiments on the card (each must run
+    and give finite numbers; recall is a check, not a quality figure),
+    ``density_defense``'s ray cast bit-equal to the CPU's, and the
+    native voxel IoU. Returns {path: launches}."""
+    import numpy as np
+    from neural_spectral_codec_torch.data.pose_utils import (
+        compute_overlap, relative_pose)
+    from neural_spectral_codec_torch.data.synthetic import SyntheticWorld
+    from neural_spectral_codec_torch.experiments import (
+        cross_sensor_uplift, degraded_recall, density_defense,
+        retrieval_latency, selection_divergence)
+    from neural_spectral_codec_torch.native import voxel_overlap
+
+    by_path = {}
+    out = retrieval_latency.main(["--size", "100000", "--queries", "32",
+                                  "--single", "--device", str(device)])
+    _finite("retrieval_latency", out)
+    _check(out["parity"]["one_code_violations"] == 0,
+           f"retrieval_latency: uint16 ranking off the one-code rule "
+           f"{out['parity']}")
+    for row in out["rows"]:
+        b, one = row["batched"], row["single"]
+        print(f"retrieval_latency: {row['size']} rows {row['storage']}: "
+              f"ms a query batched(32) device {_fmt_ms(b['device_ms'])} "
+              f"wall {_fmt_ms(b['wall_ms'])}, single device "
+              f"{_fmt_ms(one['device_ms'])} wall {_fmt_ms(one['wall_ms'])}",
+              flush=True)
+    worlds = (("scene", density_defense.make_scene, 0.0, (0.0, 0.0)),
+              ("loop pose", lambda r: density_defense.make_world_for_loop(
+                  r, 60.0), 1.3, (60.0, 0.0)))
+    for what, make, yaw, pos in worlds:
+        scans = []
+        for dev in (device, "cpu"):
+            rng = np.random.default_rng(SEED + 43)
+            lo, hi = make(rng)
+            scans.append(density_defense.raycast(lo, hi, yaw, rng, pos=pos,
+                                                 device=dev))
+        same = scans[0].tobytes() == scans[1].tobytes()
+        print(f"density_defense: ray cast of a {what} ({len(lo)} boxes), "
+              f"card {'equal' if same else 'NOT equal'} to the CPU bit for "
+              "bit", flush=True)
+        _check(same, f"density_defense: the card's ray cast of a {what} "
+               "differs from the CPU's")
+    t0 = time.perf_counter()
+    out, by_path["density_defense"] = _counted(
+        lambda: density_defense.main(["--device", str(device)]))
+    _finite("density_defense", out)
+    print(f"density_defense: {time.perf_counter() - t0:.1f} s, recall "
+          f"{out['recall']}", flush=True)
+    runs = {"degraded_recall": (degraded_recall, ["--frames", "200",
+                                                  "--epochs", "3"]),
+            "cross_sensor_uplift": (cross_sensor_uplift, [
+                "--frames", "80", "--epochs", "2"])}
+    for name, (mod, argv) in runs.items():
+        t0 = time.perf_counter()
+        with _RestoreLogging():
+            out, by_path[name] = _counted(
+                lambda: mod.main(argv + ["--device", str(device)]))
+        _finite(name, out)
+        print(f"{name}: {time.perf_counter() - t0:.1f} s, {out}", flush=True)
+    for name, launches in by_path.items():
+        _check(launches["project"] > 0 and launches["spectral"] > 0,
+               f"{name}: launches {launches}")
+    out = selection_divergence.main(["--frames", "60"])
+    _finite("selection_divergence", out)
+
+    world, rng = SyntheticWorld(seed=3), np.random.default_rng(SEED + 42)
+    p0, p1 = np.eye(4), np.eye(4)
+    p1[0, 3] = 1.0
+    a = world.scan(p0, n_points=16384, rng=rng)[:, :3]
+    b = world.scan(p1, n_points=16384, rng=rng)[:, :3]
+    T = relative_pose(p0, p1)
+    stride = -(-len(a) // 5000)
+    for vox in (0.2, 2.0):
+        nat = voxel_overlap(a, b, T, voxel=vox)
+        num = compute_overlap(a[::stride], b[::stride], T, voxel_size=vox)
+        print(f"voxel_overlap: voxel {vox} native {nat:.7f} numpy "
+              f"{num:.7f}", flush=True)
+        _check(abs(nat - num) <= OVERLAP_TOL, f"voxel_overlap {nat} vs "
+               f"numpy {num}")
+    return by_path
+
+
+def _rest_of_api(device) -> dict:
+    """Phase 11: the single-scan API, ``entry()``, the experiments."""
+    t0 = time.perf_counter()
+    by_path = _single_scan(device)
+    by_path["entry"] = _entry(device)
+    by_path.update(_experiments(device))
+    from neural_spectral_codec_torch.utils.timing import gpu_label
+    print(f"phase 11 wall {time.perf_counter() - t0:.2f} s on {gpu_label()}",
+          flush=True)
+    return by_path
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2536,7 +2799,10 @@ def main() -> None:
     finally:
         keep.cleanup()
 
-    # -- 11. record --------------------------------------------------------
+    # -- 11. the single-scan API, entry(), the experiments ----------------
+    by_path.update(_rest_of_api(device))
+
+    # -- 12. record --------------------------------------------------------
     meta = {
         "spectral": ("neural_spectral_codec_torch/csrc/spectral.cu",
                      "neural_spectral_codec_tpu/ops/pallas_spectral.py:169",
@@ -2583,6 +2849,9 @@ def main() -> None:
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"
         record.append(entry)
+    from neural_spectral_codec_torch.utils.timing import REPEATED_SESSIONS
+    print(f"profiler: {REPEATED_SESSIONS} torch.profiler sessions recorded "
+          "no device operation and were repeated", flush=True)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

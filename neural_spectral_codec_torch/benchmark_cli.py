@@ -1,7 +1,7 @@
 """Benchmark entry point of the port (the root ``run_benchmark.py`` of the
 JAX package, with ``--device`` in place of ``--platform``):
 
-    python -m neural_spectral_codec_torch.run_benchmark \\
+    python -m neural_spectral_codec_torch.benchmark_cli \\
         --config configs/inference.yaml [--checkpoint ckpt/final_model.pt] \\
         [--output results.json] [--synthetic N] [--device cuda|cpu]
 
@@ -11,6 +11,10 @@ Reads the config's test (else val) sequences, runs
 ``<system.output_dir>/benchmark_results.json``; none when
 ``benchmark.save_results`` is false and no ``--output`` is given). The
 checkpoint is a ``.pt`` file of the port's trainer.
+
+The package's top-level name ``run_benchmark`` is the function
+``evaluation.run_benchmark``, as in the JAX package; this module is the
+command line around it.
 """
 
 from __future__ import annotations

@@ -204,11 +204,22 @@ def spherical_to_cartesian(spherical: np.ndarray) -> np.ndarray:
 def compute_overlap(points1: np.ndarray, points2: np.ndarray,
                     T_12: np.ndarray, voxel_size: float = 0.2,
                     max_points: int = 5000,
-                    rng: Optional[np.random.Generator] = None) -> float:
-    """Voxel-IoU overlap of two clouds after random downsampling to
-    ``max_points`` each (JAX ``compute_overlap``, pose_utils.py:166, its
-    numpy backend; the C++ backend is not ported). ``T_12`` maps cloud 2's
-    frame into cloud 1's."""
+                    rng: Optional[np.random.Generator] = None,
+                    backend: str = "numpy") -> float:
+    """Voxel-IoU overlap of two clouds after downsampling to
+    ``max_points`` each (JAX ``compute_overlap``, pose_utils.py:166).
+    ``T_12`` maps cloud 2's frame into cloud 1's.
+
+    ``backend="numpy"`` draws a random subsample from ``rng``;
+    ``"native"`` runs the C++ hash grid (``native.geom.voxel_overlap``)
+    on a fixed-stride subsample. Where the native library cannot be
+    built, ``"native"`` raises (JAX's falls back to numpy)."""
+    if backend == "native":
+        from neural_spectral_codec_torch.native import geom
+        return geom.voxel_overlap(points1, points2, T_12, voxel=voxel_size,
+                                  max_points=max_points)
+    if backend != "numpy":
+        raise ValueError(f"unknown overlap backend: {backend!r}")
     rng = rng or np.random.default_rng(0)
     if len(points1) > max_points:
         points1 = points1[rng.choice(len(points1), max_points, replace=False)]

@@ -201,3 +201,25 @@ class SensorSimLoader(SyntheticLoader):
             pts = pts[np.lexsort((np.arctan2(pts[:, 1], pts[:, 0]), beam))]
         item["points"] = pts
         return item
+
+
+class DegradedSyntheticLoader(SyntheticLoader):
+    """Synthetic loader whose scans each keep a random azimuth wedge and
+    lose random points (JAX ``DegradedSyntheticLoader``, synthetic.py:212):
+    a revisit sees another wedge of the same place. Deterministic per
+    (seed, frame); the seed derivation and the draw order (wedge centre
+    first) are JAX's, so the frames are byte-equal to the JAX stream."""
+
+    def __init__(self, *args, wedge_deg: float = 200.0,
+                 dropout: float = 0.3, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.wedge_deg = wedge_deg
+        self.dropout = dropout
+
+    def __getitem__(self, idx: int) -> dict:
+        item = super().__getitem__(idx)
+        pts = item["points"]
+        rng = np.random.default_rng(hash((self.seed, idx, 77)) % (2 ** 31))
+        item["points"] = pts[wedge_dropout_keep(pts, rng, self.wedge_deg,
+                                                self.dropout)]
+        return item

@@ -1,5 +1,6 @@
 """Keyframe selection criteria, host-side numpy. Copied from
-``neural_spectral_codec_tpu/keyframe/criteria.py:24-110``.
+``neural_spectral_codec_tpu/keyframe/criteria.py:24-160`` (with
+``estimate_keyframe_rate`` and ``analyze_keyframe_spacing``).
 
 OR logic over {distance > 0.5 m, rotation > 15°, Δt > 5 s}; the voxel-IoU
 novelty check (novel when overlap < 0.7) runs only when the three cheap
@@ -98,3 +99,42 @@ class KeyframeSelectionCriteria:
             selected = geom_ok          # the cheap criteria are all false
         details["selected"] = selected
         return selected, details
+
+
+def estimate_keyframe_rate(distance_threshold: float = 0.5,
+                           rotation_threshold: float = 15.0,
+                           avg_velocity: float = 5.0,
+                           avg_angular_velocity: float = 10.0) -> float:
+    """Expected keyframe rate in Hz under OR logic: one keyframe per the
+    shorter of the distance and rotation periods."""
+    t_d = (distance_threshold / avg_velocity if avg_velocity > 0
+           else float("inf"))
+    t_r = (rotation_threshold / avg_angular_velocity
+           if avg_angular_velocity > 0 else float("inf"))
+    t = min(t_d, t_r)
+    return 1.0 / t if t > 0 else 0.0
+
+
+def analyze_keyframe_spacing(poses: np.ndarray, timestamps: np.ndarray,
+                             selected_indices: np.ndarray) -> dict:
+    """Distance and time statistics between consecutive selected frames."""
+    if len(selected_indices) < 2:
+        return {"num_keyframes": len(selected_indices),
+                "mean_distance": 0.0, "mean_time": 0.0}
+    sel = np.asarray(selected_indices)
+    pos = poses[sel][:, :3, 3]
+    dists = np.linalg.norm(np.diff(pos, axis=0), axis=1)
+    dts = np.diff(timestamps[sel])
+    mean_dt = float(np.mean(dts))
+    return {
+        "num_keyframes": len(sel),
+        "mean_distance": float(np.mean(dists)),
+        "std_distance": float(np.std(dists)),
+        "min_distance": float(np.min(dists)),
+        "max_distance": float(np.max(dists)),
+        "mean_time": mean_dt,
+        "std_time": float(np.std(dts)),
+        "min_time": float(np.min(dts)),
+        "max_time": float(np.max(dts)),
+        "avg_keyframe_rate": 1.0 / mean_dt if mean_dt > 0 else 0.0,
+    }

@@ -1,11 +1,13 @@
 """Incremental keyframe selector, host-side. Copied from
-``neural_spectral_codec_tpu/keyframe/selector.py:21-158``: the first scan
+``neural_spectral_codec_tpu/keyframe/selector.py:21-218``: the first scan
 is forced, then the OR-logic criteria decide; the keyframe list is a
-FIFO capped at ``max_keyframes``.
+FIFO capped at ``max_keyframes``. ``select_keyframes_from_kitti`` runs a
+selector over a whole loader.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -13,6 +15,8 @@ import numpy as np
 
 from neural_spectral_codec_torch.keyframe.criteria import (
     KeyframeSelectionCriteria)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -107,3 +111,33 @@ class KeyframeSelector:
                 "num_scans": self.total_scans_processed,
                 "compression_ratio": compression,
                 "avg_keyframe_rate_hz": rate, "criteria_counts": counts}
+
+
+def select_keyframes_from_kitti(
+    kitti_loader,
+    distance_threshold: float = 0.5,
+    rotation_threshold: float = 15.0,
+    overlap_threshold: float = 0.7,
+    temporal_threshold: float = 5.0,
+) -> List[Keyframe]:
+    """Keyframes of a whole loader (any loader of frame dicts with
+    ``points``, ``pose`` and ``timestamp``, not only KITTI); logs the
+    selector's statistics."""
+    selector = KeyframeSelector(
+        distance_threshold=distance_threshold,
+        rotation_threshold=rotation_threshold,
+        overlap_threshold=overlap_threshold,
+        temporal_threshold=temporal_threshold,
+    )
+    for scan_id in range(len(kitti_loader)):
+        frame = kitti_loader[scan_id]
+        selector.process_scan(scan_id, frame["points"], frame["pose"],
+                              frame["timestamp"])
+    stats = selector.get_statistics()
+    logger.info("Selected %d keyframes from %d scans",
+                stats["num_keyframes"], stats["num_scans"])
+    logger.info("Compression ratio: %.1fx", stats["compression_ratio"])
+    if "avg_keyframe_rate_hz" in stats:
+        logger.info("Avg keyframe rate: %.2f Hz",
+                    stats["avg_keyframe_rate_hz"])
+    return selector.keyframes

@@ -100,3 +100,11 @@ class NativeLibrary:
                 self._configure(lib)
                 self._lib = lib
             return self._lib
+
+    def available(self) -> bool:
+        """True when the library builds (if it has not yet) and loads."""
+        try:
+            self.load()
+        except (RuntimeError, OSError):
+            return False
+        return True

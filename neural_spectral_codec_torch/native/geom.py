@@ -15,7 +15,9 @@ the plain PyTorch backend explicitly.
 
 Entry points (all on host numpy float32 arrays; ctypes releases the GIL,
 so verification threads run in parallel): ``voxel_downsample``,
-``estimate_normals``, ``estimate_covariances``, ``icp``, ``gicp``.
+``estimate_normals``, ``estimate_covariances``, ``icp``, ``gicp``,
+``voxel_overlap``; ``available()`` says whether the library builds and
+loads.
 """
 
 from __future__ import annotations
@@ -49,12 +51,17 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.nsc_gicp.argtypes = [
         _f32p, ctypes.c_int, _f32p, _f32p, ctypes.c_int, _f32p,
         _f32p, ctypes.c_int, ctypes.c_float, _f32p, _f32p, _f32p]
+    lib.nsc_voxel_overlap.restype = ctypes.c_float
+    lib.nsc_voxel_overlap.argtypes = [
+        _f32p, ctypes.c_int, _f32p, ctypes.c_int, _f32p,
+        ctypes.c_float, ctypes.c_int]
 
 
 _LIB = NativeLibrary("libnsc_geom", "nsc_geom.cpp", CXX_FLAGS, _configure)
 library_path = _LIB.library_path
 build = _LIB.build
 load = _LIB.load
+available = _LIB.available
 
 
 def _c3(a: np.ndarray) -> np.ndarray:
@@ -132,3 +139,16 @@ def gicp(src: np.ndarray, dst: np.ndarray, cov_src: np.ndarray,
                     _ptr(T0), max_iterations, max_correspondence,
                     _ptr(T_out), ctypes.byref(fit), ctypes.byref(rmse))
     return T_out.reshape(4, 4).astype(np.float64), fit.value, rmse.value
+
+
+def voxel_overlap(points1: np.ndarray, points2: np.ndarray,
+                  T_rel: np.ndarray, voxel: float = 0.2,
+                  max_points: int = 5000) -> float:
+    """Voxel IoU of cloud 1 and cloud 2 moved by ``T_rel`` (4, 4), each
+    cloud cut to at most ``max_points`` by a fixed stride
+    (ceil(n / max_points)); non-finite points are skipped."""
+    p1, p2 = _c3(points1), _c3(points2)
+    T = np.ascontiguousarray(T_rel, np.float32)
+    return float(load().nsc_voxel_overlap(_ptr(p1), len(p1), _ptr(p2),
+                                          len(p2), _ptr(T), voxel,
+                                          max_points))

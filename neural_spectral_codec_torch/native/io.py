@@ -67,6 +67,7 @@ _LIB = NativeLibrary("libnsc_io", "nsc_io.cpp",
 library_path = _LIB.library_path
 build = _LIB.build
 load = _LIB.load
+available = _LIB.available
 
 
 def decode(format_id: int, raw: bytes) -> np.ndarray:

@@ -166,6 +166,16 @@ def project_points_batch(points: torch.Tensor,
     return project_points_cuda(points, config)
 
 
+def project_points(points: torch.Tensor,
+                   config: ProjectionConfig) -> torch.Tensor:
+    """One padded (N, 3|4) float32 cloud → (n_elevation, n_azimuth) range
+    image, 0 = empty (JAX ``project_points``, range_image.py:93): a
+    one-scan batch of ``project_points_batch``, so a CUDA tensor goes
+    through the projection kernel."""
+    check_points(points, 2, "project_points")
+    return project_points_batch(points[None], config)[0]
+
+
 def _nearest_valid(val: torch.Tensor, d: torch.Tensor, dim: int,
                    n: int, direction: int, circular: bool):
     """Pointer doubling along ``dim``: for every slot, the value and

@@ -13,6 +13,14 @@ Port of ``neural_spectral_codec_tpu/ops/spectral.py``:
 (``csrc/spectral.cu``, replacing ``pallas_spectral._kernel``): a CPU
 tensor takes the plain version ``encode_images_plain``, a CUDA tensor the
 kernel.
+
+The single-scan API (``encode_points``, ``encode_range_image``) and the
+class surface of the reference (``SpectralEncoder``: numpy in, numpy out;
+``SpectralEncoderNumpy``, the 50-D variant) are one-scan batches of the
+batch entry points, so on a card they launch the same kernels.
+``SpectralEncoder`` pads or cuts a cloud to ``max_points`` (131,072), as
+JAX's does: the last 2,560 points of a full HDL-64E scan (133,632) are
+not seen.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ from typing import NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.ops.range_image import (
-    ProjectionConfig, interpolate_range_image, project_points_batch)
+    ProjectionConfig, RangeImageProjector, interpolate_range_image,
+    pad_points, project_points_batch)
 
 Alpha = Union[float, torch.Tensor]
 
@@ -197,3 +207,103 @@ def encode_points_batch(points: torch.Tensor, alpha: Alpha,
     spectral.py:184)."""
     imgs = project_points_batch(points, config.projection)
     return encode_images(imgs, alpha, config)
+
+
+def encode_points(points: torch.Tensor, alpha: Alpha,
+                  config: SpectralEncoderConfig) -> torch.Tensor:
+    """(N, 3|4) padded cloud → (output_dim,) descriptor (JAX
+    ``encode_points``, spectral.py:175)."""
+    return encode_points_batch(points[None], alpha, config)[0]
+
+
+def encode_range_image(img: torch.Tensor, alpha: Alpha,
+                       config: SpectralEncoderConfig) -> torch.Tensor:
+    """(E, A) range image → (output_dim,) descriptor without the
+    interpolation of empty pixels (JAX ``encode_range_image``,
+    spectral.py:146): the spectral kernel with ``interpolate_empty``
+    off on a card, ``encode_range_image_batch`` on the CPU."""
+    return encode_images(img[None], alpha,
+                         config._replace(interpolate_empty=False))[0]
+
+
+def encode_clouds(clouds, max_points: int, config: SpectralEncoderConfig,
+                  alpha: Alpha = 2.0,
+                  device: DeviceLike = "cuda") -> torch.Tensor:
+    """Unpadded (N_i, 3|4) numpy clouds → (B, output_dim) descriptors on
+    ``device``: each cloud NaN-padded or cut to ``max_points``, then one
+    ``encode_points_batch``."""
+    batch = np.stack([pad_points(np.asarray(c), max_points) for c in clouds])
+    return encode_points_batch(
+        torch.from_numpy(batch).to(resolve_device(device)), alpha, config)
+
+
+class SpectralEncoder:
+    """The reference encoder's surface (``encode_points``,
+    ``encode_range_image``, ``forward``) over the batch entry points, on
+    ``device``; numpy in, numpy out (JAX ``SpectralEncoder``,
+    spectral.py:233). A cloud is NaN-padded or cut to ``max_points``."""
+
+    def __init__(self, n_elevation: int = 64, n_azimuth: int = 360,
+                 n_bins: int = 50, target_elevation_bins: int = 16,
+                 alpha: float = 2.0, interpolate_empty: bool = True,
+                 elevation_range: Tuple[float, float] = (-24.8, 2.0),
+                 max_range: float = 80.0, min_range: float = 1.0,
+                 max_points: int = 131072, device: DeviceLike = "cuda"):
+        self.config = SpectralEncoderConfig(
+            n_elevation=n_elevation, n_azimuth=n_azimuth, n_bins=n_bins,
+            target_elevation_bins=target_elevation_bins, alpha=alpha,
+            interpolate_empty=interpolate_empty,
+            elevation_range_deg=tuple(elevation_range),
+            max_range=max_range, min_range=min_range)
+        self.alpha = alpha
+        self.max_points = max_points
+        self.device = resolve_device(device)
+
+    @property
+    def output_dim(self) -> int:
+        return self.config.output_dim
+
+    def encode_points(self, points: np.ndarray) -> np.ndarray:
+        """(N, 3|4) unpadded cloud → (output_dim,) descriptor."""
+        return self.forward([points])[0]
+
+    def encode_range_image(self, img: np.ndarray) -> np.ndarray:
+        """(E, A) range image → descriptor, empty pixels interpolated
+        when the config says so."""
+        x = torch.from_numpy(np.asarray(img, np.float32)).to(self.device)
+        return encode_images(x[None], self.alpha,
+                             self.config)[0].cpu().numpy()
+
+    def forward(self, clouds) -> np.ndarray:
+        """Unpadded clouds → (B, output_dim), one device batch."""
+        return encode_clouds(clouds, self.max_points, self.config,
+                             self.alpha, self.device).cpu().numpy()
+
+    __call__ = forward
+
+
+class SpectralEncoderNumpy:
+    """The reference's 50-D variant (JAX ``SpectralEncoderNumpy``,
+    spectral.py:290): the range image from ``RangeImageProjector`` on
+    ``device``, then ``encode_range_image_numpy_50d`` on the host."""
+
+    def __init__(self, n_elevation: int = 64, n_azimuth: int = 360,
+                 n_bins: int = 50, alpha: float = 2.0,
+                 elevation_range: Tuple[float, float] = (-24.8, 2.0),
+                 max_range: float = 80.0, min_range: float = 1.0,
+                 max_points: int = 131072, device: DeviceLike = "cuda"):
+        self.projector = RangeImageProjector(
+            n_elevation=n_elevation, n_azimuth=n_azimuth,
+            elevation_range=elevation_range, max_range=max_range,
+            min_range=min_range, max_points=max_points, device=device)
+        self.n_bins = n_bins
+        self.alpha = alpha
+        self.max_points = max_points
+
+    def encode_points(self, points: np.ndarray) -> np.ndarray:
+        img, _ = self.projector.project(points)
+        return self.encode_range_image(img)
+
+    def encode_range_image(self, img: np.ndarray) -> np.ndarray:
+        return encode_range_image_numpy_50d(np.asarray(img), self.n_bins,
+                                            self.alpha)

@@ -11,8 +11,10 @@ Two backends, chosen once at construction:
     correspondences, ctypes releases the GIL so candidates verify in
     parallel threads). ``"auto"`` means this one, and raises when the
     library cannot be built: no quiet fallback.
-  * ``"torch"``: the fixed-shape registration of the JAX package's ``"jax"``
-    backend in plain PyTorch on the verifier's device: padded point sets,
+  * ``"torch"`` (also named ``"jax"``, the JAX package's name for it, so
+    that its configs build): the fixed-shape registration of the JAX
+    package's ``"jax"`` backend in plain PyTorch on the verifier's
+    device: padded point sets,
     all-pairs nearest neighbours from a distance matrix, ``max_iterations``
     Gauss-Newton steps (``icp_kernel``: point-to-point Kabsch,
     point-to-plane, or generalized ICP with k-NN disk-regularised
@@ -243,7 +245,7 @@ class GeometricVerifier:
         self.max_correspondence_distance = max_correspondence_distance
         self.max_points = max_points
         # "auto" is the native library, built here: a failed build raises
-        backend = "native" if backend == "auto" else backend
+        backend = {"auto": "native", "jax": "torch"}.get(backend, backend)
         if backend not in ("native", "torch"):
             raise ValueError(f"unknown verifier backend: {backend}")
         if backend == "native":

@@ -16,7 +16,8 @@ enqueues around it and from the host time between launches:
 - ``kernel_device_ms``: ``torch.profiler`` over ``calls`` calls; the
   device time of the kernels whose names contain one of ``names``, summed
   and divided by ``calls`` (the primary source). ``device_ops`` lists
-  every device operation one call enqueues.
+  every device operation one call enqueues (repeating a session
+  whose device records were lost).
 - ``time_queued_ms``: ``n`` calls enqueued behind a spin kernel
   (``torch.cuda._sleep``), so that the host has queued them all before
   the first runs; one pair of events around them, divided by ``n``. Given
@@ -92,11 +93,12 @@ def time_loop_ms(fn: Callable[[], object], n: int = 100, repeats: int = 5,
     return statistics.median(times)
 
 
-def device_ops(fn: Callable[[], object],
-               calls: int = 1) -> List[Tuple[str, float]]:
-    """(name, µs) of every device operation (kernel, copy, memset) that
-    ``calls`` calls of ``fn`` enqueue, from ``torch.profiler``."""
-    _check_cuda()
+_PROFILER_STARTED = False
+REPEATED_SESSIONS = 0   # sessions device_ops repeated, this process
+
+
+def _profile_device_ops(fn: Callable[[], object],
+                        calls: int) -> List[Tuple[str, float]]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -107,6 +109,33 @@ def device_ops(fn: Callable[[], object],
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA]
+
+
+def device_ops(fn: Callable[[], object], calls: int = 1,
+               tries: int = 3) -> List[Tuple[str, float]]:
+    """(name, µs) of every device operation (kernel, copy, memset) that
+    ``calls`` calls of ``fn`` enqueue, from ``torch.profiler``.
+
+    On the H100 a session now and then returns no device record at all
+    (CUPTI's records lost; seen in a process's early sessions), so the
+    first call in a process opens one session around a small kernel
+    first, and a session that recorded no device operation is repeated,
+    up to ``tries`` sessions in all. A ``fn`` that enqueues nothing
+    gives [] after ``tries`` sessions. ``REPEATED_SESSIONS`` counts the
+    sessions repeated."""
+    global _PROFILER_STARTED, REPEATED_SESSIONS
+    _check_cuda()
+    if not _PROFILER_STARTED:
+        x = torch.zeros(1, device="cuda")
+        _profile_device_ops(lambda: x.add_(1.0), 1)
+        _PROFILER_STARTED = True
+    ops = _profile_device_ops(fn, calls)
+    for _ in range(tries - 1):
+        if ops:
+            break
+        REPEATED_SESSIONS += 1
+        ops = _profile_device_ops(fn, calls)
+    return ops
 
 
 def kernel_device_ms(fn: Callable[[], object], names: Sequence[str],

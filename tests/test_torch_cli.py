@@ -1,6 +1,6 @@
 """The port's entry points on dataset directories, on the CPU:
 ``python -m neural_spectral_codec_torch.pipeline --mode train|online``,
-``python -m neural_spectral_codec_torch.run_benchmark`` and
+``python -m neural_spectral_codec_torch.benchmark_cli`` and
 ``train_multi_dataset`` without ``--synthetic``, each on a YAML config
 whose ``data.datasets`` name KITTI-layout sequences written from a
 synthetic two-lap stream (and an NCLT and a HeLiPR sequence for
@@ -25,7 +25,7 @@ from test_torch_native_io import _write_kitti_stream  # noqa: E402
 from test_torch_online import small_config  # noqa: E402
 
 from neural_spectral_codec_torch import (  # noqa: E402
-    pipeline, run_benchmark, train_multi_dataset)
+    benchmark_cli, pipeline, train_multi_dataset)
 from neural_spectral_codec_torch.data import KITTILoader  # noqa: E402
 
 torch.set_num_threads(2)
@@ -99,7 +99,7 @@ def test_pipeline_main_online_writes_g2o(workdir):
 def test_run_benchmark_main_writes_results(workdir):
     cfg = write_config(workdir)
     out = workdir / "out" / "r.json"
-    res = run_benchmark.main(["--config", str(cfg), "--device", "cpu",
+    res = benchmark_cli.main(["--config", str(cfg), "--device", "cpu",
                               "--output", str(out)])
     saved = json.loads(out.read_text())
     assert saved["mean"] == res["mean"]

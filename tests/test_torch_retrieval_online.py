@@ -341,7 +341,7 @@ def test_native_backend_equals_jax_native():
     """The port's g++ build of ``native/nsc_geom.cpp`` through its own
     ctypes binding gives JAX's native path bit for bit: downsample,
     covariances, normals, GICP and ICP; ``"auto"`` picks it; parallel
-    verification equals serial."""
+    verification equals serial; ``"jax"`` names the torch backend."""
     from neural_spectral_codec_tpu import native as jnative
     assert jnative.available()
     rng = np.random.default_rng(9)
@@ -374,8 +374,11 @@ def test_native_backend_equals_jax_native():
         assert a[2]["fitness"] == b[2]["fitness"]
     ok, _, _ = tver.verify_loop_closure(src, cloud)
     assert ok
+    # "jax" names the torch backend (the JAX package's name for it)
+    assert tver.GeometricVerifier(backend="jax", device="cpu").backend == \
+        "torch"
     with pytest.raises(ValueError, match="backend"):
-        tver.GeometricVerifier(backend="jax")
+        tver.GeometricVerifier(backend="xla")
 
 
 def test_two_stage_on_synthetic_world():

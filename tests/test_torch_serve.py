@@ -234,10 +234,15 @@ NEW_MODULES = ("ops.probe_kernels", "utils.timing",
                "retrieval.two_stage", "utils.profiler", "native.geom",
                "experiments.online_latency", "data.kitti", "data.nclt",
                "data.helipr", "data.multi_dataset", "data.native_io",
-               "native.io", "evaluation", "run_benchmark",
+               "native.io", "evaluation", "benchmark_cli",
                "utils.logging_setup", "parallel.mesh", "parallel.encode",
                "parallel.retrieval", "parallel.train", "parallel.dryrun",
-               "experiments.kernel_ab", "experiments.parallel_profile")
+               "experiments.kernel_ab", "experiments.parallel_profile",
+               "entry", "native", "experiments.retrieval_latency",
+               "experiments.degraded_recall",
+               "experiments.cross_sensor_uplift",
+               "experiments.density_defense",
+               "experiments.selection_divergence")
 
 
 def test_port_imports_without_jax():
