@@ -47,12 +47,19 @@ weights and data made from seeds:
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
    card, and 32 requests through ``serve_step`` (16 ring-structured, 16
-   arbitrary-order scans), top-10 with a spatial filter, query and insert
-   on. Each request's scan also sits in the database as a row computed by
-   the plain path on the CPU, outside the spatial filter; it must come
-   back as top-1, the descriptor must agree with the CPU's to 1e-4 and
-   the embeddings to 1e-3, and every serving kernel's launch count must
-   rise;
+   arbitrary-order scans, each arriving on the host), top-10 with a
+   spatial filter, query and insert on. The serving executables of both
+   forms are built first by scratch executions (``warm_serve_step``): the
+   captured graphs must hold K3 (its node cooperative, read back from the
+   graph) + K1 or K2 + K1. The requests run through the replayed graphs
+   (the counted path) and again eagerly from the same database snapshot:
+   descriptors bit-equal, embeddings within 1e-6, indices and inserted
+   rows equal; latency p50 and max of both, the device ms of one replay
+   (CUDA events) and the graph pool's bytes. Each request's scan also
+   sits in the database as a row computed by the plain path on the CPU,
+   outside the spatial filter; it must come back as top-1, the descriptor
+   must agree with the CPU's to 1e-4 and the embeddings to 1e-3, and
+   every serving kernel's launch count must rise;
 5. probes: the two stage-profile entry points
    (``experiments.ring_stage_probe``, ``experiments.profile_hotpath``)
    with few iterations, each on its own: ring_stage_probe must launch the
@@ -95,10 +102,17 @@ weights and data made from seeds:
    the synchronous ``fused_query: false`` mode; the native and torch (on
    the card) verifier backends agree on the candidates of 10 queries;
    100,000 + keyframes rows, restored by a save/load round trip; ``project``
-   and ``spectral`` launched. It prints per-keyframe latency p50/p95/max,
-   keyframes over 100 ms, stage means, GICP ms per pair of each backend,
-   warmup seconds, peak device memory, and (torch.profiler over a short
-   fresh session) the device time and operations per keyframe;
+   and ``spectral`` launched (counted inside the graph replays); 0 serving
+   graphs captured mid-stream (``warmup()`` captures them) and one replay
+   a keyframe. It prints per-keyframe latency p50/p95/max, keyframes over
+   100 ms, stage means, GICP ms per pair of each backend, warmup seconds,
+   peak device memory, each captured executable's bucket, nodes and
+   capture seconds, the graph pool's bytes, and (torch.profiler over a
+   short fresh session, warmed up before the profiler starts) the device
+   time and operations per keyframe. A last session of 140 frames drops
+   the executable cache every 20 frames while the torch verifier works
+   through its backlog on the async worker: every capture counted, the
+   loop closures equal to the synchronous run's;
 9. datasets and evaluation: three sequences written in their datasets'
    on-disk formats from seeded SyntheticWorld streams through simulated
    sensors (``DATA_SEQS``: KITTI 150 frames of 131,072 points in sweep
@@ -246,6 +260,8 @@ KERNEL_NAMES = {
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
+GRAPH_EMB_TOL = 1e-6           # serve: graph replay vs the eager step
+REPLAYS = 50                   # serve: replays timed by CUDA events
 TRAIN_TOL = 1e-4               # train step: card vs CPU
 TRAIN_NODES = 512
 SCALE_NODES = 20_000
@@ -256,6 +272,7 @@ ONLINE_WARM_SCANS = 10         # reported apart from the steady scans
 VERIFY_QUERIES = 10            # phase 8: queries whose candidates both
                                # verifier backends check
 TRACE_FRAMES = 30              # phase 8: keyframes under torch.profiler
+CONCURRENT_FRAMES = 140        # phase 8: captures beside the verifier
 # phase 9: sequences written in their datasets' formats, each drawn from
 # one seeded SyntheticWorld along two laps of a 120 m circle through a
 # simulated sensor: (beam elevations in degrees, points a scan, frames).
@@ -444,6 +461,52 @@ def _only_kernel(name: str, wrapper) -> None:
            f"{name}: profiled wrapper calls launched {launches}")
     _check(len(ops) == 1 and KERNEL_NAMES[name][0] in ops[0],
            f"{name}: a wrapper call enqueues {ops}, not only its kernel")
+
+
+def _replay_ms(exe) -> float:
+    """Device ms of one replay of a serving executable's graph: CUDA
+    events around REPLAYS replays (its last staged step again: the same
+    query and the same row written, so nothing changes; not counted)."""
+    import torch
+    exe.graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(REPLAYS):
+        exe.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPLAYS
+
+
+def _host_split(exe, ret, stage, calls: int = 20) -> dict:
+    """Median ms of a serving step's parts on the host clock: staging the
+    inputs (``stage(insert_at, eff_size)``), ``execute`` (the upload, the
+    replay and the fetch, waited for) and copying the answer out of the
+    pinned buffer; scratch executions at the next free row, whose bytes
+    are put back (not counted: the launches are measurements)."""
+    times = {"stage_ms": [], "execute_ms": [], "copy_out_ms": []}
+
+    def dispatch(insert_at: int, eff: int):
+        row = slice(insert_at, insert_at + 1)
+        kept = (ret._db_rows[row].clone(), ret._db_pos[row].clone())
+        t0 = time.perf_counter()
+        stage(insert_at, eff)
+        t1 = time.perf_counter()
+        out = exe.execute()
+        t2 = time.perf_counter()
+        {k: v.copy() for k, v in out.items()}
+        t3 = time.perf_counter()
+        ret.write_rows(insert_at, *kept)
+        times["stage_ms"].append(1e3 * (t1 - t0))
+        times["execute_ms"].append(1e3 * (t2 - t1))
+        times["copy_out_ms"].append(1e3 * (t3 - t2))
+
+    launches = [(k, k.launches) for k in _all_kernels().values()]
+    for _ in range(calls):
+        ret.fused_dispatch(dispatch, insert=False)
+    for k, n in launches:
+        k.launches = n
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1200,34 +1263,143 @@ def _verifier_backends(pipe, device) -> dict:
     return out
 
 
+def _online_graphs(pipe, rep: dict, stats0: dict, device) -> None:
+    """Phase 8's serving graphs: mid-stream captures (0 after warmup()),
+    replays a keyframe, and per captured executable its bucket, flags,
+    nodes and capture seconds; the graph pool's bytes."""
+    from neural_spectral_codec_torch.models import serving
+    n_kf = len(pipe.selector.keyframes)
+    replays = rep["serving_replays"]          # in the loop, not warmup()
+    eager = serving.STATS["eager_steps"] - stats0["eager_steps"]
+    ret = pipe.retrieval.retriever
+    mine = [e for e in serving.cached_executables() if e.graph is not None
+            and e._retriever is not None and e._retriever() is ret]
+    print(f"online: serving graphs: {len(mine)} captured by warmup(), "
+          f"mid-stream captures {rep['midstream_captures']} (expected 0), "
+          f"{serving.STATS['captures'] - stats0['captures']} captures in "
+          f"all, {replays} replays in the loop for {n_kf} keyframes "
+          f"({replays / max(n_kf, 1):.3f} a keyframe), {eager} eager steps;"
+          f" graph pool {serving.pool_bytes(device) / 2**20:.1f} MiB",
+          flush=True)
+    for e in sorted(mine, key=lambda e: (e.shape.n_nodes,
+                                         e.shape.do_query)):
+        print(f"online: bucket {e.shape.n_nodes} query {e.shape.do_query}: "
+              f"captured in {e.capture_s:.3f} s, {e.census['nodes']} nodes "
+              f"({e.census['kernels']} kernels, {e.census['memcpy']} "
+              f"copies, {e.census['memset']} memsets), K3 cooperative "
+              f"{e.census['project_cooperative']}/{e.census['project']}",
+              flush=True)
+    _check(rep["midstream_captures"] == 0 and eager == 0,
+           f"online: {rep['midstream_captures']} serving graphs captured "
+           f"mid-stream, {eager} eager steps")
+    _check(replays == n_kf, f"online: {replays} replays for {n_kf} "
+           "keyframes")
+
+
 def _serve_trace(device, frames, cap: int, serve_ms: float) -> None:
     """Device operations of the one-dispatch serving step: a fresh
-    session of TRACE_FRAMES keyframes (sync loop closing, no warmup, the
-    same capacity, so each query scans as many rows) under torch.profiler;
-    per keyframe the device time, the operations and the largest ones by
-    time, and the device's busy share of the main run's serve_step."""
+    session of TRACE_FRAMES keyframes (sync loop closing, the same
+    capacity, so each query scans as many rows), warmed up (its graphs
+    captured) before torch.profiler starts; per keyframe the device time,
+    the operations and the largest ones by time, and the device's busy
+    share of the main run's serve_step."""
     from collections import defaultdict
 
     from neural_spectral_codec_torch.experiments.online_latency import (
-        inference_config, run)
+        TimedLoader, inference_config)
+    from neural_spectral_codec_torch.models import LocalUpdateGNN
+    from neural_spectral_codec_torch.pipeline import (
+        NeuralSpectralCodecPipeline)
     from neural_spectral_codec_torch.utils.timing import device_ops
     cfg = inference_config(retrieval={"database_capacity": cap},
                            deployment={"warmup": False,
                                        "async_loop_closing": False},
                            monitoring={"enabled": False})
-    ops = device_ops(lambda: run(frames[:TRACE_FRAMES], cfg, device,
-                                 warmup_scans=0))
+    pipe = NeuralSpectralCodecPipeline(cfg, device=device)
+    pipe.warmup()
+    ops = device_ops(lambda: pipe.run_online(
+        TimedLoader(frames[:TRACE_FRAMES]), loop_closure_interval=10))
     by_name = defaultdict(float)
     for name, us in ops:
         by_name[name[:60]] += us / TRACE_FRAMES
     dev_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    local = LocalUpdateGNN(pipe.model, k_hops=pipe.local_update_hops)
+    mgr, ret = pipe.graph_manager, pipe.retrieval.retriever
+    node = len(mgr.keyframes) - 1
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sub, mapping, _, n_slots = local._local(mgr, node)
+    sub_ms = 1e3 * (time.perf_counter() - t0) / 20
+    scan = frames[0]["points"]          # unpadded: staging pads it
+    exe = local._executable(scan, sub, n_slots, pipe.encoder.alpha,
+                            pipe.encoder_config, ret,
+                            int(min(pipe.retrieval.top_k, ret.capacity)),
+                            False, pipe.encoder.max_points)
+    split = _host_split(exe, ret, lambda at, eff: exe.stage(
+        scan, sub, mapping[node], at, eff))
+    # the last scratch execution's row was put back; a replay writes it
+    # again beyond the database's size, where no query reads
+    print(f"online: host ms of a keyframe step's parts: k-hop subgraph "
+          f"and core {sub_ms:.4f}, {json.dumps(split)} (bucket {n_slots}, "
+          f"no query, a {len(scan)}-point scan padded in staging; median "
+          f"of 20 scratch executions); device ms of one replay "
+          f"{_replay_ms(exe):.5f}", flush=True)
     print(f"online: torch.profiler over {TRACE_FRAMES} keyframes: "
           f"{len(ops) / TRACE_FRAMES:.1f} device operations and "
           f"{dev_ms:.4f} ms of device time per keyframe, "
           f"{100 * dev_ms / serve_ms:.1f}% of the main run's serve_step "
           f"({serve_ms:.3f} ms); largest, µs per keyframe: "
-          f"{[(n, round(us, 2)) for n, us in top]}", flush=True)
+          f"{[(n, round(us, 2)) for n, us in top]}; mid-stream captures "
+          f"{pipe.profiler.events.get('midstream_captures', 0)}",
+          flush=True)
+
+
+def _concurrent_captures(device, frames) -> None:
+    """Phase 8: serving graphs captured while the loop-closing worker
+    verifies on the card. A session of CONCURRENT_FRAMES frames without
+    warm-up, the torch verifier on the async worker, and the executable
+    cache dropped every 20 frames, so that each later step captures its
+    graph (``thread_local`` capture) while the worker's backlog of GICP
+    runs on the card; its loop closures must equal the same session's
+    run synchronously, and every capture must be counted."""
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        TimedLoader, inference_config)
+    from neural_spectral_codec_torch.models import serving
+    from neural_spectral_codec_torch.pipeline import (
+        NeuralSpectralCodecPipeline)
+
+    class Dropping(TimedLoader):
+        def __getitem__(self, idx):
+            if idx and idx % 20 == 0:
+                serving.clear_cache()
+            return super().__getitem__(idx)
+
+    runs = {}
+    for mode in (True, False):
+        cfg = inference_config(
+            retrieval={"verification_backend": "torch",
+                       "database_capacity": CONCURRENT_FRAMES},
+            deployment={"warmup": False, "async_loop_closing": mode},
+            monitoring={"enabled": False})
+        pipe = NeuralSpectralCodecPipeline(cfg, device=device)
+        loader = Dropping(frames[:CONCURRENT_FRAMES])
+        edges = pipe.run_online(loader, loop_closure_interval=10)
+        runs[mode] = (sorted((e["source_id"], e["target_id"])
+                             for e in edges),
+                      pipe.profiler.events["midstream_captures"],
+                      loader.fetch_times[-1] - loader.fetch_times[0],
+                      pipe.profiler.totals["verification"])
+    (edges, caps, loop_s, verify_s), (sync_edges, _, _, _) = (
+        runs[True], runs[False])
+    print(f"online: {caps} serving graphs captured mid-stream with the "
+          f"torch verifier's backlog on the async worker ({verify_s:.2f} s "
+          f"of verification against {loop_s:.2f} s of loop); "
+          f"{len(edges)} loop closures, equal to the synchronous run's "
+          f"{edges == sync_edges}", flush=True)
+    _check(caps >= 2 * (CONCURRENT_FRAMES // 20 - 1) and edges and
+           edges == sync_edges, "online: captures beside the verifier "
+           "thread changed the loop closures or were not counted")
 
 
 def _online(device, keep_store: Path) -> dict:
@@ -1241,6 +1413,7 @@ def _online(device, keep_store: Path) -> dict:
     from neural_spectral_codec_torch.data.synthetic import SyntheticLoader
     from neural_spectral_codec_torch.experiments.online_latency import (
         inference_config, run)
+    from neural_spectral_codec_torch.models import serving
     from neural_spectral_codec_torch.retrieval.two_stage import (
         TwoStageRetrieval)
 
@@ -1272,10 +1445,12 @@ def _online(device, keep_store: Path) -> dict:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        stats0 = dict(serving.STATS)
         (pipe, edges, rep), launches = _counted(lambda: run(
             frames, cfg, device, warmup_scans=ONLINE_WARM_SCANS,
             database_path=str(tmp / "run1.bin"), resume_database=True,
             output_g2o=str(tmp / "loops.g2o")))
+        _online_graphs(pipe, rep, stats0, device)
         peak = torch.cuda.max_memory_allocated() / 2**30
         kfs = pipe.selector.keyframes
         ret = pipe.retrieval.retriever
@@ -1315,6 +1490,7 @@ def _online(device, keep_store: Path) -> dict:
 
         _verifier_backends(pipe, device)
         _serve_trace(device, frames, cap, rep["stage_mean_ms"]["serve_step"])
+        _concurrent_captures(device, frames)
 
         split_cfg = inference_config(retrieval={"database_capacity": cap},
                                      deployment={"fused_query": False,
@@ -2532,7 +2708,9 @@ def main() -> None:
     from neural_spectral_codec_torch.keyframe.graph import (
         build_graph, graph_to_tensors)
     from neural_spectral_codec_torch.models import SpectralGNN, serve_step
-    from neural_spectral_codec_torch.models.serving import encode_scan
+    from neural_spectral_codec_torch.models import serving as serving_mod
+    from neural_spectral_codec_torch.models.serving import (
+        encode_scan, warm_serve_step)
     from neural_spectral_codec_torch.ops import (
         projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.ops.range_image import (
@@ -2720,33 +2898,92 @@ def main() -> None:
           f"float32 ({ret.database_size * cfg.output_dim * 4 / 1e6:.0f} MB) "
           f"on {device}", flush=True)
 
-    # warm-up requests (no insert; not counted, not timed)
-    for p, r in requests[:2]:
-        serve_step(ret, model, torch.from_numpy(p).to(device), alpha, graph,
-                   0, torch.from_numpy(qps[0]).to(device), TOP_K,
-                   do_insert=False, config=cfg, row_of_ring=r)
-    graph = graph_to_tensors(graph_np, device)
+    # build the serving executables of both path forms before the clock
+    # starts: scratch executions that leave the database as it was, the
+    # graphed ones (captured here) and the eager ones (not counted)
+    for use_graph in (True, False):
+        for p, r in requests[:2]:
+            warm_serve_step(ret, model, p, alpha, graph, centers[0], TOP_K,
+                            config=cfg, row_of_ring=r, use_graph=use_graph)
     torch.cuda.synchronize()
+    graphed = {("ring" if e.shape.row_of_ring else "general"): e
+               for e in serving_mod.cached_executables() if e.graph is not None}
+    for form, e in graphed.items():
+        c = e.census
+        print(f"serve: {form} step captured in {e.capture_s:.3f} s: "
+              f"{c['nodes']} graph nodes ({c['kernels']} kernels, "
+              f"{c['memcpy']} copies, {c['memset']} memsets); projection "
+              f"nodes {c['project']}, cooperative {c['project_cooperative']}"
+              f"; ring-fold nodes {c['ring_fold']}; spectral nodes "
+              f"{c['spectral']}, cluster width {c['spectral_cluster_width']}"
+              f" (node attribute {c['spectral_cluster_dim']})", flush=True)
+    _check(graphed["general"].census["project"] == 1 and
+           graphed["general"].census["project_cooperative"] == 1 and
+           graphed["ring"].census["ring_fold"] == 1 and
+           all(e.census["spectral"] == 1 for e in graphed.values()),
+           "serve: a captured step lacks its kernels or K3's cooperative "
+           "launch")
+    g_split = graph_to_tensors(graph_np, device)
+    split = _host_split(graphed["general"], ret, lambda at, eff: graphed[
+        "general"].stage(requests[1][0], g_split, centers[1], at, eff,
+                         qps[1]))
+    print(f"serve: host ms of a general request's parts (median of 20 "
+          f"scratch executions) {json.dumps(split)}", flush=True)
+    snapshot = (ret._db_rows.clone(), ret._db_pos.clone(),
+                ret.database_size)
+
+    def serve_all(use_graph: bool):
+        """The 32 requests from the snapshot: latencies and answers."""
+        ret._db_rows.copy_(snapshot[0])
+        ret._db_pos.copy_(snapshot[1])
+        ret.database_size = snapshot[2]
+        g = graph_to_tensors(graph_np, device)
+        torch.cuda.synchronize()
+        lat, res = [], []
+        for j, (p, r) in enumerate(requests):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()        # the scan arrives on the host
+            out = serve_step(ret, model, p, alpha, g, centers[j], qps[j],
+                             TOP_K, do_query=True, do_insert=True,
+                             config=cfg, row_of_ring=r, use_graph=use_graph)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            res.append(tuple(t.cpu() for t in out))
+        rows = slice(snapshot[2], ret.database_size)
+        return lat, res, (ret._db_rows[rows].clone(), ret._db_pos[rows].clone())
 
     kernels = _all_kernels()
     for k in kernels.values():
         k.launches = 0
-    lat_ms, results = [], []
-    for j, (p, r) in enumerate(requests):
-        qp = torch.from_numpy(qps[j]).to(device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()            # the scan arrives on the host
-        pts = torch.from_numpy(p).to(device)
-        desc, emb, idx, dist = serve_step(
-            ret, model, pts, alpha, graph, centers[j], qp, TOP_K,
-            do_query=True, do_insert=True, config=cfg, row_of_ring=r)
-        torch.cuda.synchronize()
-        lat_ms.append((time.perf_counter() - t0) * 1e3)
-        results.append((desc.cpu(), emb.cpu(), idx.cpu(), dist.cpu()))
+    lat_ms, results, inserted = serve_all(True)
     launches = {n: k.launches for n, k in kernels.items()}
-    print(f"serve: {N_REQUESTS} requests, latency p50 "
-          f"{statistics.median(lat_ms):.3f} ms, max {max(lat_ms):.3f} ms, "
-          f"launches {launches}", flush=True)
+    print(f"serve: {N_REQUESTS} requests through replayed graphs, latency "
+          f"p50 {statistics.median(lat_ms):.3f} ms, max {max(lat_ms):.3f} ms,"
+          f" launches {launches}", flush=True)
+    replay_ms = {form: _replay_ms(e) for form, e in graphed.items()}
+    print(f"serve: device ms of one replay (CUDA events over 50 replays) "
+          f"{json.dumps(replay_ms)}; graph pool "
+          f"{serving_mod.pool_bytes(device) / 2**20:.1f} MiB", flush=True)
+    lat_eager, results_eager, inserted_eager = serve_all(False)
+    print(f"serve: the same {N_REQUESTS} requests eagerly, latency p50 "
+          f"{statistics.median(lat_eager):.3f} ms, max "
+          f"{max(lat_eager):.3f} ms", flush=True)
+    emb_gap = max(float((a[1] - b[1]).abs().max())
+                  for a, b in zip(results, results_eager))
+    dist_gap = max(float((a[3] - b[3]).abs().max())
+                   for a, b in zip(results, results_eager))
+    same_desc = all(torch.equal(a[0], b[0])
+                    for a, b in zip(results, results_eager))
+    same_idx = all(torch.equal(a[2], b[2])
+                   for a, b in zip(results, results_eager))
+    same_rows = all(torch.equal(a, b)
+                    for a, b in zip(inserted, inserted_eager))
+    print(f"serve: graph replay vs eager: descriptors bit-equal {same_desc},"
+          f" embeddings max abs {emb_gap:.3e}, indices equal {same_idx}, "
+          f"distances max abs {dist_gap:.3e}, inserted rows equal "
+          f"{same_rows}", flush=True)
+    _check(same_desc and same_idx and same_rows and emb_gap <= GRAPH_EMB_TOL,
+           "serve: the replayed graphs disagree with the eager step")
 
     desc_err = emb_err = 0.0
     for j, (desc, emb, idx, dist) in enumerate(results):
@@ -2771,6 +3008,7 @@ def main() -> None:
            f"{emb_err:.3e} > {EMB_TOL}")
     _check(all(launches[k] > 0 for k in ("spectral", "ring_fold", "project")),
            f"a kernel of the path never launched: {launches}")
+    serving_mod.clear_cache()
     by_path = {"serve": launches}
 
     # -- 5. the stage-profile entry points ---------------------------------

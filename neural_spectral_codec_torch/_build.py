@@ -162,6 +162,29 @@ class CudaKernel:
         return lambda: self._launch(args)
 
 
+CENSUS = ("nodes", "kernels", "memcpy", "memset", "other", "project",
+          "project_cooperative", "spectral", "spectral_cluster_width",
+          "spectral_cluster_dim", "ring_fold", "unreadable_kernels")
+
+
+def graph_census(graph_handle: int) -> dict:
+    """The nodes of a captured CUDA graph (``torch.cuda.CUDAGraph(
+    keep_graph=True).raw_cuda_graph()``) by kind, the projection kernel's
+    nodes with their cooperative attribute, the spectral kernel's with its
+    cluster width, and the ring kernel's (``nsc_graph_census`` in
+    ``csrc/project.cu``). Raises on a CUDA error."""
+    lib = load_library()
+    fn = lib.nsc_graph_census
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(CENSUS))()
+    err = fn(ctypes.c_void_p(graph_handle), out)
+    if err != 0:
+        raise RuntimeError(f"nsc_graph_census: CUDA error {err} "
+                           f"({error_string(err)})")
+    return dict(zip(CENSUS, out))
+
+
 def error_string(code: int) -> str:
     """``cudaGetErrorString`` of a ``cudaError_t`` code."""
     return load_library().nsc_error_string(code).decode()

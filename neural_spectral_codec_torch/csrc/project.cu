@@ -48,6 +48,7 @@
 // the scratch, clusters of 8 and 16 CTAs, a last-CTA decode, float64
 // angles and atan2f guesses with float64 checks.
 #include <cstdint>
+#include <vector>
 
 #include "common.cuh"
 
@@ -352,6 +353,76 @@ extern "C" int nsc_project_points(
       static_cast<unsigned*>(control), plan, g, e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+extern "C" const void* nsc_spectral_kernel_handle();
+extern "C" const void* nsc_ring_fold_kernel_handle(int slot);
+
+// Census of a captured CUDA graph (a cudaGraph_t: the serving executables of
+// models/serving.py), read back from its nodes. out (kCensusWords,):
+//   0 nodes, 1 kernel nodes, 2 memcpy nodes, 3 memset nodes, 4 other nodes,
+//   5 nodes of this file's kernel, 6 of those with the cooperative launch
+//   attribute set (its grid barrier needs every CTA resident at once),
+//   7 spectral-kernel nodes, 8 the cluster width its function requires
+//   (__cluster_dims__; 0 none), 9 the cluster-dimension attribute of its
+//   last node (x; 0 when the launch set none), 10 ring-fold nodes,
+//   11 kernel nodes whose parameters the runtime could not read.
+// Returns the first error of the graph queries (cudaSuccess: out is whole).
+constexpr int kCensusWords = 12;
+
+extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
+  for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
+  const auto graph = static_cast<cudaGraph_t>(graph_handle);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess) return (int)err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) {
+    err = cudaGraphGetNodes(graph, nodes.data(), &n);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const void* project = reinterpret_cast<const void*>(project_points_kernel);
+  const void* spectral = nsc_spectral_kernel_handle();
+  const void* ring[2] = {nsc_ring_fold_kernel_handle(0),
+                         nsc_ring_fold_kernel_handle(1)};
+  out[0] = (long long)n;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) return (int)err;
+    if (type == cudaGraphNodeTypeMemcpy) { ++out[2]; continue; }
+    if (type == cudaGraphNodeTypeMemset) { ++out[3]; continue; }
+    if (type != cudaGraphNodeTypeKernel) { ++out[4]; continue; }
+    ++out[1];
+    cudaKernelNodeParams params = {};
+    if (cudaGraphKernelNodeGetParams(nodes[i], &params) != cudaSuccess) {
+      cudaGetLastError();   // a kernel the runtime cannot describe: count it
+      ++out[11];
+      continue;
+    }
+    if (params.func == project) {
+      ++out[5];
+      cudaLaunchAttributeValue v = {};
+      err = cudaGraphKernelNodeGetAttribute(
+          nodes[i], cudaLaunchAttributeCooperative, &v);
+      if (err != cudaSuccess) return (int)err;
+      out[6] += v.cooperative != 0;
+    } else if (params.func == spectral) {
+      ++out[7];
+      cudaFuncAttributes attrs = {};
+      err = cudaFuncGetAttributes(&attrs, spectral);
+      if (err != cudaSuccess) return (int)err;
+      out[8] = attrs.requiredClusterWidth;
+      cudaLaunchAttributeValue v = {};
+      err = cudaGraphKernelNodeGetAttribute(
+          nodes[i], cudaLaunchAttributeClusterDimension, &v);
+      if (err != cudaSuccess) return (int)err;
+      out[9] = v.clusterDim.x;
+    } else if (params.func == ring[0] || params.func == ring[1]) {
+      ++out[10];
+    }
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* nsc_error_string(int code) {

@@ -251,3 +251,10 @@ extern "C" int nsc_ring_fold(const void* points, const void* row_of_ring,
                                          n_rings, per_ring, n_chan, vec4,
                                          n_folds, g, smem, s));
 }
+
+// The kernel's functions (0: 256 threads, 1: 1024), for the census of
+// captured serving graphs (nsc_graph_census in project.cu).
+extern "C" const void* nsc_ring_fold_kernel_handle(int slot) {
+  return slot ? reinterpret_cast<const void*>(ring_fold_kernel<kManyThreads>)
+              : reinterpret_cast<const void*>(ring_fold_kernel<kFewThreads>);
+}

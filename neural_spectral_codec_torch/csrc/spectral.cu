@@ -403,3 +403,9 @@ extern "C" int nsc_spectral_encode(const void* imgs, const void* bounds,
       n_azim, n_target, n_bins, n_freqs, max_in, max_t, eps, interpolate);
   return (int)cudaGetLastError();
 }
+
+// The kernel's function, for the census of captured serving graphs
+// (nsc_graph_census in project.cu).
+extern "C" const void* nsc_spectral_kernel_handle() {
+  return reinterpret_cast<const void*>(spectral_encode_kernel);
+}

@@ -126,7 +126,11 @@ def latency_report(loader: TimedLoader, pipe, warmup_scans: int,
             "stage_mean_ms": {k: v for k, v in pipe.profiler.means_ms().items()
                               if k in STAGES},
             "stage_calls": {k: int(pipe.profiler.counts[k])
-                            for k in pipe.profiler.counts if k in STAGES}}
+                            for k in pipe.profiler.counts if k in STAGES},
+            "midstream_captures": int(
+                pipe.profiler.events.get("midstream_captures", 0)),
+            "serving_replays": int(
+                pipe.profiler.events.get("serving_replays", 0))}
 
 
 def run(frames, cfg: Dict, device: str = "cuda",

@@ -420,15 +420,18 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
 class LocalUpdateGNN:
     """k-hop local refresh (JAX ``models.gnn.LocalUpdateGNN``,
     gnn.py:311-461): the GNN runs on the k-hop subgraph around the node
-    that changed, padded to a power of two of at least 8 nodes, and only
-    the nodes whose whole receptive field lies inside that subgraph get
-    their embeddings written back. The model is in eval mode (BatchNorm
-    uses its running statistics), so a refreshed embedding equals the
-    full-graph forward's.
+    that changed, padded to a power of two of at least 8 nodes (the
+    bucket), and only the nodes whose whole receptive field lies inside
+    that subgraph get their embeddings written back. The model is in eval
+    mode (BatchNorm uses its running statistics), so a refreshed embedding
+    equals the full-graph forward's.
 
-    Every step makes ONE device→host fetch: the descriptor, the refreshed
-    embeddings and, on a query, the top-k, packed into one float64 tensor
-    (exact for float32 values and for indices below 2**53)."""
+    ``serve_step`` and ``encode_update_local`` run the serving executables
+    of ``models/serving.py`` (one static step per bucket: on a card a
+    replayed CUDA graph): the subgraph is written
+    straight into the bucket's static input buffer with the scan and the
+    scalars, one copy takes them to the device, and one fetch brings back
+    the descriptor, the bucket's embeddings and, on a query, the top-k."""
 
     def __init__(self, model: SpectralGNN, k_hops: int = 3):
         if model.training:
@@ -445,12 +448,17 @@ class LocalUpdateGNN:
         return gnn_forward(self.model, graph_to_tensors(graph, self.device))
 
     @staticmethod
-    def _padded(sub: KeyframeGraph) -> KeyframeGraph:
-        """Pad the subgraph's node axis to the next power of two (at least
-        8), the bucket sizes of the JAX package's compiled forwards."""
+    def bucket(n_nodes: int) -> int:
+        """The padded node count of a subgraph of ``n_nodes``: the next
+        power of two, at least 8 (the bucket sizes of the JAX package's
+        compiled forwards)."""
+        n = max(n_nodes, 8)
+        return 1 << (n - 1).bit_length()
+
+    @classmethod
+    def _padded(cls, sub: KeyframeGraph) -> KeyframeGraph:
         from neural_spectral_codec_torch.keyframe.graph import pad_graph
-        n = max(sub.n_nodes, 8)
-        return pad_graph(sub, 1 << (n - 1).bit_length())
+        return pad_graph(sub, cls.bucket(sub.n_nodes))
 
     def forward_local(self, manager, center_node: int,
                       k_hops: Optional[int] = None) -> torch.Tensor:
@@ -480,13 +488,29 @@ class LocalUpdateGNN:
             manager.keyframes[node].embedding = e
         return core
 
-    def _subgraph(self, manager, center_node: int):
-        from neural_spectral_codec_torch.keyframe.graph import (
-            graph_to_tensors)
+    def _local(self, manager, center_node: int,
+               n_slots: Optional[int] = None):
+        """(unpadded numpy subgraph, mapping, core, bucket); ``n_slots``
+        overrides the bucket (a warm-up's bucket beyond)."""
         sub, mapping = manager.get_local_subgraph(center_node, self.k_hops)
         core = self._core(manager, center_node, self.k_hops)
-        return (graph_to_tensors(self._padded(sub), self.device), mapping,
-                core)
+        return sub, mapping, core, n_slots or self.bucket(sub.n_nodes)
+
+    def _executable(self, points, sub: KeyframeGraph, n_slots: int, alpha,
+                    enc_config, retriever=None, top_k: int = 0,
+                    do_query: bool = False, n_points: Optional[int] = None):
+        from neural_spectral_codec_torch.models.serving import (
+            executable, step_shape)
+        shape = step_shape((n_points, 4) if n_points else np.shape(points),
+                           n_slots, sub.max_degree,
+                           sub.edge_feats.shape[2], enc_config, alpha,
+                           top_k=top_k, do_query=do_query,
+                           do_insert=retriever is not None)
+        device = self.device if retriever is None else retriever.device
+        if device != self.device:
+            raise ValueError(f"the model is on {self.device}, the database "
+                             f"on {device}")
+        return executable(self.model, retriever, shape, device)
 
     @staticmethod
     def _write_back(manager, center_node: int, core: list, desc: np.ndarray,
@@ -497,21 +521,26 @@ class LocalUpdateGNN:
 
     def serve_step(self, manager, center_node: int, points_padded, alpha,
                    enc_config, retrieval, do_query: bool,
-                   query_pose_position=None):
-        """One online keyframe step (JAX gnn.py:372-435): encode the scan,
-        write the descriptor into the center's feature row of the padded
-        k-hop subgraph, run the eval forward, query the stage-1 database
-        BEFORE the insert against ``size − (context_window − 1)`` rows
-        (the split path's insert-then-query with
-        ``exclude_last=context_window`` sees the same rows), insert the
-        row; then one fetch. ``retrieval`` is a ``TwoStageRetrieval``.
+                   query_pose_position=None, n_points: Optional[int] = None):
+        """One online keyframe step (JAX gnn.py:372-435), one executable
+        run and one fetch: encode the scan, write the descriptor into the
+        center's feature row of the bucket, run the eval forward, query
+        the stage-1 database BEFORE the insert against ``size −
+        (context_window − 1)`` rows (the split path's insert-then-query
+        with ``exclude_last=context_window`` sees the same rows), insert
+        the row. ``retrieval`` is a ``TwoStageRetrieval``.
+
+        With ``n_points`` the scan may come unpadded: the executable pads
+        it to (n_points, 4) in its staging buffer, as ``pad_points`` would.
 
         Returns (descriptor, refreshed window indices, stage1), stage1
         being None without a query, else (indices, distances) of the
         finite entries, as ``retriever.query`` returns them."""
-        from neural_spectral_codec_torch.models.serving import serve_step
-        graph, mapping, core = self._subgraph(manager, center_node)
+        sub, mapping, core, n_slots = self._local(manager, center_node)
         ret = retrieval.retriever
+        exe = self._executable(points_padded, sub, n_slots, alpha, enc_config,
+                               ret, int(min(retrieval.top_k, ret.capacity)),
+                               do_query, n_points)
         qp = np.zeros(4, np.float32)
         if do_query and query_pose_position is not None:
             qp[:3] = np.asarray(query_pose_position)
@@ -519,52 +548,68 @@ class LocalUpdateGNN:
         insert_pos = (np.asarray(query_pose_position, np.float32)
                       if query_pose_position is not None
                       else np.zeros(3, np.float32))
-        points = torch.as_tensor(np.asarray(points_padded, np.float32),
-                                 device=self.device)
-        desc, emb, idx, dist = serve_step(
-            ret, self.model, points, alpha, graph, mapping[center_node],
-            torch.from_numpy(qp).to(self.device),
-            int(min(retrieval.top_k, ret.capacity)), do_query=do_query,
-            do_insert=True, config=enc_config,
-            context_window=retrieval.context_window,
-            insert_pos=torch.from_numpy(insert_pos).to(self.device))
-        parts = [desc, emb[[mapping[n] for n in core]].reshape(-1)]
-        if do_query:
-            parts += [idx.to(torch.float64), dist]
-        flat = torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
-        d = desc.shape[0]
-        n_emb = len(core) * emb.shape[1]
-        desc_np = flat[:d].astype(np.float32)
-        emb_np = flat[d:d + n_emb].astype(np.float32).reshape(len(core), -1)
+        rows = [mapping[n] for n in core]
+
+        def dispatch(insert_at: int, eff: int):
+            exe.stage(points_padded, sub, mapping[center_node], insert_at,
+                      eff, qp, insert_pos)
+            out = exe.execute()
+            # the core's rows of the bucket's embeddings, selected here
+            # as JAX selects them from its fetched array
+            return (out["desc"].copy(), out["emb"][rows],
+                    out["idx"].copy() if do_query else None,
+                    out["dist"].copy() if do_query else None)
+
+        desc, emb, idx, dist = ret.fused_dispatch(
+            dispatch, insert=True,
+            exclude_last=retrieval.context_window - 1 if do_query else 0)
         stage1 = None
         if do_query:
-            k = idx.shape[0]
-            idx_np = flat[d + n_emb:d + n_emb + k].astype(np.int64)
-            dist_np = flat[d + n_emb + k:].astype(np.float32)
-            keep = np.isfinite(dist_np)
-            stage1 = (idx_np[keep], dist_np[keep])
-        self._write_back(manager, center_node, core, desc_np, emb_np)
-        return desc_np, core, stage1
+            keep = np.isfinite(dist)
+            stage1 = (idx[keep].astype(np.int64), dist[keep])
+        self._write_back(manager, center_node, core, desc, emb)
+        return desc, core, stage1
+
+    def warm_serve(self, manager, center_node: int, points_padded, alpha,
+                   enc_config, retrieval,
+                   n_slots: Optional[int] = None) -> int:
+        """Build ``serve_step``'s executables (query off and on) at the
+        bucket of ``center_node``'s subgraph, or at ``n_slots``, by scratch
+        executions that leave the database as it was
+        (``serving.scratch_execute``; refused at a full database). On a
+        card the first execution captures the graph. Returns the
+        bucket."""
+        from neural_spectral_codec_torch.models.serving import (
+            scratch_execute)
+        sub, mapping, _, n_slots = self._local(manager, center_node, n_slots)
+        ret = retrieval.retriever
+        for do_query in (False, True):
+            exe = self._executable(points_padded, sub, n_slots, alpha,
+                                   enc_config, ret,
+                                   int(min(retrieval.top_k, ret.capacity)),
+                                   do_query)
+            scratch_execute(exe, ret, lambda insert_at, eff, exe=exe:
+                            exe.stage(points_padded, sub,
+                                      mapping[center_node], insert_at, eff))
+        return n_slots
 
     def encode_update_local(self, manager, center_node: int, points_padded,
-                            alpha, enc_config):
-        """The node's descriptor and its k-hop local refresh in one step
-        and one fetch (JAX gnn.py:437-461). The node was added with a
-        placeholder descriptor; the computed one replaces it. Returns
-        (descriptor, refreshed window indices)."""
-        from neural_spectral_codec_torch.models.serving import encode_scan
-        graph, mapping, core = self._subgraph(manager, center_node)
-        points = torch.as_tensor(np.asarray(points_padded, np.float32),
-                                 device=self.device)
-        with torch.no_grad():
-            desc = encode_scan(points, alpha, enc_config)
-            graph.features[mapping[center_node]] = desc
-            emb = self.model(graph.features, graph.neighbors, graph.mask,
-                             graph.edge_feats)
-            flat = torch.cat([desc, emb[[mapping[n] for n in core]].reshape(
-                -1)]).cpu().numpy()
-        d = desc.shape[0]
-        desc_np = flat[:d].copy()
-        self._write_back(manager, center_node, core, desc_np,
-                         flat[d:].reshape(len(core), -1))
-        return desc_np, core
+                            alpha, enc_config,
+                            n_slots: Optional[int] = None,
+                            n_points: Optional[int] = None):
+        """The node's descriptor and its k-hop local refresh in one
+        executable run and one fetch (JAX gnn.py:437-461). The node was
+        added with a placeholder descriptor; the computed one replaces it.
+        ``n_slots`` overrides the bucket (a warm-up's bucket beyond);
+        ``n_points`` as in ``serve_step``. Returns (descriptor, refreshed
+        window indices)."""
+        sub, mapping, core, n_slots = self._local(manager, center_node,
+                                                  n_slots)
+        exe = self._executable(points_padded, sub, n_slots, alpha, enc_config,
+                               n_points=n_points)
+        exe.stage(points_padded, sub, mapping[center_node])
+        out = exe.execute()
+        desc = out["desc"].copy()
+        self._write_back(manager, center_node, core, desc,
+                         out["emb"][[mapping[n] for n in core]])
+        return desc, core

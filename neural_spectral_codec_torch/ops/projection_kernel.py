@@ -57,7 +57,9 @@ def launch_plan(batch: int, n_points: int, n_pix: int) -> LaunchPlan:
     return LaunchPlan(-(-n_points // per_chunk), per_chunk, -(-n_pix // 4))
 
 
-@functools.lru_cache(maxsize=16)
+# unbounded: a captured CUDA graph (models/serving.py) keeps reading
+# the tensor, so it must never be evicted
+@functools.lru_cache(maxsize=None)
 def scratch_for(device: torch.device, stream: int, batch: int,
                 n_quads: int) -> tuple:
     """(scratch (B, 4·n_quads) int32 at +inf bits, control words
@@ -155,7 +157,9 @@ def edge_table(edges: np.ndarray) -> np.ndarray:
     return np.stack(out, axis=1)
 
 
-@functools.lru_cache(maxsize=16)
+# unbounded: a captured CUDA graph (models/serving.py) keeps reading
+# the tensor, so it must never be evicted
+@functools.lru_cache(maxsize=None)
 def edge_tables(config: ProjectionConfig, device: torch.device) -> tuple:
     """(azimuth, elevation) edge tables as float32 tensors on ``device``,
     one pair per (config, device)."""

@@ -24,6 +24,7 @@ which rounds differently.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -61,10 +62,19 @@ class ProjectionConfig(NamedTuple):
         return self.elevation_max - self.elevation_min
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(c: float, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    # a 0-d tensor made once per (value, type, device), never copied from
+    # the host per call (such a copy cannot be captured into a CUDA graph)
+    return torch.tensor(c, dtype=dtype, device=device)
+
+
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` with an IEEE float32 division on every device (see the
-    module docstring)."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    module docstring): a division by a tensor, which PyTorch's CUDA
+    kernels do not turn into a product with the reciprocal."""
+    return x / _constant(float(c), x.dtype, x.device)
 
 
 def atan2_f32(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

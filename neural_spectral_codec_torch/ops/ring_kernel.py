@@ -32,7 +32,9 @@ KERNEL = CudaKernel("nsc_ring_fold", [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-@functools.lru_cache(maxsize=64)
+# unbounded: a captured CUDA graph (models/serving.py) keeps reading
+# the tensor, so it must never be evicted
+@functools.lru_cache(maxsize=None)
 def row_table(rows: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """``row_of_ring`` as an int32 tensor on ``device``, one per (rows,
     device): the kernel reads it, and a cached table spares every call a

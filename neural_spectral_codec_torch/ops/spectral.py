@@ -101,9 +101,12 @@ def bin_assignment(alpha: Alpha, n_bins: int, n_freqs: int,
 def binning_matrix(alpha: Alpha, n_bins: int, n_freqs: int,
                    epsilon: float = 1e-8, device="cpu") -> torch.Tensor:
     """(n_freqs, n_bins) float32 one-hot assignment matrix
-    (JAX ``binning_matrix``): ``hist = mags @ binning_matrix``."""
+    (JAX ``binning_matrix``): ``hist = mags @ binning_matrix``. A
+    comparison with the bin indices, not ``one_hot``, which reads the
+    indices' range back to the host."""
     assign = bin_assignment(alpha, n_bins, n_freqs, epsilon, device)
-    return torch.nn.functional.one_hot(assign, n_bins).to(torch.float32)
+    bins = torch.arange(n_bins, dtype=assign.dtype, device=assign.device)
+    return (assign[:, None] == bins).to(torch.float32)
 
 
 def pooling_matrix(n_elevation: int, target: int) -> np.ndarray:

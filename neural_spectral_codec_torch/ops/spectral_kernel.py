@@ -74,12 +74,16 @@ def bin_bounds(assign: torch.Tensor, n_bins: int) -> torch.Tensor:
     return torch.searchsorted(assign, levels).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=16)
+# unbounded: a captured CUDA graph (models/serving.py) keeps reading
+# the tensor, so it must never be evicted
+@functools.lru_cache(maxsize=None)
 def _twiddle(n_azim: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(twiddle_table(n_azim)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+# unbounded: a captured CUDA graph (models/serving.py) keeps reading
+# the tensor, so it must never be evicted
+@functools.lru_cache(maxsize=None)
 def _bounds(alpha: float, n_bins: int, n_freqs: int, epsilon: float,
             device: torch.device) -> torch.Tensor:
     assign = bin_assignment(alpha, n_bins, n_freqs, epsilon, device)

@@ -43,6 +43,7 @@ from neural_spectral_codec_torch.keyframe.graph import (
     TemporalGraphManager, build_graph_from_keyframes, pad_graph)
 from neural_spectral_codec_torch.keyframe.selector import (
     Keyframe, KeyframeSelector)
+from neural_spectral_codec_torch.models import serving
 from neural_spectral_codec_torch.models.gnn import (
     LocalUpdateGNN, create_spectral_gnn)
 from neural_spectral_codec_torch.ops.range_image import pad_points
@@ -476,12 +477,18 @@ class NeuralSpectralCodecPipeline:
         return self.model
 
     def warmup(self) -> None:
-        """Make the first keyframe as fast as the rest: build the CUDA
-        kernels and the geometry library, encode once at B=1, run one local
-        forward at every padded bucket a session reaches (a short replay
-        on a scratch graph manager, loop edges included, and one bucket
-        beyond) and run the stage-1 query once. The live database and
-        graph are left as they were."""
+        """Make the first keyframe as fast as the rest (JAX pipeline.py
+        ``warmup``): build the CUDA kernels and the geometry library,
+        encode once at B=1, then replay a short session on a scratch graph
+        manager (loop edges included) through the executable the hot path
+        runs, at every padded bucket it reaches, every smaller one it
+        skips and one bucket beyond, and run the stage-1 query once. With one-dispatch serving
+        (``deployment.fused_query``) that executable is the serving step,
+        built (on a card: captured) by scratch executions that leave the
+        database as it was (``LocalUpdateGNN.warm_serve``); with
+        ``fused_encode`` alone the fused encode + refresh; else the split
+        local forward. The live database and graph are left as they were.
+        Run it before the verifier's worker threads start."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from neural_spectral_codec_torch import _build
@@ -491,6 +498,11 @@ class NeuralSpectralCodecPipeline:
             geom.load()
         self.encoder.encode_one(np.zeros((64, 4), np.float32))
         if not self.ablate_gnn:
+            fused = self.use_local_updates and cfg_get(
+                self.config, "deployment.fused_encode", True)
+            one_dispatch = fused and cfg_get(
+                self.config, "deployment.fused_query", True) \
+                and self.retrieval.can_fuse_serving()
             mgr = TemporalGraphManager(
                 temporal_neighbors=self.temporal_neighbors,
                 max_active_nodes=self.graph_manager.max_active_nodes)
@@ -498,20 +510,50 @@ class NeuralSpectralCodecPipeline:
                                    k_hops=self.local_update_hops)
             dim = self.encoder_config.output_dim
             desc = np.full(dim, 1.0 / dim, np.float32)
+            dummy_pts = pad_points(np.zeros((0, 4), np.float32),
+                                   self.encoder.max_points)
+            args = (dummy_pts, self.encoder.alpha, self.encoder_config)
+            warmed = set()
+
+            def refresh(node, n_slots=None):
+                sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
+                bucket = n_slots or local.bucket(sub.n_nodes)
+                if one_dispatch:
+                    if bucket not in warmed:
+                        local.warm_serve(mgr, node, *args, self.retrieval,
+                                         bucket)
+                elif fused:
+                    local.encode_update_local(mgr, node, *args, n_slots)
+                elif n_slots is None:
+                    local.update_embeddings_local(mgr, node)
+                else:
+                    local.forward_full(pad_graph(sub, n_slots))
+                warmed.add(bucket)
+
             node = 0
             for i in range(18):
                 node = mgr.add_keyframe(Keyframe(
                     keyframe_id=i, scan_id=i, timestamp=float(i),
                     pose=np.eye(4, dtype=np.float32), points=None,
                     descriptor=desc.copy()))
-                local.update_embeddings_local(mgr, node)
+                refresh(node)
+            # loop edges widen the k-hop subgraph into the next bucket
             mgr.add_loop_closure_edge(17, 0)
             mgr.add_loop_closure_edge(17, 8)
-            local.update_embeddings_local(mgr, node)
+            refresh(node)
+            # a live session whose loop edges inflate the subgraph past the
+            # replayed sizes would build mid-stream: one bucket beyond, and
+            # every bucket below it that the replay skipped (its subgraphs
+            # jump from 8 nodes to past 16 when the loop edges land), each
+            # from a scratch subgraph that fits it
             sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
-            n = max(sub.n_nodes, 8)
-            local.forward_full(pad_graph(sub, 1 << ((n - 1).bit_length()
-                                                    + 1)))
+            top = 2 * local.bucket(sub.n_nodes)
+            sizes = {n: len(mgr.get_k_hop_neighbors(
+                n, self.local_update_hops)) for n in range(len(mgr.keyframes))}
+            for bucket in (8 << i for i in range(top.bit_length() - 3)):
+                fits = [n for n, k in sizes.items() if k <= bucket]
+                if bucket not in warmed and fits:
+                    refresh(fits[0], bucket)
         self.retrieval.retriever.warm_query(self.retrieval.top_k)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -635,6 +677,18 @@ class NeuralSpectralCodecPipeline:
         one_dispatch = fused and cfg_get(self.config,
                                          "deployment.fused_query", True)
         placeholder = np.zeros(self.encoder_config.output_dim, np.float32)
+
+        def _count_graphs(scan_id: int, before: Dict[str, int]) -> None:
+            # the keyframe's serving-graph replays, and any graph captured
+            # during the stream: its capture's time lands on this keyframe
+            # (warmup() captures them ahead)
+            self.profiler.count("serving_replays", serving.STATS["replays"]
+                                - before["replays"])
+            n = serving.STATS["captures"] - before["captures"]
+            if n:
+                self.profiler.count("midstream_captures", n)
+                logger.warning("scan %d: %d serving graph(s) captured "
+                               "mid-stream", scan_id, n)
         try:
             with frame_source(loader, self.config) as get_frame:
                 for scan_id in range(len(loader)):
@@ -650,20 +704,21 @@ class NeuralSpectralCodecPipeline:
                     stage1 = None
                     fused_inserted = False
                     t_step = time.perf_counter()
+                    graphs_before = dict(serving.STATS)
                     if one_dispatch and self.retrieval.can_fuse_serving():
                         with self.profiler.profile("serve_step", sync=dev):
                             kf.descriptor = placeholder
                             node = self.graph_manager.add_keyframe(kf)
                             pos = (kf.pose[:3, 3] if kf.pose is not None
                                    else None)
-                            padded = pad_points(kf.points,
-                                                self.encoder.max_points)
+                            # padded into the executable's staging buffer
                             desc, refreshed_nodes, stage1 = \
                                 local_gnn.serve_step(
-                                    self.graph_manager, node, padded,
+                                    self.graph_manager, node, kf.points,
                                     self.encoder.alpha, self.encoder_config,
                                     self.retrieval, will_query,
-                                    query_pose_position=pos)
+                                    query_pose_position=pos,
+                                    n_points=self.encoder.max_points)
                             kf.descriptor = desc
                             fused_inserted = True
                     elif fused:
@@ -671,12 +726,11 @@ class NeuralSpectralCodecPipeline:
                                                    sync=dev):
                             kf.descriptor = placeholder
                             node = self.graph_manager.add_keyframe(kf)
-                            padded = pad_points(kf.points,
-                                                self.encoder.max_points)
                             desc, refreshed_nodes = \
                                 local_gnn.encode_update_local(
-                                    self.graph_manager, node, padded,
-                                    self.encoder.alpha, self.encoder_config)
+                                    self.graph_manager, node, kf.points,
+                                    self.encoder.alpha, self.encoder_config,
+                                    n_points=self.encoder.max_points)
                             kf.descriptor = desc
                     else:
                         with self.profiler.profile("encode", sync=dev):
@@ -698,6 +752,7 @@ class NeuralSpectralCodecPipeline:
                                 self.graph_manager.update_embeddings(emb)
                                 refreshed_nodes = list(range(len(
                                     self.graph_manager.keyframes)))
+                    _count_graphs(scan_id, graphs_before)
                     if (database_path and autosave_iv and
                             len(self.retrieval.keyframes) - db_persisted
                             >= autosave_iv):

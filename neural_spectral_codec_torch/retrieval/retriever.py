@@ -19,6 +19,7 @@ their work in the order it was enqueued.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Callable, Optional, Tuple
 
@@ -40,6 +41,13 @@ def quantize_cdf(cdf: torch.Tensor) -> torch.Tensor:
         torch.int16).view(torch.uint16)
 
 
+@functools.lru_cache(maxsize=None)
+def _dequant_scale(device: torch.device) -> torch.Tensor:
+    # one float32(1/65535) per device: made once, never copied per query
+    # (a copy from the host could not be captured into a CUDA graph)
+    return torch.tensor(1.0 / CDF_QUANT, dtype=torch.float32, device=device)
+
+
 def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
     """uint16 codes → float32 ``code · float32(1/65535)`` (JAX
     ``_dequant_rows``, retriever.py:55); float32 rows pass through. The
@@ -49,8 +57,7 @@ def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
         return rows
     codes = (rows.view(torch.int16).to(torch.int32) & 0xFFFF).to(
         torch.float32)
-    return codes * torch.tensor(1.0 / CDF_QUANT, dtype=torch.float32,
-                                device=rows.device)
+    return codes * _dequant_scale(rows.device)
 
 
 def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -84,7 +91,7 @@ def _distances(db_rows: torch.Tensor, queries: torch.Tensor, metric: str,
     return torch.cat(out)
 
 
-def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size: int,
+def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size,
                queries: torch.Tensor, query_pos_and_filters: torch.Tensor,
                top_k: int, metric: str = "wasserstein",
                epsilon: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,7 +99,9 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size: int,
     retriever.py:107-159) for (Q, n_bins) queries and (Q, 4)
     [x, y, z, min_d] filters → (Q, k) indices and distances, smallest
     first, equal distances by the lower row as ``lax.top_k`` orders them;
-    masked rows carry +inf. uint16 rows are dequantised here."""
+    masked rows carry +inf. uint16 rows are dequantised here. ``size`` is
+    an int or a 0-d int64 tensor on the rows' device (the serving step's
+    device scalar)."""
     n = db_rows.shape[0]
     dists = _distances(dequantize_rows(db_rows), queries, metric, epsilon)
     invalid = (torch.arange(n, device=db_rows.device) >= size)[None, :]
@@ -156,15 +165,25 @@ class WassersteinRetriever:
             return quantize_cdf(cdf) if self.storage == "uint16" else cdf
         return vectors
 
-    def write_rows(self, start: int, rows: torch.Tensor,
+    def write_rows(self, start, rows: torch.Tensor,
                    positions: Optional[torch.Tensor] = None) -> None:
         """Write encoded rows (and positions) at ``start`` in place; no
-        size bookkeeping. uint16 codes go through an int16 view."""
-        sl = slice(start, start + rows.shape[0])
+        size bookkeeping. ``start`` is an int or a 0-d int64 tensor on the
+        device (the serving step's ``insert_at``: an ``index_copy_`` at a
+        device index, so no value crosses to the host). uint16 codes go
+        through an int16 view."""
+        db = self._db_rows
         if rows.dtype == torch.uint16:
-            self._db_rows.view(torch.int16)[sl] = rows.view(torch.int16)
-        else:
-            self._db_rows[sl] = rows
+            db, rows = db.view(torch.int16), rows.view(torch.int16)
+        if torch.is_tensor(start):
+            idx = start.reshape(1) + torch.arange(
+                rows.shape[0], dtype=torch.int64, device=start.device)
+            db.index_copy_(0, idx, rows)
+            if positions is not None:
+                self._db_pos.index_copy_(0, idx, positions)
+            return
+        sl = slice(start, start + rows.shape[0])
+        db[sl] = rows
         if positions is not None:
             self._db_pos[sl] = positions
 
@@ -198,19 +217,30 @@ class WassersteinRetriever:
                 self._db_rows[t] = rows
 
     def fused_dispatch(self, dispatch: Callable, insert: bool = True,
-                       exclude_last: int = 0):
+                       exclude_last: int = 0, writes_row: bool = True):
         """Run a serving step that owns the database for its duration.
 
         ``dispatch(insert_at, eff_size)`` gets the next free row and the
         effective size ``size − exclude_last`` and returns whatever the
         caller needs; it writes the new row itself (``write_rows``) and
         the buffers are updated in place, so nothing is left dangling when
-        it raises. Under the lock; ``database_size`` grows by one only when
-        ``insert`` and ``dispatch`` returned."""
+        it raises. The serving executable (``models/serving.py``) stages
+        the two numbers with its other inputs, so its step reads them as
+        device scalars, as JAX's step gets ``jnp.int32`` scalars. Under
+        the lock; ``database_size`` grows by one only when ``insert`` and
+        ``dispatch`` returned. A step that ``writes_row`` without
+        ``insert`` (a warm-up's scratch execution) writes the next free
+        row without claiming it, so at a full database, where there is
+        none, it is refused (JAX ``fused_dispatch``, retriever.py:259)."""
         with self._buffer_lock:
             if insert and self.database_size >= self.capacity:
                 raise ValueError("Database capacity exceeded: "
                                  f"{self.database_size}+1 > {self.capacity}")
+            if writes_row and not insert \
+                    and self.database_size >= self.capacity:
+                raise ValueError(
+                    "fused_dispatch(insert=False) needs a free scratch "
+                    "row; database is at capacity")
             insert_at = self.database_size
             eff = max(self.database_size - max(exclude_last, 0), 0)
             out = dispatch(insert_at, eff)

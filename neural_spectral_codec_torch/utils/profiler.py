@@ -25,6 +25,13 @@ class Profiler:
         self._start: Dict[str, float] = {}
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        # events counted apart from the timed sections (the online loop's
+        # serving graphs captured mid-stream, ``midstream_captures``)
+        self.events: Dict[str, int] = defaultdict(int)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the event counter ``name``."""
+        self.events[name] += n
 
     def start(self, name: str) -> None:
         self._start[name] = time.perf_counter()
@@ -64,6 +71,7 @@ class Profiler:
             lines.append(f"{name:<30s} {t:>10.3f} {self.counts[name]:>7d} "
                          f"{pct:>5.1f}%")
         lines.append("=" * 64)
+        lines += [f"{name}: {n}" for name, n in sorted(self.events.items())]
         return "\n".join(lines)
 
     def log_summary(self) -> None:
@@ -74,3 +82,4 @@ class Profiler:
         self._start.clear()
         self.totals.clear()
         self.counts.clear()
+        self.events.clear()
