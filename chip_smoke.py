@@ -43,7 +43,16 @@ weights and data made from seeds:
    three serving kernels, B=1 (the general projection kernel in both
    point orders); the wrapper's time per call (one event
    pair per call); the plain version's; and the bound (bytes at
-   3.35 TB/s or fp32 operations at 67 TFLOP/s, from this run's shapes);
+   3.35 TB/s or fp32 operations at 67 TFLOP/s, from this run's shapes).
+   The verifier's two searches, kernel N (nearest neighbour, 31 a
+   registration) and kernel K (k-NN within a cloud, one a prepared
+   cloud), bit-equal to their plain versions at 4,096 x 4,096 on two
+   prepared frames of phase 8's stream and random clouds, and on a
+   lattice (ties), duplicate targets, one or no valid target, fewer than
+   k valid points, NaN rows, P != Q, P = 1, k = 16 and 32; their device
+   time, wrapper and plain time, the two-call yardstick (torch.cdist +
+   argmin or topk) and the bound (9 operations a pair that cannot fuse,
+   at 33.5 T/s);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
    card, and 32 requests through ``serve_step`` (16 ring-structured, 16
@@ -100,7 +109,14 @@ weights and data made from seeds:
    the second lap, each within the gates, in the g2o file; every
    descriptor within 1e-4 of the CPU plain encoder; the same edge set in
    the synchronous ``fused_query: false`` mode; the native and torch (on
-   the card) verifier backends agree on the candidates of 10 queries;
+   the card) verifier backends agree on the candidates of 10 queries
+   (first: which of the verifier's linear-algebra calls a CUDA graph
+   captures, ``experiments.capture_probe``; solve_ex and inv_ex must),
+   and on every pair the torch backend's registration graph (one replay
+   a pair, 31 kernel N launches credited) gives the eager step's T,
+   fitness and RMSE bit for bit, for GICP and (2 queries) point-to-plane,
+   with ms a pair of graph, eager and native, prepare's ms, the graph's
+   nodes and capture seconds;
    100,000 + keyframes rows, restored by a save/load round trip; ``project``
    and ``spectral`` launched (counted inside the graph replays); 0 serving
    graphs captured mid-stream (``warmup()`` captures them) and one replay
@@ -109,10 +125,14 @@ weights and data made from seeds:
    peak device memory, each captured executable's bucket, nodes and
    capture seconds, the graph pool's bytes, and (torch.profiler over a
    short fresh session, warmed up before the profiler starts) the device
-   time and operations per keyframe. A last session of 140 frames drops
-   the executable cache every 20 frames while the torch verifier works
-   through its backlog on the async worker: every capture counted, the
-   loop closures equal to the synchronous run's;
+   time and operations per keyframe. Last, three sessions of 140 frames
+   with the torch verifier: async after ``warmup()`` (the verifier's
+   path, counted: kernels N and K must launch; verification ms a query,
+   keyframe p50/p95/max; nothing captured mid-stream), then async and
+   sync with the executable cache dropped every 20 frames while the
+   verifier works through its backlog on the async worker: every serving
+   capture counted, no registration graph captured mid-stream, the loop
+   closures of all three equal;
 9. datasets and evaluation: three sequences written in their datasets'
    on-disk formats from seeded SyntheticWorld streams through simulated
    sensors (``DATA_SEQS``: KITTI 150 frames of 131,072 points in sweep
@@ -176,14 +196,16 @@ weights and data made from seeds:
    ``compute_overlap`` on the same stride-subsampled clouds.
 
 Launch counts are set to 0 just before each path (4, each entry point of
-5, 6, each entry-point run of 7, 8's one-dispatch run, each entry-point
+5, 6, each entry-point run of 7, 8's one-dispatch run, its verifier
+comparison and its warm torch-verifier session, each entry-point
 run of 9, each sharded encoder call and the dry run of 10, each call and
 experiment of 11) and read just after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
 per call as earlier records held it, and ``library_ms`` null
-with the reason: no single PyTorch call computes any kernel's function)
+with the reason: no single PyTorch call computes any kernel's function;
+kernels N and K also carry ``yardstick_ms``, two calls)
 and the last is ``{"ok": true, "device": {...}}``. It needs no JAX.
 """
 
@@ -215,6 +237,12 @@ TIMED_CALLS = 25
 SPECTRAL_TOL = 1e-5            # kernel vs plain on the card
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+# fp32 operations a second that are not FMAs: an FMA counts as 2 of the
+# 67 T, a lone sum, product or comparison takes the same slot
+FP32_OPS_NO_FMA = FP32_FLOPS / 2
+VERIFY_POINTS = 4096           # configs/default.yaml verification_max_points
+SEARCH_OPS = 9                 # kernels N, K: 3 differences, 3 squares,
+                               # 2 sums and a comparison a pair
 PROFILED_CALLS = 50
 QUEUED_CALLS = 200
 COLD_FLUSH_BYTES = 64 << 20    # written between launches: > the 50 MB L2
@@ -248,6 +276,10 @@ NO_LIBRARY = {
     "roll_min_chain": "torch.amin gives the saturated chain's row min, but "
                       "neither its + 1 nor its broadcast, nor a window "
                       "shorter than the row",
+    "nearest": "no one call; yardstick_ms times torch.cdist + argmin (two "
+               "calls, masking left out), which the port never calls",
+    "knn": "no one call; yardstick_ms times torch.cdist + topk (two calls, "
+           "masking and the tie order left out), which the port never calls",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -257,6 +289,8 @@ KERNEL_NAMES = {
     "ring_probe": ("ring_probe_kernel",),
     "roll_floor": ("roll_floor_kernel",),
     "roll_min_chain": ("roll_min_chain_kernel",),
+    "nearest": ("nearest_kernel",),
+    "knn": ("knn_kernel",),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -397,11 +431,14 @@ def _time_ms(fn) -> float:
     return time_ms(fn, calls=TIMED_CALLS)
 
 
-def _bound(n_bytes: float, n_flops: float = 0.0) -> tuple:
+def _bound(n_bytes: float, n_flops: float = 0.0,
+           n_ops_no_fma: float = 0.0) -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take,
     each input read once and each output written once at the memory rate,
-    or the fp32 operations at the peak rate, whichever is longer."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
+    or the fp32 operations at the peak rate (FMAs counted as 2 at 67 T,
+    operations that cannot fuse at 33.5 T), whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / FP32_FLOPS + n_ops_no_fma / FP32_OPS_NO_FMA
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -919,6 +956,133 @@ def _fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.5f}"
 
 
+def _same_or_nan(a, b) -> bool:
+    """Equal bit for bit, a NaN matching any NaN (the card's arithmetic
+    gives its canonical NaN, a CPU keeps the payload)."""
+    import torch
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(
+        torch.equal(a[~nan], b[~nan]))
+
+
+def _scene_clouds(device) -> tuple:
+    """Two consecutive frames of phase 8's synthetic stream (131,072
+    points) as the verifier prepares them: 0.3 m voxel means padded to
+    VERIFY_POINTS, on the card, with their masks."""
+    import torch
+    from neural_spectral_codec_torch.data.synthetic import SyntheticLoader
+    from neural_spectral_codec_torch.retrieval.verification import (
+        _pad, voxel_downsample)
+    base = SyntheticLoader(n_frames=2, seed=SEED + 41, n_points=131_072)
+    out = []
+    for i in range(2):
+        pts, mask = _pad(voxel_downsample(base[i]["points"], 0.3),
+                         VERIFY_POINTS)
+        out += [torch.from_numpy(pts).to(device),
+                torch.from_numpy(mask).to(device)]
+    return tuple(out)
+
+
+def _search_kernels(device) -> dict:
+    """Kernels N (``nearest_kernel``) and K (``knn_kernel``) against their
+    plain versions on the card, bit for bit (indices, and N's squared
+    distances with NaN matching NaN), at the verifier's shape (4,096 x
+    4,096) on two prepared frames of phase 8's stream and on random
+    clouds, and on edge cases: a lattice (ties everywhere), duplicate
+    targets, one valid target, none, fewer than k valid points, NaN rows,
+    P != Q, P = 1, k = 16 and 32. Then, on the prepared frames, each
+    kernel's device time (torch.profiler, queued bare launches), its
+    wrapper's, its plain version's, the two-call yardstick (torch.cdist +
+    argmin or topk) and the bound (9 operations that cannot fuse a pair at
+    33.5 T/s); one wrapper call must enqueue the kernel alone."""
+    import torch
+    from neural_spectral_codec_torch.retrieval import knn_kernel as kk
+    from neural_spectral_codec_torch.retrieval import nearest_kernel as nk
+    n = VERIFY_POINTS
+    g = torch.Generator(device=device).manual_seed(SEED + 50)
+
+    def cloud(rows):
+        return (torch.rand(rows, 3, generator=g, device=device) - 0.5) * 40.0
+
+    src, dst = cloud(n), cloud(n)
+    mask = torch.rand(n, generator=g, device=device) < 0.8
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    lattice = torch.stack(torch.meshgrid(
+        *[torch.arange(16.0, device=device)] * 3, indexing="ij"),
+        -1).reshape(-1, 3) * 0.5
+    between = (lattice + torch.tensor([0.25, 0.0, 0.25], device=device))[
+        torch.randperm(n, generator=g, device=device)].contiguous()
+    dup = torch.cat([dst[:n // 2], dst[:n // 2]])
+    one = torch.zeros(n, dtype=torch.bool, device=device)
+    one[777] = True
+    few = torch.arange(n, device=device) % 400 == 0          # 11 valid
+    nan_src = src.clone()
+    nan_src[[5, 100]] = float("nan")
+    nan_src[7, 1] = float("nan")
+    scene_a, mask_a, scene_b, mask_b = _scene_clouds(device)
+    nearest_cases = [
+        ("scene", scene_a, scene_b, mask_b), ("random", src, dst, mask),
+        ("lattice_ties", between, lattice, ones),
+        ("duplicate_targets", src, dup, ones), ("one_valid", src, dst, one),
+        ("none_valid", src, dst, torch.zeros_like(one)),
+        ("nan_rows", nan_src, dst, mask),
+        ("p_ne_q", src[:1000].contiguous(), dst[:3001].contiguous(),
+         mask[:3001].contiguous()),
+        ("p_1", src[:1].contiguous(), dst, mask)]
+    knn_cases = [
+        ("scene", scene_a, mask_a, 20), ("scene_k16", scene_a, mask_a, 16),
+        ("random", src, mask, 20), ("lattice_ties", lattice, ones, 20),
+        ("duplicates", dup, ones, 20), ("few_valid", src, few, 20),
+        ("one_valid", src, one, 20), ("nan_rows", nan_src, mask, 20),
+        ("k32", src, mask, 32), ("p_1", src[:1].contiguous(), ones[:1], 1)]
+    for name, a, b, m in nearest_cases:
+        j, d2 = nk.nearest_cuda(a, b, m)
+        jp, d2p = nk.nearest_plain(a, b, m)
+        _check(torch.equal(j, jp) and _same_or_nan(d2, d2p),
+               f"nearest kernel != plain version ({name}: "
+               f"{int((j != jp).sum())} indices differ)")
+    for name, a, m, k in knn_cases:
+        idx, want = kk.knn_cuda(a, m, k), kk.knn_plain(a, m, k)
+        _check(torch.equal(idx, want), f"knn kernel != plain version "
+               f"({name}, k={k}: {int((idx != want).sum())} indices differ)")
+    torch.cuda.synchronize()
+    print(f"nearest: bit-equal to the plain version on "
+          f"{[c[0] for c in nearest_cases]}; knn on "
+          f"{[c[0] for c in knn_cases]}", flush=True)
+
+    calls = {
+        "nearest": (lambda: nk.nearest_cuda(scene_a, scene_b, mask_b),
+                    lambda: nk.nearest_plain(scene_a, scene_b, mask_b),
+                    lambda: torch.cdist(scene_a, scene_b).argmin(1),
+                    _bound(n * 12 * 2 + n + n * 12, n_ops_no_fma=SEARCH_OPS
+                           * n * n)),
+        "knn": (lambda: kk.knn_cuda(scene_a, mask_a, 20),
+                lambda: kk.knn_plain(scene_a, mask_a, 20),
+                lambda: torch.cdist(scene_a, scene_a).topk(
+                    20, largest=False),
+                _bound(n * 12 + n + n * 20 * 8, n_ops_no_fma=SEARCH_OPS
+                       * n * n)),
+    }
+    out = {}
+    for name, (kernel, plain, yard, (bound_ms, bound_by)) in calls.items():
+        _only_kernel(name, kernel)
+        wrapper_ms = _time_ms(kernel)
+        t = {"max_abs_err": 0.0, "ms": wrapper_ms, "wrapper_ms": wrapper_ms,
+             "plain_ms": _time_ms(plain), "yardstick_ms": _time_ms(yard),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             **_device_times(name, kernel)}
+        t["share_of_bound"] = bound_ms / t["device_ms"]
+        out[name] = t
+        print(f"kernel {name}: {n} x {n} (prepared frames) device "
+              f"{t['device_ms']:.5f} ms (profiler {t['profiler_ms']}, queued "
+              f"bare {t['queued_ms']:.5f}), wrapper {wrapper_ms:.5f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, yardstick "
+              f"{t['yardstick_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}, {100 * t['share_of_bound']:.1f}% of it)",
+              flush=True)
+    return out
+
+
 def _probe_paths() -> dict:
     """Phase 5: both stage-profile entry points, each with all six launch
     counts set to 0 just before it and read just after; each must launch
@@ -1001,12 +1165,16 @@ def _structured(device) -> dict:
 def _all_kernels() -> dict:
     from neural_spectral_codec_torch.ops import (
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
+    from neural_spectral_codec_torch.retrieval import (
+        knn_kernel, nearest_kernel)
     return {"spectral": spectral_kernel.KERNEL,
             "ring_fold": ring_kernel.KERNEL,
             "project": projection_kernel.KERNEL,
             "ring_probe": probe_kernels.RING_PROBE,
             "roll_floor": probe_kernels.ROLL_FLOOR,
-            "roll_min_chain": probe_kernels.ROLL_MIN_CHAIN}
+            "roll_min_chain": probe_kernels.ROLL_MIN_CHAIN,
+            "nearest": nearest_kernel.KERNEL,
+            "knn": knn_kernel.KERNEL}
 
 
 def _counted(run) -> tuple:
@@ -1202,64 +1370,135 @@ def _cpu_descriptors(keyframes, cfg, max_points: int) -> "torch.Tensor":
     return torch.cat(out)
 
 
+def _capture_refusals() -> None:
+    """Which linear-algebra calls of the verifier a CUDA graph captures
+    (``experiments.capture_probe``, each in a fresh interpreter): the
+    registration graph needs ``solve_ex`` and ``inv_ex``; point-to-point
+    (``svd``, ``det``) and ``prepare`` (``eigh``) stay eager where theirs
+    are refused."""
+    from neural_spectral_codec_torch.experiments import capture_probe
+    got = capture_probe.run()
+    print(f"online: CUDA-graph capture of the verifier's linear algebra "
+          f"{json.dumps(got)}", flush=True)
+    _check(all(got[k]["captured"] and got[k]["replay_equals_eager"]
+               for k in ("solve_ex", "inv_ex")),
+           "online: the registration step's solver calls do not capture")
+
+
 def _verifier_backends(pipe, device) -> dict:
     """The stage-1 candidates of the last VERIFY_QUERIES queries, each
     against the snapshot its query saw, verified by the native backend
-    (the run's) and by the torch backend on the card: the same verified
-    set, the largest transform difference, ms per pair of each."""
+    (the run's) and by the torch backend on the card, once through its
+    registration graph and once eagerly (``use_graph=False``) from the same
+    prepared clouds: native and torch accept the same candidates (the
+    largest transform difference printed), and on every pair the graph's
+    T, fitness and RMSE equal the eager step's bit for bit, with kernel N
+    credited 31 launches a replay; the same for point-to-plane on the
+    first two queries' candidates. Prints ms a pair of each, prepare's ms
+    a cloud (and its host part: the numpy voxel grid and padding), the
+    graphs' nodes and capture seconds."""
     import numpy as np
     import torch
-    from neural_spectral_codec_torch.retrieval.verification import (
-        GeometricVerifier)
+    from neural_spectral_codec_torch.retrieval import nearest_kernel
+    from neural_spectral_codec_torch.retrieval import verification as V
     ret = pipe.retrieval
     nat = ret.verifier
-    tv = GeometricVerifier(
-        method=nat.method, fitness_threshold=nat.fitness_threshold,
-        rmse_threshold=nat.rmse_threshold,
-        max_iterations=nat.max_iterations,
-        voxel_downsample=nat.voxel_downsample, max_points=nat.max_points,
-        backend="torch", device=device)
     kfs = pipe.selector.keyframes
     queries = [kf for i, kf in enumerate(kfs)
                if (i + 1) % 10 == 0][-VERIFY_QUERIES:]
-    times = {"native": [], "torch": []}
-    pairs, t_diff, disagree = 0, 0.0, []
-    for kf in queries:
-        cands = ret.query(kf, verify=False, as_of_size=kf.keyframe_id + 1)
-        qn, qt = nat.prepare(kf.points), tv.prepare(kf.points)
-        for c in cands:
-            target = ret.keyframes[c.database_idx]
-            if target.points is None:           # a resumed record
-                continue
-            dn, dt = nat.prepare(target.points), tv.prepare(target.points)
+    out = {}
+    for method in ("gicp", "point_to_plane"):
+        kw = dict(method=method, fitness_threshold=nat.fitness_threshold,
+                  rmse_threshold=nat.rmse_threshold,
+                  max_iterations=nat.max_iterations,
+                  voxel_downsample=nat.voxel_downsample,
+                  max_points=nat.max_points, backend="torch", device=device)
+        graph_v = V.GeometricVerifier(**kw)
+        eager_v = V.GeometricVerifier(use_graph=False, **kw)
+        t0 = time.perf_counter()
+        graph_v.warmup()
+        warm_s = time.perf_counter() - t0
+        native = method == nat.method
+        times = {"native": [], "graph": [], "eager": [], "prepare": [],
+                 "prepare_host": []}
+        pairs, t_diff, disagree, unequal = 0, 0.0, [], []
+        for kf in queries[:None if native else 2]:
+            cands = ret.query(kf, verify=False,
+                              as_of_size=kf.keyframe_id + 1)
             t0 = time.perf_counter()
-            ok_n, T_n, info_n = nat.verify(qn, dn)
-            times["native"].append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            ok_t, T_t, info_t = tv.verify(qt, dt)
+            qt = graph_v.prepare(kf.points)
             torch.cuda.synchronize()
-            times["torch"].append(time.perf_counter() - t0)
-            pairs += 1
-            if ok_n != ok_t:
-                disagree.append((kf.keyframe_id, target.keyframe_id,
-                                 info_n["fitness"], info_n["rmse"],
-                                 info_t["fitness"], info_t["rmse"]))
-            elif ok_n:
-                t_diff = max(t_diff, float(np.abs(T_n - T_t).max()))
-    out = {"pairs": pairs, "max_transform_diff": t_diff,
-           "disagreements": disagree,
-           "gicp_ms_native": 1e3 * statistics.median(times["native"])
-           if times["native"] else None,
-           "gicp_ms_torch": 1e3 * statistics.median(times["torch"])
-           if times["torch"] else None}
-    print(f"online: verifier backends on the stage-1 candidates of "
-          f"{len(queries)} queries: {pairs} pairs, disagreements "
-          f"{disagree}, largest transform difference {t_diff:.3e}; GICP "
-          f"ms per pair (median, prepared clouds) native "
-          f"{out['gicp_ms_native']}, torch on the card "
-          f"{out['gicp_ms_torch']}", flush=True)
-    _check(pairs > 0 and not disagree,
-           f"online: verifier backends disagree on {disagree}")
+            times["prepare"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()          # its host part alone
+            V._pad(V.voxel_downsample(kf.points, nat.voxel_downsample),
+                   nat.max_points)
+            times["prepare_host"].append(time.perf_counter() - t0)
+            qn = nat.prepare(kf.points) if native else None
+            for c in cands:
+                target = ret.keyframes[c.database_idx]
+                if target.points is None:           # a resumed record
+                    continue
+                dt = graph_v.prepare(target.points)
+                launches = nearest_kernel.KERNEL.launches
+                t0 = time.perf_counter()
+                ok_t, T_t, info_t = graph_v.verify(qt, dt)
+                times["graph"].append(time.perf_counter() - t0)
+                _check(nearest_kernel.KERNEL.launches - launches
+                       == nat.max_iterations + 1, "online: a registration "
+                       "replay did not credit kernel N's searches")
+                t0 = time.perf_counter()
+                eager = eager_v._register_torch(qt, dt, None)
+                times["eager"].append(time.perf_counter() - t0)
+                graphed = graph_v._register_torch(qt, dt, None)
+                if not (np.array_equal(graphed[0], eager[0])
+                        and graphed[1:] == eager[1:]):
+                    unequal.append((kf.keyframe_id, target.keyframe_id))
+                pairs += 1
+                if not native:
+                    continue
+                dn = nat.prepare(target.points)
+                t0 = time.perf_counter()
+                ok_n, T_n, info_n = nat.verify(qn, dn)
+                times["native"].append(time.perf_counter() - t0)
+                if ok_n != ok_t:
+                    disagree.append((kf.keyframe_id, target.keyframe_id,
+                                     info_n["fitness"], info_n["rmse"],
+                                     info_t["fitness"], info_t["rmse"]))
+                elif ok_n:
+                    t_diff = max(t_diff, float(np.abs(T_n - T_t).max()))
+        exe = next(e for e in V.cached_executables()
+                   if e.graphed and e.mode == V.MODES[method]
+                   and e.device == device)
+        med = {k: 1e3 * statistics.median(v) if v else None
+               for k, v in times.items()}
+        out[method] = {"pairs": pairs, "max_transform_diff": t_diff,
+                       "disagreements": disagree, "graph_unequal": unequal,
+                       "ms_graph": med["graph"], "ms_eager": med["eager"],
+                       "ms_native": med["native"],
+                       "prepare_ms": med["prepare"],
+                       "prepare_host_ms": med["prepare_host"],
+                       "census": exe.census,
+                       "capture_s": exe.capture_s, "warmup_s": warm_s}
+        print(f"online: verifier {method} on the stage-1 candidates of "
+              f"{len(queries) if native else 2} queries: {pairs} pairs; ms "
+              f"a pair (median, prepared clouds) graph {med['graph']}, "
+              f"eager {med['eager']}, native {med['native']}; prepare "
+              f"{med['prepare']} ms a cloud, of which the host's voxel grid "
+              f"and padding {med['prepare_host']}; graph == eager bit for "
+              f"bit on "
+              f"{pairs - len(unequal)}/{pairs}; graph {exe.census['nodes']} "
+              f"nodes ({exe.census['kernels']} kernels, "
+              f"{exe.census['nearest']} kernel N, {exe.census['memcpy']} "
+              f"copies, {exe.census['memset']} memsets), captured in "
+              f"{exe.capture_s:.3f} s (warmup() {warm_s:.3f} s); native vs "
+              f"torch disagreements {disagree}, largest transform "
+              f"difference {t_diff:.3e}", flush=True)
+        _check(pairs > 0 and not unequal, f"online: {method} registration "
+               f"graph != eager step on {unequal}")
+        _check(not disagree, f"online: verifier backends disagree on "
+               f"{disagree}")
+        _check(exe.graph is not None and eager_v.captures == 0,
+               "online: no registration graph, or one for the eager step")
     return out
 
 
@@ -1355,16 +1594,21 @@ def _serve_trace(device, frames, cap: int, serve_ms: float) -> None:
           flush=True)
 
 
-def _concurrent_captures(device, frames) -> None:
-    """Phase 8: serving graphs captured while the loop-closing worker
-    verifies on the card. A session of CONCURRENT_FRAMES frames without
-    warm-up, the torch verifier on the async worker, and the executable
-    cache dropped every 20 frames, so that each later step captures its
-    graph (``thread_local`` capture) while the worker's backlog of GICP
-    runs on the card; its loop closures must equal the same session's
-    run synchronously, and every capture must be counted."""
+def _concurrent_captures(device, frames) -> dict:
+    """Phase 8's last sessions, CONCURRENT_FRAMES frames each with the
+    torch verifier (one registration graph replay a pair) on the card.
+    First async with ``warmup()``: the main path of kernels N and K
+    (counted), verification ms a query and keyframe p50/p95/max; neither a
+    serving nor a registration graph captured mid-stream. Then serving
+    graphs captured while the loop-closing worker replays registration
+    graphs: async without the serving warm-up (the verifier warmed by its
+    own ``warmup()``) and the executable cache dropped every 20 frames, so
+    that each later step captures its graph (``thread_local`` capture)
+    beside the worker's backlog; every capture counted, none of the
+    verifier's. The loop closures of both must equal the same session's
+    run synchronously. Returns the first session's launches."""
     from neural_spectral_codec_torch.experiments.online_latency import (
-        TimedLoader, inference_config)
+        TimedLoader, inference_config, latency_report)
     from neural_spectral_codec_torch.models import serving
     from neural_spectral_codec_torch.pipeline import (
         NeuralSpectralCodecPipeline)
@@ -1376,36 +1620,67 @@ def _concurrent_captures(device, frames) -> None:
             return super().__getitem__(idx)
 
     runs = {}
-    for mode in (True, False):
+    for name, warm, mode, loader_cls in (
+            ("warm_async", True, True, TimedLoader),
+            ("dropping_async", False, True, Dropping),
+            ("dropping_sync", False, False, Dropping)):
         cfg = inference_config(
             retrieval={"verification_backend": "torch",
                        "database_capacity": CONCURRENT_FRAMES},
-            deployment={"warmup": False, "async_loop_closing": mode},
+            deployment={"warmup": warm, "async_loop_closing": mode},
             monitoring={"enabled": False})
         pipe = NeuralSpectralCodecPipeline(cfg, device=device)
-        loader = Dropping(frames[:CONCURRENT_FRAMES])
-        edges = pipe.run_online(loader, loop_closure_interval=10)
-        runs[mode] = (sorted((e["source_id"], e["target_id"])
-                             for e in edges),
-                      pipe.profiler.events["midstream_captures"],
-                      loader.fetch_times[-1] - loader.fetch_times[0],
-                      pipe.profiler.totals["verification"])
-    (edges, caps, loop_s, verify_s), (sync_edges, _, _, _) = (
-        runs[True], runs[False])
-    print(f"online: {caps} serving graphs captured mid-stream with the "
-          f"torch verifier's backlog on the async worker ({verify_s:.2f} s "
-          f"of verification against {loop_s:.2f} s of loop); "
-          f"{len(edges)} loop closures, equal to the synchronous run's "
-          f"{edges == sync_edges}", flush=True)
-    _check(caps >= 2 * (CONCURRENT_FRAMES // 20 - 1) and edges and
-           edges == sync_edges, "online: captures beside the verifier "
-           "thread changed the loop closures or were not counted")
+        if not warm:
+            pipe.retrieval.verifier.warmup()
+        loader = loader_cls(frames[:CONCURRENT_FRAMES])
+        edges, launches = _counted(lambda: pipe.run_online(
+            loader, loop_closure_interval=10))
+        rep = latency_report(loader, pipe, ONLINE_WARM_SCANS, 100.0)
+        ev, prof = pipe.profiler.events, pipe.profiler
+        runs[name] = {
+            "edges": sorted((e["source_id"], e["target_id"]) for e in edges),
+            "serving_captures": ev.get("midstream_captures", 0),
+            "verifier_captures": ev.get("verifier_midstream_captures", 0),
+            "loop_s": loader.fetch_times[-1] - loader.fetch_times[0],
+            "verify_s": prof.totals["verification"],
+            "verify_ms_query": 1e3 * prof.totals["verification"]
+            / max(prof.counts["verification"], 1),
+            "queries": prof.counts["verification"],
+            "keyframe": rep["keyframe"], "launches": launches}
+        r = runs[name]
+        print(f"online: torch verifier, {name}: verification "
+              f"{r['verify_ms_query']:.3f} ms a query over {r['queries']} "
+              f"queries ({r['verify_s']:.3f} s against {r['loop_s']:.2f} s of "
+              f"loop), keyframe {json.dumps(r['keyframe'])}; captured "
+              f"mid-stream: {r['serving_captures']} serving, "
+              f"{r['verifier_captures']} registration graphs; "
+              f"{len(r['edges'])} loop closures; launches {launches}",
+              flush=True)
+    warm, drop, sync = (runs[k] for k in ("warm_async", "dropping_async",
+                                          "dropping_sync"))
+    print(f"online: loop closures of the torch-verifier sessions equal the "
+          f"synchronous run's: {warm['edges'] == sync['edges']} (warm "
+          f"async), {drop['edges'] == sync['edges']} (dropping async)",
+          flush=True)
+    _check(warm["serving_captures"] == 0 and all(
+        r["verifier_captures"] == 0 for r in runs.values()),
+           "online: graphs captured mid-stream after warm-up")
+    _check(warm["launches"]["nearest"] > 0 and warm["launches"]["knn"] > 0,
+           f"online: a kernel of the verifier's path never launched: "
+           f"{warm['launches']}")
+    _check(drop["serving_captures"] >= 2 * (CONCURRENT_FRAMES // 20 - 1)
+           and sync["edges"] and warm["edges"] == sync["edges"]
+           and drop["edges"] == sync["edges"], "online: captures beside "
+           "the verifier thread changed the loop closures or were not "
+           "counted")
+    return warm["launches"]
 
 
 def _online(device, keep_store: Path) -> dict:
     """Phase 8: the online loop (``run_online``) at full width against a
-    resumed 100,000-record map; returns its launches. The final store is
-    copied to ``keep_store`` for phase 10."""
+    resumed 100,000-record map, then the verifier's paths; returns their
+    launches by path. The final store is copied to ``keep_store`` for
+    phase 10."""
     import shutil
 
     import numpy as np
@@ -1488,9 +1763,11 @@ def _online(device, keep_store: Path) -> dict:
         _check(err <= DESC_TOL, f"online: descriptors differ from the CPU "
                f"path by {err:.3e} > {DESC_TOL}")
 
-        _verifier_backends(pipe, device)
+        _capture_refusals()
+        _, backend_launches = _counted(
+            lambda: _verifier_backends(pipe, device))
         _serve_trace(device, frames, cap, rep["stage_mean_ms"]["serve_step"])
-        _concurrent_captures(device, frames)
+        verify = _concurrent_captures(device, frames)
 
         split_cfg = inference_config(retrieval={"database_capacity": cap},
                                      deployment={"fused_query": False,
@@ -1528,7 +1805,8 @@ def _online(device, keep_store: Path) -> dict:
                and same_ids and new_err <= dim / 65535.0,
                "online: the saved store does not restore the rows")
         shutil.copyfile(tmp / "run1.bin", keep_store)
-    return launches
+    return {"online": launches, "verify_backends": backend_launches,
+            "verify": verify}
 
 
 def _sensor_scan(pose, elev_deg, n_points: int, world, seed: int, device,
@@ -2847,6 +3125,7 @@ def main() -> None:
           f"{t['device_ms_sweep_b1']:.5f} ms (queued bare "
           f"{t['queued_ms_sweep_b1']:.5f})", flush=True)
     timing.update(_probe_kernels(device))
+    timing.update(_search_kernels(device))
 
     # -- 4. serve ----------------------------------------------------------
     rng = np.random.default_rng(SEED + 4)
@@ -3027,7 +3306,7 @@ def main() -> None:
 
         # -- 8. the online loop --------------------------------------------
         store = Path(keep.name) / "map.bin"
-        by_path["online"] = _online(device, store)
+        by_path.update(_online(device, store))
 
         # -- 9. datasets and evaluation ------------------------------------
         by_path.update(_datasets_and_evaluation(device, str(gnn_pt)))
@@ -3060,6 +3339,13 @@ def main() -> None:
         "roll_min_chain": ("neural_spectral_codec_torch/csrc/roll_floor.cu",
                            "experiments/profile_hotpath.py:254",
                            timing["roll_min_chain"]["max_abs_err"]),
+        # no pl.pallas_call: XLA work inside the JAX programs
+        "nearest": ("neural_spectral_codec_torch/csrc/nearest.cu",
+                    "neural_spectral_codec_tpu/retrieval/verification.py:124",
+                    timing["nearest"]["max_abs_err"]),
+        "knn": ("neural_spectral_codec_torch/csrc/knn.cu",
+                "neural_spectral_codec_tpu/retrieval/verification.py:64",
+                timing["knn"]["max_abs_err"]),
     }
     # "ms" keeps the meaning it had in earlier records: the wrapper's time
     # per call (one event pair per call; for the probes, loops of 200 calls)
@@ -3080,12 +3366,19 @@ def main() -> None:
         for key in ("device_ms_b1", "queued_ms_b1", "bound_ms_b1",
                     "device_ms_sweep", "queued_ms_sweep",
                     "device_ms_sweep_b1", "queued_ms_sweep_b1",
-                    "device_ms_cold", "device_ms_cold_b1"):
+                    "device_ms_cold", "device_ms_cold_b1", "yardstick_ms",
+                    "share_of_bound"):
             if key in t:
                 entry[key] = t[key]
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"
+        if name in ("nearest", "knn"):
+            entry["replaces_note"] = (
+                "not a pl.pallas_call site: the XLA " + (
+                    "correspondence search of _icp_kernel (:124-131)"
+                    if name == "nearest" else
+                    "k-NN selection of _knn_cov_matrices (:64-73)"))
         record.append(entry)
     from neural_spectral_codec_torch.utils.timing import REPEATED_SESSIONS
     print(f"profiler: {REPEATED_SESSIONS} torch.profiler sessions recorded "

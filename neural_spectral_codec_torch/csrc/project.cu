@@ -357,18 +357,22 @@ extern "C" int nsc_project_points(
 
 extern "C" const void* nsc_spectral_kernel_handle();
 extern "C" const void* nsc_ring_fold_kernel_handle(int slot);
+extern "C" const void* nsc_nearest_kernel_handle();
+extern "C" const void* nsc_knn_kernel_handle();
 
 // Census of a captured CUDA graph (a cudaGraph_t: the serving executables of
-// models/serving.py), read back from its nodes. out (kCensusWords,):
+// models/serving.py, the registration executables of
+// retrieval/verification.py), read back from its nodes. out (kCensusWords,):
 //   0 nodes, 1 kernel nodes, 2 memcpy nodes, 3 memset nodes, 4 other nodes,
 //   5 nodes of this file's kernel, 6 of those with the cooperative launch
 //   attribute set (its grid barrier needs every CTA resident at once),
 //   7 spectral-kernel nodes, 8 the cluster width its function requires
 //   (__cluster_dims__; 0 none), 9 the cluster-dimension attribute of its
 //   last node (x; 0 when the launch set none), 10 ring-fold nodes,
-//   11 kernel nodes whose parameters the runtime could not read.
+//   11 kernel nodes whose parameters the runtime could not read,
+//   12 nearest-neighbour nodes (nearest.cu), 13 k-NN nodes (knn.cu).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
-constexpr int kCensusWords = 12;
+constexpr int kCensusWords = 14;
 
 extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
@@ -385,6 +389,8 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   const void* spectral = nsc_spectral_kernel_handle();
   const void* ring[2] = {nsc_ring_fold_kernel_handle(0),
                          nsc_ring_fold_kernel_handle(1)};
+  const void* nearest = nsc_nearest_kernel_handle();
+  const void* knn = nsc_knn_kernel_handle();
   out[0] = (long long)n;
   for (size_t i = 0; i < n; ++i) {
     cudaGraphNodeType type;
@@ -420,6 +426,10 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
       out[9] = v.clusterDim.x;
     } else if (params.func == ring[0] || params.func == ring[1]) {
       ++out[10];
+    } else if (params.func == nearest) {
+      ++out[12];
+    } else if (params.func == knn) {
+      ++out[13];
     }
   }
   return (int)cudaSuccess;

@@ -3,7 +3,7 @@ neural_spectral_codec_torch.experiments.<name> --help``), each on
 ``--device cuda`` unless the caller names the CPU:
 
 - kernel and stage probes: ``ring_stage_probe``, ``profile_hotpath``,
-  ``kernel_ab``, ``parallel_profile`` (a card only);
+  ``kernel_ab``, ``parallel_profile``, ``capture_probe`` (a card only);
 - latency and scale: ``online_latency``, ``retrieval_latency``,
   ``scale_100k``;
 - quality on synthetic streams: ``degraded_recall``,

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -66,8 +65,8 @@ from neural_spectral_codec_torch.ops.spectral import (
     Alpha, SpectralEncoderConfig, encode_points_batch)
 from neural_spectral_codec_torch.retrieval.retriever import (
     WassersteinRetriever)
-
-_ALIGN = 16    # bytes: every section of an arena starts 16-byte aligned
+from neural_spectral_codec_torch.utils.graph_exec import (
+    Arena, capture_graph)
 
 
 def encode_scan(points: torch.Tensor, alpha: Alpha,
@@ -83,43 +82,6 @@ def encode_scan(points: torch.Tensor, alpha: Alpha,
         return encode_points_ring_batch(points[None], alpha, config,
                                         row_of_ring, n_folds)[0]
     return encode_points_batch(points[None], alpha, config)[0]
-
-
-class Arena:
-    """Named typed sections of one byte buffer on ``device`` (``dev``) and,
-    on a card, of one pinned host buffer of the same layout (``np``: numpy
-    views of it); on the CPU the two are one buffer."""
-
-    def __init__(self, sections: Sequence[Tuple[str, tuple, torch.dtype]],
-                 device: torch.device):
-        offsets, total = [], 0
-        for _, shape, dtype in sections:
-            offsets.append(total)
-            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-            total += -(-nbytes // _ALIGN) * _ALIGN
-        self.dev_bytes = torch.zeros(total, dtype=torch.uint8, device=device)
-        self.host_bytes = (self.dev_bytes if device.type == "cpu" else
-                           torch.zeros(total, dtype=torch.uint8,
-                                       pin_memory=True))
-
-        def views(buf):
-            return {name: buf[off:off + int(np.prod(shape, dtype=np.int64))
-                              * dtype.itemsize].view(dtype).view(shape)
-                    for (name, shape, dtype), off in zip(sections, offsets)}
-
-        self.dev = views(self.dev_bytes)
-        self.np = {name: t.numpy()
-                   for name, t in views(self.host_bytes).items()}
-
-    def upload(self) -> None:
-        """Host sections → device sections: one copy (none on the CPU)."""
-        if self.host_bytes is not self.dev_bytes:
-            self.dev_bytes.copy_(self.host_bytes, non_blocking=True)
-
-    def download(self) -> None:
-        """Device sections → host sections: one copy (none on the CPU)."""
-        if self.host_bytes is not self.dev_bytes:
-            self.host_bytes.copy_(self.dev_bytes, non_blocking=True)
 
 
 class StepShape(NamedTuple):
@@ -383,25 +345,9 @@ class ServingExecutable:
 
     def _capture(self) -> None:
         """Run the step once on the capture stream, then capture it."""
-        stream = _capture_stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self._step()
-        kernels = _kernels()
-        before = [(k.launches, k.last_args) for k in kernels]
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=graph_pool(self.device),
-                              stream=stream,
-                              capture_error_mode="thread_local"):
-            self._step()
-        graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
-        credits = {}
-        for k, (launches, last_args) in zip(kernels, before):
-            if k.launches != launches:
-                credits[k] = k.launches - launches
-            k.launches, k.last_args = launches, last_args
+        graph, credits, self.capture_s = capture_graph(
+            self._step, _capture_stream(self.device),
+            graph_pool(self.device), _kernels())
         from neural_spectral_codec_torch import _build
         census = _build.graph_census(graph.raw_cuda_graph())
         if census["project_cooperative"] != census["project"]:

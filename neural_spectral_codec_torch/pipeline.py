@@ -487,15 +487,17 @@ class NeuralSpectralCodecPipeline:
         built (on a card: captured) by scratch executions that leave the
         database as it was (``LocalUpdateGNN.warm_serve``); with
         ``fused_encode`` alone the fused encode + refresh; else the split
-        local forward. The live database and graph are left as they were.
-        Run it before the verifier's worker threads start."""
+        local forward. The verifier is warmed too
+        (``GeometricVerifier.warmup``): the native library built, or for
+        the torch backend its registration executable built (on a card
+        captured) on a scratch pair of clouds. The live database and graph
+        are left as they were. Run it before the verifier's worker threads
+        start."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from neural_spectral_codec_torch import _build
             _build.load_library()
-        if self.retrieval.verifier.backend == "native":
-            from neural_spectral_codec_torch.native import geom
-            geom.load()
+        self.retrieval.verifier.warmup()
         self.encoder.encode_one(np.zeros((64, 4), np.float32))
         if not self.ablate_gnn:
             fused = self.use_local_updates and cfg_get(
@@ -660,10 +662,23 @@ class NeuralSpectralCodecPipeline:
                     remaining.append((query_id, fut))
             pending[:] = remaining
 
+        verifier = self.retrieval.verifier
+
+        def _captures_counted(fn, *args):
+            # registration graphs captured during the stream (warmup()
+            # captures them ahead)
+            captures = verifier.captures
+            out = fn(*args)
+            if verifier.captures != captures:
+                self.profiler.count("verifier_midstream_captures",
+                                    verifier.captures - captures)
+            return out
+
         def _verify(kf, cands):
             with self.profiler.profile("verification"):
-                return self.retrieval.loop_closures_from_candidates(
-                    kf, cands, kf.points)
+                return _captures_counted(
+                    self.retrieval.loop_closures_from_candidates, kf, cands,
+                    kf.points)
 
         def _check_budget(scan_id: int, t0: float) -> None:
             query_ms = 1e3 * (time.perf_counter() - t0)
@@ -800,13 +815,15 @@ class NeuralSpectralCodecPipeline:
                                     snapshot = ret.database_size
                                     pending.append((kf.keyframe_id,
                                                     executor.submit(
+                                        _captures_counted,
                                         self.retrieval.get_loop_closures, kf,
                                         kf.points, snapshot)))
                         else:
                             with self.profiler.profile("loop_closing"):
                                 t0 = time.perf_counter()
-                                edges = self.retrieval.get_loop_closures(
-                                    kf, kf.points)
+                                edges = _captures_counted(
+                                    self.retrieval.get_loop_closures, kf,
+                                    kf.points)
                             _check_budget(scan_id, t0)
                             _apply_edges(kf.keyframe_id, edges)
                     if executor is not None:

@@ -13,13 +13,24 @@ Two backends, chosen once at construction:
     library cannot be built: no quiet fallback.
   * ``"torch"`` (also named ``"jax"``, the JAX package's name for it, so
     that its configs build): the fixed-shape registration of the JAX
-    package's ``"jax"`` backend in plain PyTorch on the verifier's
-    device: padded point sets,
-    all-pairs nearest neighbours from a distance matrix, ``max_iterations``
-    Gauss-Newton steps (``icp_kernel``: point-to-point Kabsch,
-    point-to-plane, or generalized ICP with k-NN disk-regularised
-    covariances on both clouds). The work grows as P² per iteration
-    (16.8 M distances at P = 4,096), which suits the card.
+    package's ``"jax"`` backend on the verifier's device: padded point
+    sets, all-pairs nearest neighbours, ``max_iterations`` Gauss-Newton
+    steps (``icp_kernel``: point-to-point Kabsch, point-to-plane, or
+    generalized ICP with k-NN disk-regularised covariances on both clouds).
+    The work grows as P² per iteration (16.8 M distances at P = 4,096).
+
+On a card the torch backend runs JAX's one jitted program a pair
+(``_icp_kernel``) as one ``RegistrationExecutable``: the static step
+captured once into a CUDA graph, then for each pair the two prepared
+clouds copied into its input arena on the device, one replay and one
+fetch of 18 floats. Its searches are hand-written kernels built from
+``csrc/`` at first use: the nearest neighbour of every moved source point
+(kernel N, ``nearest_kernel``, 31 launches a replay) and, in ``prepare``,
+the k nearest neighbours within a cloud (kernel K, ``knn_kernel``). All of
+it runs on the verifier's own stream (``verifier_stream``), apart from
+the current stream on which the serving graphs replay. A CPU tensor runs
+the same step eagerly with the searches' plain versions (the tests'
+path).
 
 Matrix products here are float32 with TF32 off (``resolve_device``).
 """
@@ -27,14 +38,24 @@ Matrix products here are float32 with TF32 off (``resolve_device``).
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
+from neural_spectral_codec_torch.utils.graph_exec import Arena, capture_graph
 
 logger = logging.getLogger(__name__)
+
+MODES = {"icp": "p2p", "point_to_plane": "p2l", "gicp": "gicp"}
+# The modes whose registration step is captured into a CUDA graph on a
+# card. Point-to-point's Kabsch step calls torch.linalg.svd, whose CUDA
+# path copies between host and device, which a capture refuses
+# (experiments/capture_probe.py): on a card it runs the same static step
+# eagerly, launch by launch (ROADMAP queue 2, still to port).
+GRAPH_MODES = ("p2l", "gicp")
 
 
 def voxel_downsample(points: np.ndarray, voxel_size: float) -> np.ndarray:
@@ -69,19 +90,15 @@ def _pad(points: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
     return out, m
 
 
-def _pairwise_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(P, Q) squared distances, summed over the coordinates of the
-    differences as the JAX package does (not the |a|²+|b|²−2ab form)."""
-    return ((a[:, None, :] - b[None, :, :]) ** 2).sum(dim=-1)
-
-
 def knn_cov_matrices(pts: torch.Tensor, mask: torch.Tensor,
                      k: int) -> torch.Tensor:
     """Raw k-NN PCA covariance per point, (P, 3, 3); the k neighbours
-    include the point itself."""
-    d2 = torch.where(mask[None, :], _pairwise_d2(pts, pts), torch.inf)
-    idx = torch.topk(d2, k, dim=1, largest=False).indices
-    nbr = pts[idx]                                       # (P, k, 3)
+    include the point itself and come in ``lax.top_k``'s order (ascending
+    distance, ties to the lower index: ``knn_kernel.knn``, kernel K on a
+    card)."""
+    # imported here: importing the package builds and loads no kernel
+    from neural_spectral_codec_torch.retrieval.knn_kernel import knn
+    nbr = pts[knn(pts, mask, k)]                         # (P, k, 3)
     c = nbr - nbr.mean(dim=1, keepdim=True)
     return torch.einsum("pki,pkj->pij", c, c) / k
 
@@ -99,7 +116,8 @@ def knn_covariances(pts: torch.Tensor, mask: torch.Tensor, k: int = 20,
     """GICP covariances V diag(ε, 1, 1) Vᵀ from the k-NN PCA eigenvectors
     (ascending eigenvalues): the normal direction squashed to ε."""
     _, vecs = torch.linalg.eigh(knn_cov_matrices(pts, mask, k))
-    d = torch.tensor([eps, 1.0, 1.0], dtype=vecs.dtype, device=vecs.device)
+    d = torch.ones(3, dtype=vecs.dtype, device=vecs.device)
+    d[0] = eps
     return torch.einsum("pij,j,pkj->pik", vecs, d, vecs)
 
 
@@ -124,6 +142,11 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def _solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.solve`` without its error check (a host sync)."""
+    return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+
+
 def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
                dst_mask: torch.Tensor, normals: Optional[torch.Tensor],
                cov_src: Optional[torch.Tensor],
@@ -132,7 +155,14 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fixed-shape registration (JAX ``_icp_kernel``,
     verification.py:117-193), mode ∈ {"p2p", "p2l", "gicp"}. Returns
-    (T, fitness, inlier_rmse) as tensors on the inputs' device."""
+    (T, fitness, inlier_rmse) as tensors on the inputs' device.
+
+    Static shapes and no host sync in "p2l" and "gicp" (no ``.item()``, no
+    Python value read from a tensor, no solver error check: ``inv_ex`` and
+    ``solve_ex`` skip it with the same arithmetic), so that a card
+    captures all ``max_iterations`` steps and the final correspondence
+    search in one CUDA graph; the loop is unrolled into it."""
+    from neural_spectral_codec_torch.retrieval.nearest_kernel import nearest
     dev, f32 = src.device, torch.float32
     n_src = src_mask.sum().clamp(min=1).to(f32)
     eye3 = torch.eye(3, dtype=f32, device=dev)
@@ -140,10 +170,8 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
 
     def correspondences(T):
         moved = _transform(T, src)
-        d2 = torch.where(dst_mask[None, :], _pairwise_d2(moved, dst),
-                         torch.inf)
-        j = torch.argmin(d2, dim=1)
-        dist = torch.sqrt(d2.gather(1, j[:, None])[:, 0])
+        j, d2 = nearest(moved, dst, dst_mask)          # kernel N on a card
+        dist = torch.sqrt(d2)
         w = src_mask & (dist <= max_corr)
         return moved, j, dist, w.to(f32)
 
@@ -173,7 +201,7 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         Jw = J * w[:, None]
         A = Jw.T @ J + 1e-6 * eye6
         b = -Jw.T @ r
-        return se3_exp(torch.linalg.solve(A, b)) @ T
+        return se3_exp(_solve(A, b)) @ T
 
     def gicp_step(T):
         """Gauss-Newton on rᵀ (C_q + R C_p Rᵀ)⁻¹ r."""
@@ -181,7 +209,8 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         q = dst[j]
         R = T[:3, :3]
         Cs = torch.einsum("ab,pbc,dc->pad", R, cov_src, R)
-        M = torch.linalg.inv(cov_dst[j] + Cs + 1e-9 * eye3)      # (P, 3, 3)
+        M = torch.linalg.inv_ex(cov_dst[j] + Cs + 1e-9 * eye3,
+                                check_errors=False)[0]           # (P, 3, 3)
         r = moved - q
         x, y, z = moved[:, 0], moved[:, 1], moved[:, 2]
         zero = torch.zeros_like(x)
@@ -193,7 +222,7 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         MJ = torch.einsum("pij,pjb->pib", M, J)
         A = torch.einsum("p,pia,pib->ab", w, J, MJ) + 1e-9 * eye6
         b = -torch.einsum("p,pib,pi->b", w, MJ, r)
-        return se3_exp(torch.linalg.solve(A, b)) @ T
+        return se3_exp(_solve(A, b)) @ T
 
     step = {"p2p": p2p_step, "p2l": p2l_step, "gicp": gicp_step}[mode]
     T = init_T
@@ -209,16 +238,231 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
 class PreparedCloud:
     """Per-cloud verification state, computed once per cloud: the
     downsampled points plus the GICP covariances or point-to-plane normals
-    (and, for the torch backend, the padded device tensors)."""
+    (and, for the torch backend, the padded device tensors). On a card
+    ``ready`` is the CUDA event after which those tensors are written (on
+    the verifier's stream); None for tensors made elsewhere, which a
+    registration then orders after its caller's current stream."""
 
-    __slots__ = ("pts", "cov", "normals", "padded", "mask")
+    __slots__ = ("pts", "cov", "normals", "padded", "mask", "ready")
 
-    def __init__(self, pts, cov=None, normals=None, padded=None, mask=None):
+    def __init__(self, pts, cov=None, normals=None, padded=None, mask=None,
+                 ready=None):
         self.pts = pts
         self.cov = cov
         self.normals = normals
         self.padded = padded
         self.mask = mask
+        self.ready = ready
+
+
+_STREAMS: Dict[int, tuple] = {}       # device index → (stream, lock)
+_STREAMS_LOCK = threading.Lock()
+
+
+def verifier_stream(device: torch.device) -> tuple:
+    """(stream, lock): the CUDA stream every torch-backend verifier of
+    ``device`` prepares and registers on, apart from the current stream on
+    which the serving graphs replay (a multi-millisecond registration there
+    would sit in front of the next keyframe's step), and the re-entrant
+    lock that its users hold while they enqueue: a capture on the stream
+    must take in no other thread's launches."""
+    idx = device.index if device.index is not None else 0
+    with _STREAMS_LOCK:
+        if idx not in _STREAMS:
+            _STREAMS[idx] = (torch.cuda.Stream(device), threading.RLock())
+        return _STREAMS[idx]
+
+
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
+
+
+class RegistrationExecutable:
+    """JAX's jitted ``_icp_kernel`` for one (device, mode, P, Q, iterations,
+    max correspondence): the static registration step, its input and
+    output buffers and, on a card in a mode of ``GRAPH_MODES``, its CUDA
+    graph.
+
+    The inputs live in static arenas (``utils/graph_exec.Arena``): the
+    clouds (``src``, ``src_mask``, ``dst``, ``dst_mask``, and ``normals``
+    for "p2l" or ``cov_src`` and ``cov_dst`` for "gicp") on the device
+    only, filled by device-to-device copies from the two
+    ``PreparedCloud``s, and ``init_T`` staged through a pinned buffer. The
+    output is one (18,) float32 section, T row-major, fitness and RMSE,
+    fetched with one copy into pinned memory.
+
+    On a card ``run`` enqueues on the verifier's stream: the copies, then
+    on its first call the step once and its capture (in the executable's
+    own memory pool, ``thread_local``, so that the serving graphs of
+    another thread may replay and capture meanwhile), then a replay,
+    which credits kernel N's 31 launches; then the fetch, which the host
+    waits for. A failed build, capture or replay raises: there is no
+    fallback to the eager step. ``graphed`` False runs the same step
+    eagerly on the stream (the comparison path, and "p2p"). On the CPU
+    the step always runs eagerly. ``lock`` keeps two threads from staging
+    one arena at once."""
+
+    def __init__(self, device: torch.device, mode: str, n_src: int,
+                 n_dst: int, iterations: int, max_corr: float,
+                 graphed: bool):
+        if graphed and (device.type != "cuda" or mode not in GRAPH_MODES):
+            raise ValueError(f"no graph for mode {mode!r} on {device}")
+        self.device, self.mode = device, mode
+        self.iterations, self.max_corr = int(iterations), float(max_corr)
+        self.graphed = graphed
+        f32, b8 = torch.float32, torch.bool
+        sections = [("src", (n_src, 3), f32), ("src_mask", (n_src,), b8),
+                    ("dst", (n_dst, 3), f32), ("dst_mask", (n_dst,), b8)]
+        if mode == "p2l":
+            sections.append(("normals", (n_dst, 3), f32))
+        elif mode == "gicp":
+            sections += [("cov_src", (n_src, 3, 3), f32),
+                         ("cov_dst", (n_dst, 3, 3), f32)]
+        self.clouds = Arena(sections, device, host=False)
+        self.init = Arena([("init_T", (4, 4), f32)], device)
+        self.outputs = Arena([("out", (18,), f32)], device)
+        self.lock = threading.Lock()
+        cuda = device.type == "cuda"
+        self._done = torch.cuda.Event() if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if graphed else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.credits: Dict[object, int] = {}
+        self.census: Optional[dict] = None
+        self.capture_s: Optional[float] = None
+
+    def _step(self) -> None:
+        """The body: reads the arenas, writes the output section."""
+        c = self.clouds.dev
+        with torch.no_grad():
+            T, fitness, rmse = icp_kernel(
+                c["src"], c["src_mask"], c["dst"], c["dst_mask"],
+                c.get("normals"), c.get("cov_src"), c.get("cov_dst"),
+                self.init.dev["init_T"], self.iterations, self.mode,
+                self.max_corr)
+            self.outputs.dev["out"].copy_(
+                torch.cat([T.reshape(-1), fitness[None], rmse[None]]))
+
+    def _stage(self, src: PreparedCloud, dst: PreparedCloud, init_T,
+               stream, caller) -> None:
+        """The pair into the arenas (on ``stream`` on a card, ordered after
+        each cloud's ``ready`` event, or after the ``caller`` stream for
+        tensors made elsewhere)."""
+        parts = [("src", src.padded), ("src_mask", src.mask),
+                 ("dst", dst.padded), ("dst_mask", dst.mask)]
+        if self.mode == "p2l":
+            parts.append(("normals", dst.normals))
+        elif self.mode == "gicp":
+            parts += [("cov_src", src.cov), ("cov_dst", dst.cov)]
+        if stream is not None:
+            for prep in (src, dst):
+                if prep.ready is not None:
+                    stream.wait_event(prep.ready)
+                else:
+                    stream.wait_stream(caller)
+        for name, t in parts:
+            want = self.clouds.dev[name]
+            if t is None or t.shape != want.shape or t.device != self.device:
+                raise ValueError(
+                    f"registration ({self.mode}): {name} is "
+                    f"{None if t is None else (tuple(t.shape), str(t.device))}"
+                    f", the executable takes {tuple(want.shape)} on "
+                    f"{self.device}")
+            if stream is not None:
+                t.record_stream(stream)
+            want.copy_(t)
+        self.init.np["init_T"][...] = init_T
+        self.init.upload()
+
+    def run(self, src: PreparedCloud, dst: PreparedCloud, init_T
+            ) -> Tuple[np.ndarray, bool]:
+        """Register ``src`` onto ``dst`` from ``init_T`` (4, 4): returns
+        the (18,) host output (T row-major, fitness, RMSE) and whether
+        this call captured the graph."""
+        with self.lock:
+            if self.device.type == "cpu":
+                self._stage(src, dst, init_T, None, None)
+                self._step()
+                STATS["eager_steps"] += 1
+                return self.outputs.np["out"].copy(), False
+            stream, stream_lock = verifier_stream(self.device)
+            caller = torch.cuda.current_stream(self.device)
+            captured = False
+            with stream_lock, torch.cuda.device(self.device), \
+                    torch.cuda.stream(stream):
+                self._stage(src, dst, init_T, stream, caller)
+                if self.graphed and self.graph is None:
+                    self._capture(stream)
+                    captured = True
+                if self.graph is not None:
+                    self.graph.replay()
+                    for kernel, n in self.credits.items():
+                        kernel.launches += n
+                    STATS["replays"] += 1
+                else:
+                    self._step()
+                    STATS["eager_steps"] += 1
+                self.outputs.download()
+                self._done.record(stream)
+            self._done.synchronize()       # the pair's one fetch
+            return self.outputs.np["out"].copy(), captured
+
+    def _capture(self, stream) -> None:
+        from neural_spectral_codec_torch import _build
+        from neural_spectral_codec_torch.retrieval import (
+            knn_kernel, nearest_kernel)
+        graph, credits, self.capture_s = capture_graph(
+            self._step, stream, self._pool,
+            (nearest_kernel.KERNEL, knn_kernel.KERNEL))
+        census = _build.graph_census(graph.raw_cuda_graph())
+        if census["nearest"] != self.iterations + 1:
+            raise RuntimeError(
+                f"the registration graph holds {census['nearest']} "
+                f"nearest-neighbour searches, not {self.iterations + 1} "
+                f"({census})")
+        self.graph, self.credits, self.census = graph, credits, census
+        STATS["captures"] += 1
+
+
+_EXECUTABLES: Dict[tuple, RegistrationExecutable] = {}
+_EXECUTABLES_LOCK = threading.Lock()
+
+
+def registration_executable(device: torch.device, mode: str, n_src: int,
+                            n_dst: int, iterations: int, max_corr: float,
+                            use_graph: bool = True
+                            ) -> RegistrationExecutable:
+    """The cached executable of (device, mode, P, Q, iterations, max
+    correspondence, graphed), made on a miss; graphed on a card for the
+    modes of ``GRAPH_MODES`` unless ``use_graph`` is False."""
+    graphed = (use_graph and device.type == "cuda"
+               and mode in GRAPH_MODES)
+    key = (str(device), mode, int(n_src), int(n_dst), int(iterations),
+           float(max_corr), graphed)
+    with _EXECUTABLES_LOCK:
+        exe = _EXECUTABLES.get(key)
+        if exe is None:
+            exe = RegistrationExecutable(device, mode, n_src, n_dst,
+                                         iterations, max_corr, graphed)
+            _EXECUTABLES[key] = exe
+        return exe
+
+
+def cached_executables() -> list:
+    """The registration executables made so far, oldest first."""
+    with _EXECUTABLES_LOCK:
+        return list(_EXECUTABLES.values())
+
+
+def _scratch_cloud() -> np.ndarray:
+    """A fixed cloud for warm-up: a 20 m ground square and two walls at a
+    0.4 m pitch: 3,500 points in 3,391 voxels of 0.3 m."""
+    a = np.arange(-10.0, 10.0, 0.4)
+    h = np.arange(0.0, 4.0, 0.4)
+    gx, gy = np.meshgrid(a, a)
+    ground = np.column_stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)])
+    wx, wz = np.meshgrid(a, h)
+    wall1 = np.column_stack([wx.ravel(), np.full(wx.size, 6.0), wz.ravel()])
+    wall2 = np.column_stack([np.full(wx.size, -7.0), wx.ravel(), wz.ravel()])
+    return np.vstack([ground, wall1, wall2]).astype(np.float32)
 
 
 class GeometricVerifier:
@@ -232,7 +476,7 @@ class GeometricVerifier:
                  max_correspondence_distance: float = 1.0,
                  max_points: int = 4096, backend: str = "auto",
                  gicp_epsilon: float = 1e-3, covariance_knn: int = 20,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", use_graph: bool = True):
         if method not in ("icp", "point_to_plane", "gicp"):
             raise ValueError(f"unknown verification method: {method}")
         self.method = method
@@ -254,8 +498,17 @@ class GeometricVerifier:
         self.backend = backend
         self.device = (resolve_device(device) if self.backend == "torch"
                        else torch.device("cpu"))
-        logger.info("geometric verifier: %s backend, %s, %d points",
-                    self.backend, method, max_points)
+        # on a card: one graph replay a pair (GRAPH_MODES), else the same
+        # static step eagerly; use_graph False runs it eagerly in every mode
+        self.use_graph = use_graph
+        self.captures = 0          # registration graphs this verifier made
+        logger.info("geometric verifier: %s backend, %s, %d points%s",
+                    self.backend, method, max_points,
+                    "" if self.backend == "native" or
+                    self.device.type == "cpu" else
+                    ", one graph replay a pair" if use_graph
+                    and MODES[method] in GRAPH_MODES else
+                    ", eager registration step")
 
     def prepare(self, points: np.ndarray) -> PreparedCloud:
         """Downsample the cloud and compute its covariances or normals."""
@@ -279,8 +532,22 @@ class GeometricVerifier:
 
         pts = voxel_downsample(points, self.voxel_downsample)
         padded, mask = _pad(pts, self.max_points)
-        p = torch.from_numpy(padded).to(self.device)
-        m = torch.from_numpy(mask).to(self.device)
+        if self.device.type == "cpu":
+            return self._prepare_padded(pts, torch.from_numpy(padded),
+                                        torch.from_numpy(mask))
+        # eagerly on the verifier's stream: a capture refuses
+        # torch.linalg.eigh (experiments/capture_probe.py), so the
+        # preparation is no graph
+        stream, lock = verifier_stream(self.device)
+        with lock, torch.cuda.device(self.device), torch.cuda.stream(stream):
+            prep = self._prepare_padded(
+                pts, torch.from_numpy(padded).to(self.device),
+                torch.from_numpy(mask).to(self.device))
+            prep.ready = torch.cuda.Event()
+            prep.ready.record(stream)
+        return prep
+
+    def _prepare_padded(self, pts, p, m) -> PreparedCloud:
         cov = normals = None
         with torch.no_grad():
             if self.method == "gicp":
@@ -289,6 +556,23 @@ class GeometricVerifier:
             elif self.method == "point_to_plane":
                 normals = knn_normals(p, m)
         return PreparedCloud(pts, cov=cov, normals=normals, padded=p, mask=m)
+
+    def warmup(self) -> None:
+        """Build what the first verification would build, so that none is
+        built mid-stream: the native library, or for the torch backend the
+        kernels and this method's registration executable (on a card its
+        graph, captured), by preparing and verifying a scratch pair of
+        clouds. Run it before the verifier's worker threads start."""
+        if self.backend == "native":
+            from neural_spectral_codec_torch.native import geom
+            geom.load()
+            return
+        if self.device.type == "cuda":
+            from neural_spectral_codec_torch import _build
+            _build.load_library()
+        cloud = _scratch_cloud()
+        shifted = cloud + np.array([0.3, -0.2, 0.0], np.float32)
+        self.verify(self.prepare(cloud), self.prepare(shifted))
 
     def _prep(self, points_or_prepared) -> PreparedCloud:
         if isinstance(points_or_prepared, PreparedCloud):
@@ -333,16 +617,12 @@ class GeometricVerifier:
     def _register_torch(self, sprep, dprep, initial_transform):
         init = (np.eye(4, dtype=np.float32) if initial_transform is None
                 else np.asarray(initial_transform, np.float32))
-        mode = {"icp": "p2p", "point_to_plane": "p2l",
-                "gicp": "gicp"}[self.method]
-        with torch.no_grad():
-            T, fitness, rmse = icp_kernel(
-                sprep.padded, sprep.mask, dprep.padded, dprep.mask,
-                dprep.normals, sprep.cov, dprep.cov,
-                torch.from_numpy(init).to(self.device), self.max_iterations,
-                mode, self.max_correspondence_distance)
-            out = torch.cat([T.reshape(-1), fitness[None], rmse[None]]
-                            ).cpu().numpy()                    # one fetch
+        exe = registration_executable(
+            self.device, MODES[self.method], sprep.padded.shape[0],
+            dprep.padded.shape[0], self.max_iterations,
+            self.max_correspondence_distance, self.use_graph)
+        out, captured = exe.run(sprep, dprep, init)
+        self.captures += captured
         return (out[:16].reshape(4, 4).astype(np.float64), float(out[16]),
                 float(out[17]))
 
