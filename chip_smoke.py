@@ -968,19 +968,12 @@ def _same_or_nan(a, b) -> bool:
 def _scene_clouds(device) -> tuple:
     """Two consecutive frames of phase 8's synthetic stream (131,072
     points) as the verifier prepares them: 0.3 m voxel means padded to
-    VERIFY_POINTS, on the card, with their masks."""
-    import torch
-    from neural_spectral_codec_torch.data.synthetic import SyntheticLoader
-    from neural_spectral_codec_torch.retrieval.verification import (
-        _pad, voxel_downsample)
-    base = SyntheticLoader(n_frames=2, seed=SEED + 41, n_points=131_072)
-    out = []
-    for i in range(2):
-        pts, mask = _pad(voxel_downsample(base[i]["points"], 0.3),
-                         VERIFY_POINTS)
-        out += [torch.from_numpy(pts).to(device),
-                torch.from_numpy(mask).to(device)]
-    return tuple(out)
+    VERIFY_POINTS, on the card, with their masks
+    (``experiments.kernel_ab.prepared_frames``)."""
+    from neural_spectral_codec_torch.experiments.kernel_ab import (
+        prepared_frames)
+    return prepared_frames(device, seed=SEED + 41, n_points=131_072,
+                           max_points=VERIFY_POINTS)
 
 
 def _search_kernels(device) -> dict:
@@ -990,7 +983,16 @@ def _search_kernels(device) -> dict:
     4,096) on two prepared frames of phase 8's stream and on random
     clouds, and on edge cases: a lattice (ties everywhere), duplicate
     targets, one valid target, none, fewer than k valid points, NaN rows,
-    P != Q, P = 1, k = 16 and 32. Then, on the prepared frames, each
+    P != Q, P = 1, k = 16 and 32; and where the kernels split their work
+    (N: 2 ranks of Q/2 targets, tiles of 2,048, 32 parts a tile, groups
+    of 8, 64 rows a CTA; K: 32 rows a CTA, the own batch first, tiles of
+    4,096): a valid NaN target after the rows' finite minimum and before
+    it, NaN only under the mask, duplicates across group, part and rank
+    boundaries, P and Q off every multiple (Q below the cluster split and
+    the parts, several tiles a rank), rows with exactly k valid points,
+    k = 1, 16, 20 and 32 on the prepared frame, own batches that are the
+    last, partial one, several tiles of K, NaN candidates inside a row's
+    k. Then, on the prepared frames, each
     kernel's device time (torch.profiler, queued bare launches), its
     wrapper's, its plain version's, the two-call yardstick (torch.cdist +
     argmin or topk) and the bound (9 operations that cannot fuse a pair at
@@ -1020,6 +1022,31 @@ def _search_kernels(device) -> dict:
     nan_src[[5, 100]] = float("nan")
     nan_src[7, 1] = float("nan")
     scene_a, mask_a, scene_b, mask_b = _scene_clouds(device)
+    nan = float("nan")
+    nan_late = dst.clone()          # the finite minima lie mostly before it
+    nan_late[3000] = nan
+    nan_early = dst.clone()         # the first NaN early, another later
+    nan_early[10, 2] = nan
+    nan_early[2600, 0] = nan
+    nan_masked = dst.clone()        # NaN only where the mask is off
+    nan_masked[~mask] = nan
+    tie = dst.clone()               # equal targets across the boundaries of
+    seams = [7, 255, 511, 1023, 2047, 3583]   # a group, parts and the ranks
+    for j in seams:
+        tie[j + 1] = tie[j]
+    tie_src = torch.cat([tie[seams], tie[seams].repeat(60, 1) + (torch.rand(
+        60 * len(seams), 3, generator=g, device=device) - 0.5) * 0.2,
+        src[:600]]).contiguous()
+    wide, wide_mask = cloud(9000), torch.rand(
+        9000, generator=g, device=device) < 0.9   # 3 tiles a rank (N), K
+    perm = torch.randperm(n, generator=g, device=device)
+    exactly, exactly32 = (torch.zeros(n, dtype=torch.bool, device=device)
+                          for _ in range(2))
+    exactly[perm[:20]] = True       # rows with exactly k valid points
+    exactly32[perm[:32]] = True
+    nan_pts = cloud(40)             # NaN candidates within a row's k
+    nan_pts[[3, 5, 11, 17, 23, 33, 34, 36, 38, 39]] = nan
+    nan_pts[21, 1] = nan
     nearest_cases = [
         ("scene", scene_a, scene_b, mask_b), ("random", src, dst, mask),
         ("lattice_ties", between, lattice, ones),
@@ -1028,13 +1055,38 @@ def _search_kernels(device) -> dict:
         ("nan_rows", nan_src, dst, mask),
         ("p_ne_q", src[:1000].contiguous(), dst[:3001].contiguous(),
          mask[:3001].contiguous()),
-        ("p_1", src[:1].contiguous(), dst, mask)]
+        ("p_1", src[:1].contiguous(), dst, mask),
+        ("nan_after_minimum", src, nan_late, ones),
+        ("nan_before_minimum", src, nan_early, ones),
+        ("nan_masked", src, nan_masked, mask),
+        ("ties_across_seams", tie_src, tie, ones),
+        ("p257_q4097", src[:257].contiguous(), cloud(4097),
+         torch.ones(4097, dtype=torch.bool, device=device)),
+        ("q_below_split", src[:300].contiguous(), dst[:5].contiguous(),
+         mask[:5].contiguous()),
+        ("q_1", src, dst[:1].contiguous(), ones[:1]),
+        ("p33_q7", src[:33].contiguous(), dst[:7].contiguous(),
+         ones[:7]),
+        ("q_9000", src, wide, wide_mask),
+        ("scene_p_ne_q", scene_a[:4093].contiguous(), scene_b[:3001]
+         .contiguous(), mask_b[:3001].contiguous())]
     knn_cases = [
         ("scene", scene_a, mask_a, 20), ("scene_k16", scene_a, mask_a, 16),
         ("random", src, mask, 20), ("lattice_ties", lattice, ones, 20),
         ("duplicates", dup, ones, 20), ("few_valid", src, few, 20),
         ("one_valid", src, one, 20), ("nan_rows", nan_src, mask, 20),
-        ("k32", src, mask, 32), ("p_1", src[:1].contiguous(), ones[:1], 1)]
+        ("k32", src, mask, 32), ("p_1", src[:1].contiguous(), ones[:1], 1),
+        ("scene_k1", scene_a, mask_a, 1), ("scene_k32", scene_a, mask_a, 32),
+        ("exactly_k", src, exactly, 20),
+        ("exactly_k32", src, exactly32, 32),
+        ("last_batch_partial", scene_a[:4093].contiguous(),
+         mask_a[:4093].contiguous(), 20),
+        ("n_1013", src[:1013].contiguous(), mask[:1013].contiguous(), 20),
+        ("three_tiles", wide, wide_mask, 20),
+        ("two_tiles_k32", wide[:5000].contiguous(),
+         wide_mask[:5000].contiguous(), 32),
+        ("nan_in_k", nan_pts, ones[:40], 32),
+        ("nan_in_k_n24", nan_pts[:24].contiguous(), ones[:24], 20)]
     for name, a, b, m in nearest_cases:
         j, d2 = nk.nearest_cuda(a, b, m)
         jp, d2p = nk.nearest_plain(a, b, m)
@@ -1488,7 +1540,8 @@ def _verifier_backends(pipe, device) -> dict:
               f"bit on "
               f"{pairs - len(unequal)}/{pairs}; graph {exe.census['nodes']} "
               f"nodes ({exe.census['kernels']} kernels, "
-              f"{exe.census['nearest']} kernel N, {exe.census['memcpy']} "
+              f"{exe.census['nearest']} kernel N of cluster width "
+              f"{exe.census['nearest_cluster_width']}, {exe.census['memcpy']} "
               f"copies, {exe.census['memset']} memsets), captured in "
               f"{exe.capture_s:.3f} s (warmup() {warm_s:.3f} s); native vs "
               f"torch disagreements {disagree}, largest transform "

@@ -165,16 +165,16 @@ class CudaKernel:
 CENSUS = ("nodes", "kernels", "memcpy", "memset", "other", "project",
           "project_cooperative", "spectral", "spectral_cluster_width",
           "spectral_cluster_dim", "ring_fold", "unreadable_kernels",
-          "nearest", "knn")
+          "nearest", "knn", "nearest_cluster_width")
 
 
 def graph_census(graph_handle: int) -> dict:
     """The nodes of a captured CUDA graph (``torch.cuda.CUDAGraph(
     keep_graph=True).raw_cuda_graph()``) by kind, the projection kernel's
     nodes with their cooperative attribute, the spectral kernel's with its
-    cluster width, and the ring, nearest-neighbour and k-NN kernels'
-    (``nsc_graph_census`` in ``csrc/project.cu``). Raises on a CUDA
-    error."""
+    cluster width, and the ring, nearest-neighbour (with its cluster
+    width) and k-NN kernels' (``nsc_graph_census`` in
+    ``csrc/project.cu``). Raises on a CUDA error."""
     lib = load_library()
     fn = lib.nsc_graph_census
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

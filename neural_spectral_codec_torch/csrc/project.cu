@@ -370,9 +370,11 @@ extern "C" const void* nsc_knn_kernel_handle();
 //   (__cluster_dims__; 0 none), 9 the cluster-dimension attribute of its
 //   last node (x; 0 when the launch set none), 10 ring-fold nodes,
 //   11 kernel nodes whose parameters the runtime could not read,
-//   12 nearest-neighbour nodes (nearest.cu), 13 k-NN nodes (knn.cu).
+//   12 nearest-neighbour nodes (nearest.cu), 13 k-NN nodes (knn.cu),
+//   14 the cluster width the nearest-neighbour function requires
+//   (__cluster_dims__; 0 none), read when the graph holds one.
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
-constexpr int kCensusWords = 14;
+constexpr int kCensusWords = 15;
 
 extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
@@ -428,6 +430,10 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
       ++out[10];
     } else if (params.func == nearest) {
       ++out[12];
+      cudaFuncAttributes attrs = {};
+      err = cudaFuncGetAttributes(&attrs, nearest);
+      if (err != cudaSuccess) return (int)err;
+      out[14] = attrs.requiredClusterWidth;
     } else if (params.func == knn) {
       ++out[13];
     }

@@ -2,18 +2,25 @@
 points, on the same card, in turns.
 
     python -m neural_spectral_codec_torch.experiments.kernel_ab \\
-        --other-csrc DIR [--json out.json]
+        --other-csrc DIR [--cases nearest,knn] [--json out.json]
 
 ``DIR`` holds another version of ``csrc/`` (for example a parent
 commit's, unpacked with ``git archive <commit> neural_spectral_codec_torch/csrc``).
 It is compiled with ``_build.NVCC_FLAGS`` into a second library beside
 this tree's. Each serving kernel (K1 at B=8 and B=1, K2 at B=8 and B=1,
-K3 at B=8 and B=1 on random-order scans) and the ring-fold probe (P1 at
-the probe shape) is called once through its wrapper; then both libraries'
-entry points are launched on those same arguments, bare and queued behind
-a spin kernel (``utils.timing.time_queued_ms``, 200 launches), in the
-order other, this, this, other, twice. Prints and returns each side's
-median device µs. Needs a CUDA card.
+K3 at B=8 and B=1 on random-order scans), the ring-fold probe (P1 at
+the probe shape) and the verifier's searches (N at 4,096 × 4,096, K at
+4,096 points with k = 20, on two prepared frames: ``prepared_frames``)
+is called once through its wrapper; then both libraries' entry points
+are launched on those same arguments, bare and queued behind a spin
+kernel (``utils.timing.time_queued_ms``, 200 launches), in the order
+other, this, this, other, twice. For N and K the other side's last
+output must equal the wrapper's bit for bit. Prints and returns each
+side's median device µs; for N where the time of this tree's
+``csrc/nearest.cu`` goes (``nearest_stamps``: a build with
+``-DNSC_NEAREST_STAMPS``), and for K its merges a row on the same frames
+(``knn_merge_counts``: a build with ``-DNSC_KNN_COUNT``). ``--cases``
+keeps the named cases only. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +53,110 @@ def build_other(csrc: Path, out_dir: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+def prepared_frames(device, seed: int = 41, n_points: int = 131_072,
+                    max_points: int = 4096) -> tuple:
+    """Two consecutive frames of a seeded synthetic stream as the verifier
+    prepares them: 0.3 m voxel means (sorted by voxel key) padded to
+    ``max_points``, on ``device``: (a, mask_a, b, mask_b)."""
+    from neural_spectral_codec_torch.data.synthetic import SyntheticLoader
+    from neural_spectral_codec_torch.retrieval.verification import (
+        _pad, voxel_downsample)
+    base = SyntheticLoader(n_frames=2, seed=seed, n_points=n_points)
+    out = []
+    for i in range(2):
+        pts, mask = _pad(voxel_downsample(base[i]["points"], 0.3),
+                         max_points)
+        out += [torch.from_numpy(pts).to(device),
+                torch.from_numpy(mask).to(device)]
+    return tuple(out)
+
+
+def build_diagnostic(source: str, define: str, out_dir: Path) -> ctypes.CDLL:
+    """This tree's ``csrc/<source>`` alone, built with ``-D<define>`` (its
+    diagnostic hooks on) into a library in ``out_dir``; the library the
+    port loads is built without them."""
+    from neural_spectral_codec_torch import _build
+    lib = out_dir / f"lib{define.lower()}.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, f"-D{define}",
+                    "-shared", "-o", str(lib), str(_build.CSRC_DIR / source)],
+                   check=True)
+    return ctypes.CDLL(str(lib))
+
+
+COUNTS = ("tested", "passed", "inserted", "full_merges")
+
+
+def knn_merge_counts(pts: torch.Tensor, mask: torch.Tensor, k: int,
+                     out_dir: Path) -> dict:
+    """Per row, what kernel K's merge step did on one cloud: batches that
+    reached the exact test, batches that passed it, lanes inserted one by
+    one, full (bitonic) merges; from ``csrc/knn.cu`` built with
+    ``-DNSC_KNN_COUNT`` (device counters, one atomic a warp event) and
+    launched once."""
+    from neural_spectral_codec_torch.retrieval.knn_kernel import (
+        KERNEL, knn_plain)
+    lib = build_diagnostic("knn.cu", "NSC_KNN_COUNT", out_dir)
+    lib.nsc_knn.argtypes = KERNEL.argtypes
+    lib.nsc_knn_counts.argtypes = [ctypes.c_void_p]
+    counts = (ctypes.c_ulonglong * len(COUNTS))()
+    n = pts.shape[0]
+    idx = torch.empty((n, k), dtype=torch.int64, device=pts.device)
+    for err in (lib.nsc_knn_counts(counts),        # clears the counters
+                lib.nsc_knn(pts.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+                            n, k, torch.cuda.current_stream().cuda_stream)):
+        if err != 0:
+            raise RuntimeError(f"knn (counting build): CUDA error {err}")
+    torch.cuda.synchronize()
+    err = lib.nsc_knn_counts(counts)
+    if err != 0:
+        raise RuntimeError(f"nsc_knn_counts: CUDA error {err}")
+    if not torch.equal(idx, knn_plain(pts, mask, k)):
+        raise RuntimeError("knn (counting build) != plain version")
+    return {name: c / n for name, c in zip(COUNTS, counts)}
+
+
+STAMPS = ("staging", "scan", "part_merge", "cluster_barrier", "write")
+
+
+def nearest_stamps(moved: torch.Tensor, dst: torch.Tensor,
+                   dst_mask: torch.Tensor, out_dir: Path) -> dict:
+    """Where kernel N's time goes on one search: ``csrc/nearest.cu`` built
+    with ``-DNSC_NEAREST_STAMPS`` (each CTA's global timer at six points)
+    and launched 5 times; the last launch's mean µs of each phase over the
+    CTAs, the start spread (the last CTA's start after the first's) and
+    the span (first start to last end)."""
+    from neural_spectral_codec_torch.retrieval.nearest_kernel import (
+        CLUSTER, KERNEL, ROWS_PER_CTA, nearest_plain)
+    lib = build_diagnostic("nearest.cu", "NSC_NEAREST_STAMPS", out_dir)
+    lib.nsc_nearest.argtypes = KERNEL.argtypes
+    lib.nsc_nearest_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    n_src, n_dst = moved.shape[0], dst.shape[0]
+    j = torch.empty(n_src, dtype=torch.int64, device=moved.device)
+    d2 = torch.empty(n_src, dtype=torch.float32, device=moved.device)
+    for _ in range(5):
+        err = lib.nsc_nearest(moved.data_ptr(), dst.data_ptr(),
+                              dst_mask.data_ptr(), j.data_ptr(),
+                              d2.data_ptr(), n_src, n_dst,
+                              torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"nearest (stamped build): CUDA error {err}")
+    torch.cuda.synchronize()
+    jp, d2p = nearest_plain(moved, dst, dst_mask)
+    if not (torch.equal(j, jp) and torch.equal(_bits(d2), _bits(d2p))):
+        raise RuntimeError("nearest (stamped build) != plain version")
+    n_ctas = -(-n_src // ROWS_PER_CTA) * CLUSTER
+    buf = (ctypes.c_ulonglong * (n_ctas * (len(STAMPS) + 1)))()
+    err = lib.nsc_nearest_stamps(buf, n_ctas)
+    if err != 0:
+        raise RuntimeError(f"nsc_nearest_stamps: CUDA error {err}")
+    t = np.array(buf, dtype=np.float64).reshape(n_ctas, len(STAMPS) + 1)
+    out = {name: float(np.diff(t, axis=1)[:, i].mean()) / 1e3
+           for i, name in enumerate(STAMPS)}
+    out["start_spread"] = float(t[:, 0].max() - t[:, 0].min()) / 1e3
+    out["span"] = float(t[:, -1].max() - t[:, 0].min()) / 1e3
+    return out
+
+
 def _scans(n: int, n_points: int, seed: int) -> np.ndarray:
     """Random-order full-view scans with ranges on both sides of the
     gates (``chip_smoke._general_scans`` without the NaN tails)."""
@@ -58,10 +169,22 @@ def _scans(n: int, n_points: int, seed: int) -> np.ndarray:
                     axis=-1).astype(np.float32)
 
 
-def run(other_csrc: str, log=print) -> dict:
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """float32 as its bits (NaN equal to the same NaN), else as it is."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _outputs(result) -> tuple:
+    return tuple(t.clone() for t in (
+        result if isinstance(result, tuple) else (result,)))
+
+
+def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     from neural_spectral_codec_torch import _build, resolve_device
     from neural_spectral_codec_torch.ops import (
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
+    from neural_spectral_codec_torch.retrieval import (
+        knn_kernel, nearest_kernel)
     from neural_spectral_codec_torch.ops.range_image import (
         project_points_batch_plain)
     from neural_spectral_codec_torch.ops.ring_path import (
@@ -72,7 +195,8 @@ def run(other_csrc: str, log=print) -> dict:
 
     dev = resolve_device("cuda")
     log(gpu_label())
-    other = build_other(Path(other_csrc), Path(tempfile.mkdtemp()))
+    out_dir = Path(tempfile.mkdtemp())
+    other = build_other(Path(other_csrc), out_dir)
     _build.load_library()
     cfg = SpectralEncoderConfig()
     proj = cfg.projection
@@ -105,10 +229,22 @@ def run(other_csrc: str, log=print) -> dict:
                           lambda: probe_kernels.ring_fold_probe(
                               key, vals, proj.n_azimuth, 2)),
     }
+    scene_a, mask_a, scene_b, mask_b = prepared_frames(dev)
+    searches = {
+        "nearest": (nearest_kernel.KERNEL,
+                    lambda: nearest_kernel.nearest_cuda(
+                        scene_a, scene_b, mask_b)),
+        "knn": (knn_kernel.KERNEL,
+                lambda: knn_kernel.knn_cuda(scene_a, mask_a, 20)),
+    }
+    cases.update(searches)
+    if cases_kept:
+        cases = {n: c for n, c in cases.items() if n in cases_kept}
     out = {}
     for name, (kernel, call) in cases.items():
         keep = call()            # the wrapper's arguments stay alive
         torch.cuda.synchronize()
+        want = _outputs(keep)
         args = kernel.last_args
         fn = getattr(other, kernel.symbol)
         fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
@@ -125,18 +261,40 @@ def run(other_csrc: str, log=print) -> dict:
         out[name] = {"other_us": statistics.median(times["other"]),
                      "this_us": statistics.median(times["this"]),
                      "runs_us": times}
+        if name in searches:     # the last launch was the other side's
+            torch.cuda.synchronize()
+            got = _outputs(keep)
+            same = all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(got, want))
+            out[name]["same_bits"] = same
+            if not same:
+                raise RuntimeError(f"{name}: the two sides' outputs differ")
         log(f"{name}: other {out[name]['other_us']:.3f} µs, this "
             f"{out[name]['this_us']:.3f} µs")
         del keep
+    if "nearest" in cases:
+        out["nearest_phases_us"] = nearest_stamps(scene_a, scene_b, mask_b,
+                                                  out_dir)
+        log("nearest phases, µs (mean over CTAs): " + ", ".join(
+            f"{n} {v:.3f}" for n, v in out["nearest_phases_us"].items()))
+    if "knn" in cases:
+        for k in (20, 16):
+            counts = knn_merge_counts(scene_a, mask_a, k, out_dir)
+            out[f"knn_merges_k{k}"] = counts
+            log(f"knn merges a row, k = {k}: " + ", ".join(
+                f"{n} {v:.3f}" for n, v in counts.items()))
     return out
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other-csrc", required=True)
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated case names (default: all)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
-    out = run(args.other_csrc)
+    out = run(args.other_csrc,
+              args.cases.split(",") if args.cases else None)
     if args.json:
         Path(args.json).write_text(json.dumps(out, indent=1))
     return out

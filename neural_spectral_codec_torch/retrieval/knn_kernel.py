@@ -14,7 +14,11 @@ squared distance with ties to the lower index, the order of
 and of a stable sort; masked points count as +inf, so a row with fewer
 than k valid points ends with masked indices in ascending order. A CPU
 tensor takes the plain version, a CUDA tensor the kernel (or the binding
-raises), which takes k ≤ 32.
+raises), which takes k ≤ 32. The kernel runs one warp for two rows and
+visits their own 32-point batch first, then the batches out from it both
+ways, so that on a voxel-sorted cloud the k-th distance is near its final
+value at once and a 32-bit test skips most batches (``csrc/knn.cu``'s
+header has the design).
 """
 
 from __future__ import annotations

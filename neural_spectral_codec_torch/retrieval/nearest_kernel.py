@@ -14,6 +14,12 @@ targets count as +inf, ties go to the lower index, and a NaN distance wins
 tensor takes the plain version, a CUDA tensor the kernel (or the binding
 raises); the two agree bit for bit because both sum the squared
 differences as ``pairwise_d2`` does, without FMA contraction.
+
+The kernel holds two source points a lane, 64 a CTA of 32 warps that
+split the CTA's targets, and a cluster of ``CLUSTER`` CTAs splits the
+targets again; each thread keeps a 32-bit least distance and the group of
+8 targets that holds it, and the index is found again once a row
+(``csrc/nearest.cu``'s header has the design).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from neural_spectral_codec_torch._build import CudaKernel, check_contiguous
 KERNEL = CudaKernel("nsc_nearest", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+CLUSTER = 2         # CTAs of a cluster (kCluster in csrc/nearest.cu)
+ROWS_PER_CTA = 64   # source points a CTA holds (kRowsPerCta)
 
 
 def pairwise_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

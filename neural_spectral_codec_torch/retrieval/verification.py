@@ -413,10 +413,13 @@ class RegistrationExecutable:
             self._step, stream, self._pool,
             (nearest_kernel.KERNEL, knn_kernel.KERNEL))
         census = _build.graph_census(graph.raw_cuda_graph())
-        if census["nearest"] != self.iterations + 1:
+        if census["nearest"] != self.iterations + 1 or \
+                census["nearest_cluster_width"] != nearest_kernel.CLUSTER:
             raise RuntimeError(
                 f"the registration graph holds {census['nearest']} "
-                f"nearest-neighbour searches, not {self.iterations + 1} "
+                f"nearest-neighbour searches of cluster width "
+                f"{census['nearest_cluster_width']}, not "
+                f"{self.iterations + 1} of {nearest_kernel.CLUSTER} "
                 f"({census})")
         self.graph, self.credits, self.census = graph, credits, census
         STATS["captures"] += 1

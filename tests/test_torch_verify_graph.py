@@ -25,6 +25,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_online import small_config  # noqa: E402
+from test_torch_search_design import (  # noqa: E402
+    KNN_CASES, NEAREST_CASES, knn_inputs, nearest_inputs)
 from neural_spectral_codec_tpu.retrieval import (  # noqa: E402
     verification as jver)
 from neural_spectral_codec_torch.pipeline import (  # noqa: E402
@@ -60,13 +62,25 @@ def _jax_d2(a, b, mask):
     return jnp.where(jnp.asarray(mask)[None, :], d2, jnp.inf)
 
 
-def test_knn_tie_order_equals_jax():
+@pytest.mark.parametrize("case", ["lattice", *KNN_CASES])
+def test_knn_tie_order_equals_jax(case):
     """On a lattice (ties everywhere) the k-NN picks the neighbours
     ``lax.top_k`` picks, index for index (the lower index first among
     equal distances; ``torch.topk`` promises no order and picked another
     neighbour set for 81 of the 128 points, covariances up to 0.255
     apart); the GICP covariances then agree with ``_knn_covariances`` and
-    the normals with ``_knn_normals`` up to sign."""
+    the normals with ``_knn_normals`` up to sign. The other cases are the
+    inputs where kernel K splits its work (``test_torch_search_design``:
+    k = 1 to 32, exactly k valid points, a partial last batch, NaN
+    candidates within a row's k, NaN rows, duplicates, few valid points),
+    index for index against ``lax.top_k``."""
+    if case != "lattice":
+        pts, mask, k = knn_inputs(case)
+        _, want = jax.lax.top_k(-_jax_d2(pts, pts, mask), k)
+        np.testing.assert_array_equal(
+            knn_kernel.knn(torch.from_numpy(pts), torch.from_numpy(mask),
+                           k).numpy(), np.asarray(want))
+        return
     padded, mask = _lattice()
     p, m = torch.from_numpy(padded), torch.from_numpy(mask)
     _, want = jax.lax.top_k(-_jax_d2(padded, padded, mask), 20)
@@ -99,15 +113,23 @@ def test_knn_with_fewer_than_k_valid_points():
                                   np.broadcast_to(masked, (64, 15)))
 
 
-@pytest.mark.parametrize("case", ["lattice", "nan_row", "masked", "p_ne_q"])
+@pytest.mark.parametrize("case", ["lattice", "nan_row", "masked", "p_ne_q",
+                                  *NEAREST_CASES])
 def test_nearest_plain_equals_jax_argmin(case):
     """The plain nearest neighbour (the CPU path of kernel N) against the
     argmin of ``_icp_kernel``'s correspondence expression: ties to the
     lower index, masked targets skipped, and a NaN source row matched to
     the first valid target (argmin returns the first NaN); the distance
-    equal where it is a number."""
+    equal where it is a number. The cases after the first four are the
+    inputs where kernel N splits its work (``test_torch_search_design``:
+    NaN before and after the finite minimum, NaN under the mask, ties
+    across group, half and rank boundaries, Q below the cluster split,
+    P = 1, P off a CTA's rows, inf and overflowing points, no valid
+    target)."""
     rng = np.random.default_rng(2)
-    if case == "lattice":
+    if case in NEAREST_CASES:
+        src, dst, mask = nearest_inputs(case)
+    elif case == "lattice":
         dst, mask = _lattice(160)
         src = dst[rng.permutation(160)] + np.float32(0.25)
     else:
