@@ -68,7 +68,12 @@ weights and data made from seeds:
    sits in the database as a row computed by the plain path on the CPU,
    outside the spatial filter; it must come back as top-1, the descriptor
    must agree with the CPU's to 1e-4 and the embeddings to 1e-3, and
-   every serving kernel's launch count must rise;
+   every serving kernel's launch count must rise. Then the same
+   database, and its rows as uint16 codes, through the stage-1 query
+   graphs (``retriever.QueryExecutable``): each request's descriptor as
+   one query and the 32 as a batch, with the spatial filter, through the
+   graphs and eagerly: indices and distances bit-equal, top-1 the planted
+   row; p50 wall and device ms of both forms, graph nodes, pool MiB;
 5. probes: the two stage-profile entry points
    (``experiments.ring_stage_probe``, ``experiments.profile_hotpath``)
    with few iterations, each on its own: ring_stage_probe must launch the
@@ -131,8 +136,17 @@ weights and data made from seeds:
    keyframe p50/p95/max; nothing captured mid-stream), then async and
    sync with the executable cache dropped every 20 frames while the
    verifier works through its backlog on the async worker: every serving
-   capture counted, no registration graph captured mid-stream, the loop
-   closures of all three equal;
+   capture counted, no registration graph captured mid-stream, and async
+   with ``fused_query`` false, whose worker runs each stage-1 query
+   through the query graph (replays counted, none captured mid-stream):
+   the loop closures of all four equal. The synchronous split run
+   captures no query graph mid-stream. Last, the split mode
+   (``fused_encode`` false) on SPLIT_FRAMES frames: every eval step (one
+   bucket graph replay a keyframe, ``gnn.EvalExecutable``) bit-equal to
+   the same step run eagerly, the embeddings within SPLIT_EMB_TOL of the
+   fused encode + refresh's on the same frames and weights, 0 eval or
+   query graphs captured after ``warmup()``, keyframe p50/p95, one
+   bucket's step wall and device ms through its graph and eagerly;
 9. datasets and evaluation: three sequences written in their datasets'
    on-disk formats from seeded SyntheticWorld streams through simulated
    sensors (``DATA_SEQS``: KITTI 150 frames of 131,072 points in sweep
@@ -183,9 +197,11 @@ weights and data made from seeds:
    projection and one spectral launch a call; ``encode_range_image``
    (method and function, one spectral launch) and ``project_points`` (one
    projection launch, equal to the CPU image); the port's ``entry()``
-   (8 scans of 16,384 points, the full-width GNN with seeded weights)
-   against the same function on the CPU (descriptors 1e-4, embeddings
-   1e-3), its p50 wall and device ms; the experiments
+   (8 scans of 16,384 points, the full-width GNN with seeded weights):
+   its ``fn`` replays a CUDA graph captured at the first call (K3's node
+   cooperative), bit-equal to the same step op by op, against the same
+   function on the CPU (descriptors 1e-4, embeddings 1e-3), the p50 wall
+   and device ms of both forms; the experiments
    ``retrieval_latency`` at 100,000 rows (float32 and uint16 per-query
    ms; uint16 rankings within the one-code rule), ``density_defense``'s
    ray cast of a scene and of a loop pose on the card bit-equal to the
@@ -206,7 +222,11 @@ total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
 per call as earlier records held it, and ``library_ms`` null
 with the reason: no single PyTorch call computes any kernel's function;
 kernels N and K also carry ``yardstick_ms``, two calls)
-and the last is ``{"ok": true, "device": {...}}``. It needs no JAX.
+and the last is ``{"ok": true, "device": {...}}``. Before them it
+prints every graph family's captures, replays and eager steps over the
+whole run, and the declared op-by-op paths on the card: full-graph eval
+forwards (``gnn.STATS["eager_forwards"]``) and the sharded retriever's
+queries (``retriever.STATS["sharded"]``). It needs no JAX.
 """
 
 from __future__ import annotations
@@ -307,6 +327,8 @@ VERIFY_QUERIES = 10            # phase 8: queries whose candidates both
                                # verifier backends check
 TRACE_FRAMES = 30              # phase 8: keyframes under torch.profiler
 CONCURRENT_FRAMES = 140        # phase 8: captures beside the verifier
+SPLIT_FRAMES = 60              # phase 8: split-mode eval sessions
+SPLIT_EMB_TOL = 1e-5           # split vs fused session's embeddings
 # phase 9: sequences written in their datasets' formats, each drawn from
 # one seeded SyntheticWorld along two laps of a 120 m circle through a
 # simulated sensor: (beam elevations in degrees, points a scan, frames).
@@ -544,6 +566,74 @@ def _host_split(exe, ret, stage, calls: int = 20) -> dict:
     for k, n in launches:
         k.launches = n
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _query_graphs(device, ret, queries, qps, planted) -> None:
+    """Phase 4's database (100,000 float32 rows and the requests' rows,
+    and the same rows as uint16 codes) through the stage-1 query graphs
+    (``retriever.QueryExecutable``): every request's descriptor as a
+    single query and the 32 as one batch, with the spatial filter, once
+    through the graphs (Q = 1 captured by ``warm_query``, Q = 32 at its
+    first call) and once eagerly (``use_graph`` off): indices and
+    distances bit-equal, top-1 the planted row; the p50 wall ms (host
+    clock around the call, which fetches) and the device ms
+    (``device_ops``) of both forms, each graph's nodes (``graph_census``)
+    and the query pool's MiB."""
+    import numpy as np
+    from neural_spectral_codec_torch import _build
+    from neural_spectral_codec_torch.retrieval import retriever as R
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    size = ret.database_size
+    u16 = R.WassersteinRetriever(n_bins=ret.n_bins, capacity=ret.capacity,
+                                 storage="uint16", device=device)
+    u16.write_rows(0, R.quantize_cdf(ret._db_rows[:size]),
+                   ret._db_pos[:size])
+    u16.database_size = size
+    pos = np.stack([p[:3] for p in qps])
+    kw = {"spatial_min_distance": MIN_DIST}
+
+    def single(r, j):
+        return r.query(queries[j], TOP_K, query_position=pos[j], **kw)
+
+    def batch(r):
+        return r.query_batch(queries, TOP_K, query_positions=pos, **kw)
+
+    def dev_ms(fn, calls):
+        return sum(us for _, us in device_ops(fn, calls=calls)) / calls / 1e3
+
+    for storage, r in (("float32", ret), ("uint16", u16)):
+        r.warm_query(TOP_K)
+        res, times = {}, {}
+        for form in ("graph", "eager"):
+            r.use_graph = form == "graph"
+            res[form] = ([single(r, j) for j in range(len(queries))],
+                         batch(r))
+            times[form] = {
+                "single_wall_ms": _p50_ms(lambda: single(r, 3)),
+                "single_device_ms": dev_ms(lambda: single(r, 3), 5),
+                "batch_wall_ms": _p50_ms(lambda: batch(r), calls=5),
+                "batch_device_ms": dev_ms(lambda: batch(r), 2)}
+        r.use_graph = True
+        (gs, gb), (es, eb) = res["graph"], res["eager"]
+        same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(gs + [gb], es + [eb]))
+        top1 = all(int(gs[j][0][0]) == int(planted[j])
+                   and int(gb[0][j, 0]) == int(planted[j])
+                   for j in range(len(queries)))
+        nodes = {e.n_queries: _build.graph_census(e.graph.raw_cuda_graph())
+                 for e in R.cached_executables()
+                 if e._retriever() is r and e.graph is not None}
+        print(f"query: {size} {storage} rows, graph vs eager bit-equal "
+              f"{same}, top-1 planted {top1}; ms {json.dumps(times)}; "
+              f"graph nodes by Q "
+              f"{ {q: (c['nodes'], c['kernels']) for q, c in nodes.items()} }"
+              f" (nodes, kernels)", flush=True)
+        _check(same, f"query: {storage} graphs differ from the eager step")
+        _check(top1, f"query: {storage} top-1 is not the planted row")
+        _check(sorted(nodes) == [1, len(queries)],
+               f"query: {storage} graphs captured for Q {sorted(nodes)}")
+    print(f"query: graph pool {R.POOL.bytes(device) / 2**20:.1f} MiB, "
+          f"counts {json.dumps(R.STATS)}", flush=True)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1571,7 +1661,7 @@ def _online_graphs(pipe, rep: dict, stats0: dict, device) -> None:
           f"{serving.STATS['captures'] - stats0['captures']} captures in "
           f"all, {replays} replays in the loop for {n_kf} keyframes "
           f"({replays / max(n_kf, 1):.3f} a keyframe), {eager} eager steps;"
-          f" graph pool {serving.pool_bytes(device) / 2**20:.1f} MiB",
+          f" graph pool {serving.POOL.bytes(device) / 2**20:.1f} MiB",
           flush=True)
     for e in sorted(mine, key=lambda e: (e.shape.n_nodes,
                                          e.shape.do_query)):
@@ -1647,6 +1737,99 @@ def _serve_trace(device, frames, cap: int, serve_ms: float) -> None:
           flush=True)
 
 
+def _split_eval(device, frames) -> dict:
+    """Phase 8's split mode (``deployment.fused_encode`` false, sync, no
+    resumed map): SPLIT_FRAMES frames, where each keyframe's descriptor
+    comes from the encoder and its k-hop refresh is one replay of its
+    bucket's eval graph (``gnn.EvalExecutable``). Every eval step of the
+    session (warm-up included) is recorded and run again eagerly on the
+    same padded subgraph: bit-equal. The same frames through the fused
+    encode + refresh (``fused_encode`` true): every keyframe's embedding
+    within SPLIT_EMB_TOL of the split session's. 0 eval or query graphs
+    captured after ``warmup()``, one eval replay a keyframe; keyframe
+    p50/p95; the wall and device ms of one bucket's step through its
+    graph and eagerly. Returns the split session's launches."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        inference_config, run)
+    from neural_spectral_codec_torch.models import gnn
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    calls = []
+    forward_full = gnn.LocalUpdateGNN.forward_full
+
+    def recorded(self, graph):
+        out = forward_full(self, graph)
+        calls.append((self.model, graph, out.numpy().copy()))
+        return out
+
+    runs = {}
+    for name, fused in (("split", False), ("fused", True)):
+        cfg = inference_config(
+            retrieval={"database_capacity": SPLIT_FRAMES},
+            deployment={"fused_encode": fused, "fused_query": False,
+                        "async_loop_closing": False},
+            monitoring={"enabled": False})
+        torch.manual_seed(SEED + 60)        # the same random GNN in both
+        with (contextlib.nullcontext() if fused else mock.patch.object(
+                gnn.LocalUpdateGNN, "forward_full", recorded)):
+            (pipe, _, rep), launches = _counted(lambda: run(
+                frames[:SPLIT_FRAMES], cfg, device,
+                warmup_scans=ONLINE_WARM_SCANS))
+        emb = np.stack([kf.embedding for kf in pipe.graph_manager.keyframes])
+        runs[name] = (pipe, rep, launches, emb)
+    pipe, rep, launches, emb = runs["split"]
+    same = True
+    for model, g, got in calls:
+        exe = gnn.eval_executable(model, g.features.shape[0], g.max_degree,
+                                  g.edge_feats.shape[2], device,
+                                  use_graph=False)
+        want, _ = exe.run({"features": g.features, "neighbors": g.neighbors,
+                           "mask": g.mask, "edge_feats": g.edge_feats})
+        same = same and np.array_equal(got, want["emb"])
+    fused_emb = runs["fused"][3]
+    gap = (float(np.abs(emb - fused_emb).max())
+           if emb.shape == fused_emb.shape else math.inf)
+    n_kf = len(pipe.selector.keyframes)
+    model, g, _ = calls[-1]
+    vals = {"features": g.features, "neighbors": g.neighbors,
+            "mask": g.mask, "edge_feats": g.edge_feats}
+    bucket = {}
+    for form in ("graph", "eager"):
+        exe = gnn.eval_executable(model, g.features.shape[0], g.max_degree,
+                                  g.edge_feats.shape[2], device,
+                                  use_graph=form == "graph")
+        bucket[form] = {
+            "wall_ms": _p50_ms(lambda: exe.run(vals)),
+            "device_ms": sum(us for _, us in device_ops(
+                lambda: exe.run(vals), calls=5)) / 5 / 1e3}
+    print(f"split eval: {n_kf} keyframes, {len(calls)} eval steps "
+          f"recorded, graph vs eager bit-equal {same}; embeddings vs the "
+          f"fused session max abs {gap:.3e}; eval replays "
+          f"{rep['eval_replays']}, captured mid-stream "
+          f"{rep['midstream_captures']} eval/serving and "
+          f"{rep['query_midstream_captures']} query graphs; keyframe "
+          f"{json.dumps(rep['keyframe'])}; stage means ms "
+          f"{json.dumps(rep['stage_mean_ms'])}; bucket "
+          f"{g.features.shape[0]} step {json.dumps(bucket)}; launches "
+          f"{launches}", flush=True)
+    _check(same, "split eval: a graph replay differs from the eager step")
+    _check(gap <= SPLIT_EMB_TOL, f"split eval: embeddings {gap:.3e} from "
+           "the fused session's")
+    _check(rep["midstream_captures"] == 0
+           and rep["query_midstream_captures"] == 0
+           and rep["eval_replays"] == n_kf,
+           f"split eval: {rep['midstream_captures']} eval and "
+           f"{rep['query_midstream_captures']} query graphs captured "
+           f"mid-stream, {rep['eval_replays']} replays for {n_kf} keyframes")
+    _check(launches["project"] > 0 and launches["spectral"] > 0,
+           f"split eval: a kernel of the path never launched: {launches}")
+    return launches
+
+
 def _concurrent_captures(device, frames) -> dict:
     """Phase 8's last sessions, CONCURRENT_FRAMES frames each with the
     torch verifier (one registration graph replay a pair) on the card.
@@ -1658,13 +1841,18 @@ def _concurrent_captures(device, frames) -> dict:
     own ``warmup()``) and the executable cache dropped every 20 frames, so
     that each later step captures its graph (``thread_local`` capture)
     beside the worker's backlog; every capture counted, none of the
-    verifier's. The loop closures of both must equal the same session's
-    run synchronously. Returns the first session's launches."""
+    verifier's. Last, async with ``warmup()`` and ``fused_query`` false:
+    the worker runs each stage-1 query through the query graph (Q = 1,
+    captured by ``warmup()``; replays counted, none captured mid-stream).
+    The loop closures of all three async sessions must equal the same
+    session's run synchronously. Returns the first session's launches."""
     from neural_spectral_codec_torch.experiments.online_latency import (
         TimedLoader, inference_config, latency_report)
     from neural_spectral_codec_torch.models import serving
     from neural_spectral_codec_torch.pipeline import (
         NeuralSpectralCodecPipeline)
+    from neural_spectral_codec_torch.retrieval import (
+        retriever as retriever_mod)
 
     class Dropping(TimedLoader):
         def __getitem__(self, idx):
@@ -1673,19 +1861,22 @@ def _concurrent_captures(device, frames) -> dict:
             return super().__getitem__(idx)
 
     runs = {}
-    for name, warm, mode, loader_cls in (
-            ("warm_async", True, True, TimedLoader),
-            ("dropping_async", False, True, Dropping),
-            ("dropping_sync", False, False, Dropping)):
+    for name, warm, mode, loader_cls, fused_query in (
+            ("warm_async", True, True, TimedLoader, True),
+            ("dropping_async", False, True, Dropping, True),
+            ("dropping_sync", False, False, Dropping, True),
+            ("split_async", True, True, TimedLoader, False)):
         cfg = inference_config(
             retrieval={"verification_backend": "torch",
                        "database_capacity": CONCURRENT_FRAMES},
-            deployment={"warmup": warm, "async_loop_closing": mode},
+            deployment={"warmup": warm, "async_loop_closing": mode,
+                        "fused_query": fused_query},
             monitoring={"enabled": False})
         pipe = NeuralSpectralCodecPipeline(cfg, device=device)
         if not warm:
             pipe.retrieval.verifier.warmup()
         loader = loader_cls(frames[:CONCURRENT_FRAMES])
+        replays0 = retriever_mod.STATS["replays"]
         edges, launches = _counted(lambda: pipe.run_online(
             loader, loop_closure_interval=10))
         rep = latency_report(loader, pipe, ONLINE_WARM_SCANS, 100.0)
@@ -1694,6 +1885,8 @@ def _concurrent_captures(device, frames) -> dict:
             "edges": sorted((e["source_id"], e["target_id"]) for e in edges),
             "serving_captures": ev.get("midstream_captures", 0),
             "verifier_captures": ev.get("verifier_midstream_captures", 0),
+            "query_captures": ev.get("query_midstream_captures", 0),
+            "query_replays": retriever_mod.STATS["replays"] - replays0,
             "loop_s": loader.fetch_times[-1] - loader.fetch_times[0],
             "verify_s": prof.totals["verification"],
             "verify_ms_query": 1e3 * prof.totals["verification"]
@@ -1706,18 +1899,25 @@ def _concurrent_captures(device, frames) -> dict:
               f"queries ({r['verify_s']:.3f} s against {r['loop_s']:.2f} s of "
               f"loop), keyframe {json.dumps(r['keyframe'])}; captured "
               f"mid-stream: {r['serving_captures']} serving, "
-              f"{r['verifier_captures']} registration graphs; "
+              f"{r['verifier_captures']} registration, "
+              f"{r['query_captures']} query graphs; {r['query_replays']} "
+              f"query graph replays; "
               f"{len(r['edges'])} loop closures; launches {launches}",
               flush=True)
-    warm, drop, sync = (runs[k] for k in ("warm_async", "dropping_async",
-                                          "dropping_sync"))
+    warm, drop, sync, split = (runs[k] for k in (
+        "warm_async", "dropping_async", "dropping_sync", "split_async"))
     print(f"online: loop closures of the torch-verifier sessions equal the "
           f"synchronous run's: {warm['edges'] == sync['edges']} (warm "
-          f"async), {drop['edges'] == sync['edges']} (dropping async)",
-          flush=True)
-    _check(warm["serving_captures"] == 0 and all(
-        r["verifier_captures"] == 0 for r in runs.values()),
+          f"async), {drop['edges'] == sync['edges']} (dropping async), "
+          f"{split['edges'] == sync['edges']} (split async: the worker's "
+          f"queries through the query graph)", flush=True)
+    _check(all(r["verifier_captures"] == 0 for r in runs.values())
+           and all(r["serving_captures"] == 0 and r["query_captures"] == 0
+                   for r in (warm, split)),
            "online: graphs captured mid-stream after warm-up")
+    _check(split["query_replays"] > 0 and split["edges"] == sync["edges"],
+           f"online: the async worker's queries ({split['query_replays']} "
+           "query graph replays) changed the loop closures")
     _check(warm["launches"]["nearest"] > 0 and warm["launches"]["knn"] > 0,
            f"online: a kernel of the verifier's path never launched: "
            f"{warm['launches']}")
@@ -1821,6 +2021,7 @@ def _online(device, keep_store: Path) -> dict:
             lambda: _verifier_backends(pipe, device))
         _serve_trace(device, frames, cap, rep["stage_mean_ms"]["serve_step"])
         verify = _concurrent_captures(device, frames)
+        split_eval = _split_eval(device, frames)
 
         split_cfg = inference_config(retrieval={"database_capacity": cap},
                                      deployment={"fused_query": False,
@@ -1836,6 +2037,9 @@ def _online(device, keep_store: Path) -> dict:
               flush=True)
         _check(key(split_edges) == key(edges), "online: the split mode's "
                "edge set differs from the one-dispatch mode's")
+        _check(split_rep["query_midstream_captures"] == 0,
+               f"online: {split_rep['query_midstream_captures']} query "
+               "graphs captured mid-stream in the split mode")
 
         t0 = time.perf_counter()
         back = TwoStageRetrieval(n_bins=dim, capacity=cap,
@@ -1859,7 +2063,7 @@ def _online(device, keep_store: Path) -> dict:
                "online: the saved store does not restore the rows")
         shutil.copyfile(tmp / "run1.bin", keep_store)
     return {"online": launches, "verify_backends": backend_launches,
-            "verify": verify}
+            "verify": verify, "split_eval": split_eval}
 
 
 def _sensor_scan(pose, elev_deg, n_points: int, world, seed: int, device,
@@ -2884,39 +3088,57 @@ def _single_scan(device) -> dict:
 
 
 def _entry(device) -> dict:
-    """Phase 11: the port's ``entry()`` on the card against the same
-    function on the CPU (the model copied): descriptors within DESC_TOL,
-    embeddings within EMB_TOL; one projection and one spectral launch a
-    call; p50 wall ms over ENTRY_CALLS calls and the device time of one
-    call (torch.profiler). Returns its launches."""
+    """Phase 11: the port's ``entry()`` on the card. Its ``fn`` runs the
+    static step of its shapes, a CUDA graph captured at the first call
+    (then one projection and one spectral launch credited a call; K3's node
+    read back as cooperative): its outputs bit-equal to the same step op
+    by op (``forward_eager``) and, against the same function on the CPU
+    (the model copied), descriptors within DESC_TOL and embeddings within
+    EMB_TOL. p50 wall ms over ENTRY_CALLS calls and the device time of
+    one call (torch.profiler), through the graph and eagerly. Returns its
+    launches."""
     import torch
-    from neural_spectral_codec_torch.entry import entry
+    from neural_spectral_codec_torch import entry as E
     from neural_spectral_codec_torch.utils.timing import device_ops
 
-    fn, args = entry(device)
+    fn, args = E.entry(device)
     cpu_args = tuple(copy.deepcopy(a).cpu() for a in args)
+    fn(*args)        # captures: its warm-up run launches the kernels too
     (desc, emb), launches = _one_call("entry", lambda: fn(*args),
                                       {"project": 1, "spectral": 1})
+    exe = E.forward_executable(args[0], args[2], args[3], args[5])
+    eager_d, eager_e = E.forward_eager(*args)
+    same = torch.equal(desc, eager_d) and torch.equal(emb, eager_e)
     want_d, want_e = fn(*cpu_args)
     d_err = float((desc.cpu() - want_d).abs().max())
     e_err = float((emb.cpu() - want_e).abs().max())
+    _check(same, "entry: the graph's outputs differ from the eager step's")
     _check(d_err <= DESC_TOL and e_err <= EMB_TOL
            and bool(torch.isfinite(emb).all()),
            f"entry: descriptors {d_err:.3e}, embeddings {e_err:.3e} from "
            "the CPU")
-    wall = []
-    for _ in range(ENTRY_CALLS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(*args)
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    ops = device_ops(lambda: fn(*args), calls=5)
-    dev_ms = sum(us for _, us in ops) / 5 / 1e3
-    print(f"entry: {tuple(args[0].shape)} scans, descriptors {d_err:.3e} "
-          f"and embeddings {e_err:.3e} from the CPU; p50 wall "
-          f"{statistics.median(wall):.3f} ms, device {dev_ms:.3f} ms in "
-          f"{len(ops) / 5:.0f} operations a call", flush=True)
+    _check(exe.graph is not None and exe.census["project_cooperative"] == 1,
+           f"entry: no graph, or K3's node not cooperative ({exe.census})")
+    times = {}
+    for form, step in (("graph", fn), ("eager", E.forward_eager)):
+        wall = []
+        for _ in range(ENTRY_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ops = device_ops(lambda: step(*args), calls=5)
+        times[form] = {"p50_wall_ms": statistics.median(wall),
+                       "device_ms": sum(us for _, us in ops) / 5 / 1e3,
+                       "operations": len(ops) / 5}
+    c = exe.census
+    print(f"entry: {tuple(args[0].shape)} scans, graph vs eager bit-equal "
+          f"{same}, descriptors {d_err:.3e} and embeddings {e_err:.3e} "
+          f"from the CPU; graph of {c['nodes']} nodes ({c['kernels']} "
+          f"kernels), K3 cooperative {c['project_cooperative']}/"
+          f"{c['project']}, captured in {exe.capture_s:.3f} s; "
+          f"{json.dumps(times)}", flush=True)
     return launches
 
 
@@ -3295,7 +3517,7 @@ def main() -> None:
     replay_ms = {form: _replay_ms(e) for form, e in graphed.items()}
     print(f"serve: device ms of one replay (CUDA events over 50 replays) "
           f"{json.dumps(replay_ms)}; graph pool "
-          f"{serving_mod.pool_bytes(device) / 2**20:.1f} MiB", flush=True)
+          f"{serving_mod.POOL.bytes(device) / 2**20:.1f} MiB", flush=True)
     lat_eager, results_eager, inserted_eager = serve_all(False)
     print(f"serve: the same {N_REQUESTS} requests eagerly, latency p50 "
           f"{statistics.median(lat_eager):.3f} ms, max "
@@ -3341,6 +3563,7 @@ def main() -> None:
     _check(all(launches[k] > 0 for k in ("spectral", "ring_fold", "project")),
            f"a kernel of the path never launched: {launches}")
     serving_mod.clear_cache()
+    _query_graphs(device, ret, cpu_desc.numpy(), qps, planted)
     by_path = {"serve": launches}
 
     # -- 5. the stage-profile entry points ---------------------------------
@@ -3433,9 +3656,19 @@ def main() -> None:
                     if name == "nearest" else
                     "k-NN selection of _knn_cov_matrices (:64-73)"))
         record.append(entry)
+    from neural_spectral_codec_torch import entry as entry_mod
+    from neural_spectral_codec_torch.models import gnn
+    from neural_spectral_codec_torch.retrieval import retriever, verification
     from neural_spectral_codec_torch.utils.timing import REPEATED_SESSIONS
     print(f"profiler: {REPEATED_SESSIONS} torch.profiler sessions recorded "
           "no device operation and were repeated", flush=True)
+    # eager_steps: the comparison runs (use_graph off); eager_forwards and
+    # sharded: the declared op-by-op paths (full-graph eval forwards, the
+    # sharded retriever's queries)
+    counts = {"serving": serving_mod.STATS,
+              "registration": verification.STATS, "query": retriever.STATS,
+              "eval": gnn.STATS, "entry": entry_mod.STATS}
+    print(f"graphs, whole run: {json.dumps(counts)}", flush=True)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

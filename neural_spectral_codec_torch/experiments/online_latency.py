@@ -127,10 +127,9 @@ def latency_report(loader: TimedLoader, pipe, warmup_scans: int,
                               if k in STAGES},
             "stage_calls": {k: int(pipe.profiler.counts[k])
                             for k in pipe.profiler.counts if k in STAGES},
-            "midstream_captures": int(
-                pipe.profiler.events.get("midstream_captures", 0)),
-            "serving_replays": int(
-                pipe.profiler.events.get("serving_replays", 0))}
+            **{name: int(pipe.profiler.events.get(name, 0)) for name in (
+                "midstream_captures", "query_midstream_captures",
+                "serving_replays", "eval_replays")}}
 
 
 def run(frames, cfg: Dict, device: str = "cuda",

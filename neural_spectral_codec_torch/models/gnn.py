@@ -28,6 +28,7 @@ parameters onto this module.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -36,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from neural_spectral_codec_torch.keyframe.graph import KeyframeGraph
+from neural_spectral_codec_torch.utils.graph_exec import (
+    Arena, ExecutableCache, GraphStep, SharedPool)
 
 
 def _glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -405,7 +408,11 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
     (``train=False``, the model in eval mode) runs without autograd. Train
     mode (the model in train mode) keeps the autograd graph, draws dropout
     from ``generator`` and updates the BatchNorm buffers in place, where
-    JAX returns new ``batch_stats``."""
+    JAX returns new ``batch_stats``. Op by op: an eval forward on a card
+    here is the declared eager path (a graph of any size: the full graph
+    of the online loop's ``use_local_updates: false``, the evaluation),
+    counted in ``STATS["eager_forwards"]``; the bucketed forwards of
+    ``LocalUpdateGNN`` run ``EvalExecutable``."""
     if model.training != train:
         raise ValueError(f"gnn_forward(train={train}) needs the model in "
                          f"{'train' if train else 'eval'} mode; call "
@@ -413,8 +420,71 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
     args = (graph.features, graph.neighbors, graph.mask, graph.edge_feats)
     if train:
         return model(*args, generator=generator)
+    if graph.features.device.type == "cuda":
+        STATS["eager_forwards"] += 1
     with torch.no_grad():
         return model(*args)
+
+
+POOL = SharedPool()     # every eval graph of a device: one memory pool
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "eager_forwards": 0}
+_CACHE = ExecutableCache()
+
+
+class EvalExecutable(GraphStep):
+    """JAX's ``_jitted_eval_apply`` (gnn.py:202-208) for one (model,
+    padded node count, degree, edge_dim): the graph's four arrays in, the
+    (n, output_dim) embeddings out (``utils/graph_exec.GraphStep``). The
+    step reads the model's parameters and BatchNorm buffers by address,
+    so weights loaded into the same module in place (``load_state_dict``)
+    are what the next replay reads; a module whose tensors were replaced
+    or moved needs ``clear_cache()``."""
+
+    def __init__(self, model: SpectralGNN, n_nodes: int, degree: int,
+                 edge_dim: int, device: torch.device, use_graph: bool = True):
+        super().__init__(device, use_graph, POOL, STATS)
+        self._model = weakref.ref(model)
+        f32 = torch.float32
+        self.inputs = Arena([
+            ("features", (n_nodes, model.input_dim), f32),
+            ("neighbors", (n_nodes, degree), torch.int64),
+            ("mask", (n_nodes, degree), torch.bool),
+            ("edge_feats", (n_nodes, degree, edge_dim), f32)], device)
+        self.outputs = Arena([("emb", (n_nodes, model.output_dim), f32)],
+                             device)
+
+    def _step(self) -> None:
+        i = self.inputs.dev
+        with torch.no_grad():
+            self.outputs.dev["emb"].copy_(self._model()(
+                i["features"], i["neighbors"], i["mask"], i["edge_feats"]))
+
+
+def eval_executable(model: SpectralGNN, n_nodes: int, degree: int,
+                    edge_dim: int, device: torch.device,
+                    use_graph: bool = True) -> EvalExecutable:
+    """The cached eval step of (device, n_nodes, degree, edge_dim, model);
+    made on a miss, which drops the entries of models that no longer
+    exist."""
+    if model.training:
+        raise ValueError("the eval step needs the model in eval mode; call "
+                         "model.eval() first")
+    graphed = use_graph and device.type == "cuda"
+    return _CACHE.get(
+        (str(device), int(n_nodes), int(degree), int(edge_dim), id(model),
+         graphed),
+        lambda: EvalExecutable(model, n_nodes, degree, edge_dim, device,
+                               use_graph), (model,))
+
+
+def cached_executables() -> list:
+    """The eval executables in the cache, oldest first."""
+    return _CACHE.values()
+
+
+def clear_cache() -> None:
+    """Drop every cached eval executable (and with them their graphs)."""
+    _CACHE.clear()
 
 
 class LocalUpdateGNN:
@@ -431,7 +501,9 @@ class LocalUpdateGNN:
     replayed CUDA graph): the subgraph is written
     straight into the bucket's static input buffer with the scan and the
     scalars, one copy takes them to the device, and one fetch brings back
-    the descriptor, the bucket's embeddings and, on a query, the top-k."""
+    the descriptor, the bucket's embeddings and, on a query, the top-k.
+    The split path's ``forward_local`` and ``update_embeddings_local`` run
+    the bucket's ``EvalExecutable`` (``forward_full``) the same way."""
 
     def __init__(self, model: SpectralGNN, k_hops: int = 3):
         if model.training:
@@ -442,10 +514,24 @@ class LocalUpdateGNN:
         self.device = next(model.parameters()).device
 
     def forward_full(self, graph: KeyframeGraph) -> torch.Tensor:
-        """(n, output_dim) eval embeddings of a numpy graph."""
-        from neural_spectral_codec_torch.keyframe.graph import (
-            graph_to_tensors)
-        return gnn_forward(self.model, graph_to_tensors(graph, self.device))
+        """(n, output_dim) eval embeddings of a numpy graph, on the host.
+        A graph of a bucket's size (``bucket``) runs the bucket's
+        ``EvalExecutable``: its arrays staged into the pinned arena, one
+        upload, the step (on a card a graph replay), one download. Any
+        other size runs ``gnn_forward`` op by op (the declared eager
+        path)."""
+        n = graph.features.shape[0]
+        if n != self.bucket(n):
+            from neural_spectral_codec_torch.keyframe.graph import (
+                graph_to_tensors)
+            return gnn_forward(self.model,
+                               graph_to_tensors(graph, self.device)).cpu()
+        exe = eval_executable(self.model, n, graph.max_degree,
+                              graph.edge_feats.shape[2], self.device)
+        out, _ = exe.run({"features": graph.features,
+                          "neighbors": graph.neighbors, "mask": graph.mask,
+                          "edge_feats": graph.edge_feats})
+        return torch.from_numpy(out["emb"])
 
     @staticmethod
     def bucket(n_nodes: int) -> int:
@@ -483,7 +569,7 @@ class LocalUpdateGNN:
         sub, mapping = manager.get_local_subgraph(center_node, k)
         core = self._core(manager, center_node, k)
         emb = self.forward_full(self._padded(sub))
-        rows = emb[[mapping[n] for n in core]].cpu().numpy()
+        rows = emb[[mapping[n] for n in core]].numpy()
         for node, e in zip(core, rows):
             manager.keyframes[node].embedding = e
         return core

@@ -51,7 +51,6 @@ entries are dropped.
 from __future__ import annotations
 
 import contextlib
-import threading
 import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -66,7 +65,7 @@ from neural_spectral_codec_torch.ops.spectral import (
 from neural_spectral_codec_torch.retrieval.retriever import (
     WassersteinRetriever)
 from neural_spectral_codec_torch.utils.graph_exec import (
-    Arena, capture_graph)
+    Arena, ExecutableCache, SharedPool, capture_graph, replay)
 
 
 def encode_scan(points: torch.Tensor, alpha: Alpha,
@@ -107,37 +106,8 @@ def _kernels() -> tuple:
             spectral_kernel.KERNEL)
 
 
-_POOLS: Dict[int, tuple] = {}          # device index → graph memory pool
-_STREAMS: Dict[int, torch.cuda.Stream] = {}
+POOL = SharedPool()     # every serving graph of a device: one memory pool
 STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
-
-
-def graph_pool(device: torch.device):
-    """The memory pool every serving graph of ``device`` captures into."""
-    idx = device.index if device.index is not None else 0
-    if idx not in _POOLS:
-        _POOLS[idx] = torch.cuda.graph_pool_handle()
-    return _POOLS[idx]
-
-
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    idx = device.index if device.index is not None else 0
-    if idx not in _STREAMS:
-        _STREAMS[idx] = torch.cuda.Stream(device)
-    return _STREAMS[idx]
-
-
-def pool_bytes(device: torch.device) -> int:
-    """Bytes the allocator holds for the serving graphs' shared pool."""
-    if device.type != "cuda":
-        return 0
-    idx = device.index if device.index is not None else 0
-    if idx not in _POOLS:
-        return 0
-    pool = tuple(_POOLS[idx])
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if seg["device"] == idx
-               and tuple(seg["segment_pool_id"]) == pool)
 
 
 class ServingExecutable:
@@ -327,10 +297,7 @@ class ServingExecutable:
             if self.use_graph and self.graph is None:
                 self._capture()
             if self.graph is not None:
-                self.graph.replay()
-                for kernel, n in self.credits.items():
-                    kernel.launches += n
-                STATS["replays"] += 1
+                replay(self.graph, self.credits, STATS)
             else:
                 self._step()
                 STATS["eager_steps"] += 1
@@ -346,8 +313,8 @@ class ServingExecutable:
     def _capture(self) -> None:
         """Run the step once on the capture stream, then capture it."""
         graph, credits, self.capture_s = capture_graph(
-            self._step, _capture_stream(self.device),
-            graph_pool(self.device), _kernels())
+            self._step, POOL.stream(self.device), POOL.handle(self.device),
+            _kernels())
         from neural_spectral_codec_torch import _build
         census = _build.graph_census(graph.raw_cuda_graph())
         if census["project_cooperative"] != census["project"]:
@@ -359,17 +326,7 @@ class ServingExecutable:
         STATS["captures"] += 1
 
 
-_CACHE: Dict[tuple, ServingExecutable] = {}
-_CACHE_LOCK = threading.Lock()
-
-
-def _db_key(retriever: Optional[WassersteinRetriever]) -> tuple:
-    if retriever is None:
-        return ()
-    rows, pos = retriever._db_rows, retriever._db_pos
-    return (id(retriever), retriever.metric, retriever.storage,
-            retriever.epsilon, rows.data_ptr(), pos.data_ptr(),
-            tuple(rows.shape), rows.dtype)
+_CACHE = ExecutableCache()
 
 
 def executable(model: SpectralGNN, retriever: Optional[WassersteinRetriever],
@@ -382,35 +339,24 @@ def executable(model: SpectralGNN, retriever: Optional[WassersteinRetriever],
     if model.training:
         raise ValueError("the serving step runs the eval forward; call "
                          "model.eval() first")
-    key = (str(device), shape, id(model), _db_key(retriever),
+    bufs = () if retriever is None else retriever.buffer_key()
+    key = (str(device), shape, id(model), bufs,
            use_graph and device.type == "cuda")
-    with _CACHE_LOCK:
-        exe = _CACHE.get(key)
-        if (exe is not None and exe._model() is model
-                and (retriever is None or exe._retriever() is retriever)):
-            return exe
-        for k, e in list(_CACHE.items()):
-            r = None if e._retriever is None else e._retriever()
-            stale_db = (retriever is not None and r is retriever
-                        and k[3] != key[3])
-            if (e._model() is None or stale_db
-                    or (e._retriever is not None and r is None)):
-                del _CACHE[k]
-        exe = ServingExecutable(model, retriever, shape, device, use_graph)
-        _CACHE[key] = exe
-        return exe
+    return _CACHE.get(
+        key, lambda: ServingExecutable(model, retriever, shape, device,
+                                       use_graph),
+        (model,) if retriever is None else (model, retriever),
+        None if retriever is None else (retriever, bufs))
 
 
 def cached_executables() -> List[ServingExecutable]:
     """The executables in the cache, oldest first."""
-    with _CACHE_LOCK:
-        return list(_CACHE.values())
+    return _CACHE.values()
 
 
 def clear_cache() -> None:
     """Drop every cached executable (and with them their graphs)."""
-    with _CACHE_LOCK:
-        _CACHE.clear()
+    _CACHE.clear()
 
 
 def step_shape(points_shape, graph_nodes: int, degree: int, edge_dim: int,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from neural_spectral_codec_torch.parallel.mesh import Mesh
+from neural_spectral_codec_torch.retrieval import retriever as _retriever
 from neural_spectral_codec_torch.retrieval.retriever import (
     WassersteinRetriever, query_math, smallest_k)
 
@@ -113,3 +114,14 @@ class ShardedWassersteinRetriever(WassersteinRetriever):
                 dist.append(d.to(self.device))
         top_dist, at = smallest_k(torch.cat(dist, dim=1), k)
         return torch.cat(idx, dim=1).gather(1, at), top_dist
+
+    def _ranked(self, queries, filters: np.ndarray, top_k: int,
+                eff_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``query`` and ``query_batch`` rank through ``rank``, op by op
+        (no query graph spans the slabs' devices; counted as
+        ``retriever.STATS["sharded"]``)."""
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        f = torch.from_numpy(filters).to(self.device)
+        idx, dist = self.rank(q, f, top_k, eff_size)
+        _retriever.STATS["sharded"] += 1
+        return idx.cpu().numpy(), dist.cpu().numpy()

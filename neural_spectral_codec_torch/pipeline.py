@@ -40,12 +40,13 @@ from neural_spectral_codec_torch.data.pose_utils import (
     is_valid_transformation)
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.keyframe.graph import (
-    TemporalGraphManager, build_graph_from_keyframes, pad_graph)
+    TemporalGraphManager, build_graph_from_keyframes, graph_to_tensors,
+    pad_graph)
 from neural_spectral_codec_torch.keyframe.selector import (
     Keyframe, KeyframeSelector)
-from neural_spectral_codec_torch.models import serving
+from neural_spectral_codec_torch.models import gnn, serving
 from neural_spectral_codec_torch.models.gnn import (
-    LocalUpdateGNN, create_spectral_gnn)
+    LocalUpdateGNN, create_spectral_gnn, gnn_forward)
 from neural_spectral_codec_torch.ops.range_image import pad_points
 from neural_spectral_codec_torch.ops.spectral import (
     SpectralEncoderConfig, encode_points_batch)
@@ -665,13 +666,16 @@ class NeuralSpectralCodecPipeline:
         verifier = self.retrieval.verifier
 
         def _captures_counted(fn, *args):
-            # registration graphs captured during the stream (warmup()
-            # captures them ahead)
-            captures = verifier.captures
+            # registration and query graphs captured during the stream
+            # (warmup() captures them ahead)
+            captures = verifier.captures, ret.captures
             out = fn(*args)
-            if verifier.captures != captures:
-                self.profiler.count("verifier_midstream_captures",
-                                    verifier.captures - captures)
+            for event, before, now in (
+                    ("verifier_midstream_captures", captures[0],
+                     verifier.captures),
+                    ("query_midstream_captures", captures[1], ret.captures)):
+                if now != before:
+                    self.profiler.count(event, now - before)
             return out
 
         def _verify(kf, cands):
@@ -693,17 +697,22 @@ class NeuralSpectralCodecPipeline:
                                          "deployment.fused_query", True)
         placeholder = np.zeros(self.encoder_config.output_dim, np.float32)
 
-        def _count_graphs(scan_id: int, before: Dict[str, int]) -> None:
-            # the keyframe's serving-graph replays, and any graph captured
-            # during the stream: its capture's time lands on this keyframe
-            # (warmup() captures them ahead)
-            self.profiler.count("serving_replays", serving.STATS["replays"]
-                                - before["replays"])
-            n = serving.STATS["captures"] - before["captures"]
-            if n:
-                self.profiler.count("midstream_captures", n)
-                logger.warning("scan %d: %d serving graph(s) captured "
-                               "mid-stream", scan_id, n)
+        def _graph_counts() -> tuple:
+            return (serving.STATS["replays"], gnn.STATS["replays"],
+                    serving.STATS["captures"] + gnn.STATS["captures"])
+
+        def _count_graphs(scan_id: int, before: tuple) -> None:
+            # the keyframe's serving- and eval-graph replays, and any graph
+            # captured during the stream: its capture's time lands on this
+            # keyframe (warmup() captures them ahead)
+            now = _graph_counts()
+            self.profiler.count("serving_replays", now[0] - before[0])
+            self.profiler.count("eval_replays", now[1] - before[1])
+            if now[2] != before[2]:
+                self.profiler.count("midstream_captures", now[2] - before[2])
+                logger.warning("scan %d: %d serving or eval graph(s) "
+                               "captured mid-stream", scan_id,
+                               now[2] - before[2])
         try:
             with frame_source(loader, self.config) as get_frame:
                 for scan_id in range(len(loader)):
@@ -719,7 +728,7 @@ class NeuralSpectralCodecPipeline:
                     stage1 = None
                     fused_inserted = False
                     t_step = time.perf_counter()
-                    graphs_before = dict(serving.STATS)
+                    graphs_before = _graph_counts()
                     if one_dispatch and self.retrieval.can_fuse_serving():
                         with self.profiler.profile("serve_step", sync=dev):
                             kf.descriptor = placeholder
@@ -761,9 +770,12 @@ class NeuralSpectralCodecPipeline:
                                     local_gnn.update_embeddings_local(
                                         self.graph_manager, node)
                             else:
-                                emb = local_gnn.forward_full(
-                                    self.graph_manager.get_graph()
-                                ).cpu().numpy()
+                                # the whole graph grows by a node a
+                                # keyframe: op by op (gnn.STATS counts it)
+                                emb = gnn_forward(
+                                    local_gnn.model, graph_to_tensors(
+                                        self.graph_manager.get_graph(),
+                                        local_gnn.device)).cpu().numpy()
                                 self.graph_manager.update_embeddings(emb)
                                 refreshed_nodes = list(range(len(
                                     self.graph_manager.keyframes)))

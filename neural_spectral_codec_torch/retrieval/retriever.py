@@ -13,14 +13,28 @@ order (``smallest_k``).
 n_bins · 0.5/65535, about 6e-3 at 800 bins) and dequantises them inside
 the query. A re-entrant lock orders size bookkeeping, inserts and queries
 between threads (the online loop's background worker queries while the
-main thread inserts); both use the default stream, so the device runs
-their work in the order it was enqueued.
+main thread inserts).
+
+``query`` and ``query_batch`` run one static step a (Q, k) shape,
+``QueryExecutable`` (JAX's one-dispatch ``_query_kernel`` and
+``_query_batch_kernel``,
+``neural_spectral_codec_tpu/retrieval/retriever.py:106-181``): the
+queries, filters and effective size staged with one upload,
+``query_math``, the indices and distances fetched with one download. On
+a card the step is captured into a CUDA graph at its first run and
+replayed; every query graph of a device shares one memory pool and runs
+on that pool's stream under its lock, which a query holds, with the
+retriever's lock, from the staging to the fetch, so a query sees exactly
+the rows below its effective size and no two query graphs run at once.
+``rank`` is the traceable body itself (JAX ``_query_math``), which the
+serving step captures inside its own graph.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
+import weakref
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -28,6 +42,8 @@ import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.ops.wasserstein import histogram_cdf
+from neural_spectral_codec_torch.utils.graph_exec import (
+    Arena, ExecutableCache, GraphStep, SharedPool)
 
 
 _MAX_TEMP = 1 << 28   # elements of one (queries, rows, n_bins) temporary
@@ -114,17 +130,74 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size,
     return top_idx, top_dist
 
 
+POOL = SharedPool()     # every query graph of a device: one memory pool
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "sharded": 0}
+_CACHE = ExecutableCache()
+
+
+class QueryExecutable(GraphStep):
+    """The stage-1 query at one (Q, k) against one retriever's buffers:
+    (Q, n_bins) float32 queries, (Q, 4) filters and the effective size (a
+    0-d int64) in, (Q, k) int64 indices and float32 distances out
+    (``utils/graph_exec.GraphStep``). The step reads the rows, positions,
+    their int16 view and ``_dequant_scale`` by address: a replaced buffer
+    (``clear_database``) gets another executable (``query_executable``)."""
+
+    def __init__(self, retriever: "WassersteinRetriever", n_queries: int,
+                 top_k: int, use_graph: bool = True):
+        super().__init__(retriever.device, use_graph, POOL, STATS)
+        self._retriever = weakref.ref(retriever)
+        self.n_queries, self.top_k = n_queries, top_k
+        f32 = torch.float32
+        self.inputs = Arena([("queries", (n_queries, retriever.n_bins), f32),
+                             ("filters", (n_queries, 4), f32),
+                             ("size", (), torch.int64)], self.device)
+        self.outputs = Arena([("idx", (n_queries, top_k), torch.int64),
+                              ("dist", (n_queries, top_k), f32)],
+                             self.device)
+
+    def _step(self) -> None:
+        ret = self._retriever()
+        i, o = self.inputs.dev, self.outputs.dev
+        with torch.no_grad():
+            idx, dist = query_math(ret._db_rows, ret._db_pos, i["size"],
+                                   i["queries"], i["filters"], self.top_k,
+                                   ret.metric, ret.epsilon)
+            o["idx"].copy_(idx)
+            o["dist"].copy_(dist)
+
+
+def query_executable(retriever: "WassersteinRetriever", n_queries: int,
+                     top_k: int, use_graph: bool = True) -> QueryExecutable:
+    """The cached query step of (device, Q, k, metric, storage, ε,
+    capacity, n_bins, buffer addresses); made on a miss, which drops the
+    entries of replaced buffers and of retrievers that no longer exist."""
+    graphed = use_graph and retriever.device.type == "cuda"
+    bufs = retriever.buffer_key()
+    return _CACHE.get(
+        (str(retriever.device), int(n_queries), int(top_k), bufs, graphed),
+        lambda: QueryExecutable(retriever, n_queries, top_k, use_graph),
+        (retriever,), (retriever, bufs))
+
+
+def cached_executables() -> list:
+    """The query executables in the cache, oldest first."""
+    return _CACHE.values()
+
+
 class WassersteinRetriever:
     """Append-only descriptor database with device-side top-k queries.
 
     ``metric="wasserstein"`` stores normalised-histogram CDFs and ranks by
     1-D W₁; ``metric="l2"`` stores raw vectors (e.g. GNN embeddings) and
     ranks by L2. ``storage="uint16"`` (W₁ only) stores the CDFs as
-    fixed-point codes."""
+    fixed-point codes. ``use_graph`` False runs the query step eagerly
+    on a card (the comparison path); a CPU retriever always does."""
 
     def __init__(self, n_bins: int = 800, capacity: int = 100_000,
                  epsilon: float = 1e-8, metric: str = "wasserstein",
-                 storage: str = "float32", device: DeviceLike = "cuda"):
+                 storage: str = "float32", device: DeviceLike = "cuda",
+                 use_graph: bool = True):
         if metric not in ("wasserstein", "l2"):
             raise ValueError(f"unknown metric: {metric}")
         if storage not in ("float32", "uint16"):
@@ -141,9 +214,20 @@ class WassersteinRetriever:
         self.device = resolve_device(device)
         self._row_dtype = (torch.uint16 if storage == "uint16"
                            else torch.float32)
+        self.use_graph = use_graph
+        self.captures = 0          # query graphs this retriever captured
         self._buffer_lock = threading.RLock()
         self.database_size = 0
         self._allocate()
+
+    def buffer_key(self) -> tuple:
+        """What a step that reads the database by address is specialised
+        on: identity, metric, storage, ε and the buffers' addresses,
+        shape and dtype."""
+        rows, pos = self._db_rows, self._db_pos
+        return (id(self), self.metric, self.storage, self.epsilon,
+                rows.data_ptr(), pos.data_ptr(), tuple(rows.shape),
+                rows.dtype)
 
     def _allocate(self) -> None:
         self._db_rows = torch.zeros((self.capacity, self.n_bins),
@@ -255,21 +339,47 @@ class WassersteinRetriever:
         return max(size0 - max(exclude_last, 0), 0)
 
     def rank(self, queries: torch.Tensor, filters: torch.Tensor, top_k: int,
-             eff_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+             eff_size) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-side ranking of (Q, n_bins) queries with (Q, 4) filters
-        against the first ``eff_size`` rows → (Q, k) tensors; k is clamped
-        by capacity, and slots past the valid rows carry +inf."""
+        against the first ``eff_size`` rows (an int or a 0-d device
+        tensor) → (Q, k) tensors; k is clamped by capacity, and slots past
+        the valid rows carry +inf. The traceable body (JAX
+        ``_query_math``) that the serving step and ``QueryExecutable``
+        run."""
         with self._buffer_lock:
             return query_math(self._db_rows, self._db_pos, eff_size, queries,
                               filters, int(min(top_k, self.capacity)),
                               self.metric, self.epsilon)
 
-    def _filters(self, q: int, positions, spatial_min_distance: float):
+    def _ranked(self, queries, filters: np.ndarray, top_k: int,
+                eff_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(Q, n_bins) queries (host rows or a tensor on the device) and
+        (Q, 4) host filters through the query step of their shape →
+        (Q, k) host indices and distances. The caller holds the lock."""
+        exe = query_executable(self, queries.shape[0],
+                               int(min(top_k, self.capacity)), self.use_graph)
+        out, captured = exe.run({"queries": queries, "filters": filters,
+                                 "size": np.int64(eff_size)})
+        self.captures += captured
+        return out["idx"], out["dist"]
+
+    def _query_rows(self, a):
+        """Query vectors as (Q, n_bins) float32 host rows, or a tensor on
+        the device as it is."""
+        if torch.is_tensor(a) and a.device.type != "cpu":
+            return a.reshape(-1, self.n_bins)
+        if torch.is_tensor(a):
+            a = a.numpy()
+        return np.asarray(a, np.float32).reshape(-1, self.n_bins)
+
+    @staticmethod
+    def _filters(q: int, positions, spatial_min_distance: float
+                 ) -> np.ndarray:
         qp = np.zeros((q, 4), np.float32)
         if positions is not None and spatial_min_distance > 0:
             qp[:, :3] = np.asarray(positions, np.float32).reshape(-1, 3)
             qp[:, 3] = spatial_min_distance
-        return torch.from_numpy(qp).to(self.device)
+        return qp
 
     def query(self, query_hist, top_k: int = 10,
               query_position: Optional[np.ndarray] = None,
@@ -279,14 +389,14 @@ class WassersteinRetriever:
         """Top-k matches of one query → (indices, distances) as numpy,
         trimmed to finite entries. ``as_of_size`` queries the snapshot of
         that size (``exclude_last`` counts back from it)."""
-        q = self._as_tensor(query_hist, self.n_bins)
+        q = self._query_rows(query_hist)
         filters = self._filters(1, query_position, spatial_min_distance)
         with self._buffer_lock:
             eff = self.effective_size(exclude_last, as_of_size)
             if eff == 0:
                 return np.array([], np.int64), np.array([])
-            idx, dist = self.rank(q, filters, top_k, eff)
-        idx, dist = idx[0].cpu().numpy(), dist[0].cpu().numpy()
+            idx, dist = self._ranked(q, filters, top_k, eff)
+        idx, dist = idx[0], dist[0]
         keep = np.isfinite(dist)
         return idx[keep], dist[keep]
 
@@ -297,7 +407,7 @@ class WassersteinRetriever:
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """(Q, n_bins) queries → (Q, k) indices and distances as numpy;
         excluded or empty slots carry distance inf and index −1."""
-        q = self._as_tensor(query_hists, self.n_bins)
+        q = self._query_rows(query_hists)
         filters = self._filters(q.shape[0], query_positions,
                                 spatial_min_distance)
         with self._buffer_lock:
@@ -305,21 +415,19 @@ class WassersteinRetriever:
             if eff == 0:
                 return (np.zeros((q.shape[0], 0), np.int64),
                         np.zeros((q.shape[0], 0)))
-            idx, dist = self.rank(q, filters, top_k, eff)
-        idx, dist = idx.cpu().numpy().astype(np.int64), dist.cpu().numpy()
+            idx, dist = self._ranked(q, filters, top_k, eff)
         return np.where(np.isfinite(dist), idx, -1), dist
 
     def warm_query(self, top_k: int) -> None:
-        """Run the single and the batched query once against the live
-        buffers with the effective size forced to 1, and discard the
-        result: the first query's one-time device set-up happens here, and
-        nothing is inserted or allocated beyond a query's temporaries."""
-        q = torch.full((1, self.n_bins), 1.0 / self.n_bins,
-                       dtype=torch.float32, device=self.device)
-        qp = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=self.device)
+        """Build (on a card: capture) the query step at Q = 1, which
+        ``query`` runs and which is also the batched step JAX warms (its
+        ``_query_batch_kernel`` at one query), by one run against the live
+        buffers with the effective size forced to 1; the result is
+        discarded and nothing is inserted."""
+        q = np.full((1, self.n_bins), 1.0 / self.n_bins, np.float32)
+        qp = np.array([[0.0, 0.0, 0.0, 1.0]], np.float32)
         with self._buffer_lock:
-            self.rank(q, qp, top_k, 1)
-            self.rank(q.expand(2, -1), qp.expand(2, -1), top_k, 1)
+            self._ranked(q, qp, top_k, 1)
 
     def clear_database(self) -> None:
         with self._buffer_lock:

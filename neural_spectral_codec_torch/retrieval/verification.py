@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
-from neural_spectral_codec_torch.utils.graph_exec import Arena, capture_graph
+from neural_spectral_codec_torch.utils.graph_exec import (
+    Arena, ExecutableCache, capture_graph, replay)
 
 logger = logging.getLogger(__name__)
 
@@ -393,10 +394,7 @@ class RegistrationExecutable:
                     self._capture(stream)
                     captured = True
                 if self.graph is not None:
-                    self.graph.replay()
-                    for kernel, n in self.credits.items():
-                        kernel.launches += n
-                    STATS["replays"] += 1
+                    replay(self.graph, self.credits, STATS)
                 else:
                     self._step()
                     STATS["eager_steps"] += 1
@@ -425,8 +423,7 @@ class RegistrationExecutable:
         STATS["captures"] += 1
 
 
-_EXECUTABLES: Dict[tuple, RegistrationExecutable] = {}
-_EXECUTABLES_LOCK = threading.Lock()
+_EXECUTABLES = ExecutableCache()
 
 
 def registration_executable(device: torch.device, mode: str, n_src: int,
@@ -440,19 +437,13 @@ def registration_executable(device: torch.device, mode: str, n_src: int,
                and mode in GRAPH_MODES)
     key = (str(device), mode, int(n_src), int(n_dst), int(iterations),
            float(max_corr), graphed)
-    with _EXECUTABLES_LOCK:
-        exe = _EXECUTABLES.get(key)
-        if exe is None:
-            exe = RegistrationExecutable(device, mode, n_src, n_dst,
-                                         iterations, max_corr, graphed)
-            _EXECUTABLES[key] = exe
-        return exe
+    return _EXECUTABLES.get(key, lambda: RegistrationExecutable(
+        device, mode, n_src, n_dst, iterations, max_corr, graphed))
 
 
 def cached_executables() -> list:
     """The registration executables made so far, oldest first."""
-    with _EXECUTABLES_LOCK:
-        return list(_EXECUTABLES.values())
+    return _EXECUTABLES.values()
 
 
 def _scratch_cloud() -> np.ndarray:

@@ -1,19 +1,27 @@
 """Pieces shared by the port's static-shape executables, which run one step
 as one captured CUDA graph on a card: the serving step
-(``models/serving.py``) and the verifier's registration
-(``retrieval/verification.py``).
+(``models/serving.py``), the verifier's registration
+(``retrieval/verification.py``), the stage-1 query
+(``retrieval/retriever.py``), the split-mode eval forward
+(``models/gnn.py``) and ``entry()``'s forward (``entry.py``).
 
 ``Arena``: named typed sections of one device buffer, staged through one
 pinned host buffer of the same layout. ``capture_graph``: one warm-up run
 of a step on a stream, then its capture into a ``torch.cuda.CUDAGraph``,
 with the launch counts of the hand-written kernels the capture recorded
-(a replay never runs the wrappers, so it credits them).
+(a replay never runs the wrappers, so ``replay`` credits them).
+``SharedPool``: one graph memory pool, stream and lock a device for a
+family of graphs. ``ExecutableCache``: executables by key, holding what
+they read by address weakly. ``GraphStep``: the form of the last three
+(stage, run, fetch under the pool's lock, on the pool's stream).
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Callable, Dict, Sequence, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +106,228 @@ def capture_graph(step: Callable[[], None], stream: torch.cuda.Stream,
             credits[k] = k.launches - launches
         k.launches, k.last_args = launches, last_args
     return graph, credits, seconds
+
+
+def replay(graph: torch.cuda.CUDAGraph, credits: Dict[object, int],
+           stats: Dict[str, int]) -> None:
+    """Replay ``graph`` on the current stream, credit the hand-written
+    kernels it holds (``capture_graph``'s credits) and count the replay."""
+    graph.replay()
+    for kernel, n in credits.items():
+        kernel.launches += n
+    stats["replays"] += 1
+
+
+def _device_key(device: torch.device):
+    if device.type != "cuda":
+        return device.type
+    return device.index if device.index is not None else 0
+
+
+class SharedPool:
+    """One CUDA-graph memory pool, one stream and one re-entrant lock for
+    each device, shared by a family of graphs whose temporaries never
+    outlive a replay (their outputs live in arenas allocated outside the
+    pool). Graphs of one pool must never run at the same time: a family
+    either replays on one thread's stream only (the serving graphs), or
+    captures and replays on the pool's stream under its lock
+    (``GraphStep``). On the CPU only the lock exists."""
+
+    def __init__(self):
+        self._by_device: Dict[object, tuple] = {}
+        self._guard = threading.Lock()
+
+    def _get(self, device: torch.device) -> tuple:
+        key = _device_key(device)
+        with self._guard:
+            if key not in self._by_device:
+                cuda = device.type == "cuda"
+                self._by_device[key] = (
+                    torch.cuda.graph_pool_handle() if cuda else None,
+                    torch.cuda.Stream(device) if cuda else None,
+                    threading.RLock())
+            return self._by_device[key]
+
+    def handle(self, device: torch.device):
+        return self._get(device)[0]
+
+    def stream(self, device: torch.device) -> torch.cuda.Stream:
+        return self._get(device)[1]
+
+    def lock(self, device: torch.device) -> threading.RLock:
+        return self._get(device)[2]
+
+    def bytes(self, device: torch.device) -> int:
+        """Bytes the allocator holds in this pool on ``device``."""
+        key = _device_key(device)
+        if device.type != "cuda" or key not in self._by_device:
+            return 0
+        pool = tuple(self._by_device[key][0])
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == key
+                   and tuple(seg["segment_pool_id"]) == pool)
+
+
+class ExecutableCache:
+    """Executables by key, as JAX caches its compiled programs. Each entry
+    holds its ``owners`` (the model, the retriever: objects its step reads
+    by address) weakly, and optionally ``buffers`` = (owner, key of the
+    buffers it reads). A lookup that misses first drops the entries whose
+    owner no longer exists and those of the same buffer owner on other
+    buffers (a retriever whose rows were reallocated), then makes one."""
+
+    def __init__(self):
+        self._entries: Dict[tuple, tuple] = {}
+        self._lock = threading.Lock()
+
+    def get(self, key: tuple, make: Callable[[], object],
+            owners: Sequence[object] = (), buffers: Optional[tuple] = None):
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and all(
+                    r() is o for r, o in zip(hit[1], owners)):
+                return hit[0]
+            for k, (_, refs, buf) in list(self._entries.items()):
+                stale = (buffers is not None and buf is not None
+                         and buf[0]() is buffers[0] and buf[1] != buffers[1])
+                if stale or any(r() is None for r in refs):
+                    del self._entries[k]
+            exe = make()
+            self._entries[key] = (
+                exe, tuple(weakref.ref(o) for o in owners),
+                None if buffers is None
+                else (weakref.ref(buffers[0]), buffers[1]))
+            return exe
+
+    def values(self) -> List[object]:
+        """The cached executables, oldest first."""
+        with self._lock:
+            return [e for e, _, _ in self._entries.values()]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+class GraphStep:
+    """A static step between fixed arenas, run by ``run(values)``: the
+    values are staged (host values into the pinned input sections, device
+    tensors copied on the device after the one upload), the step runs,
+    and the outputs come back with one download (``fetch``) or as device
+    copies. On a card with ``use_graph`` the first run captures the step
+    into a CUDA graph in ``pool`` and later runs replay it; the capture,
+    the replays and the staging run on the pool's stream under its lock,
+    which a fetching run holds until its outputs are on the host, so two
+    graphs of the pool never run at once. A failed capture raises: there
+    is no fallback to the eager step. Without ``use_graph``, or on the
+    CPU, the same step runs eagerly (counted in ``stats``).
+
+    Subclasses set ``inputs`` and ``outputs`` (``Arena``) and define
+    ``_step`` (reads ``inputs.dev``, writes ``outputs.dev``: static
+    shapes, no host sync); ``_kernels`` names the hand-written kernels a
+    capture may hold and ``_check`` reads the captured graph back."""
+
+    inputs: Arena
+    outputs: Arena
+
+    def __init__(self, device: torch.device, use_graph: bool,
+                 pool: SharedPool, stats: Dict[str, int]):
+        self.device = device
+        self.use_graph = use_graph and device.type == "cuda"
+        self.pool, self.stats = pool, stats
+        cuda = device.type == "cuda"
+        self._done = torch.cuda.Event() if cuda else None
+        # the last upload's end: the pinned inputs may be rewritten after it
+        self._uploaded = torch.cuda.Event() if cuda else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.credits: Dict[object, int] = {}
+        self.census: Optional[dict] = None
+        self.capture_s: Optional[float] = None
+
+    def _step(self) -> None:
+        raise NotImplementedError
+
+    def _kernels(self) -> tuple:
+        return ()
+
+    def _check(self, graph: torch.cuda.CUDAGraph) -> None:
+        """Read a captured graph back (``census``) and raise on a fault;
+        by default there is nothing to check."""
+
+    def _stage(self, values: Dict[str, object]) -> list:
+        """Host values into their pinned sections; returns the device
+        tensors, to be copied after the upload."""
+        on_device = []
+        for name, value in values.items():
+            dst = self.inputs.np[name]
+            if torch.is_tensor(value) and value.device.type != "cpu":
+                if value.device != self.device:
+                    raise ValueError(f"input {name} on {value.device}, the "
+                                     f"step runs on {self.device}")
+                on_device.append((name, value))
+                continue
+            arr = value.numpy() if torch.is_tensor(value) else np.asarray(
+                value)
+            if arr.shape != dst.shape:
+                raise ValueError(f"input {name}: shape {arr.shape}, the "
+                                 f"executable takes {dst.shape}")
+            dst[...] = arr
+        return on_device
+
+    def run(self, values: Dict[str, object], fetch: bool = True
+            ) -> Tuple[Dict[str, object], bool]:
+        """Stage ``values`` (every input section, by name), run the step;
+        returns (outputs, whether this run captured the graph): numpy
+        copies with ``fetch``, else device copies ordered before the
+        caller's later work."""
+        with self.pool.lock(self.device):
+            if self.device.type != "cuda":
+                self._stage(values)
+                self._step()
+                self.stats["eager_steps"] += 1
+                out = self.outputs.dev
+                return ({k: v.numpy().copy() for k, v in out.items()}
+                        if fetch else {k: v.clone() for k, v in out.items()},
+                        False)
+            caller = torch.cuda.current_stream(self.device)
+            stream = self.pool.stream(self.device)
+            captured = False
+            with torch.cuda.device(self.device):
+                self._uploaded.synchronize()
+                on_device = self._stage(values)
+                stream.wait_stream(caller)
+                with torch.cuda.stream(stream):
+                    self.inputs.upload()
+                    self._uploaded.record(stream)
+                    for name, value in on_device:
+                        value.record_stream(stream)
+                        self.inputs.dev[name].copy_(value)
+                    if self.use_graph and self.graph is None:
+                        self._capture(stream)
+                        captured = True
+                    if self.graph is not None:
+                        replay(self.graph, self.credits, self.stats)
+                    else:
+                        self._step()
+                        self.stats["eager_steps"] += 1
+                    if fetch:
+                        self.outputs.download()
+                        self._done.record(stream)
+                    else:
+                        out = {k: v.clone()
+                               for k, v in self.outputs.dev.items()}
+                        for v in out.values():
+                            v.record_stream(caller)
+                caller.wait_stream(stream)
+                if fetch:
+                    self._done.synchronize()     # the run's one fetch
+                    out = {k: v.copy() for k, v in self.outputs.np.items()}
+            return out, captured
+
+    def _capture(self, stream: torch.cuda.Stream) -> None:
+        graph, credits, self.capture_s = capture_graph(
+            self._step, stream, self.pool.handle(self.device),
+            self._kernels())
+        self._check(graph)
+        self.graph, self.credits = graph, credits
+        self.stats["captures"] += 1
