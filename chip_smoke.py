@@ -52,7 +52,19 @@ weights and data made from seeds:
    k valid points, NaN rows, P != Q, P = 1, k = 16 and 32; their device
    time, wrapper and plain time, the two-call yardstick (torch.cdist +
    argmin or topk) and the bound (9 operations a pair that cannot fuse,
-   at 33.5 T/s);
+   at 33.5 T/s). The verifier's two eigen-solves, kernel C (k-NN PCA to
+   normals or GICP covariances, one a prepared cloud) and kernel R (the
+   Kabsch solve, one a point-to-point iteration), against their plain
+   versions (float32 ``eigh``; ``svd`` and ``det``): C after kernel K on
+   the two prepared frames, random, padded, few-valid, repeated,
+   collinear and lattice clouds, covariances (k 20, eps 1e-3) within 1e-5
+   and normals (k 16) within 1 - |cos| <= 1e-4 on the rows whose relative
+   eigen-gap lets the float32 solve reach the bar, invariants on every
+   row, every row finite; R on random, reflected, rotation, rank-2,
+   rank-1 and zero H and a real step's H, R within 1e-5 and t within
+   1e-5 max(1, |p_c|_1), H = 0 giving I; their device, wrapper and plain
+   time, the yardstick (``eigh`` of the covariances; ``svd`` of H) and the
+   bound (bytes);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
    card, and 32 requests through ``serve_step`` (16 ring-structured, 16
@@ -118,10 +130,16 @@ weights and data made from seeds:
    (first: which of the verifier's linear-algebra calls a CUDA graph
    captures, ``experiments.capture_probe``; solve_ex and inv_ex must),
    and on every pair the torch backend's registration graph (one replay
-   a pair, 31 kernel N launches credited) gives the eager step's T,
-   fitness and RMSE bit for bit, for GICP and (2 queries) point-to-plane,
-   with ms a pair of graph, eager and native, prepare's ms, the graph's
-   nodes and capture seconds;
+   a pair, 31 kernel N launches credited, and 30 of kernel R in
+   point-to-point) gives the eager step's T, fitness and RMSE bit for
+   bit, and on every cloud its prepare graph (kernels K and C) the eager
+   prepare's tensors, for GICP and (2 queries) point-to-plane and
+   point-to-point, whose T must also lie within 1e-4 of the plain step on
+   the CPU; no graph captured after each verifier's ``warmup()``; a
+   torch.profiler window over a prepare and a pair of each method holds
+   no cuSOLVER or MAGMA kernel and no host copy beyond the three designed
+   ones; with ms a pair of graph, eager and native, prepare's ms through
+   its graph and eagerly, the graphs' nodes and capture seconds;
    100,000 + keyframes rows, restored by a save/load round trip; ``project``
    and ``spectral`` launched (counted inside the graph replays); 0 serving
    graphs captured mid-stream (``warmup()`` captures them) and one replay
@@ -132,7 +150,7 @@ weights and data made from seeds:
    short fresh session, warmed up before the profiler starts) the device
    time and operations per keyframe. Last, three sessions of 140 frames
    with the torch verifier: async after ``warmup()`` (the verifier's
-   path, counted: kernels N and K must launch; verification ms a query,
+   path, counted: kernels N, K and C must launch; verification ms a query,
    keyframe p50/p95/max; nothing captured mid-stream), then async and
    sync with the executable cache dropped every 20 frames while the
    verifier works through its backlog on the async worker: every serving
@@ -221,7 +239,8 @@ before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
 per call as earlier records held it, and ``library_ms`` null
 with the reason: no single PyTorch call computes any kernel's function;
-kernels N and K also carry ``yardstick_ms``, two calls)
+kernels N, K, C and R also carry ``yardstick_ms``: two calls for N and
+K, one that computes part of the function for C and R)
 and the last is ``{"ok": true, "device": {...}}``. Before them it
 prints every graph family's captures, replays and eager steps over the
 whole run, and the declared op-by-op paths on the card: full-graph eval
@@ -263,6 +282,18 @@ FP32_OPS_NO_FMA = FP32_FLOPS / 2
 VERIFY_POINTS = 4096           # configs/default.yaml verification_max_points
 SEARCH_OPS = 9                 # kernels N, K: 3 differences, 3 squares,
                                # 2 sums and a comparison a pair
+PCA_COV_TOL = 1e-5             # kernel C vs plain: covariances, and
+PCA_NORMAL_TOL = 1e-4          # 1 - |cos| of normals, on the rows whose
+PCA_GAP_ERR = 1e-6             # relative eigen-gap g lets the float32
+                               # plain solve reach the bar: its covariance
+                               # error is about PCA_GAP_ERR / g (checked on
+                               # a prepared cloud by
+                               # tests/test_torch_pca_kabsch.py), so g >=
+                               # 0.1 for covariances and g >= 7.1e-5 for
+                               # normals; below, invariants only
+PCA_INV_TOL = 1e-5             # eigenvalues {eps, 1, 1} and n in the span
+KABSCH_TOL = 1e-5              # kernel R vs plain: R, and t / max(1, |p_c|)
+T_TOL = 1e-4                   # p2p registration on the card vs the CPU
 PROFILED_CALLS = 50
 QUEUED_CALLS = 200
 COLD_FLUSH_BYTES = 64 << 20    # written between launches: > the 50 MB L2
@@ -300,6 +331,13 @@ NO_LIBRARY = {
                "calls, masking left out), which the port never calls",
     "knn": "no one call; yardstick_ms times torch.cdist + topk (two calls, "
            "masking and the tie order left out), which the port never calls",
+    "knn_pca": "no one call; yardstick_ms times torch.linalg.eigh on the "
+               "(P, 3, 3) covariances, which computes part of the function "
+               "(not the gather, the covariances or the output) and which "
+               "the port never calls on a card",
+    "kabsch": "no one call; yardstick_ms times torch.linalg.svd of the one "
+              "3 x 3 H, which computes part of the function (not det, the "
+              "product or t) and which the port never calls on a card",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -311,6 +349,8 @@ KERNEL_NAMES = {
     "roll_min_chain": ("roll_min_chain_kernel",),
     "nearest": ("nearest_kernel",),
     "knn": ("knn_kernel",),
+    "knn_pca": ("knn_pca_kernel",),
+    "kabsch": ("kabsch_kernel",),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -1225,6 +1265,255 @@ def _search_kernels(device) -> dict:
     return out
 
 
+def _pca_rows(pts, idx, k: int):
+    """(relative eigen-gap (lambda1 - lambda0) / lambda2, 0 where lambda2
+    is 0; the eigenvalues; the float64 covariances) of each point's k-NN
+    covariance, formed in float64 on the card (a reference only)."""
+    import torch
+    nbr = pts.double()[idx]
+    c = nbr - nbr.mean(dim=1, keepdim=True)
+    cov64 = torch.einsum("pki,pkj->pij", c, c) / k
+    lam = torch.linalg.eigvalsh(cov64)
+    gap = torch.where(lam[:, 2] > 0, (lam[:, 1] - lam[:, 0])
+                      / lam[:, 2].clamp(min=1e-300), torch.zeros_like(
+                          lam[:, 2]))
+    return gap, lam, cov64
+
+
+def _pca_case(name: str, pts, mask, mode: str, k: int) -> tuple:
+    """Kernel C against its plain version on one cloud (after kernel K):
+    every row finite; the rows whose relative eigen-gap lets the float32
+    plain solve reach the bar held to it (covariances within PCA_COV_TOL,
+    normals within 1 - |cos| <= PCA_NORMAL_TOL); every row to the
+    invariants (a covariance symmetric with eigenvalues {eps, 1, 1}, a
+    normal a unit vector in the span of the two smallest eigenvectors).
+    Returns (the largest difference on the checked rows, rows checked)."""
+    import torch
+    from neural_spectral_codec_torch.retrieval import knn_kernel as kk
+    from neural_spectral_codec_torch.retrieval import pca_kernel as pk
+    eps = 1e-3
+    idx = kk.knn_cuda(pts, mask, k)
+    got = pk.knn_pca_cuda(pts, idx, mode, eps)
+    want = pk.knn_pca_plain(pts, idx, mode, eps)
+    gap, lam, cov64 = _pca_rows(pts, idx, k)
+    what = f"knn_pca ({name}, {mode}, k={k})"
+    _check(bool(torch.isfinite(got).all()), f"{what}: a row not finite")
+    if mode == "covariances":
+        rows = gap >= PCA_GAP_ERR / PCA_COV_TOL
+        err = float((got - want)[rows].abs().max()) if rows.any() else 0.0
+        _check(err <= PCA_COV_TOL, f"{what}: {err:.3e} from the plain "
+               f"version on rows of relative gap >= 0.1")
+        ev = torch.linalg.eigvalsh(got.double())
+        inv = float((ev - torch.tensor([eps, 1.0, 1.0], dtype=ev.dtype,
+                                       device=ev.device)).abs().max())
+        _check(torch.equal(got, got.transpose(1, 2))
+               and inv <= PCA_INV_TOL, f"{what}: not symmetric, or "
+               f"eigenvalues {inv:.3e} from (eps, 1, 1)")
+    else:
+        rows = gap >= PCA_GAP_ERR / math.sqrt(2 * PCA_NORMAL_TOL)
+        cos = (got.double() * want.double()).sum(1).abs()
+        err = float(1 - cos[rows].min()) if rows.any() else 0.0
+        _check(err <= PCA_NORMAL_TOL, f"{what}: 1 - |cos| {err:.3e} from "
+               f"the plain version on rows of relative gap >= 7.1e-5")
+        n = got.double()
+        ray = torch.einsum("pi,pij,pj->p", n, cov64, n)
+        _check(float(((n * n).sum(1) - 1).abs().max()) <= 1e-6 and bool(
+            (ray <= lam[:, 1] + PCA_INV_TOL * lam[:, 2] + 1e-30).all()),
+            f"{what}: a normal not unit or not in the span of the two "
+            f"smallest eigenvectors")
+    return err, int(rows.sum())
+
+
+def _kabsch_cases(device, scene) -> list:
+    """(name, H (B, 3, 3), p_c, q_c (B, 3)) on the card: random H,
+    reflections (det(V U^T) = -1), H of a small rotation of 200 points,
+    rank 2 (planar), rank 1 (collinear), H = 0 (no match), and the first
+    point-to-point step's H between the two prepared frames."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.retrieval import nearest_kernel as nk
+    rng = np.random.default_rng(SEED + 60)
+    b = 64
+    p_c = rng.uniform(-30, 30, (b, 3))
+    q_c = p_c + rng.normal(0, 1, (b, 3))
+    rand = rng.normal(size=(b, 3, 3))
+    refl = rng.normal(size=(b, 3, 3))
+    refl[np.linalg.det(refl) > 0, :, 2] *= -1
+    rot = []
+    for _ in range(b):
+        src = rng.normal(0, 3, (200, 3))
+        a = rng.uniform(-0.3, 0.3)
+        c, s_ = math.cos(a), math.sin(a)
+        R = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]])
+        rot.append(src.T @ (src @ R.T))
+    cases = [("random", rand), ("reflection", refl), ("rotation",
+                                                      np.stack(rot)),
+             ("rank2", rng.normal(size=(b, 3, 2))
+              @ rng.normal(size=(b, 2, 3))),
+             ("rank1", rng.normal(size=(b, 3, 1))
+              @ rng.normal(size=(b, 1, 3))),
+             ("zero", np.zeros((b, 3, 3)))]
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            device)
+
+    out = [(name, dev(h), dev(p_c), dev(q_c)) for name, h in cases]
+    src, src_mask, dst, dst_mask = scene
+    j, d2 = nk.nearest_cuda(src, dst, dst_mask)
+    w = (src_mask & (torch.sqrt(d2) <= 1.0)).float()
+    q = dst[j]
+    sw = w.sum().clamp(min=1e-6)
+    pc = (src * w[:, None]).sum(0) / sw
+    qc = (q * w[:, None]).sum(0) / sw
+    H = torch.einsum("ni,nj->ij", (src - pc) * w[:, None], q - qc)
+    out.append(("scene_step", H[None].contiguous(), pc[None].contiguous(),
+                qc[None].contiguous()))
+    return out
+
+
+def _kabsch_case(name: str, h, p_c, q_c) -> float:
+    """Kernel R against its plain version (svd and det on the card) on
+    each H of a case: a proper rotation, R within KABSCH_TOL and t within
+    KABSCH_TOL * max(1, |p_c|_1) where the optimal rotation is unique; for
+    rank 1 the same trace(R H); H = 0 gives R = I exactly. Returns the
+    largest |R difference| (0 for rank 1)."""
+    import torch
+    from neural_spectral_codec_torch.retrieval import pca_kernel as pk
+    err = 0.0
+    eye = torch.eye(3, device=h.device)
+    for i in range(h.shape[0]):
+        got = pk.kabsch_cuda(h[i], p_c[i], q_c[i])
+        want = pk.kabsch_plain(h[i], p_c[i], q_c[i])
+        R, Rw = got[:3, :3].double(), want[:3, :3].double()
+        what = f"kabsch ({name}, H {i})"
+        _check(bool(torch.isfinite(got).all()) and float(
+            (R @ R.T - eye.double()).abs().max()) <= 4e-6 and abs(float(
+                torch.linalg.det(R)) - 1) <= 4e-6, f"{what}: not a proper "
+               f"rotation")
+        scale = max(1.0, float(p_c[i].abs().sum()))
+        if name == "rank1":
+            obj = float((R * h[i].double().T).sum())
+            objw = float((Rw * h[i].double().T).sum())
+            _check(abs(obj - objw) <= 1e-5 * max(1.0, abs(objw)),
+                   f"{what}: trace(R H) {obj} != {objw}")
+            continue
+        e = float((R - Rw).abs().max())
+        et = float((got[:3, 3] - want[:3, 3]).abs().max())
+        _check(e <= KABSCH_TOL and et <= KABSCH_TOL * scale and torch.equal(
+            got[3], want[3]), f"{what}: R {e:.3e}, t {et:.3e} from the "
+            f"plain version")
+        if name == "zero":
+            _check(torch.equal(got[:3, :3], eye), f"{what}: R != I")
+        err = max(err, e)
+    return err
+
+
+def _pca_kernels(device) -> dict:
+    """Kernels C (``pca_kernel.knn_pca``) and R (``pca_kernel.kabsch``)
+    against their plain versions on the card. C after kernel K, on the two
+    prepared frames of phase 8's stream, random clouds, a padded cloud
+    (3,000 valid points and zeros), fewer than k valid points, 24 copies
+    of each point, points on three lines and a lattice, as covariances
+    (k 20, eps 1e-3) and normals (k 16), under the bars and gap rule of
+    ``_pca_case``. R on 64 H of each kind of ``_kabsch_cases``. Then, on
+    the prepared frame at k 20, C's device time (torch.profiler, queued
+    bare launches), its wrapper's, its plain version's, the yardstick
+    (``torch.linalg.eigh`` on the (P, 3, 3) batch) and the bound (its
+    bytes at 3.35 TB/s: the points, the indices and the covariances); and
+    the same for R on the prepared frames' first step (yardstick
+    ``torch.linalg.svd`` of H); one wrapper call of each must enqueue the
+    kernel alone."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.retrieval import knn_kernel as kk
+    from neural_spectral_codec_torch.retrieval import pca_kernel as pk
+    n = VERIFY_POINTS
+    g = torch.Generator(device=device).manual_seed(SEED + 61)
+    scene = _scene_clouds(device)
+    scene_a, mask_a, scene_b, mask_b = scene
+    rand = (torch.rand(n, 3, generator=g, device=device) - 0.5) * 40.0
+    rand_mask = torch.rand(n, generator=g, device=device) < 0.8
+    padded = torch.zeros(n, 3, device=device)
+    padded[:3000] = scene_a[:3000]
+    pad_mask = torch.arange(n, device=device) < 3000
+    few = torch.zeros(n, 3, device=device)
+    few[:11] = rand[:11]
+    few_mask = torch.arange(n, device=device) < 11
+    copies = rand[:171].repeat_interleave(24, 0)[:n].contiguous()
+    rng = np.random.default_rng(SEED + 62)
+    t = rng.uniform(-10, 10, (3, n // 3 + 1))
+    dirs = np.array([[1, 0, 0], [0.6, 0.8, 0], [0, 0.6, 0.8]])
+    lines = (t[:, :, None] * dirs[:, None, :] + np.array(
+        [[0, 0, 0], [40, 0, 0], [0, 40, 0]])[:, None, :]).reshape(-1, 3)
+    lines = torch.from_numpy(lines[:n].astype(np.float32)).to(device)
+    lattice = (torch.stack(torch.meshgrid(
+        *[torch.arange(16.0, device=device)] * 3, indexing="ij"),
+        -1).reshape(-1, 3) * 0.5)[:n].contiguous()
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    clouds = [("scene_a", scene_a, mask_a), ("scene_b", scene_b, mask_b),
+              ("random", rand, rand_mask), ("padded", padded, pad_mask),
+              ("few_valid", few, few_mask), ("copies", copies, ones),
+              ("collinear", lines, ones), ("lattice", lattice, ones)]
+    errs = {}
+    for name, pts, mask in clouds:
+        for mode, k in (("covariances", 20), ("normals", 16)):
+            errs[(name, mode)] = _pca_case(name, pts, mask, mode, k)
+    torch.cuda.synchronize()
+    print("knn_pca: within the bars of the plain version on the rows above "
+          "the gap, invariants on every row, every row finite: " +
+          ", ".join(f"{c} {m} {e:.3e} on {r} rows"
+                    for (c, m), (e, r) in errs.items()), flush=True)
+    kcases = _kabsch_cases(device, scene)
+    kab = {name: _kabsch_case(name, h, pc, qc) for name, h, pc, qc in kcases}
+    torch.cuda.synchronize()
+    print(f"kabsch: within the bars of the plain version, proper "
+          f"rotations, H = 0 -> I, rank 1 the same trace(R H): "
+          f"{json.dumps(kab)}", flush=True)
+
+    idx20 = kk.knn_cuda(scene_a, mask_a, 20)
+    cov32 = pk.cov_matrices(scene_a, idx20)
+    _, h, pc, qc = kcases[-1]
+    h, pc, qc = h[0], pc[0], qc[0]
+    k = 20
+    calls = {
+        "knn_pca": (lambda: pk.knn_pca_cuda(scene_a, idx20, "covariances",
+                                            1e-3),
+                    lambda: pk.knn_pca_plain(scene_a, idx20, "covariances",
+                                             1e-3),
+                    lambda: torch.linalg.eigh(cov32),
+                    _bound(n * 12 + n * k * 8 + n * 36,
+                           n_flops=n * 12 * k,
+                           n_ops_no_fma=n * (6 * k + 9)),
+                    max(e for (c, m), (e, _) in errs.items()
+                        if m == "covariances")),
+        "kabsch": (lambda: pk.kabsch_cuda(h, pc, qc),
+                   lambda: pk.kabsch_plain(h, pc, qc),
+                   lambda: torch.linalg.svd(h),
+                   _bound(4 * (9 + 3 + 3 + 16)), max(kab.values())),
+    }
+    out = {}
+    for name, (kernel, plain, yard, (bound_ms, bound_by), err) in \
+            calls.items():
+        _only_kernel(name, kernel)
+        wrapper_ms = _time_ms(kernel)
+        t = {"max_abs_err": err, "ms": wrapper_ms, "wrapper_ms": wrapper_ms,
+             "plain_ms": _time_ms(plain), "yardstick_ms": _time_ms(yard),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             **_device_times(name, kernel)}
+        t["share_of_bound"] = bound_ms / t["device_ms"]
+        out[name] = t
+        print(f"kernel {name}: " + ("(4096, 3) points, k 20 (prepared "
+              "frame)" if name == "knn_pca" else "one 3 x 3 H (prepared "
+              "frames' first step)") + f" device {t['device_ms']:.5f} ms "
+              f"(profiler {t['profiler_ms']}, queued bare "
+              f"{t['queued_ms']:.5f}), wrapper {wrapper_ms:.5f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, yardstick {t['yardstick_ms']:.4f} "
+              f"ms, bound {bound_ms:.7f} ms ({bound_by}, "
+              f"{100 * t['share_of_bound']:.2f}% of it)", flush=True)
+    return out
+
+
 def _probe_paths() -> dict:
     """Phase 5: both stage-profile entry points, each with all six launch
     counts set to 0 just before it and read just after; each must launch
@@ -1308,7 +1597,7 @@ def _all_kernels() -> dict:
     from neural_spectral_codec_torch.ops import (
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.retrieval import (
-        knn_kernel, nearest_kernel)
+        knn_kernel, nearest_kernel, pca_kernel)
     return {"spectral": spectral_kernel.KERNEL,
             "ring_fold": ring_kernel.KERNEL,
             "project": projection_kernel.KERNEL,
@@ -1316,7 +1605,9 @@ def _all_kernels() -> dict:
             "roll_floor": probe_kernels.ROLL_FLOOR,
             "roll_min_chain": probe_kernels.ROLL_MIN_CHAIN,
             "nearest": nearest_kernel.KERNEL,
-            "knn": knn_kernel.KERNEL}
+            "knn": knn_kernel.KERNEL,
+            "knn_pca": pca_kernel.KNN_PCA,
+            "kabsch": pca_kernel.KABSCH}
 
 
 def _counted(run) -> tuple:
@@ -1513,11 +1804,11 @@ def _cpu_descriptors(keyframes, cfg, max_points: int) -> "torch.Tensor":
 
 
 def _capture_refusals() -> None:
-    """Which linear-algebra calls of the verifier a CUDA graph captures
+    """Which linear-algebra calls a CUDA graph captures
     (``experiments.capture_probe``, each in a fresh interpreter): the
-    registration graph needs ``solve_ex`` and ``inv_ex``; point-to-point
-    (``svd``, ``det``) and ``prepare`` (``eigh``) stay eager where theirs
-    are refused."""
+    registration graph needs ``solve_ex`` and ``inv_ex``. ``svd``, ``det``
+    and ``eigh`` are refused, and no card path calls them: kernels R and C
+    do their work."""
     from neural_spectral_codec_torch.experiments import capture_probe
     got = capture_probe.run()
     print(f"online: CUDA-graph capture of the verifier's linear algebra "
@@ -1527,21 +1818,75 @@ def _capture_refusals() -> None:
            "online: the registration step's solver calls do not capture")
 
 
+# device operations of a library eigen-solve or SVD (cuSOLVER, MAGMA),
+# which no verifier path may enqueue on the card; point-to-point's step
+# must enqueue no LU either (det's), while GICP and point-to-plane keep
+# the LU of inv_ex and solve_ex, which capture (experiments.capture_probe)
+LIBRARY_SOLVES = ("syev", "gesvd", "svdj", "gesdd", "eigh", "svd", "magma")
+LU_SOLVES = ("getrf", "getrs", "geqrf")
+
+
+def _same_prep(a, b) -> bool:
+    """Two ``PreparedCloud``s of one cloud bit-equal: the points, mask and
+    covariances or normals on the card, and the host's points."""
+    import numpy as np
+    import torch
+    return np.array_equal(a.pts, b.pts) and all(
+        (x is None) == (y is None) and (x is None or torch.equal(x, y))
+        for x, y in ((a.padded, b.padded), (a.mask, b.mask),
+                     (a.cov, b.cov), (a.normals, b.normals)))
+
+
+def _verifier_window(v, points, target) -> tuple:
+    """torch.profiler's device operations of one ``prepare`` of ``points``
+    and one registration against ``target`` through the verifier's graphs,
+    after each's graph exists: (the operations by name and count, what in
+    them breaks the rule: a library eigen-solve or SVD, in point-to-point
+    an LU, a pageable copy, or more host copies than the prepare's one
+    upload and the pair's upload of its initial transform and its one
+    fetch)."""
+    from collections import Counter
+
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    ops = [op for op, _ in device_ops(
+        lambda: v.verify(v.prepare(points), target))]
+    banned = LIBRARY_SOLVES + (LU_SOLVES if v.method == "icp" else ())
+    faults = [op for op in ops if any(s in op.lower() for s in banned)]
+    faults += [op for op in ops if "Pageable" in op]
+    to_dev = [op for op in ops if "HtoD" in op]
+    to_host = [op for op in ops if "DtoH" in op]
+    if not ops or len(to_dev) > 2 or len(to_host) > 1:
+        faults += to_dev + to_host + ["(no device operation)"] * (not ops)
+    names = Counter(op.split("(")[0][:60] for op in ops)
+    return dict(names.most_common()), faults
+
+
 def _verifier_backends(pipe, device) -> dict:
     """The stage-1 candidates of the last VERIFY_QUERIES queries, each
     against the snapshot its query saw, verified by the native backend
     (the run's) and by the torch backend on the card, once through its
-    registration graph and once eagerly (``use_graph=False``) from the same
-    prepared clouds: native and torch accept the same candidates (the
-    largest transform difference printed), and on every pair the graph's
-    T, fitness and RMSE equal the eager step's bit for bit, with kernel N
-    credited 31 launches a replay; the same for point-to-plane on the
-    first two queries' candidates. Prints ms a pair of each, prepare's ms
-    a cloud (and its host part: the numpy voxel grid and padding), the
-    graphs' nodes and capture seconds."""
+    graphs and once eagerly (``use_graph=False``): native and torch accept
+    the same candidates (the largest transform difference printed); on
+    every cloud ``prepare`` through its graph (kernels K and C, one replay)
+    equals the eager prepare bit for bit; on every pair the registration
+    graph's T, fitness and RMSE equal the eager step's bit for bit, with
+    kernel N credited 31 launches a replay. The same for point-to-plane and
+    point-to-point (kernel R, 30 launches a replay) on the first two
+    queries' candidates; point-to-point's T also within T_TOL of the plain
+    step on the CPU from the same clouds. Each verifier captures nothing
+    after its ``warmup()``; the censuses show C in the prepare graphs and R
+    in the point-to-point graph; a torch.profiler window over a prepare
+    and a pair of each method shows no library eigen-solve or SVD (and in
+    point-to-point no LU, which det would run; GICP's and point-to-plane's
+    LU are their inv_ex and solve_ex) and no host copy beyond the
+    prepare's upload and the pair's upload and fetch.
+    Prints ms a pair of each (graph, eager, native), prepare's ms a cloud
+    through its graph and eagerly (and its host part: the numpy voxel grid
+    and padding), the graphs' nodes and capture seconds."""
     import numpy as np
     import torch
     from neural_spectral_codec_torch.retrieval import nearest_kernel
+    from neural_spectral_codec_torch.retrieval import pca_kernel
     from neural_spectral_codec_torch.retrieval import verification as V
     ret = pipe.retrieval
     nat = ret.verifier
@@ -1549,45 +1894,68 @@ def _verifier_backends(pipe, device) -> dict:
     queries = [kf for i, kf in enumerate(kfs)
                if (i + 1) % 10 == 0][-VERIFY_QUERIES:]
     out = {}
-    for method in ("gicp", "point_to_plane"):
+    for method in ("gicp", "point_to_plane", "icp"):
         kw = dict(method=method, fitness_threshold=nat.fitness_threshold,
                   rmse_threshold=nat.rmse_threshold,
                   max_iterations=nat.max_iterations,
                   voxel_downsample=nat.voxel_downsample,
-                  max_points=nat.max_points, backend="torch", device=device)
-        graph_v = V.GeometricVerifier(**kw)
-        eager_v = V.GeometricVerifier(use_graph=False, **kw)
+                  max_points=nat.max_points, backend="torch")
+        graph_v = V.GeometricVerifier(device=device, **kw)
+        eager_v = V.GeometricVerifier(use_graph=False, device=device, **kw)
+        cpu_v = (V.GeometricVerifier(device="cpu", **kw)
+                 if method == "icp" else None)
         t0 = time.perf_counter()
         graph_v.warmup()
         warm_s = time.perf_counter() - t0
+        captures0 = graph_v.captures
         native = method == nat.method
         times = {"native": [], "graph": [], "eager": [], "prepare": [],
-                 "prepare_host": []}
+                 "prepare_eager": [], "prepare_host": []}
         pairs, t_diff, disagree, unequal = 0, 0.0, [], []
+        prep_unequal, clouds, cpu_diff = [], 0, 0.0
+        solves = nat.max_iterations if method == "icp" else 0
+
+        def prepared(points):
+            """The cloud through the graph and eagerly, timed; equal."""
+            nonlocal clouds
+            t0 = time.perf_counter()
+            g = graph_v.prepare(points)
+            torch.cuda.synchronize()
+            times["prepare"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            e = eager_v.prepare(points)
+            torch.cuda.synchronize()
+            times["prepare_eager"].append(time.perf_counter() - t0)
+            clouds += 1
+            if not _same_prep(g, e):
+                prep_unequal.append(clouds)
+            return g
+
         for kf in queries[:None if native else 2]:
             cands = ret.query(kf, verify=False,
                               as_of_size=kf.keyframe_id + 1)
-            t0 = time.perf_counter()
-            qt = graph_v.prepare(kf.points)
-            torch.cuda.synchronize()
-            times["prepare"].append(time.perf_counter() - t0)
+            qt = prepared(kf.points)
             t0 = time.perf_counter()          # its host part alone
             V._pad(V.voxel_downsample(kf.points, nat.voxel_downsample),
                    nat.max_points)
             times["prepare_host"].append(time.perf_counter() - t0)
             qn = nat.prepare(kf.points) if native else None
+            qc = cpu_v.prepare(kf.points) if cpu_v is not None else None
             for c in cands:
                 target = ret.keyframes[c.database_idx]
                 if target.points is None:           # a resumed record
                     continue
-                dt = graph_v.prepare(target.points)
-                launches = nearest_kernel.KERNEL.launches
+                dt = prepared(target.points)
+                launches = (nearest_kernel.KERNEL.launches,
+                            pca_kernel.KABSCH.launches)
                 t0 = time.perf_counter()
                 ok_t, T_t, info_t = graph_v.verify(qt, dt)
                 times["graph"].append(time.perf_counter() - t0)
-                _check(nearest_kernel.KERNEL.launches - launches
-                       == nat.max_iterations + 1, "online: a registration "
-                       "replay did not credit kernel N's searches")
+                _check((nearest_kernel.KERNEL.launches - launches[0],
+                        pca_kernel.KABSCH.launches - launches[1])
+                       == (nat.max_iterations + 1, solves), "online: a "
+                       "registration replay did not credit kernel N's "
+                       "searches or kernel R's solves")
                 t0 = time.perf_counter()
                 eager = eager_v._register_torch(qt, dt, None)
                 times["eager"].append(time.perf_counter() - t0)
@@ -1595,6 +1963,11 @@ def _verifier_backends(pipe, device) -> dict:
                 if not (np.array_equal(graphed[0], eager[0])
                         and graphed[1:] == eager[1:]):
                     unequal.append((kf.keyframe_id, target.keyframe_id))
+                if cpu_v is not None:
+                    on_cpu = cpu_v._register_torch(
+                        qc, cpu_v.prepare(target.points), None)
+                    cpu_diff = max(cpu_diff, float(
+                        np.abs(on_cpu[0] - graphed[0]).max()))
                 pairs += 1
                 if not native:
                     continue
@@ -1608,40 +1981,79 @@ def _verifier_backends(pipe, device) -> dict:
                                      info_t["fitness"], info_t["rmse"]))
                 elif ok_n:
                     t_diff = max(t_diff, float(np.abs(T_n - T_t).max()))
+        window, window_faults = _verifier_window(graph_v,
+                                                 queries[-1].points, dt)
+        midstream = graph_v.captures - captures0
         exe = next(e for e in V.cached_executables()
                    if e.graphed and e.mode == V.MODES[method]
                    and e.device == device)
+        pexe = next((e for e in V.cached_prepares()
+                     if e.graph is not None and e.device == device
+                     and e.mode == V.PREPARE_MODES[method]), None)
+        pc = pexe.census if pexe is not None else None
         med = {k: 1e3 * statistics.median(v) if v else None
                for k, v in times.items()}
-        out[method] = {"pairs": pairs, "max_transform_diff": t_diff,
+        out[method] = {"pairs": pairs, "clouds": clouds,
+                       "max_transform_diff": t_diff,
                        "disagreements": disagree, "graph_unequal": unequal,
+                       "prepare_unequal": prep_unequal,
+                       "cpu_transform_diff": cpu_diff if cpu_v else None,
                        "ms_graph": med["graph"], "ms_eager": med["eager"],
                        "ms_native": med["native"],
                        "prepare_ms": med["prepare"],
+                       "prepare_eager_ms": med["prepare_eager"],
                        "prepare_host_ms": med["prepare_host"],
-                       "census": exe.census,
-                       "capture_s": exe.capture_s, "warmup_s": warm_s}
+                       "census": exe.census, "prepare_census": pc,
+                       "capture_s": exe.capture_s,
+                       "prepare_capture_s": pexe.capture_s if pexe else None,
+                       "midstream_captures": midstream, "warmup_s": warm_s,
+                       "window_ops": sum(window.values())}
         print(f"online: verifier {method} on the stage-1 candidates of "
               f"{len(queries) if native else 2} queries: {pairs} pairs; ms "
               f"a pair (median, prepared clouds) graph {med['graph']}, "
               f"eager {med['eager']}, native {med['native']}; prepare "
-              f"{med['prepare']} ms a cloud, of which the host's voxel grid "
-              f"and padding {med['prepare_host']}; graph == eager bit for "
-              f"bit on "
-              f"{pairs - len(unequal)}/{pairs}; graph {exe.census['nodes']} "
-              f"nodes ({exe.census['kernels']} kernels, "
-              f"{exe.census['nearest']} kernel N of cluster width "
-              f"{exe.census['nearest_cluster_width']}, {exe.census['memcpy']} "
+              f"{med['prepare']} ms a cloud through its graph, "
+              f"{med['prepare_eager']} eagerly, of which the host's voxel "
+              f"grid and padding {med['prepare_host']}; graph == eager bit "
+              f"for bit on {pairs - len(unequal)}/{pairs} pairs and "
+              f"{clouds - len(prep_unequal)}/{clouds} prepared clouds; "
+              f"registration graph {exe.census['nodes']} nodes "
+              f"({exe.census['kernels']} kernels, {exe.census['nearest']} "
+              f"kernel N of cluster width "
+              f"{exe.census['nearest_cluster_width']}, "
+              f"{exe.census['kabsch']} kernel R, {exe.census['memcpy']} "
               f"copies, {exe.census['memset']} memsets), captured in "
-              f"{exe.capture_s:.3f} s (warmup() {warm_s:.3f} s); native vs "
-              f"torch disagreements {disagree}, largest transform "
-              f"difference {t_diff:.3e}", flush=True)
+              f"{exe.capture_s:.3f} s; prepare graph " + (
+                  f"{pc['nodes']} nodes ({pc['kernels']} kernels, "
+                  f"{pc['knn']} kernel K, {pc['knn_pca']} kernel C, "
+                  f"{pc['memcpy']} copies, {pc['memset']} memsets), captured "
+                  f"in {pexe.capture_s:.3f} s" if pc else
+                  "none (an upload and copies)") +
+              f"; warmup() {warm_s:.3f} s, {midstream} graphs captured "
+              f"after it; " + (f"point-to-point T vs the CPU plain step "
+                               f"{cpu_diff:.3e}; " if cpu_v else "") +
+              f"native vs torch disagreements {disagree}, largest transform "
+              f"difference {t_diff:.3e}; a prepare and a pair enqueue "
+              f"{json.dumps(window)}", flush=True)
+        _check(not window_faults, f"online: verifier {method}: a prepare "
+               f"and a pair enqueue {window_faults[:4]} ({len(window_faults)}"
+               f" a library solve, a pageable copy or a host copy beyond "
+               f"the three designed ones)")
         _check(pairs > 0 and not unequal, f"online: {method} registration "
                f"graph != eager step on {unequal}")
+        _check(not prep_unequal, f"online: {method} prepare graph != eager "
+               f"prepare on clouds {prep_unequal}")
         _check(not disagree, f"online: verifier backends disagree on "
                f"{disagree}")
-        _check(exe.graph is not None and eager_v.captures == 0,
-               "online: no registration graph, or one for the eager step")
+        _check(exe.graph is not None and eager_v.captures == 0
+               and midstream == 0, "online: no registration graph, one for "
+               "the eager step, or a graph captured after warmup()")
+        _check(exe.census["kabsch"] == solves and (
+            method == "icp" or (pc is not None and pc["knn"] == 1
+                                and pc["knn_pca"] == 1)),
+            f"online: {method}: kernel R or C missing from its graph")
+        _check(cpu_v is None or cpu_diff <= T_TOL, f"online: point-to-point "
+               f"on the card {cpu_diff:.3e} from the CPU plain step")
     return out
 
 
@@ -1832,10 +2244,11 @@ def _split_eval(device, frames) -> dict:
 
 def _concurrent_captures(device, frames) -> dict:
     """Phase 8's last sessions, CONCURRENT_FRAMES frames each with the
-    torch verifier (one registration graph replay a pair) on the card.
-    First async with ``warmup()``: the main path of kernels N and K
-    (counted), verification ms a query and keyframe p50/p95/max; neither a
-    serving nor a registration graph captured mid-stream. Then serving
+    torch verifier (one prepare graph replay a cloud, one registration
+    graph replay a pair) on the card. First async with ``warmup()``: the
+    main path of kernels N, K and C (counted), verification ms a query
+    and keyframe p50/p95/max; neither a serving nor a registration graph
+    captured mid-stream. Then serving
     graphs captured while the loop-closing worker replays registration
     graphs: async without the serving warm-up (the verifier warmed by its
     own ``warmup()``) and the executable cache dropped every 20 frames, so
@@ -1918,7 +2331,8 @@ def _concurrent_captures(device, frames) -> dict:
     _check(split["query_replays"] > 0 and split["edges"] == sync["edges"],
            f"online: the async worker's queries ({split['query_replays']} "
            "query graph replays) changed the loop closures")
-    _check(warm["launches"]["nearest"] > 0 and warm["launches"]["knn"] > 0,
+    _check(all(warm["launches"][k] > 0 for k in ("nearest", "knn",
+                                                  "knn_pca")),
            f"online: a kernel of the verifier's path never launched: "
            f"{warm['launches']}")
     _check(drop["serving_captures"] >= 2 * (CONCURRENT_FRAMES // 20 - 1)
@@ -2019,6 +2433,9 @@ def _online(device, keep_store: Path) -> dict:
         _capture_refusals()
         _, backend_launches = _counted(
             lambda: _verifier_backends(pipe, device))
+        _check(all(backend_launches[k] > 0 for k in (
+            "nearest", "knn", "knn_pca", "kabsch")), f"online: a kernel of "
+            f"the verifier's paths never launched: {backend_launches}")
         _serve_trace(device, frames, cap, rep["stage_mean_ms"]["serve_step"])
         verify = _concurrent_captures(device, frames)
         split_eval = _split_eval(device, frames)
@@ -3401,6 +3818,7 @@ def main() -> None:
           f"{t['queued_ms_sweep_b1']:.5f})", flush=True)
     timing.update(_probe_kernels(device))
     timing.update(_search_kernels(device))
+    timing.update(_pca_kernels(device))
 
     # -- 4. serve ----------------------------------------------------------
     rng = np.random.default_rng(SEED + 4)
@@ -3622,6 +4040,12 @@ def main() -> None:
         "knn": ("neural_spectral_codec_torch/csrc/knn.cu",
                 "neural_spectral_codec_tpu/retrieval/verification.py:64",
                 timing["knn"]["max_abs_err"]),
+        "knn_pca": ("neural_spectral_codec_torch/csrc/knn_pca.cu",
+                    "neural_spectral_codec_tpu/retrieval/verification.py:85",
+                    timing["knn_pca"]["max_abs_err"]),
+        "kabsch": ("neural_spectral_codec_torch/csrc/kabsch.cu",
+                   "neural_spectral_codec_tpu/retrieval/verification.py:141",
+                   timing["kabsch"]["max_abs_err"]),
     }
     # "ms" keeps the meaning it had in earlier records: the wrapper's time
     # per call (one event pair per call; for the probes, loops of 200 calls)
@@ -3649,12 +4073,14 @@ def main() -> None:
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"
-        if name in ("nearest", "knn"):
-            entry["replaces_note"] = (
-                "not a pl.pallas_call site: the XLA " + (
-                    "correspondence search of _icp_kernel (:124-131)"
-                    if name == "nearest" else
-                    "k-NN selection of _knn_cov_matrices (:64-73)"))
+        if name in ("nearest", "knn", "knn_pca", "kabsch"):
+            entry["replaces_note"] = "not a pl.pallas_call site: the XLA " + {
+                "nearest": "correspondence search of _icp_kernel (:124-131)",
+                "knn": "k-NN selection of _knn_cov_matrices (:64-73)",
+                "knn_pca": "PCA of _knn_cov_matrices (:64-73) and the eigh "
+                           "of _knn_covariances (:85) and _knn_normals (:77)",
+                "kabsch": "SVD and det of _icp_kernel's p2p_step "
+                          "(:133-146)"}[name]
         record.append(entry)
     from neural_spectral_codec_torch import entry as entry_mod
     from neural_spectral_codec_torch.models import gnn
@@ -3666,7 +4092,8 @@ def main() -> None:
     # sharded: the declared op-by-op paths (full-graph eval forwards, the
     # sharded retriever's queries)
     counts = {"serving": serving_mod.STATS,
-              "registration": verification.STATS, "query": retriever.STATS,
+              "registration": verification.STATS,
+              "prepare": verification.PREPARE_STATS, "query": retriever.STATS,
               "eval": gnn.STATS, "entry": entry_mod.STATS}
     print(f"graphs, whole run: {json.dumps(counts)}", flush=True)
     print(json.dumps({"kernels": record}))

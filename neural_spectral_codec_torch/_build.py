@@ -165,7 +165,7 @@ class CudaKernel:
 CENSUS = ("nodes", "kernels", "memcpy", "memset", "other", "project",
           "project_cooperative", "spectral", "spectral_cluster_width",
           "spectral_cluster_dim", "ring_fold", "unreadable_kernels",
-          "nearest", "knn", "nearest_cluster_width")
+          "nearest", "knn", "nearest_cluster_width", "knn_pca", "kabsch")
 
 
 def graph_census(graph_handle: int) -> dict:
@@ -173,7 +173,7 @@ def graph_census(graph_handle: int) -> dict:
     keep_graph=True).raw_cuda_graph()``) by kind, the projection kernel's
     nodes with their cooperative attribute, the spectral kernel's with its
     cluster width, and the ring, nearest-neighbour (with its cluster
-    width) and k-NN kernels' (``nsc_graph_census`` in
+    width), k-NN, k-NN PCA and Kabsch kernels' (``nsc_graph_census`` in
     ``csrc/project.cu``). Raises on a CUDA error."""
     lib = load_library()
     fn = lib.nsc_graph_census

@@ -359,9 +359,11 @@ extern "C" const void* nsc_spectral_kernel_handle();
 extern "C" const void* nsc_ring_fold_kernel_handle(int slot);
 extern "C" const void* nsc_nearest_kernel_handle();
 extern "C" const void* nsc_knn_kernel_handle();
+extern "C" const void* nsc_knn_pca_kernel_handle();
+extern "C" const void* nsc_kabsch_kernel_handle();
 
 // Census of a captured CUDA graph (a cudaGraph_t: the serving executables of
-// models/serving.py, the registration executables of
+// models/serving.py, the registration and prepare executables of
 // retrieval/verification.py), read back from its nodes. out (kCensusWords,):
 //   0 nodes, 1 kernel nodes, 2 memcpy nodes, 3 memset nodes, 4 other nodes,
 //   5 nodes of this file's kernel, 6 of those with the cooperative launch
@@ -372,9 +374,10 @@ extern "C" const void* nsc_knn_kernel_handle();
 //   11 kernel nodes whose parameters the runtime could not read,
 //   12 nearest-neighbour nodes (nearest.cu), 13 k-NN nodes (knn.cu),
 //   14 the cluster width the nearest-neighbour function requires
-//   (__cluster_dims__; 0 none), read when the graph holds one.
+//   (__cluster_dims__; 0 none), read when the graph holds one,
+//   15 k-NN PCA nodes (knn_pca.cu), 16 Kabsch nodes (kabsch.cu).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
-constexpr int kCensusWords = 15;
+constexpr int kCensusWords = 17;
 
 extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
@@ -393,6 +396,8 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
                          nsc_ring_fold_kernel_handle(1)};
   const void* nearest = nsc_nearest_kernel_handle();
   const void* knn = nsc_knn_kernel_handle();
+  const void* knn_pca = nsc_knn_pca_kernel_handle();
+  const void* kabsch = nsc_kabsch_kernel_handle();
   out[0] = (long long)n;
   for (size_t i = 0; i < n; ++i) {
     cudaGraphNodeType type;
@@ -436,6 +441,10 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
       out[14] = attrs.requiredClusterWidth;
     } else if (params.func == knn) {
       ++out[13];
+    } else if (params.func == knn_pca) {
+      ++out[15];
+    } else if (params.func == kabsch) {
+      ++out[16];
     }
   }
   return (int)cudaSuccess;

@@ -2,15 +2,18 @@
 
     python -m neural_spectral_codec_torch.experiments.capture_probe [--json out.json]
 
-The torch verifier's registration step is captured into one CUDA graph
-(``retrieval/verification.RegistrationExecutable``) only where every call
-in it runs without a host sync. For each call the step or ``prepare``
-makes, at the verifier's shapes, this runs it once on a side stream and
-then tries to capture it (``thread_local``) and replay it: ``solve_ex``
-(6 × 6, the Gauss-Newton update), ``inv_ex`` (4,096 3 × 3 matrices,
-GICP), ``det`` (3 × 3, point-to-point), ``svd`` (3 × 3, point-to-point)
-and ``eigh`` (4,096 3 × 3, ``prepare``). A refused capture can leave the
-CUDA context unusable, so every call is probed in a fresh interpreter.
+The torch verifier's steps are captured into CUDA graphs
+(``retrieval/verification.RegistrationExecutable`` and
+``PrepareExecutable``) only where every call in them runs without a host
+sync. For each linear-algebra call the steps make or once made, at the
+verifier's shapes, this runs it once on a side stream and then tries to
+capture it (``thread_local``) and replay it: ``solve_ex`` (6 × 6, the
+Gauss-Newton update), ``inv_ex`` (4,096 3 × 3 matrices, GICP), and
+``det`` and ``svd`` (3 × 3, point-to-point's Kabsch solve) and ``eigh``
+(4,096 3 × 3, ``prepare``), which no card path calls any more: kernels R
+and C (``retrieval/pca_kernel.py``) do that work. A refused capture can
+leave the CUDA context unusable, so every call is probed in a fresh
+interpreter.
 Prints one JSON object: for each call "captured" (and whether the replay
 equals the eager result) or the first line of the error. Needs a CUDA
 card.

@@ -6,7 +6,7 @@ It is no Pallas kernel's port: the JAX package leaves this selection to
 XLA inside its per-cloud preparation (``neural_spectral_codec_tpu/
 retrieval/verification.py`` ``_knn_cov_matrices``, :64-73: ``lax.top_k``
 over the negated masked distance matrix), which ``verification.
-knn_cov_matrices`` ports.
+knn_covariances`` and ``knn_normals`` port with ``pca_kernel``.
 
 ``knn(pts, mask, k)`` returns (P, k) indices per point in ascending
 squared distance with ties to the lower index, the order of

@@ -19,18 +19,23 @@ Two backends, chosen once at construction:
     generalized ICP with k-NN disk-regularised covariances on both clouds).
     The work grows as P² per iteration (16.8 M distances at P = 4,096).
 
-On a card the torch backend runs JAX's one jitted program a pair
-(``_icp_kernel``) as one ``RegistrationExecutable``: the static step
-captured once into a CUDA graph, then for each pair the two prepared
-clouds copied into its input arena on the device, one replay and one
-fetch of 18 floats. Its searches are hand-written kernels built from
-``csrc/`` at first use: the nearest neighbour of every moved source point
-(kernel N, ``nearest_kernel``, 31 launches a replay) and, in ``prepare``,
-the k nearest neighbours within a cloud (kernel K, ``knn_kernel``). All of
-it runs on the verifier's own stream (``verifier_stream``), apart from
-the current stream on which the serving graphs replay. A CPU tensor runs
-the same step eagerly with the searches' plain versions (the tests'
-path).
+On a card the torch backend runs each of JAX's jitted programs as one
+captured CUDA graph. ``prepare`` (JAX's ``_knn_covariances`` or
+``_knn_normals`` a cloud) is a ``PrepareExecutable``: the host's voxel
+grid and padding, one pinned upload, one replay of the k-NN search and
+the PCA, and device copies that the ``PreparedCloud`` owns. A pair
+(``_icp_kernel``, every mode) is a ``RegistrationExecutable``: the two
+prepared clouds copied into its input arena on the device, one replay
+and one fetch of 18 floats. Their kernels are hand-written and built
+from ``csrc/`` at first use: the nearest neighbour of every moved source
+point (kernel N, ``nearest_kernel``, 31 launches a replay), the weighted
+Kabsch solve of a point-to-point step (kernel R, ``pca_kernel``, one an
+iteration) and, in ``prepare``, the k nearest neighbours within a cloud
+(kernel K, ``knn_kernel``) and their PCA to normals or covariances
+(kernel C, ``pca_kernel``). All of it runs on the verifier's own stream
+(``verifier_stream``), apart from the current stream on which the
+serving graphs replay. A CPU tensor runs the same steps eagerly with the
+kernels' plain versions (the tests' path).
 
 Matrix products here are float32 with TF32 off (``resolve_device``).
 """
@@ -46,17 +51,21 @@ import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.utils.graph_exec import (
-    Arena, ExecutableCache, capture_graph, replay)
+    Arena, ExecutableCache, GraphStep, SharedPool, capture_graph, replay)
 
 logger = logging.getLogger(__name__)
 
 MODES = {"icp": "p2p", "point_to_plane": "p2l", "gicp": "gicp"}
 # The modes whose registration step is captured into a CUDA graph on a
-# card. Point-to-point's Kabsch step calls torch.linalg.svd, whose CUDA
-# path copies between host and device, which a capture refuses
-# (experiments/capture_probe.py): on a card it runs the same static step
-# eagerly, launch by launch (ROADMAP queue 2, still to port).
-GRAPH_MODES = ("p2l", "gicp")
+# card: all three, since point-to-point's Kabsch solve is kernel R and not
+# torch.linalg.svd and det, which copy through the host
+# (experiments/capture_probe.py)
+GRAPH_MODES = ("p2p", "p2l", "gicp")
+# what prepare computes for each method, and with what k (JAX's defaults:
+# _knn_normals k = 16; GICP's k is the verifier's covariance_knn)
+PREPARE_MODES = {"icp": None, "point_to_plane": "normals",
+                 "gicp": "covariances"}
+NORMALS_KNN = 16
 
 
 def voxel_downsample(points: np.ndarray, voxel_size: float) -> np.ndarray:
@@ -91,35 +100,24 @@ def _pad(points: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
     return out, m
 
 
-def knn_cov_matrices(pts: torch.Tensor, mask: torch.Tensor,
-                     k: int) -> torch.Tensor:
-    """Raw k-NN PCA covariance per point, (P, 3, 3); the k neighbours
-    include the point itself and come in ``lax.top_k``'s order (ascending
-    distance, ties to the lower index: ``knn_kernel.knn``, kernel K on a
-    card)."""
-    # imported here: importing the package builds and loads no kernel
-    from neural_spectral_codec_torch.retrieval.knn_kernel import knn
-    nbr = pts[knn(pts, mask, k)]                         # (P, k, 3)
-    c = nbr - nbr.mean(dim=1, keepdim=True)
-    return torch.einsum("pki,pkj->pij", c, c) / k
-
-
 def knn_normals(pts: torch.Tensor, mask: torch.Tensor,
-                k: int = 16) -> torch.Tensor:
+                k: int = NORMALS_KNN) -> torch.Tensor:
     """Unit normal per point: the eigenvector of the smallest eigenvalue
-    of its k-NN covariance (sign arbitrary)."""
-    _, vecs = torch.linalg.eigh(knn_cov_matrices(pts, mask, k))
-    return vecs[:, :, 0]
+    of its k-NN covariance (kernels K and C on a card; the sign is
+    arbitrary in the plain version, fixed by the kernel)."""
+    from neural_spectral_codec_torch.retrieval.knn_kernel import knn
+    from neural_spectral_codec_torch.retrieval.pca_kernel import knn_pca
+    return knn_pca(pts, knn(pts, mask, k), "normals")
 
 
 def knn_covariances(pts: torch.Tensor, mask: torch.Tensor, k: int = 20,
                     eps: float = 1e-3) -> torch.Tensor:
     """GICP covariances V diag(ε, 1, 1) Vᵀ from the k-NN PCA eigenvectors
-    (ascending eigenvalues): the normal direction squashed to ε."""
-    _, vecs = torch.linalg.eigh(knn_cov_matrices(pts, mask, k))
-    d = torch.ones(3, dtype=vecs.dtype, device=vecs.device)
-    d[0] = eps
-    return torch.einsum("pij,j,pkj->pik", vecs, d, vecs)
+    (ascending eigenvalues): the normal direction squashed to ε (kernels K
+    and C on a card)."""
+    from neural_spectral_codec_torch.retrieval.knn_kernel import knn
+    from neural_spectral_codec_torch.retrieval.pca_kernel import knn_pca
+    return knn_pca(pts, knn(pts, mask, k), "covariances", eps)
 
 
 def _transform(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -158,12 +156,14 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
     verification.py:117-193), mode ∈ {"p2p", "p2l", "gicp"}. Returns
     (T, fitness, inlier_rmse) as tensors on the inputs' device.
 
-    Static shapes and no host sync in "p2l" and "gicp" (no ``.item()``, no
-    Python value read from a tensor, no solver error check: ``inv_ex`` and
-    ``solve_ex`` skip it with the same arithmetic), so that a card
-    captures all ``max_iterations`` steps and the final correspondence
-    search in one CUDA graph; the loop is unrolled into it."""
+    Static shapes and no host sync (no ``.item()``, no Python value read
+    from a tensor, no solver error check: ``inv_ex`` and ``solve_ex`` skip
+    it with the same arithmetic, and the Kabsch solve is kernel R), so
+    that a card captures all ``max_iterations`` steps and the final
+    correspondence search in one CUDA graph; the loop is unrolled into
+    it."""
     from neural_spectral_codec_torch.retrieval.nearest_kernel import nearest
+    from neural_spectral_codec_torch.retrieval.pca_kernel import kabsch
     dev, f32 = src.device, torch.float32
     n_src = src_mask.sum().clamp(min=1).to(f32)
     eye3 = torch.eye(3, dtype=f32, device=dev)
@@ -184,15 +184,7 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         p_c = (src * w[:, None]).sum(0) / sw
         q_c = (q * w[:, None]).sum(0) / sw
         H = torch.einsum("ni,nj->ij", (src - p_c) * w[:, None], q - q_c)
-        U, _, Vt = torch.linalg.svd(H)
-        d = torch.sign(torch.linalg.det(Vt.T @ U.T))
-        D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d),
-                                    d]))
-        R = Vt.T @ D @ U.T
-        Tn = torch.eye(4, dtype=f32, device=dev)
-        Tn[:3, :3] = R
-        Tn[:3, 3] = q_c - R @ p_c
-        return Tn
+        return kabsch(H, p_c, q_c)                     # kernel R on a card
 
     def p2l_step(T):
         moved, j, _, w = correspondences(T)
@@ -280,8 +272,7 @@ STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
 class RegistrationExecutable:
     """JAX's jitted ``_icp_kernel`` for one (device, mode, P, Q, iterations,
     max correspondence): the static registration step, its input and
-    output buffers and, on a card in a mode of ``GRAPH_MODES``, its CUDA
-    graph.
+    output buffers and, on a card, its CUDA graph.
 
     The inputs live in static arenas (``utils/graph_exec.Arena``): the
     clouds (``src``, ``src_mask``, ``dst``, ``dst_mask``, and ``normals``
@@ -295,12 +286,12 @@ class RegistrationExecutable:
     on its first call the step once and its capture (in the executable's
     own memory pool, ``thread_local``, so that the serving graphs of
     another thread may replay and capture meanwhile), then a replay,
-    which credits kernel N's 31 launches; then the fetch, which the host
-    waits for. A failed build, capture or replay raises: there is no
-    fallback to the eager step. ``graphed`` False runs the same step
-    eagerly on the stream (the comparison path, and "p2p"). On the CPU
-    the step always runs eagerly. ``lock`` keeps two threads from staging
-    one arena at once."""
+    which credits kernel N's 31 launches (and in "p2p" kernel R's 30);
+    then the fetch, which the host waits for. A failed build, capture or
+    replay raises: there is no fallback to the eager step. ``graphed``
+    False runs the same step eagerly on the stream (the comparison path).
+    On the CPU the step always runs eagerly. ``lock`` keeps two threads
+    from staging one arena at once."""
 
     def __init__(self, device: torch.device, mode: str, n_src: int,
                  n_dst: int, iterations: int, max_corr: float,
@@ -406,19 +397,21 @@ class RegistrationExecutable:
     def _capture(self, stream) -> None:
         from neural_spectral_codec_torch import _build
         from neural_spectral_codec_torch.retrieval import (
-            knn_kernel, nearest_kernel)
+            nearest_kernel, pca_kernel)
         graph, credits, self.capture_s = capture_graph(
             self._step, stream, self._pool,
-            (nearest_kernel.KERNEL, knn_kernel.KERNEL))
+            (nearest_kernel.KERNEL, pca_kernel.KABSCH))
         census = _build.graph_census(graph.raw_cuda_graph())
+        solves = self.iterations if self.mode == "p2p" else 0
         if census["nearest"] != self.iterations + 1 or \
-                census["nearest_cluster_width"] != nearest_kernel.CLUSTER:
+                census["nearest_cluster_width"] != nearest_kernel.CLUSTER \
+                or census["kabsch"] != solves:
             raise RuntimeError(
                 f"the registration graph holds {census['nearest']} "
                 f"nearest-neighbour searches of cluster width "
-                f"{census['nearest_cluster_width']}, not "
-                f"{self.iterations + 1} of {nearest_kernel.CLUSTER} "
-                f"({census})")
+                f"{census['nearest_cluster_width']} and {census['kabsch']} "
+                f"Kabsch solves, not {self.iterations + 1} of "
+                f"{nearest_kernel.CLUSTER} and {solves} ({census})")
         self.graph, self.credits, self.census = graph, credits, census
         STATS["captures"] += 1
 
@@ -431,8 +424,8 @@ def registration_executable(device: torch.device, mode: str, n_src: int,
                             use_graph: bool = True
                             ) -> RegistrationExecutable:
     """The cached executable of (device, mode, P, Q, iterations, max
-    correspondence, graphed), made on a miss; graphed on a card for the
-    modes of ``GRAPH_MODES`` unless ``use_graph`` is False."""
+    correspondence, graphed), made on a miss; graphed on a card unless
+    ``use_graph`` is False."""
     graphed = (use_graph and device.type == "cuda"
                and mode in GRAPH_MODES)
     key = (str(device), mode, int(n_src), int(n_dst), int(iterations),
@@ -444,6 +437,127 @@ def registration_executable(device: torch.device, mode: str, n_src: int,
 def cached_executables() -> list:
     """The registration executables made so far, oldest first."""
     return _EXECUTABLES.values()
+
+
+PREPARE_STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
+PREPARE_POOL = SharedPool()     # its graph pool; the stream is the verifier's
+
+
+class PrepareExecutable(GraphStep):
+    """JAX's jitted ``_knn_covariances`` or ``_knn_normals`` for one
+    (device, mode, P, k, ε): the padded cloud and its mask in a pinned
+    input arena, the normals (P, 3) or covariances (P, 3, 3) in an output
+    arena, and on a card the step between them (kernel K, then kernel C
+    writing the output section) captured into a CUDA graph in
+    ``PREPARE_POOL``. Mode None (point-to-point) computes nothing: the
+    run is the upload and the copies.
+
+    ``run`` stages and uploads the cloud (one copy), replays the graph (a
+    capture on the first run) or runs the step eagerly (``use_graph``
+    False, the comparison path), and copies the points, the mask and the
+    output into tensors of their own, which the ``PreparedCloud`` keeps
+    (``two_stage``'s cache holds them past the next run), all on the
+    verifier's stream under its lock and in no order with the caller's
+    stream: they carry the event after which they are written. A failed
+    build, capture or replay raises: there is no fallback to ``eigh`` or
+    to the eager step. On the CPU the step runs eagerly with the kernels'
+    plain versions."""
+
+    def __init__(self, device: torch.device, mode: Optional[str], n: int,
+                 k: int, eps: float, use_graph: bool):
+        super().__init__(device, use_graph and mode is not None,
+                         PREPARE_POOL, PREPARE_STATS)
+        self.mode, self.k, self.eps = mode, int(k), float(eps)
+        f32 = torch.float32
+        self.inputs = Arena([("pts", (n, 3), f32),
+                             ("mask", (n,), torch.bool)], device)
+        shape = {None: (0,), "normals": (n, 3), "covariances": (n, 3, 3)}
+        self.outputs = Arena([("out", shape[mode], f32)], device, host=False)
+        self.lock = threading.Lock()
+
+    def _step(self) -> None:
+        if self.mode is None:
+            return
+        from neural_spectral_codec_torch.retrieval.knn_kernel import knn
+        from neural_spectral_codec_torch.retrieval.pca_kernel import knn_pca
+        p, m = self.inputs.dev["pts"], self.inputs.dev["mask"]
+        with torch.no_grad():
+            knn_pca(p, knn(p, m, self.k), self.mode, self.eps,
+                    out=self.outputs.dev["out"])
+
+    def _kernels(self) -> tuple:
+        from neural_spectral_codec_torch.retrieval import (
+            knn_kernel, pca_kernel)
+        return knn_kernel.KERNEL, pca_kernel.KNN_PCA
+
+    def _check(self, graph: torch.cuda.CUDAGraph) -> None:
+        from neural_spectral_codec_torch import _build
+        census = _build.graph_census(graph.raw_cuda_graph())
+        if census["knn"] != 1 or census["knn_pca"] != 1:
+            raise RuntimeError(
+                f"the prepare graph holds {census['knn']} k-NN searches and "
+                f"{census['knn_pca']} k-NN PCAs, not one of each ({census})")
+        self.census = census
+
+    def run(self, padded: np.ndarray, mask: np.ndarray) -> tuple:
+        """(points, mask, normals or covariances or None, ready event or
+        None, whether this run captured the graph) for one padded
+        cloud."""
+        with self.lock:
+            if self.device.type != "cuda":
+                self._stage({"pts": padded, "mask": mask})
+                self._step()
+                self.stats["eager_steps"] += self.mode is not None
+                return self._owned() + (None, False)
+            stream, stream_lock = verifier_stream(self.device)
+            captured = False
+            with stream_lock, torch.cuda.device(self.device), \
+                    torch.cuda.stream(stream):
+                self._uploaded.synchronize()
+                self._stage({"pts": padded, "mask": mask})
+                self.inputs.upload()
+                self._uploaded.record(stream)
+                if self.use_graph and self.graph is None:
+                    self._capture(stream)
+                    captured = True
+                if self.graph is not None:
+                    replay(self.graph, self.credits, self.stats)
+                elif self.mode is not None:
+                    self._step()
+                    self.stats["eager_steps"] += 1
+                owned = self._owned()
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            return owned + (ready, captured)
+
+    def _owned(self) -> tuple:
+        out = None if self.mode is None else self.outputs.dev["out"].clone()
+        return (self.inputs.dev["pts"].clone(),
+                self.inputs.dev["mask"].clone(), out)
+
+
+_PREPARES = ExecutableCache()
+
+
+def prepare_executable(device: torch.device, method: str, n: int, k: int,
+                       eps: float, use_graph: bool = True
+                       ) -> PrepareExecutable:
+    """The cached prepare executable of (device, what ``method`` computes,
+    P, k, ε, graphed), made on a miss."""
+    mode = PREPARE_MODES[method]
+    if mode is None:
+        k, eps = 0, 0.0
+    elif mode == "normals":
+        k, eps = NORMALS_KNN, 0.0
+    graphed = use_graph and device.type == "cuda" and mode is not None
+    key = (str(device), mode, int(n), int(k), float(eps), graphed)
+    return _PREPARES.get(key, lambda: PrepareExecutable(
+        device, mode, n, k, eps, graphed))
+
+
+def cached_prepares() -> list:
+    """The prepare executables made so far, oldest first."""
+    return _PREPARES.values()
 
 
 def _scratch_cloud() -> np.ndarray:
@@ -492,17 +606,16 @@ class GeometricVerifier:
         self.backend = backend
         self.device = (resolve_device(device) if self.backend == "torch"
                        else torch.device("cpu"))
-        # on a card: one graph replay a pair (GRAPH_MODES), else the same
-        # static step eagerly; use_graph False runs it eagerly in every mode
+        # on a card: one graph replay a cloud and a pair; use_graph False
+        # runs the same static steps eagerly
         self.use_graph = use_graph
-        self.captures = 0          # registration graphs this verifier made
+        self.captures = 0      # prepare and registration graphs it captured
         logger.info("geometric verifier: %s backend, %s, %d points%s",
                     self.backend, method, max_points,
                     "" if self.backend == "native" or
                     self.device.type == "cpu" else
-                    ", one graph replay a pair" if use_graph
-                    and MODES[method] in GRAPH_MODES else
-                    ", eager registration step")
+                    ", one graph replay a cloud and a pair" if use_graph
+                    else ", eager steps")
 
     def prepare(self, points: np.ndarray) -> PreparedCloud:
         """Downsample the cloud and compute its covariances or normals."""
@@ -524,39 +637,27 @@ class GeometricVerifier:
                                                     grid_cell=cell)
             return PreparedCloud(pts, cov=cov, normals=normals)
 
+        # the host's voxel grid and padding, then one upload and one
+        # replay on the verifier's stream (PrepareExecutable)
         pts = voxel_downsample(points, self.voxel_downsample)
         padded, mask = _pad(pts, self.max_points)
-        if self.device.type == "cpu":
-            return self._prepare_padded(pts, torch.from_numpy(padded),
-                                        torch.from_numpy(mask))
-        # eagerly on the verifier's stream: a capture refuses
-        # torch.linalg.eigh (experiments/capture_probe.py), so the
-        # preparation is no graph
-        stream, lock = verifier_stream(self.device)
-        with lock, torch.cuda.device(self.device), torch.cuda.stream(stream):
-            prep = self._prepare_padded(
-                pts, torch.from_numpy(padded).to(self.device),
-                torch.from_numpy(mask).to(self.device))
-            prep.ready = torch.cuda.Event()
-            prep.ready.record(stream)
-        return prep
-
-    def _prepare_padded(self, pts, p, m) -> PreparedCloud:
-        cov = normals = None
-        with torch.no_grad():
-            if self.method == "gicp":
-                cov = knn_covariances(p, m, self.covariance_knn,
-                                      self.gicp_epsilon)
-            elif self.method == "point_to_plane":
-                normals = knn_normals(p, m)
-        return PreparedCloud(pts, cov=cov, normals=normals, padded=p, mask=m)
+        exe = prepare_executable(self.device, self.method, self.max_points,
+                                 self.covariance_knn, self.gicp_epsilon,
+                                 self.use_graph)
+        p, m, out, ready, captured = exe.run(padded, mask)
+        self.captures += captured
+        return PreparedCloud(
+            pts, cov=out if exe.mode == "covariances" else None,
+            normals=out if exe.mode == "normals" else None, padded=p,
+            mask=m, ready=ready)
 
     def warmup(self) -> None:
         """Build what the first verification would build, so that none is
         built mid-stream: the native library, or for the torch backend the
-        kernels and this method's registration executable (on a card its
-        graph, captured), by preparing and verifying a scratch pair of
-        clouds. Run it before the verifier's worker threads start."""
+        kernels and this method's prepare and registration executables (on
+        a card their graphs, captured), by preparing and verifying a
+        scratch pair of clouds. Run it before the verifier's worker threads
+        start."""
         if self.backend == "native":
             from neural_spectral_codec_torch.native import geom
             geom.load()

@@ -224,7 +224,10 @@ def test_source_hash_follows_sources(tmp_path, monkeypatch):
     h0 = _build.source_hash()
     assert h0 == _build.source_hash()
     assert [s.name for s in _build.sources()] == [
-        "knn.cu", "nearest.cu", "project.cu", "ring_fold.cu",
-        "ring_probe.cu", "roll_floor.cu", "spectral.cu"]
+        "kabsch.cu", "knn.cu", "knn_pca.cu", "nearest.cu", "project.cu",
+        "ring_fold.cu", "ring_probe.cu", "roll_floor.cu", "spectral.cu"]
     (tmp_path / "common.cuh").write_text("// changed\n")
-    assert _build.source_hash() != h0
+    h1 = _build.source_hash()
+    assert h1 != h0
+    (tmp_path / "sym3.cuh").write_text("// changed\n")
+    assert _build.source_hash() != h1

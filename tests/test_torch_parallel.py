@@ -129,10 +129,13 @@ def test_mesh_creation(monkeypatch):
 
 @pytest.mark.parametrize("elevation_mode", ["clip", "drop"])
 def test_sharded_encoder_matches_single_device(rng, elevation_mode):
-    """8 scans, one a shard: equal to the port's batch encoder (each scan
-    is encoded on its own, so 0 expected) and within test_parallel.py's
-    bar of JAX's sharded encoder on scans nudged off the bin edges (an
-    ulp of atan2 between frameworks would move a point's bin)."""
+    """8 scans, one a shard: equal to the port's batch encoder run on each
+    shard's own slab (the same function at the same batch shape on the
+    same tensor, so bit-equal by construction; a batch of 8 need not
+    round alike, since the CPU's FFT and product paths may sum in another
+    order at another batch size), and within test_parallel.py's bar of
+    JAX's sharded encoder on scans nudged off the bin edges (an ulp of
+    atan2 between frameworks would move a point's bin)."""
     kw = dict(n_elevation=16, n_azimuth=90, n_bins=20,
               elevation_mode=elevation_mode)
     tcfg, jcfg = tspec.SpectralEncoderConfig(**kw), \
@@ -141,8 +144,10 @@ def test_sharded_encoder_matches_single_device(rng, elevation_mode):
     pts = nudge_points(np.nan_to_num(pts), tcfg.projection)
     got = tpar.make_sharded_encoder(tcfg, _mesh8())(
         torch.from_numpy(pts), 2.0).numpy()
-    single = tspec.encode_points_batch(torch.from_numpy(pts), 2.0,
-                                       tcfg).numpy()
+    single = torch.cat([
+        tspec.encode_points_batch(slab, 2.0, tcfg)
+        for slab in tpar.shard_array(torch.from_numpy(pts), _mesh8())
+    ]).numpy()
     np.testing.assert_array_equal(got, single)
     want = np.asarray(jpar.make_sharded_encoder(jcfg, jpar.create_mesh(8))(
         jnp.asarray(pts), jnp.float32(2.0)))

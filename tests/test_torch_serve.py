@@ -237,6 +237,7 @@ NEW_MODULES = ("ops.probe_kernels", "utils.timing",
                "native.io", "evaluation", "benchmark_cli",
                "utils.logging_setup", "parallel.mesh", "parallel.encode",
                "parallel.retrieval", "parallel.train", "parallel.dryrun",
+               "retrieval.pca_kernel",
                "experiments.kernel_ab", "experiments.parallel_profile",
                "entry", "native", "experiments.retrieval_latency",
                "experiments.degraded_recall",

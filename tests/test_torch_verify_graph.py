@@ -32,7 +32,7 @@ from neural_spectral_codec_tpu.retrieval import (  # noqa: E402
 from neural_spectral_codec_torch.pipeline import (  # noqa: E402
     NeuralSpectralCodecPipeline)
 from neural_spectral_codec_torch.retrieval import (  # noqa: E402
-    knn_kernel, nearest_kernel, verification as tver)
+    knn_kernel, nearest_kernel, pca_kernel, verification as tver)
 
 torch.set_num_threads(2)
 
@@ -243,7 +243,8 @@ def test_restaged_arena_gives_each_pairs_answer():
 
 def test_executable_refuses_a_mismatched_pair():
     """A prepared cloud of another size, or one that lacks the mode's
-    covariances, is refused with a ``ValueError``."""
+    covariances, is refused with a ``ValueError``, and so is a graph on
+    the CPU; every mode has a graph on a card."""
     v, a, b = _pair("gicp")
     exe = tver.registration_executable(CPU, "gicp", 128, 256,
                                        v.max_iterations, 1.0)
@@ -254,9 +255,10 @@ def test_executable_refuses_a_mismatched_pair():
                                        v.max_iterations, 1.0)
     with pytest.raises(ValueError, match="cov_src"):
         exe.run(pa, pb, np.eye(4, dtype=np.float32))
-    with pytest.raises(ValueError, match="no graph"):
-        tver.RegistrationExecutable(CPU, "gicp", 8, 8, 3, 1.0, True)
-    assert "p2p" not in tver.GRAPH_MODES
+    for mode in ("p2p", "gicp"):
+        with pytest.raises(ValueError, match="no graph"):
+            tver.RegistrationExecutable(CPU, mode, 8, 8, 3, 1.0, True)
+    assert tver.GRAPH_MODES == ("p2p", "p2l", "gicp")
 
 
 class _Ops(TorchDispatchMode):
@@ -271,23 +273,34 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("method", ["gicp", "point_to_plane"])
-def test_registration_step_has_no_host_sync(method):
-    """The static step of the graphed modes dispatches no operation that
-    reads a value back to the host (``_local_scalar_dense``, ``item``,
+@pytest.mark.parametrize("method", ["gicp", "point_to_plane", "icp"])
+def test_registration_step_has_no_host_sync(monkeypatch, method):
+    """The static step of every mode dispatches no operation that reads a
+    value back to the host (``_local_scalar_dense``, ``item``,
     ``nonzero``, a solver's error check): on a card any of them would
-    break the capture. Both runs write the one static output buffer."""
+    break the capture. Point-to-point's Kabsch solve is kernel R on a card;
+    its plain version (``svd`` and ``det``, which check their errors on
+    the host) is replaced here by a recording stand-in, called once an
+    iteration. Both runs write the one static output buffer."""
+    calls = []
+
+    def stand_in(h, p_c, q_c):
+        calls.append(tuple(h.shape))
+        return torch.eye(4)
+
     v, a, b = _pair(method)
     exe = tver.registration_executable(
         CPU, tver.MODES[method], 256, 256, v.max_iterations,
         v.max_correspondence_distance)
     exe.run(a, b, np.eye(4, dtype=np.float32))
     ptr = exe.outputs.dev["out"].data_ptr()
+    monkeypatch.setattr(pca_kernel, "kabsch_plain", stand_in)
     with _Ops() as rec:
         exe._step()
     syncs = [op for op in rec.ops if any(s in op for s in HOST_SYNCS)]
     assert rec.ops and not syncs, syncs
     assert sum("argmin" in op for op in rec.ops) == v.max_iterations + 1
+    assert calls == ([(3, 3)] * v.max_iterations if method == "icp" else [])
     assert exe.outputs.dev["out"].data_ptr() == ptr
 
 
