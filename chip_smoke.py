@@ -54,17 +54,23 @@ weights and data made from seeds:
    argmin or topk) and the bound (9 operations a pair that cannot fuse,
    at 33.5 T/s). The verifier's two eigen-solves, kernel C (k-NN PCA to
    normals or GICP covariances, one a prepared cloud) and kernel R (the
+   point-to-point update after kernel N: weights, centroids, H and the
    Kabsch solve, one a point-to-point iteration), against their plain
-   versions (float32 ``eigh``; ``svd`` and ``det``): C after kernel K on
+   versions (float32 ``eigh``; the float32 step ending in ``svd`` and
+   ``det``): C after kernel K on
    the two prepared frames, random, padded, few-valid, repeated,
    collinear and lattice clouds, covariances (k 20, eps 1e-3) within 1e-5
    and normals (k 16) within 1 - |cos| <= 1e-4 on the rows whose relative
    eigen-gap lets the float32 solve reach the bar, invariants on every
-   row, every row finite; R on random, reflected, rotation, rank-2,
-   rank-1 and zero H and a real step's H, R within 1e-5 and t within
-   1e-5 max(1, |p_c|_1), H = 0 giving I; their device, wrapper and plain
-   time, the yardstick (``eigh`` of the covariances; ``svd`` of H) and the
-   bound (bytes);
+   row, every row finite; R's update on the prepared frames' steps
+   (identity and offset, half masked, no pair in range, P = 1,000 and
+   20,000) within 1e-7 of the float64 plain step (R, and t over
+   max(1, |p_c|_1)) and of the float32 one plus its own error, the
+   same bits twice, and its solve entry on random, reflected, rotation,
+   rank-2, rank-1 and zero H and a real step's H, R within 1e-5 and t
+   within 1e-5 max(1, |p_c|_1), H = 0 giving I; their device, wrapper and
+   plain time (and R's solve entry's device time), the yardstick
+   (``eigh`` of the covariances; ``svd`` of H) and the bound (bytes);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
    card, and 32 requests through ``serve_step`` (16 ring-structured, 16
@@ -292,7 +298,15 @@ PCA_GAP_ERR = 1e-6             # relative eigen-gap g lets the float32
                                # 0.1 for covariances and g >= 7.1e-5 for
                                # normals; below, invariants only
 PCA_INV_TOL = 1e-5             # eigenvalues {eps, 1, 1} and n in the span
-KABSCH_TOL = 1e-5              # kernel R vs plain: R, and t / max(1, |p_c|)
+KABSCH_TOL = 1e-5              # kernel R's solve vs plain: R, and
+                               # t / max(1, |p_c|)
+KABSCH_UPDATE_TOL = 1e-7       # kernel R's update vs the float64 plain step,
+                               # the same way: its float64 sums and solve
+                               # leave T's float32 rounding (<= 3e-8 in R);
+                               # float32 sums would not pass (the float32
+                               # plain step is ~4e-7 from float64). vs the
+                               # float32 plain step: this plus that step's
+                               # own distance from the float64 one
 T_TOL = 1e-4                   # p2p registration on the card vs the CPU
 PROFILED_CALLS = 50
 QUEUED_CALLS = 200
@@ -336,8 +350,9 @@ NO_LIBRARY = {
                "(not the gather, the covariances or the output) and which "
                "the port never calls on a card",
     "kabsch": "no one call; yardstick_ms times torch.linalg.svd of the one "
-              "3 x 3 H, which computes part of the function (not det, the "
-              "product or t) and which the port never calls on a card",
+              "3 x 3 H, which computes part of the function (not the "
+              "weights, gather, sums, det, the product or t) and which the "
+              "port never calls on a card",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -350,7 +365,7 @@ KERNEL_NAMES = {
     "nearest": ("nearest_kernel",),
     "knn": ("knn_kernel",),
     "knn_pca": ("knn_pca_kernel",),
-    "kabsch": ("kabsch_kernel",),
+    "kabsch": ("p2p_update_kernel",),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -1373,8 +1388,9 @@ def _kabsch_cases(device, scene) -> list:
 
 
 def _kabsch_case(name: str, h, p_c, q_c) -> float:
-    """Kernel R against its plain version (svd and det on the card) on
-    each H of a case: a proper rotation, R within KABSCH_TOL and t within
+    """Kernel R's solve entry (``kabsch_cuda``, the update's horn_solve
+    alone) against its plain version (svd and det on the card) on each H
+    of a case: a proper rotation, R within KABSCH_TOL and t within
     KABSCH_TOL * max(1, |p_c|_1) where the optimal rotation is unique; for
     rank 1 the same trace(R H); H = 0 gives R = I exactly. Returns the
     largest |R difference| (0 for rank 1)."""
@@ -1409,24 +1425,98 @@ def _kabsch_case(name: str, h, p_c, q_c) -> float:
     return err
 
 
+def _p2p_cases(device, scene) -> dict:
+    """Kernel R's update (``pca_kernel.p2p_update_cuda``) against its
+    plain version on the card, on kernel N's correspondences of the two
+    prepared frames: from the identity and from a 2 degree, 0.55 m offset,
+    with every other source point masked, with no pair in range (T = I
+    exactly), at P = 1,000 (a cluster of 2) and P = 20,000 (8 CTAs, points
+    past the registers gathered again). R within KABSCH_UPDATE_TOL and t
+    within KABSCH_UPDATE_TOL * max(1, |p_c|_1) of the plain step in
+    float64; of the float32 plain step within the same bars plus that
+    step's own distance from the float64 one (the error of its float32
+    sums and solve, which the kernel does not have); a proper rotation; a
+    second call the same bits. Returns {case: (R error vs float32 plain,
+    vs float64 plain, t error vs float64 plain / max(1, |p_c|_1))}."""
+    import torch
+    from neural_spectral_codec_torch.retrieval import nearest_kernel as nk
+    from neural_spectral_codec_torch.retrieval import pca_kernel as pk
+    src, src_mask, dst, dst_mask = scene
+    eye = torch.eye(4, device=device)
+    off = eye.clone()
+    ang = math.radians(2.0)
+    off[0, 0], off[0, 1], off[1, 0], off[1, 1] = (
+        math.cos(ang), -math.sin(ang), math.sin(ang), math.cos(ang))
+    off[:3, 3] = torch.tensor([0.5, -0.2, 0.1], device=device)
+    half = src_mask & (torch.arange(len(src), device=device) % 2 == 0)
+    big = src.repeat(5, 1)[:20_000].contiguous()
+    big_mask = src_mask.repeat(5)[:20_000].contiguous()
+    cases = [("identity", src, src_mask, eye, 1.0),
+             ("offset", src, src_mask, off, 1.0),
+             ("half_masked", src, half, eye, 1.0),
+             ("none_in_range", src, src_mask, off, 1e-6),
+             ("p1000", src[:1000].contiguous(), src_mask[:1000].contiguous(),
+              eye, 1.0),
+             ("p20000", big, big_mask, off, 1.0)]
+    out = {}
+    for name, s, m, T, max_corr in cases:
+        moved = (s @ T[:3, :3].T + T[:3, 3]).contiguous()
+        j, d2 = nk.nearest_cuda(moved, dst, dst_mask)
+        want = pk.p2p_update_plain(s, m, dst, j, d2, max_corr)
+        want64 = pk.p2p_update_plain(s.double(), m, dst.double(), j, d2,
+                                     max_corr)
+        w = m & (torch.sqrt(d2) <= max_corr)
+        p_c = (s.double() * w[:, None]).sum(0) / max(float(w.sum()), 1e-6)
+        scale = max(1.0, float(p_c.abs().sum()))
+        own_r = float((want[:3, :3].double() - want64[:3, :3]).abs().max())
+        own_t = float((want[:3, 3].double() - want64[:3, 3]).abs().max())
+        got = pk.p2p_update_cuda(s, m, dst, j, d2, max_corr)
+        again = pk.p2p_update_cuda(s, m, dst, j, d2, max_corr)
+        R = got[:3, :3].double()
+        e32 = float((R - want[:3, :3].double()).abs().max())
+        e64 = float((R - want64[:3, :3]).abs().max())
+        t32 = float((got[:3, 3].double() - want[:3, 3].double()).abs().max())
+        t64 = float((got[:3, 3].double() - want64[:3, 3]).abs().max())
+        what = f"kabsch update ({name})"
+        _check(torch.equal(got, again) and bool(torch.isfinite(got).all())
+               and float((R @ R.T - torch.eye(3, dtype=R.dtype,
+                                              device=device)).abs().max())
+               <= 4e-6 and abs(float(torch.linalg.det(R)) - 1) <= 4e-6
+               and torch.equal(got[3], eye[3]), f"{what}: not the same "
+               f"bits twice, or not a proper rotation")
+        _check(e64 <= KABSCH_UPDATE_TOL and t64 <= KABSCH_UPDATE_TOL * scale,
+               f"{what}: R {e64:.3e}, t {t64:.3e} from the float64 plain")
+        _check(e32 <= KABSCH_UPDATE_TOL + own_r and
+               t32 <= KABSCH_UPDATE_TOL * scale + own_t, f"{what}: R "
+               f"{e32:.3e}, t {t32:.3e} from the float32 plain (its own "
+               f"error R {own_r:.3e}, t {own_t:.3e})")
+        if name == "none_in_range":
+            _check(torch.equal(got, eye), f"{what}: T != I")
+        out[name] = (e32, e64, t64 / scale)
+    return out
+
+
 def _pca_kernels(device) -> dict:
-    """Kernels C (``pca_kernel.knn_pca``) and R (``pca_kernel.kabsch``)
+    """Kernels C (``pca_kernel.knn_pca``) and R (``pca_kernel.p2p_update``)
     against their plain versions on the card. C after kernel K, on the two
     prepared frames of phase 8's stream, random clouds, a padded cloud
     (3,000 valid points and zeros), fewer than k valid points, 24 copies
     of each point, points on three lines and a lattice, as covariances
     (k 20, eps 1e-3) and normals (k 16), under the bars and gap rule of
-    ``_pca_case``. R on 64 H of each kind of ``_kabsch_cases``. Then, on
-    the prepared frame at k 20, C's device time (torch.profiler, queued
-    bare launches), its wrapper's, its plain version's, the yardstick
+    ``_pca_case``. R's update on the cases of ``_p2p_cases``, and its
+    solve entry on 64 H of each kind of ``_kabsch_cases``. Then, on the
+    prepared frame at k 20, C's device time (torch.profiler, queued bare
+    launches), its wrapper's, its plain version's, the yardstick
     (``torch.linalg.eigh`` on the (P, 3, 3) batch) and the bound (its
     bytes at 3.35 TB/s: the points, the indices and the covariances); and
-    the same for R on the prepared frames' first step (yardstick
-    ``torch.linalg.svd`` of H); one wrapper call of each must enqueue the
-    kernel alone."""
+    the same for R's update on the prepared frames' first step (yardstick
+    ``torch.linalg.svd`` of H; bound its bytes: the source points, mask,
+    j, d2, the gathered targets and T), and the solve entry's device
+    time; one wrapper call of each must enqueue the kernel alone."""
     import numpy as np
     import torch
     from neural_spectral_codec_torch.retrieval import knn_kernel as kk
+    from neural_spectral_codec_torch.retrieval import nearest_kernel as nk
     from neural_spectral_codec_torch.retrieval import pca_kernel as pk
     n = VERIFY_POINTS
     g = torch.Generator(device=device).manual_seed(SEED + 61)
@@ -1464,17 +1554,25 @@ def _pca_kernels(device) -> dict:
           "the gap, invariants on every row, every row finite: " +
           ", ".join(f"{c} {m} {e:.3e} on {r} rows"
                     for (c, m), (e, r) in errs.items()), flush=True)
+    upd = _p2p_cases(device, scene)
+    torch.cuda.synchronize()
+    print(f"kabsch update: within the bars of the plain version (float32 "
+          f"and float64), proper rotations, no pair in range -> I, the "
+          f"same bits twice; R error vs float32 / float64 plain, t error "
+          f"vs float64 plain / max(1, |p_c|_1): "
+          f"{json.dumps(upd)}", flush=True)
     kcases = _kabsch_cases(device, scene)
     kab = {name: _kabsch_case(name, h, pc, qc) for name, h, pc, qc in kcases}
     torch.cuda.synchronize()
-    print(f"kabsch: within the bars of the plain version, proper "
-          f"rotations, H = 0 -> I, rank 1 the same trace(R H): "
+    print(f"kabsch solve entry: within the bars of the plain version, "
+          f"proper rotations, H = 0 -> I, rank 1 the same trace(R H): "
           f"{json.dumps(kab)}", flush=True)
 
     idx20 = kk.knn_cuda(scene_a, mask_a, 20)
     cov32 = pk.cov_matrices(scene_a, idx20)
     _, h, pc, qc = kcases[-1]
     h, pc, qc = h[0], pc[0], qc[0]
+    j, d2 = nk.nearest_cuda(scene_a, scene_b, mask_b)
     k = 20
     calls = {
         "knn_pca": (lambda: pk.knn_pca_cuda(scene_a, idx20, "covariances",
@@ -1487,10 +1585,14 @@ def _pca_kernels(device) -> dict:
                            n_ops_no_fma=n * (6 * k + 9)),
                     max(e for (c, m), (e, _) in errs.items()
                         if m == "covariances")),
-        "kabsch": (lambda: pk.kabsch_cuda(h, pc, qc),
-                   lambda: pk.kabsch_plain(h, pc, qc),
+        "kabsch": (lambda: pk.p2p_update_cuda(scene_a, mask_a, scene_b, j,
+                                              d2, 1.0),
+                   lambda: pk.p2p_update_plain(scene_a, mask_a, scene_b, j,
+                                               d2, 1.0),
                    lambda: torch.linalg.svd(h),
-                   _bound(4 * (9 + 3 + 3 + 16)), max(kab.values())),
+                   _bound(n * (12 + 1 + 8 + 4 + 12) + 64,
+                          n_ops_no_fma=40 * n),
+                   max(e[0] for e in upd.values())),
     }
     out = {}
     for name, (kernel, plain, yard, (bound_ms, bound_by), err) in \
@@ -1504,14 +1606,34 @@ def _pca_kernels(device) -> dict:
         t["share_of_bound"] = bound_ms / t["device_ms"]
         out[name] = t
         print(f"kernel {name}: " + ("(4096, 3) points, k 20 (prepared "
-              "frame)" if name == "knn_pca" else "one 3 x 3 H (prepared "
-              "frames' first step)") + f" device {t['device_ms']:.5f} ms "
+              "frame)" if name == "knn_pca" else "the update of 4,096 "
+              "points (prepared frames' first step)") +
+              f" device {t['device_ms']:.5f} ms "
               f"(profiler {t['profiler_ms']}, queued bare "
               f"{t['queued_ms']:.5f}), wrapper {wrapper_ms:.5f} ms, plain "
               f"{t['plain_ms']:.4f} ms, yardstick {t['yardstick_ms']:.4f} "
               f"ms, bound {bound_ms:.7f} ms ({bound_by}, "
               f"{100 * t['share_of_bound']:.2f}% of it)", flush=True)
+    out["kabsch"]["solve_device_ms"] = _solve_entry_ms(h, pc, qc)
     return out
+
+
+def _solve_entry_ms(h, pc, qc) -> dict:
+    """Device ms (torch.profiler, queued bare launches) of kernel R's
+    solve entry alone on the prepared frames' H."""
+    from neural_spectral_codec_torch.retrieval import pca_kernel as pk
+    from neural_spectral_codec_torch.utils.timing import (
+        kernel_device_ms, time_queued_ms)
+    pk.kabsch_cuda(h, pc, qc)
+    solve = {"queued_ms": time_queued_ms(pk.KABSCH_SOLVE.bare(),
+                                         n=QUEUED_CALLS),
+             "profiler_ms": kernel_device_ms(
+                 lambda: pk.kabsch_cuda(h, pc, qc), ("kabsch_solve_kernel",),
+                 calls=PROFILED_CALLS)[0]}
+    print(f"kernel kabsch: the solve entry alone, device ms "
+          f"{_fmt_ms(solve['profiler_ms'])} (profiler), "
+          f"{solve['queued_ms']:.5f} (queued bare)", flush=True)
+    return solve
 
 
 def _probe_paths() -> dict:
@@ -2007,7 +2129,9 @@ def _verifier_backends(pipe, device) -> dict:
                        "capture_s": exe.capture_s,
                        "prepare_capture_s": pexe.capture_s if pexe else None,
                        "midstream_captures": midstream, "warmup_s": warm_s,
-                       "window_ops": sum(window.values())}
+                       "window_ops": sum(window.values()),
+                       "kernels_per_step": exe.census["kernels"]
+                       / nat.max_iterations}
         print(f"online: verifier {method} on the stage-1 candidates of "
               f"{len(queries) if native else 2} queries: {pairs} pairs; ms "
               f"a pair (median, prepared clouds) graph {med['graph']}, "
@@ -2022,7 +2146,9 @@ def _verifier_backends(pipe, device) -> dict:
               f"kernel N of cluster width "
               f"{exe.census['nearest_cluster_width']}, "
               f"{exe.census['kabsch']} kernel R, {exe.census['memcpy']} "
-              f"copies, {exe.census['memset']} memsets), captured in "
+              f"copies, {exe.census['memset']} memsets; "
+              f"{out[method]['kernels_per_step']:.2f} kernels a step over "
+              f"{nat.max_iterations} steps), captured in "
               f"{exe.capture_s:.3f} s; prepare graph " + (
                   f"{pc['nodes']} nodes ({pc['kernels']} kernels, "
                   f"{pc['knn']} kernel K, {pc['knn_pca']} kernel C, "
@@ -4044,7 +4170,7 @@ def main() -> None:
                     "neural_spectral_codec_tpu/retrieval/verification.py:85",
                     timing["knn_pca"]["max_abs_err"]),
         "kabsch": ("neural_spectral_codec_torch/csrc/kabsch.cu",
-                   "neural_spectral_codec_tpu/retrieval/verification.py:141",
+                   "neural_spectral_codec_tpu/retrieval/verification.py:133",
                    timing["kabsch"]["max_abs_err"]),
     }
     # "ms" keeps the meaning it had in earlier records: the wrapper's time
@@ -4067,7 +4193,7 @@ def main() -> None:
                     "device_ms_sweep", "queued_ms_sweep",
                     "device_ms_sweep_b1", "queued_ms_sweep_b1",
                     "device_ms_cold", "device_ms_cold_b1", "yardstick_ms",
-                    "share_of_bound"):
+                    "share_of_bound", "solve_device_ms"):
             if key in t:
                 entry[key] = t[key]
         if name == "project":
@@ -4079,8 +4205,9 @@ def main() -> None:
                 "knn": "k-NN selection of _knn_cov_matrices (:64-73)",
                 "knn_pca": "PCA of _knn_cov_matrices (:64-73) and the eigh "
                            "of _knn_covariances (:85) and _knn_normals (:77)",
-                "kabsch": "SVD and det of _icp_kernel's p2p_step "
-                          "(:133-146)"}[name]
+                "kabsch": "weights of _icp_kernel's correspondences "
+                          "(:129-131) and its p2p_step after the argmin: "
+                          "the gather, sums, SVD and det (:133-146)"}[name]
         record.append(entry)
     from neural_spectral_codec_torch import entry as entry_mod
     from neural_spectral_codec_torch.models import gnn

@@ -375,7 +375,8 @@ extern "C" const void* nsc_kabsch_kernel_handle();
 //   12 nearest-neighbour nodes (nearest.cu), 13 k-NN nodes (knn.cu),
 //   14 the cluster width the nearest-neighbour function requires
 //   (__cluster_dims__; 0 none), read when the graph holds one,
-//   15 k-NN PCA nodes (knn_pca.cu), 16 Kabsch nodes (kabsch.cu).
+//   15 k-NN PCA nodes (knn_pca.cu), 16 point-to-point update nodes
+//   (kernel R, kabsch.cu; its solve-only entry is not counted).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
 constexpr int kCensusWords = 17;
 

@@ -2,20 +2,23 @@
 points, on the same card, in turns.
 
     python -m neural_spectral_codec_torch.experiments.kernel_ab \\
-        --other-csrc DIR [--cases nearest,knn] [--json out.json]
+        --other-csrc DIR [--cases nearest,knn,knn_pca] [--json out.json]
 
 ``DIR`` holds another version of ``csrc/`` (for example a parent
 commit's, unpacked with ``git archive <commit> neural_spectral_codec_torch/csrc``).
 It is compiled with ``_build.NVCC_FLAGS`` into a second library beside
 this tree's. Each serving kernel (K1 at B=8 and B=1, K2 at B=8 and B=1,
 K3 at B=8 and B=1 on random-order scans), the ring-fold probe (P1 at
-the probe shape) and the verifier's searches (N at 4,096 × 4,096, K at
+the probe shape), the verifier's searches (N at 4,096 × 4,096, K at
 4,096 points with k = 20, on two prepared frames: ``prepared_frames``)
-is called once through its wrapper; then both libraries' entry points
-are launched on those same arguments, bare and queued behind a spin
-kernel (``utils.timing.time_queued_ms``, 200 launches), in the order
-other, this, this, other, twice. For N and K the other side's last
-output must equal the wrapper's bit for bit. Prints and returns each
+and its k-NN PCA (C, covariances of the first frame at k = 20) is called
+once through its wrapper; then both libraries' entry points are launched
+on those same arguments, bare and queued behind a spin kernel
+(``utils.timing.time_queued_ms``, 200 launches), in the order other,
+this, this, other, twice. For N and K the other side's last output must
+equal the wrapper's bit for bit; for C it must lie within 1e-5 of it on
+the rows whose relative eigen-gap is at least 0.1, where a float64 solve
+is determined well below that (``pca_within_bar``). Prints and returns each
 side's median device µs; for N where the time of this tree's
 ``csrc/nearest.cu`` goes (``nearest_stamps``: a build with
 ``-DNSC_NEAREST_STAMPS``), and for K its merges a row on the same frames
@@ -157,6 +160,23 @@ def nearest_stamps(moved: torch.Tensor, dst: torch.Tensor,
     return out
 
 
+PCA_TOL = 1e-5       # kernel C against another build: covariances, on
+PCA_GAP = 0.1        # the rows of relative eigen-gap >= PCA_GAP
+
+
+def pca_within_bar(got: torch.Tensor, want: torch.Tensor, pts: torch.Tensor,
+                   idx: torch.Tensor) -> float:
+    """The largest difference of two (P, 3, 3) covariance outputs of
+    kernel C on the rows whose relative eigen-gap (λ1 − λ0) / λ2 of the
+    float64 k-NN covariance is at least PCA_GAP (elsewhere the eigenvector
+    is not determined by the data)."""
+    nbr = pts.double()[idx]
+    c = nbr - nbr.mean(dim=1, keepdim=True)
+    lam = torch.linalg.eigvalsh(torch.einsum("pki,pkj->pij", c, c))
+    rows = lam[:, 1] - lam[:, 0] >= PCA_GAP * lam[:, 2].clamp(min=1e-300)
+    return float((got - want)[rows].abs().max()) if rows.any() else 0.0
+
+
 def _scans(n: int, n_points: int, seed: int) -> np.ndarray:
     """Random-order full-view scans with ranges on both sides of the
     gates (``chip_smoke._general_scans`` without the NaN tails)."""
@@ -184,7 +204,7 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     from neural_spectral_codec_torch.ops import (
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.retrieval import (
-        knn_kernel, nearest_kernel)
+        knn_kernel, nearest_kernel, pca_kernel)
     from neural_spectral_codec_torch.ops.range_image import (
         project_points_batch_plain)
     from neural_spectral_codec_torch.ops.ring_path import (
@@ -238,6 +258,10 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
                 lambda: knn_kernel.knn_cuda(scene_a, mask_a, 20)),
     }
     cases.update(searches)
+    idx20 = knn_kernel.knn_cuda(scene_a, mask_a, 20)
+    cases["knn_pca"] = (pca_kernel.KNN_PCA,
+                        lambda: pca_kernel.knn_pca_cuda(
+                            scene_a, idx20, "covariances", 1e-3))
     if cases_kept:
         cases = {n: c for n, c in cases.items() if n in cases_kept}
     out = {}
@@ -269,6 +293,14 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
             out[name]["same_bits"] = same
             if not same:
                 raise RuntimeError(f"{name}: the two sides' outputs differ")
+        if name == "knn_pca":    # the last launch was the other side's
+            torch.cuda.synchronize()
+            err = pca_within_bar(keep, want[0], scene_a, idx20)
+            out[name]["max_abs_diff"] = err
+            if not err <= PCA_TOL:
+                raise RuntimeError(f"knn_pca: the two sides differ by "
+                                   f"{err:.3e} > {PCA_TOL} on rows of "
+                                   f"relative gap >= {PCA_GAP}")
         log(f"{name}: other {out[name]['other_us']:.3f} µs, this "
             f"{out[name]['this_us']:.3f} µs")
         del keep

@@ -28,10 +28,11 @@ the PCA, and device copies that the ``PreparedCloud`` owns. A pair
 prepared clouds copied into its input arena on the device, one replay
 and one fetch of 18 floats. Their kernels are hand-written and built
 from ``csrc/`` at first use: the nearest neighbour of every moved source
-point (kernel N, ``nearest_kernel``, 31 launches a replay), the weighted
-Kabsch solve of a point-to-point step (kernel R, ``pca_kernel``, one an
-iteration) and, in ``prepare``, the k nearest neighbours within a cloud
-(kernel K, ``knn_kernel``) and their PCA to normals or covariances
+point (kernel N, ``nearest_kernel``, 31 launches a replay), the whole
+point-to-point update after it, weights, centroids, H and the Kabsch
+solve (kernel R, ``pca_kernel``, one an iteration) and, in ``prepare``,
+the k nearest neighbours within a cloud (kernel K, ``knn_kernel``) and
+their PCA to normals or covariances
 (kernel C, ``pca_kernel``). All of it runs on the verifier's own stream
 (``verifier_stream``), apart from the current stream on which the
 serving graphs replay. A CPU tensor runs the same steps eagerly with the
@@ -158,12 +159,12 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
 
     Static shapes and no host sync (no ``.item()``, no Python value read
     from a tensor, no solver error check: ``inv_ex`` and ``solve_ex`` skip
-    it with the same arithmetic, and the Kabsch solve is kernel R), so
-    that a card captures all ``max_iterations`` steps and the final
-    correspondence search in one CUDA graph; the loop is unrolled into
-    it."""
+    it with the same arithmetic, and point-to-point's update after the
+    search is kernel R), so that a card captures all ``max_iterations``
+    steps and the final correspondence search in one CUDA graph; the loop
+    is unrolled into it."""
     from neural_spectral_codec_torch.retrieval.nearest_kernel import nearest
-    from neural_spectral_codec_torch.retrieval.pca_kernel import kabsch
+    from neural_spectral_codec_torch.retrieval.pca_kernel import p2p_update
     dev, f32 = src.device, torch.float32
     n_src = src_mask.sum().clamp(min=1).to(f32)
     eye3 = torch.eye(3, dtype=f32, device=dev)
@@ -177,14 +178,10 @@ def icp_kernel(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
         return moved, j, dist, w.to(f32)
 
     def p2p_step(T):
-        _, j, _, w = correspondences(T)
-        q = dst[j]
-        sw = w.sum().clamp(min=1e-6)
-        # weighted Kabsch from the ORIGINAL source to the matched targets
-        p_c = (src * w[:, None]).sum(0) / sw
-        q_c = (q * w[:, None]).sum(0) / sw
-        H = torch.einsum("ni,nj->ij", (src - p_c) * w[:, None], q - q_c)
-        return kabsch(H, p_c, q_c)                     # kernel R on a card
+        j, d2 = nearest(_transform(T, src), dst, dst_mask)   # kernel N
+        # the weights, weighted Kabsch from the ORIGINAL source to the
+        # matched targets and its solve: kernel R on a card
+        return p2p_update(src, src_mask, dst, j, d2, max_corr)
 
     def p2l_step(T):
         moved, j, _, w = correspondences(T)

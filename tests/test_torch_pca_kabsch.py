@@ -1,19 +1,24 @@
 """Numpy models of the verifier's two eigen-solve kernels,
-``csrc/knn_pca.cu`` (kernel C: k-NN PCA → normal or GICP covariance) and
-``csrc/kabsch.cu`` (kernel R: the weighted Kabsch solve of a
-point-to-point step), both on the cyclic Jacobi solve of ``csrc/sym3.cuh``,
-against the plain versions (``pca_kernel.knn_pca_plain``,
-``kabsch_plain``) and against the JAX package (``_knn_covariances``,
-``_knn_normals``, and ``_icp_kernel``'s SVD formula); then the prepare
-step (``verification.PrepareExecutable``) on the CPU, and the bindings'
+``csrc/knn_pca.cu`` (kernel C: k-NN PCA → normal or GICP covariance, a
+group of lanes a point) and ``csrc/kabsch.cu`` (kernel R: the whole
+point-to-point update after the correspondence search, one cluster a
+step, and its Kabsch solve alone), both on the cyclic Jacobi solve of
+``csrc/sym3.cuh``, against the plain versions
+(``pca_kernel.knn_pca_plain``, ``p2p_update_plain``, ``kabsch_plain``)
+and against the JAX package (``_knn_covariances``, ``_knn_normals``,
+``_icp_kernel``); then the prepare step
+(``verification.PrepareExecutable``) on the CPU, and the bindings'
 refusals.
 
 The kernels run only on a card: ``chip_smoke.py`` phase 3 holds them
 against the plain versions there under the same bars and gap rule. The
 models hold their arithmetic here: float64 from the float32 inputs, the
-sweep count read from ``sym3.cuh``, the eigenvector of the first of equal
-extreme eigenvalues, the normal's sign fixed (its largest-magnitude
-component positive), one rounding to float32.
+rotation, convergence test and sweep bound of ``sym3.cuh`` (constants
+read from it), C's lane split and fixed-order group sums and R's
+per-thread, warp, CTA and rank sums (layouts read from the sources), the
+eigenvector of the first of equal extreme eigenvalues, the normal's sign
+fixed (its largest-magnitude component positive), one rounding to
+float32.
 
 The gap rule. The plain version and JAX solve the 3 × 3 problem in
 float32; the eigenvector of the smallest eigenvalue then moves by about
@@ -50,18 +55,37 @@ import jax.numpy as jnp  # noqa: E402
 from neural_spectral_codec_tpu.retrieval import (  # noqa: E402
     verification as jver)
 from neural_spectral_codec_torch.retrieval import (  # noqa: E402
-    knn_kernel, pca_kernel, verification as tver)
+    knn_kernel, nearest_kernel, pca_kernel, verification as tver)
 
 torch.set_num_threads(2)
 
 CSRC = REPO / "neural_spectral_codec_torch" / "csrc"
-SWEEPS = int(re.search(r"constexpr int kJacobiSweeps = (\d+);",
-                       (CSRC / "sym3.cuh").read_text())[1])
+
+
+def _constant(source: str, name: str) -> float:
+    """A ``constexpr int`` or ``double`` of a ``csrc/`` file."""
+    text = (CSRC / source).read_text()
+    return float(re.search(rf"constexpr (?:int|double) {name} = ([0-9.e+-]+);",
+                           text)[1])
+
+
+MAX_SWEEPS = int(_constant("sym3.cuh", "kJacobiMaxSweeps"))
+HUGE = _constant("sym3.cuh", "kJacobiHuge")
+TINY = _constant("sym3.cuh", "kJacobiTiny")
+GROUP = int(_constant("knn_pca.cu", "kGroup"))        # kernel C's lanes
+REGS = int(_constant("knn_pca.cu", "kRegs"))          # a point
+P2P_THREADS = int(_constant("kabsch.cu", "kThreads"))
+P2P_MAX_CTAS = int(_constant("kabsch.cu", "kMaxCtas"))
+P2P_PER = int(_constant("kabsch.cu", "kPer"))
+# sym3.cuh's documented convergence: sweeps that rotate, at most
+ROTATING_SWEEPS = {3: 5, 4: 6}
+T_TOL = 1e-4            # a step's transform, port vs JAX
 COV_TOL = 1e-5          # GICP covariances (test_torch_verify_graph.py)
 NORMAL_TOL = 1e-4       # 1 − |cos| between normals (the same)
 R_TOL = 1e-5            # Kabsch R and t, model vs JAX's float32 SVD
 INV_TOL = 1e-5          # the invariants of rows below the gap
 ORTHO_TOL = 4e-6        # RᵀR = I and det R = 1 for a float32 rotation
+VEC_TOL = 1e-14         # float64 eigenvector vs eigh, times max|λ| / gap
 GAP_ERR = 1e-6          # float32 solve: |Δ covariance| · relative gap
 COV_GAP = GAP_ERR / COV_TOL
 NORMAL_GAP = GAP_ERR / math.sqrt(2 * NORMAL_TOL)
@@ -72,44 +96,60 @@ HOST_SYNCS = ("_local_scalar_dense", "is_nonzero", "nonzero", ".item",
 
 # -- the models -------------------------------------------------------------
 
-def jacobi(a: np.ndarray, sweeps: int = SWEEPS):
+def jacobi(a: np.ndarray, max_sweeps: int = MAX_SWEEPS):
     """sym3.cuh jacobi_eigen on a batch (B, N, N) of symmetric float64
-    matrices: (the rotated matrices, whose diagonals are the eigenvalues,
-    and V, eigenvectors in columns)."""
+    matrices: (the rotated matrices, whose diagonals are the eigenvalues;
+    V, eigenvectors in columns; the sweeps that rotated a pair). A pair
+    whose |a_pq| is below half an ulp of both diagonal entries is skipped;
+    a matrix stops after a sweep that rotated nothing."""
     a = np.array(a, np.float64)
     n = a.shape[1]
     v = np.broadcast_to(np.eye(n), a.shape).copy()
-    for _ in range(sweeps):
+    live_rows = np.ones(len(a), bool)
+    sweeps = np.zeros(len(a), int)
+    for _ in range(max_sweeps):
+        rotated = np.zeros(len(a), bool)
         for p in range(n - 1):
             for q in range(p + 1, n):
                 apq = a[:, p, q].copy()
-                live = apq != 0
-                with np.errstate(divide="ignore", invalid="ignore",
-                                 over="ignore"):
-                    theta = np.where(live, (a[:, q, q] - a[:, p, p])
-                                     / (2.0 * apq), 0.0)
-                    big = np.abs(theta) > 1e150
-                    t = np.where(
-                        big, 0.5 / np.where(big, theta, 1.0),
-                        np.where(theta >= 0, 1.0, -1.0)
-                        / (np.abs(theta) + np.sqrt(
-                            np.where(big, 0.0, theta * theta) + 1.0)))
-                t = np.where(live, t, 0.0)
-                c = 1.0 / np.sqrt(t * t + 1.0)
-                s = t * c
-                a[:, p, p] -= t * apq
-                a[:, q, q] += t * apq
-                a[:, p, q] = a[:, q, p] = 0.0
+                app, aqq = a[:, p, p].copy(), a[:, q, q].copy()
+                g = np.abs(apq)
+                with np.errstate(all="ignore"):
+                    skip = ((np.abs(app) + g == np.abs(app))
+                            & (np.abs(aqq) + g == np.abs(aqq)))
+                    live = ~skip & live_rows
+                    d = aqq - app
+                    u = np.abs(d)
+                    sgn = np.where(d >= 0.0, 1.0, -1.0)
+                    big = np.fmax(u, 2.0 * g)
+                    scale = np.where((big <= HUGE) & (big >= TINY), 1.0, big)
+                    un, dn, an = u / scale, d / scale, 2.0 * apq / scale
+                    root = np.sqrt(dn * dn + an * an)
+                    m = 1.0 / np.sqrt(2.0 * root * (un + root))
+                    c = np.where(live, (un + root) * m, 1.0)
+                    s = np.where(live, an * sgn * m, 0.0)
+                    ta = sgn * s * s * root * scale
+                rotated |= live
+                a[:, p, p] = np.where(live, app - ta, app)
+                a[:, q, q] = np.where(live, aqq + ta, aqq)
+                a[:, p, q] = a[:, q, p] = np.where(live, 0.0, apq)
                 for r in range(n):
                     if r in (p, q):
                         continue
                     arp, arq = a[:, r, p].copy(), a[:, r, q].copy()
-                    a[:, r, p] = a[:, p, r] = c * arp - s * arq
-                    a[:, r, q] = a[:, q, r] = s * arp + c * arq
+                    a[:, r, p] = a[:, p, r] = np.where(live, c * arp - s * arq,
+                                                       arp)
+                    a[:, r, q] = a[:, q, r] = np.where(live, s * arp + c * arq,
+                                                       arq)
                 vp, vq = v[:, :, p].copy(), v[:, :, q].copy()
-                v[:, :, p] = c[:, None] * vp - s[:, None] * vq
-                v[:, :, q] = s[:, None] * vp + c[:, None] * vq
-    return a, v
+                keep = live[:, None]
+                v[:, :, p] = np.where(keep, c[:, None] * vp - s[:, None] * vq,
+                                      vp)
+                v[:, :, q] = np.where(keep, s[:, None] * vp + c[:, None] * vq,
+                                      vq)
+        sweeps += rotated
+        live_rows &= rotated
+    return a, v, sweeps
 
 
 def _first(values: np.ndarray, better) -> np.ndarray:
@@ -121,11 +161,46 @@ def _first(values: np.ndarray, better) -> np.ndarray:
     return pick
 
 
+def lane_order(k: int) -> list:
+    """Kernel C's split of a row's k neighbours over its GROUP lanes: lane
+    s takes s, s + GROUP, ... (the first REGS from registers, the rest
+    gathered again), each lane in that order."""
+    return [list(range(s, k, GROUP)) for s in range(GROUP)]
+
+
+def butterfly(lanes: np.ndarray) -> np.ndarray:
+    """Each lane's result of a xor-butterfly sum over the last axis (its
+    length a power of two): at each level lane l adds lane l ^ off."""
+    v = np.array(lanes, np.float64)
+    ids = np.arange(v.shape[-1])
+    off = 1
+    while off < v.shape[-1]:
+        v = v + v[..., ids ^ off]
+        off *= 2
+    return v
+
+
+def group_sum(terms: np.ndarray) -> np.ndarray:
+    """Kernel C's group_sum of per-neighbour float64 terms (P, k, ...):
+    each lane's sum in its order, then the butterfly (lane 0's result)."""
+    k = terms.shape[1]
+    lanes = []
+    for order in lane_order(k):
+        acc = np.zeros(terms.shape[:1] + terms.shape[2:])
+        for j in order:
+            acc = acc + terms[:, j]
+        lanes.append(acc)
+    return butterfly(np.stack(lanes, -1))[..., 0]
+
+
 def model_cov64(pts: np.ndarray, idx: np.ndarray) -> np.ndarray:
-    """Kernel C's raw covariance in float64: mean, centring, Σ c cᵀ / k."""
-    nbr = pts.astype(np.float64)[idx]
-    c = nbr - nbr.sum(1, keepdims=True) / idx.shape[1]
-    return np.einsum("pki,pkj->pij", c, c) / idx.shape[1]
+    """Kernel C's raw covariance in float64: the mean and the 6 centred
+    sums Σ c cᵀ, each a group sum, divided by k."""
+    k = idx.shape[1]
+    nbr = pts.astype(np.float64)[idx]                     # (P, k, 3)
+    c = nbr - (group_sum(nbr) / k)[:, None, :]
+    cov = group_sum(c[:, :, :, None] * c[:, :, None, :]) / k
+    return cov
 
 
 def model_knn_pca(pts: np.ndarray, idx: np.ndarray, mode: str,
@@ -133,7 +208,7 @@ def model_knn_pca(pts: np.ndarray, idx: np.ndarray, mode: str,
     """Kernel C: the normal (the least eigenvalue's eigenvector, the first
     of equal ones, its largest-magnitude component positive) or I −
     (1 − ε) n nᵀ, from float64 and rounded once."""
-    a, v = jacobi(model_cov64(pts, idx))
+    a, v, _ = jacobi(model_cov64(pts, idx))
     rows = np.arange(len(a))
     low = _first(np.diagonal(a, 0, 1, 2), np.less)
     n = v[rows, :, low]
@@ -161,10 +236,10 @@ def horn_matrix(h: np.ndarray) -> np.ndarray:
 
 def model_kabsch(h: np.ndarray, p_c: np.ndarray, q_c: np.ndarray
                  ) -> np.ndarray:
-    """Kernel R on a batch: the unit eigenvector of the largest eigenvalue
-    of Horn's matrix (the first of equal ones), its rotation, t = q_c −
-    R p_c in float64; (B, 4, 4) float32."""
-    a, v = jacobi(horn_matrix(h))
+    """Kernel R's solve (horn_solve) on a batch: the unit eigenvector of
+    the largest eigenvalue of Horn's matrix (the first of equal ones), its
+    rotation, t = q_c − R p_c in float64; (B, 4, 4) float32."""
+    a, v, _ = jacobi(horn_matrix(h))
     rows = np.arange(len(a))
     q = v[rows, :, _first(np.diagonal(a, 0, 1, 2), np.greater)]
     w, x, y, z = (q / np.sqrt((q * q).sum(1, keepdims=True))).T
@@ -194,33 +269,137 @@ def jax_kabsch(h, p_c, q_c) -> np.ndarray:
         q_c - R @ p_c))
 
 
+def model_p2p_update(src, src_mask, dst, j, d2, max_corr: float,
+                     layout: tuple) -> np.ndarray:
+    """Kernel R's update (p2p_update_kernel) at ``layout`` = (CTAs,
+    threads): w from the float32 compare, then in float64 each thread's
+    sums over its points (global thread g takes g, g + G, ...; G = CTAs ×
+    threads) in point order, the warp's butterfly, warp 0's butterfly over
+    the warps' sums, the ranks' sums in rank order; the 7 centroid sums,
+    then H's 9; then the solve. (4, 4) float32."""
+    ctas, threads = layout
+    n = len(src)
+    total = ctas * threads
+    rounds = -(-n // total)
+    with np.errstate(invalid="ignore"):
+        w = (src_mask & (np.sqrt(np.asarray(d2, np.float32))
+                         <= np.float32(max_corr))).astype(np.float64)
+    p = np.asarray(src, np.float64)
+    q = np.asarray(dst, np.float64)[j]
+
+    def reduce(terms):                                    # (n, K) → (K,)
+        width = terms.shape[1]
+        pad = np.zeros((rounds * total, width))
+        pad[:n] = terms
+        acc = np.zeros((total, width))
+        for per in pad.reshape(rounds, total, width):
+            acc = acc + per
+        warps = threads // 32
+        lanes = acc.reshape(ctas, warps, 32, width)
+        warp_sums = butterfly(np.moveaxis(lanes, 2, -1))[..., 0]
+        first = np.zeros((ctas, 32, width))
+        first[:, :warps] = warp_sums
+        rank_sums = butterfly(np.moveaxis(first, 1, -1))[..., 0]
+        out = np.zeros(width)
+        for r in range(ctas):
+            out = out + rank_sums[r]
+        return out
+
+    with np.errstate(invalid="ignore"):
+        s1 = reduce(np.column_stack([w, p * w[:, None], q * w[:, None]]))
+        sw = np.fmax(s1[0], 1e-6)
+        p_c, q_c = s1[1:4] / sw, s1[4:7] / sw
+        a = (p - p_c) * w[:, None]
+        h = reduce((a[:, :, None] * (q - q_c)[:, None, :]).reshape(n, 9))
+    return model_kabsch(h.reshape(1, 3, 3), p_c[None], q_c[None])[0]
+
+
 # -- the solve itself --------------------------------------------------------
 
-@pytest.mark.parametrize("n", [3, 4])
-def test_jacobi_sweeps_converge(n):
-    """Two sweeps before sym3.cuh's count ends, the off-diagonal entries
-    of random and near-degenerate symmetric matrices (eigenvalue pairs
-    1e-12 apart, six orders of scale) are below 1e-20 of the matrix, far
-    under float64's resolution; after the count the eigenvalues match
-    LAPACK's to 1e-14 of the largest and V is orthonormal."""
+def jacobi_inputs(n: int, kind: str) -> np.ndarray:
+    """4,000 symmetric n × n float64 matrices of one kind, seeded."""
     rng = np.random.default_rng(n)
-    m = rng.normal(size=(4000, n, n))
-    q, _ = np.linalg.qr(rng.normal(size=(4000, n, n)))
-    ev = rng.normal(size=(4000, n)) * np.array([1, 1e-6, 1e3, 1][:n])
-    ev[:1000, 1] = ev[:1000, 0] * (1 + 1e-12)
-    for x in (m + m.transpose(0, 2, 1),
-              np.einsum("bij,bj,bkj->bik", q, ev, q)):
-        scale = np.abs(np.linalg.eigvalsh(x)).max(1)
-        early, _ = jacobi(x, SWEEPS - 2)
-        off = np.abs(early[:, ~np.eye(n, dtype=bool)]).max(1)
-        assert (off / scale).max() < 1e-20
-        a, v = jacobi(x)
-        w = np.sort(np.diagonal(a, 0, 1, 2), 1)
-        assert (np.abs(w - np.linalg.eigvalsh(x)).max(1) / scale).max() \
-            < 1e-14
-        np.testing.assert_allclose(v.transpose(0, 2, 1) @ v,
-                                   np.broadcast_to(np.eye(n), v.shape),
-                                   atol=1e-14)
+    b = 4000
+    if kind == "random":
+        m = rng.normal(size=(b, n, n))
+        return m + m.transpose(0, 2, 1)
+    if kind == "zero":
+        return np.zeros((b, n, n))
+    if kind == "nan":                       # one NaN pair, the rest random
+        m = rng.normal(size=(b, n, n))
+        m = m + m.transpose(0, 2, 1)
+        m[:, 0, n - 1] = m[:, n - 1, 0] = np.nan
+        return m
+    q, _ = np.linalg.qr(rng.normal(size=(b, n, n)))
+    ev = rng.normal(size=(b, n)) * np.array([1, 1e-6, 1e3, 1][:n])
+    if kind == "near_degenerate":           # pairs 1e-12 apart, 6 orders
+        ev[:, 1] = ev[:, 0] * (1 + 1e-12)
+    elif kind == "repeated":                # equal pairs, all equal, rank
+        ev[: b // 2, 1] = ev[: b // 2, 0]   # deficient (zeros)
+        ev[b // 2: 3 * b // 4] = 1.5
+        ev[3 * b // 4:, : n - 1] = 0.0
+    else:
+        raise ValueError(kind)
+    return np.einsum("bij,bj,bkj->bik", q, ev, q)
+
+
+@pytest.mark.parametrize("kind", ["random", "near_degenerate", "repeated",
+                                  "zero", "nan"])
+@pytest.mark.parametrize("n", [3, 4])
+def test_jacobi_sweeps_converge(n, kind):
+    """sym3.cuh's solve, modelled: every matrix of random, near-degenerate
+    (eigenvalue pairs 1e-12 apart, six orders of scale) and repeated-
+    eigenvalue kinds stops after a sweep that rotated nothing, within
+    ROTATING_SWEEPS (5 for 3 × 3, 6 for 4 × 4) sweeps that rotate and
+    inside the sweep bound read from the header; at exit every pair meets
+    the solver's own skip rule (|a_pp| + |a_pq| == |a_pp| and the same for
+    a_qq); its output, solved again, rotates nothing; eigenvalues and
+    V diag(λ) Vᵀ agree with ``numpy.linalg.eigh`` to 1e-14 of the largest
+    |λ|, V is orthonormal to 1e-14, and the eigenvector of the smallest
+    eigenvalue (the one kernel C's normal is) is within
+    VEC_TOL · max|λ| / (λ1 − λ0) of eigh's, up to sign, on every row where
+    that bar is below 1 (every random row; where the gap is smaller the
+    vector is not determined by the matrix). A zero matrix rotates nothing
+    and keeps V = I; a NaN entry runs to the bound and makes every
+    eigenvalue and eigenvector entry NaN."""
+    x = jacobi_inputs(n, kind)
+    a, v, sweeps = jacobi(x)
+    if kind == "nan":
+        assert (sweeps == MAX_SWEEPS).all()
+        assert np.isnan(np.diagonal(a, 0, 1, 2)).all()
+        assert np.isnan(v).all()
+        return
+    assert sweeps.max() <= ROTATING_SWEEPS[n] and sweeps.max() < MAX_SWEEPS
+    again, v2, none = jacobi(a)
+    assert (none == 0).all()
+    np.testing.assert_array_equal(again, a)
+    np.testing.assert_array_equal(v2, np.broadcast_to(np.eye(n), v2.shape))
+    if kind == "zero":
+        assert (sweeps == 0).all() and not a.any()
+        np.testing.assert_array_equal(v, np.broadcast_to(np.eye(n), v.shape))
+        return
+    for p in range(n - 1):
+        for q in range(p + 1, n):
+            g = np.abs(a[:, p, q])
+            for r in (p, q):
+                assert (np.abs(a[:, r, r]) + g == np.abs(a[:, r, r])).all()
+    lam, vec = np.linalg.eigh(x)
+    scale = np.abs(lam).max(1)
+    w = np.diagonal(a, 0, 1, 2)
+    low = v[np.arange(len(v)), :, _first(w, np.less)]
+    dist = np.minimum(np.abs(low - vec[:, :, 0]).max(1),
+                      np.abs(low + vec[:, :, 0]).max(1))
+    with np.errstate(divide="ignore"):
+        bar = VEC_TOL * scale / (lam[:, 1] - lam[:, 0])
+    held = bar < 1
+    assert held.all() if kind == "random" else held.sum() > len(x) // 4
+    assert (dist[held] <= bar[held]).all()
+    assert (np.abs(np.sort(w, 1) - lam).max(1) / scale).max() < 1e-14
+    rebuilt = np.einsum("bij,bj,bkj->bik", v, w, v)
+    assert (np.abs(rebuilt - x).max((1, 2)) / scale).max() < 1e-14
+    np.testing.assert_allclose(v.transpose(0, 2, 1) @ v,
+                               np.broadcast_to(np.eye(n), v.shape),
+                               rtol=0, atol=1e-14)
 
 
 # -- kernel C ------------------------------------------------------------------
@@ -369,6 +548,45 @@ def test_knn_pca_model_fixes_the_normal_sign():
     np.testing.assert_array_equal(plain, got)
 
 
+@pytest.mark.parametrize("k", [1, 3, 16, 20, 32, 33, 45])
+def test_knn_pca_group_sums(k):
+    """Kernel C's lane split and group sums: the GROUP lanes of a point
+    take every one of its k neighbours exactly once (REGS a lane from
+    registers, the rest gathered again), each lane in index order; the
+    xor butterfly gives every lane of the group the same bits, so the
+    order is fixed and the result deterministic; the grouped float64
+    covariance equals the float64 covariance summed in neighbour order to
+    1e-13 of its largest entry, and the plain float32 version on rows above
+    the gap rule's threshold (the invariants on every row)."""
+    orders = lane_order(k)
+    taken = sorted(j for order in orders for j in order)
+    assert taken == list(range(k))
+    assert all(order == sorted(order) for order in orders)
+    held = [j for order in orders for j in order[:REGS]]
+    assert len(held) == min(k, GROUP * REGS)
+    pts, mask = pca_inputs("random")
+    p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+    idx = knn_kernel.knn_plain(p, m, k).numpy()
+    nbr = pts.astype(np.float64)[idx]
+    lanes = np.stack([nbr[:, order].sum(1) if order else np.zeros(
+        (len(pts), 3)) for order in orders], -1)
+    every = butterfly(lanes)
+    assert (every == every[..., :1]).all()
+    got = model_cov64(pts, idx)
+    c = nbr - nbr.mean(1, keepdims=True)
+    ref = np.einsum("pki,pkj->pij", c, c) / k
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-13 * np.abs(ref).max())
+    if k < 3:
+        return
+    gap, _ = _gaps(got)
+    out = model_knn_pca(pts, idx, "covariances")
+    check_pca_invariants(out, "covariances", got, f"k {k}")
+    plain = pca_kernel.knn_pca_plain(p, torch.from_numpy(idx),
+                                     "covariances", EPS).numpy()
+    compare_pca(out, plain, "covariances", gap, f"k {k}: model vs plain")
+
+
 # -- kernel R ------------------------------------------------------------------
 
 def kabsch_inputs(case: str) -> tuple:
@@ -464,6 +682,120 @@ def test_kabsch_model_equals_jax(case):
     if case == "zero":
         np.testing.assert_array_equal(got[:, :3, :3], np.broadcast_to(
             np.eye(3, dtype=np.float32), (len(got), 3, 3)))
+
+
+def p2p_inputs(case: str, n: int = 2048) -> tuple:
+    """(src, src_mask, dst, dst_mask, init_T, max_corr) float32 / bool of
+    one case: a voxelised scene and its copy moved by a small rotation and
+    0.4 m, with noise, padded to ``n``; ``partial`` masks half the source,
+    ``far`` takes a correspondence distance no pair meets (w = 0)."""
+    src, src_mask = _scene(n, 21)
+    rng = np.random.default_rng(22)
+    moved = (src[src_mask] @ _rotation(np.array([0.01, -0.02, 0.03])).T
+             + np.array([0.4, -0.1, 0.05])
+             + rng.normal(0, 0.01, (int(src_mask.sum()), 3)))
+    dst, dst_mask = tver._pad(moved.astype(np.float32), n)
+    if case == "partial":
+        src_mask = src_mask & (np.arange(n) % 2 == 0)
+    init = np.eye(4, dtype=np.float32)
+    init[:3, 3] = (0.3, 0.0, 0.0)
+    max_corr = {"scene": 1.0, "partial": 1.0, "far": 1e-6}[case]
+    return src, src_mask, dst, dst_mask, init, max_corr
+
+
+def _correspondences(src, dst, dst_mask, init) -> tuple:
+    """Kernel N's (j, d2) as the step takes them, from the plain search."""
+    moved = torch.from_numpy(src) @ torch.from_numpy(init[:3, :3]).T \
+        + torch.from_numpy(init[:3, 3])
+    return nearest_kernel.nearest_plain(moved, torch.from_numpy(dst),
+                                        torch.from_numpy(dst_mask))
+
+
+def torch_step_tail(src, src_mask, dst, j, d2, max_corr):
+    """The tail of JAX's ``p2p_step`` after the argmin, op for op in torch:
+    ``correspondences``' distance and weights, then the weighted
+    centroids, H and the Kabsch solve."""
+    dist = torch.sqrt(d2)
+    w = (src_mask & (dist <= max_corr)).to(torch.float32)
+    q = dst[j]
+    sw = w.sum().clamp(min=1e-6)
+    p_c = (src * w[:, None]).sum(0) / sw
+    q_c = (q * w[:, None]).sum(0) / sw
+    H = torch.einsum("ni,nj->ij", (src - p_c) * w[:, None], q - q_c)
+    return pca_kernel.kabsch_plain(H, p_c, q_c)
+
+
+@pytest.mark.parametrize("case", ["scene", "partial", "far", "nan"])
+def test_p2p_update_plain_equals_the_step_tail(case):
+    """``p2p_update_plain`` (kernel R's plain version) equals the step's
+    tail written op for op after the search, bit for bit, on a step's
+    (j, d2), with half the source masked, with no pair in range, and with
+    NaN distances (a NaN point: its weight is 0)."""
+    src, src_mask, dst, dst_mask, init, max_corr = p2p_inputs(
+        "scene" if case == "nan" else case)
+    j, d2 = _correspondences(src, dst, dst_mask, init)
+    if case == "nan":
+        d2[::7] = float("nan")
+    args = (torch.from_numpy(src), torch.from_numpy(src_mask),
+            torch.from_numpy(dst), j, d2, max_corr)
+    got = pca_kernel.p2p_update_plain(*args)
+    assert torch.equal(got, torch_step_tail(*args))
+    assert torch.equal(pca_kernel.p2p_update(*args), got)
+    if case == "far":
+        assert torch.equal(got, torch.eye(4))
+
+
+@pytest.mark.parametrize("layout", [(8, 256), (4, 256), (1, 256)])
+@pytest.mark.parametrize("case", ["scene", "partial", "far"])
+def test_p2p_update_model_equals_plain_and_jax(case, layout):
+    """Kernel R's update, modelled as clusters of 8 CTAs of 256 (a point
+    or none a thread here), 4 (the cluster ``p2p_layout`` launches for
+    these 2,048 points: 2 a thread) and 1 (8 points a thread, 4 of them
+    gathered again), against the float32 plain version (R within 1e-5, t within
+    1e-5 · max(1, |p_c|₁)), the plain version in float64 (1e-6) and JAX's
+    ``_icp_kernel`` run for one point-to-point iteration on the same
+    clouds (T within T_TOL); no pair in range gives T = I exactly."""
+    src, src_mask, dst, dst_mask, init, max_corr = p2p_inputs(case)
+    j, d2 = _correspondences(src, dst, dst_mask, init)
+    got = model_p2p_update(src, src_mask, dst, j.numpy(), d2.numpy(),
+                           max_corr, layout)
+    plain = pca_kernel.p2p_update_plain(
+        torch.from_numpy(src), torch.from_numpy(src_mask),
+        torch.from_numpy(dst), j, d2, max_corr).numpy()
+    plain64 = pca_kernel.p2p_update_plain(
+        torch.from_numpy(src).double(), torch.from_numpy(src_mask),
+        torch.from_numpy(dst).double(), j, d2, max_corr).numpy()
+    w = src_mask & (np.sqrt(d2.numpy()) <= np.float32(max_corr))
+    p_c = (src.astype(np.float64) * w[:, None]).sum(0) / max(w.sum(), 1e-6)
+    assert_same_transform(got[None], plain[None], p_c[None],
+                          f"{case} {layout}: model vs plain")
+    np.testing.assert_allclose(got, plain64, rtol=0, atol=1e-6)
+    zc = jnp.zeros((len(src), 3, 3), jnp.float32)
+    jT, _, _ = jver._icp_kernel(
+        jnp.asarray(src), jnp.asarray(src_mask), jnp.asarray(dst),
+        jnp.asarray(dst_mask), jnp.zeros((len(dst), 3), jnp.float32), zc,
+        zc, jnp.asarray(init), 1, "p2p", max_corr)
+    np.testing.assert_allclose(got, np.asarray(jT), rtol=0, atol=T_TOL)
+    if case == "far":
+        np.testing.assert_array_equal(got, np.eye(4, dtype=np.float32))
+    else:
+        assert w.sum() > len(src) // 4        # the step had work
+
+
+def test_p2p_layout_matches_the_kernel():
+    """The binding's layout constants are kabsch.cu's; at the verifier's
+    4,096 points the main path launches 8 CTAs of 256 threads, 2 points a
+    thread, all held in registers; one point takes one CTA, and the
+    cluster never exceeds 8 CTAs."""
+    assert (pca_kernel.P2P_THREADS, pca_kernel.P2P_MAX_CTAS) == (
+        P2P_THREADS, P2P_MAX_CTAS)
+    assert pca_kernel.P2P_POINTS <= P2P_PER
+    assert pca_kernel.p2p_layout(4096) == 8
+    for n in (1, 511, 512, 513, 4096, 8192, 100_000):
+        ctas = pca_kernel.p2p_layout(n)
+        assert 1 <= ctas <= P2P_MAX_CTAS
+        assert ctas == P2P_MAX_CTAS or ctas * P2P_THREADS * 2 >= n
+    assert 8 * P2P_THREADS * P2P_PER >= 4096
 
 
 # -- the prepare step ----------------------------------------------------------
@@ -578,7 +910,7 @@ def test_pca_bindings_refuse_bad_inputs_before_any_launch():
     pts = torch.zeros(40, 3)
     idx = torch.zeros(40, 8, dtype=torch.int64)
     h, c = torch.zeros(3, 3), torch.zeros(3)
-    n0 = (pca_kernel.KNN_PCA.launches, pca_kernel.KABSCH.launches)
+    n0 = (pca_kernel.KNN_PCA.launches, pca_kernel.KABSCH_SOLVE.launches)
     bad_pca = [
         ((pts, idx, "normals"), "needs CUDA"),
         ((pts, idx, "planes"), "mode 'planes'"),
@@ -602,4 +934,31 @@ def test_pca_bindings_refuse_bad_inputs_before_any_launch():
     for args, match in bad_kabsch:
         with pytest.raises(ValueError, match=match):
             pca_kernel.kabsch_cuda(*args)
-    assert (pca_kernel.KNN_PCA.launches, pca_kernel.KABSCH.launches) == n0
+    assert (pca_kernel.KNN_PCA.launches,
+            pca_kernel.KABSCH_SOLVE.launches) == n0
+
+
+def test_p2p_update_binding_refuses_bad_inputs_before_any_launch():
+    """Kernel R's update binding refuses CPU tensors, other dtypes and
+    shapes and non-contiguous inputs with a ``ValueError``, and launches
+    nothing."""
+    src, dst = torch.zeros(40, 3), torch.zeros(30, 3)
+    mask = torch.ones(40, dtype=torch.bool)
+    j = torch.zeros(40, dtype=torch.int64)
+    d2 = torch.zeros(40)
+    n0 = pca_kernel.KABSCH.launches
+    bad = [
+        ((src, mask, dst, j, d2), "needs CUDA"),
+        ((src.double(), mask, dst, j, d2), "float32"),
+        ((src, mask, torch.zeros(30, 4), j, d2), r"\(n, 3\)"),
+        ((src, mask[:39], dst, j, d2), r"\(40,\) bool"),
+        ((src, mask.to(torch.uint8), dst, j, d2), r"\(40,\) bool"),
+        ((src, mask, dst, j.int(), d2), "j: expected"),
+        ((src, mask, dst, j[:39], d2), "j: expected"),
+        ((src, mask, dst, j, d2.double()), "d2: expected"),
+        ((src, mask, dst, j, torch.zeros(40, 2)[:, 0]), "d2: expected"),
+        ((torch.zeros(3, 40).T, mask, dst, j, d2), "contiguous")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            pca_kernel.p2p_update_cuda(*args, 1.0)
+    assert pca_kernel.KABSCH.launches == n0
