@@ -102,7 +102,22 @@ weights and data made from seeds:
    unstructured); the first three must take the ring path and the last
    the general path, and each descriptor must be <= 1e-6 from
    ``encode_points_batch`` on the same cloud;
-7. training: (a) one full-width train step (512 nodes, dropout 0, TF32
+7. training: (k) kernel M (the miner's "hard" chunk) bit-equal to its
+   plain version (draws with the same u, hard negatives, counts, valid)
+   on every 2,048-anchor chunk of a 20,000-frame ``synthetic_city``
+   sequence and on partial chunks, then timed on one 2,048 x 100,000
+   chunk; kernel G (the gathers' backward) bit-equal to its plain version
+   and to the CPU's ``index_add_`` on the GAT neighbour table of a
+   20,000-node graph (float32 and bf16) and on 4,096 triplet gathers with
+   repeats, timed against ``index_add_``; (d) the training graph families
+   (mining, train step, embedding pass, revisit scan, recall) against
+   their eager steps on a 20,000-node run: the same triplets, three train
+   steps with equal losses, parameters, buffers and Adam state, equal
+   embeddings, revisit queries and Recall@{1,5,10}; the step's profiler
+   record holds G and no index_add kernel; two seeded epochs bit-equal;
+   Recall@1 and @5 on tied embeddings equal to the CPU's; one
+   100,000-node train step replayed and run eagerly, timed;
+   (a) one full-width train step (512 nodes, dropout 0, TF32
    off) on the card against the same step on the CPU from identical
    state, after hard-negative mining on both (the card's anchors and hard
    negatives must equal the CPU's): loss within 1e-4 relative, gradients
@@ -116,8 +131,10 @@ weights and data made from seeds:
    ``encoding.ring_major`` on 64-beam sweep-ordered sensor streams
    (``ring_fold`` and ``spectral`` must launch): finite losses, and the
    final checkpoint reloads to an equal state_dict; (c)
-   ``experiments.scale_100k`` at 20,000 nodes: stage times, Recall@{1,5,10}
-   and peak memory;
+   ``experiments.scale_100k`` at 20,000 nodes through the training graphs
+   and again eagerly: stage times, Recall@{1,5,10}, peak memory, and no
+   capture in the graph run's second epoch of any family; M and G must
+   launch;
 8. online: the online loop (``run_online`` through
    ``experiments.online_latency.run``) with configs/inference.yaml over
    default.yaml (built in code), full width (800-D descriptors, the
@@ -353,6 +370,13 @@ NO_LIBRARY = {
               "3 x 3 H, which computes part of the function (not the "
               "weights, gather, sums, det, the product or t) and which the "
               "port never calls on a card",
+    "mine": "no one call; yardstick_ms times torch.cdist(p=1) of the "
+            "chunk's CDFs against every frame's, the W1 matrix alone (not "
+            "the masks, counts, argmin or draw), which only the op-by-op "
+            "semi-hard strategy calls",
+    "gather_bwd": "torch.index_add_ of the same rows into zeros (library_ms; "
+                  "atomics, so its sum order changes from run to run), which "
+                  "the port's train step no longer calls",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -366,6 +390,9 @@ KERNEL_NAMES = {
     "knn": ("knn_kernel",),
     "knn_pca": ("knn_pca_kernel",),
     "kabsch": ("p2p_update_kernel",),
+    "mine": ("mine_hard_kernel",),
+    "mine_draw": ("mine_draw_kernel",),
+    "gather_bwd": ("gather_bwd_kernel",),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -374,6 +401,11 @@ REPLAYS = 50                   # serve: replays timed by CUDA events
 TRAIN_TOL = 1e-4               # train step: card vs CPU
 TRAIN_NODES = 512
 SCALE_NODES = 20_000
+MINE_NODES = 100_000           # kernel M timed on one chunk of this many
+MINE_CHUNK = 2048              # anchors (training/miner.py ANCHOR_CHUNK)
+MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)   # scale_100k's thresholds
+GRAPH_STEPS = 3                # train graph vs eager: steps compared
+BIG_NODES = 100_000            # one train-step replay timed at this size
 STORE_ROWS = 100_000           # phase 8: the resumed map's records
 ONLINE_FRAMES = 200            # phase 8: synthetic stream, two laps
 ONLINE_POINTS = 131_072        # configs/default.yaml encoding.max_points
@@ -544,19 +576,20 @@ def _spectral_ops(imgs, cfg) -> int:
     return b * per_scan + 4 * n_interp
 
 
-def _device_times(name: str, wrapper) -> dict:
+def _device_times(name: str, wrapper, profiled: int = PROFILED_CALLS,
+                  queued_calls: int = QUEUED_CALLS) -> dict:
     """A kernel's own device time, apart from its wrapper: torch.profiler
-    over PROFILED_CALLS wrapper calls (kernel time by name), and CUDA
-    events around QUEUED_CALLS bare C-entry launches of the last call's
-    arguments, queued behind a spin kernel."""
+    over ``profiled`` wrapper calls (kernel time by name), and CUDA
+    events around ``queued_calls`` bare C-entry launches of the last
+    call's arguments, queued behind a spin kernel."""
     from neural_spectral_codec_torch.utils.timing import (
         kernel_device_ms, time_queued_ms)
     kernel = _all_kernels()[name]
     keep = wrapper()            # its tensors stay alive for the bare loop
-    queued = time_queued_ms(kernel.bare(), n=QUEUED_CALLS)
+    queued = time_queued_ms(kernel.bare(), n=queued_calls)
     del keep
     prof, seen = kernel_device_ms(wrapper, KERNEL_NAMES[name],
-                                  calls=PROFILED_CALLS)
+                                  calls=profiled)
     return {"profiler_ms": prof, "profiled_launches": seen,
             "queued_ms": queued,
             "device_ms": prof if prof is not None else queued}
@@ -1716,10 +1749,12 @@ def _structured(device) -> dict:
 
 
 def _all_kernels() -> dict:
+    from neural_spectral_codec_torch.models import gather_kernel
     from neural_spectral_codec_torch.ops import (
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.retrieval import (
         knn_kernel, nearest_kernel, pca_kernel)
+    from neural_spectral_codec_torch.training import mine_kernel
     return {"spectral": spectral_kernel.KERNEL,
             "ring_fold": ring_kernel.KERNEL,
             "project": projection_kernel.KERNEL,
@@ -1729,7 +1764,10 @@ def _all_kernels() -> dict:
             "nearest": nearest_kernel.KERNEL,
             "knn": knn_kernel.KERNEL,
             "knn_pca": pca_kernel.KNN_PCA,
-            "kabsch": pca_kernel.KABSCH}
+            "kabsch": pca_kernel.KABSCH,
+            "mine": mine_kernel.HARD,
+            "mine_draw": mine_kernel.DRAW,
+            "gather_bwd": gather_kernel.KERNEL}
 
 
 def _counted(run) -> tuple:
@@ -1740,6 +1778,480 @@ def _counted(run) -> tuple:
         k.launches = 0
     out = run()
     return out, {n: k.launches for n, k in kernels.items()}
+
+
+def _once_ms(fn) -> float:
+    """Device ms of one call of ``fn`` (CUDA events; the caller has called
+    it once already)."""
+    import torch
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _few_ms(fn, calls: int) -> float:
+    from neural_spectral_codec_torch.utils.timing import time_ms
+    return time_ms(fn, calls=calls, warmup=1)
+
+
+def _mine_inputs(n: int, device) -> tuple:
+    """(positions, CDFs) of an n-frame ``synthetic_city`` sequence on the
+    card, the CDFs as the miner forms them."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    desc, poses, _ = synthetic_city(n)
+    cdfs = np.cumsum(desc / np.maximum(desc.sum(1, keepdims=True), 1e-12),
+                     axis=1).astype(np.float32)
+    return (torch.from_numpy(poses[:, :3, 3].astype(np.float32)).to(device),
+            torch.from_numpy(cdfs).to(device))
+
+
+def _same_mined(got, want) -> list:
+    import torch
+    return [f for f, a, b in zip(got._fields, got, want)
+            if not torch.equal(a, b)]
+
+
+def _training_kernels(device) -> dict:
+    """Phase 7k: kernel M (``training/mine_kernel.py``) against
+    ``mine_plain`` on the card, bit for bit (positive draws with the same
+    u, hard negatives, both counts, valid), on every MINE_CHUNK-anchor
+    chunk of a SCALE_NODES-frame ``synthetic_city`` sequence (the last
+    one moved back to end at the sequence's end, as the miner runs it)
+    and on partial chunks (1 anchor, the last 37, 100 in the middle);
+    then timed on one MINE_CHUNK x MINE_NODES chunk (device, wrapper and
+    plain time, the yardstick cdist, the bound: 2 operations a bin and
+    pair that cannot fuse). Kernel G (``models/gather_kernel.py``)
+    against its plain version and the CPU's ``index_add_``, bit for bit,
+    on the GAT neighbour table of a SCALE_NODES-node graph (its valid
+    slots' plan; float32 and bf16 gradients, zero at masked slots) and on
+    4,096 triplet gathers with repeats into (SCALE_NODES, 800); timed
+    against ``index_add_`` on the same rows."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    from neural_spectral_codec_torch.keyframe.graph import (
+        build_graph, graph_to_tensors)
+    from neural_spectral_codec_torch.models import gather_kernel as gk
+    from neural_spectral_codec_torch.training import mine_kernel as mk
+
+    params = tuple(float(v) for v in np.array(MINE_PARAMS, np.float32))
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    n = SCALE_NODES
+    pos, cdf = _mine_inputs(n, device)
+    cases = [(min(s, n - MINE_CHUNK), MINE_CHUNK)
+             for s in range(0, n, MINE_CHUNK)]
+    cases += [(0, 1), (n - 37, 37), (n // 2, 100)]
+    valid = 0
+    for start, count in cases:
+        u = torch.rand(count, generator=gen, device=device)
+        st = torch.tensor([start], dtype=torch.int32, device=device)
+        want = mk.mine_plain(pos, cdf, start, count, params, u)
+        bad = _same_mined(mk.mine_cuda(pos, cdf, st, count, params, u), want)
+        _check(not bad, f"mine kernel != plain version (start {start}, "
+               f"count {count}): {bad} differ")
+        valid += int(want.valid.sum())
+    print(f"mine: bit-equal to the plain version (draws, hard negatives, "
+          f"counts, valid) on the {len(cases) - 3} chunks of a {n}-frame "
+          f"sequence and 3 partial chunks ({valid} valid anchors)",
+          flush=True)
+    del pos, cdf
+    pos, cdf = _mine_inputs(MINE_NODES, device)
+    bins, start = cdf.shape[1], MINE_NODES // 2
+    u = torch.rand(MINE_CHUNK, generator=gen, device=device)
+    st = torch.tensor([start], dtype=torch.int32, device=device)
+
+    def call():
+        return mk.mine_cuda(pos, cdf, st, MINE_CHUNK, params, u)
+
+    def plain():
+        return mk.mine_plain(pos, cdf, start, MINE_CHUNK, params, u)
+
+    bad = _same_mined(call(), plain())
+    _check(not bad, f"mine kernel != plain version at {MINE_CHUNK} x "
+           f"{MINE_NODES}: {bad} differ")
+    bound_ms, bound_by = _bound(
+        4 * MINE_NODES * (3 + bins) + 4 * MINE_CHUNK + 17 * MINE_CHUNK,
+        n_ops_no_fma=2 * bins * MINE_CHUNK * MINE_NODES)
+    wrapper_ms = _few_ms(call, 10)
+    t = {"max_abs_err": 0.0, "ms": wrapper_ms, "wrapper_ms": wrapper_ms,
+         "plain_ms": _once_ms(plain),
+         "yardstick_ms": _few_ms(lambda: torch.cdist(
+             cdf[start:start + MINE_CHUNK][None], cdf[None], p=1.0), 3),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         **_device_times("mine", call, profiled=10, queued_calls=3)}
+    t["draw_device_ms"] = _device_times("mine_draw", call, profiled=10,
+                                        queued_calls=20)["device_ms"]
+    t["share_of_bound"] = bound_ms / t["device_ms"]
+    out = {"mine": t}
+    print(f"kernel mine: {MINE_CHUNK} x {MINE_NODES} x {bins} bins, device "
+          f"{t['device_ms']:.4f} ms (profiler {t['profiler_ms']}, queued "
+          f"bare {t['queued_ms']:.4f}), draw entry {t['draw_device_ms']:.4f}"
+          f" ms, wrapper {wrapper_ms:.4f} ms, plain {t['plain_ms']:.1f} ms, "
+          f"yardstick cdist {t['yardstick_ms']:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {100 * t['share_of_bound']:.1f}% "
+          f"of it)", flush=True)
+    del pos, cdf
+
+    desc, poses, _ = synthetic_city(n)
+    g = graph_to_tensors(build_graph(desc, poses, temporal_neighbors=5),
+                         device)
+    keep = g.mask.reshape(-1)
+    idx_all = g.neighbors.reshape(-1)
+    plan = gk.make_plan(idx_all, n, keep)
+    width = 256                                # hidden_dim of the GAT
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        grad = (torch.randn(idx_all.numel(), width, generator=gen,
+                            device=device) * keep[:, None]).to(dtype)
+        got = gk.gather_bwd_cuda(grad, plan, n)
+        want_cpu = torch.zeros(n, width, dtype=dtype).index_add_(
+            0, idx_all.cpu(), grad.cpu())
+        _check(torch.equal(got, gk.gather_bwd_plain(grad, plan, n)) and
+               torch.equal(got.cpu(), want_cpu),
+               f"gather_bwd kernel != plain version / CPU index_add_ on the "
+               f"neighbour table ({dtype})")
+        grads[dtype] = grad
+    tri = torch.randint(0, n, (4096,), generator=gen, device=device)
+    tri[:1024] = tri[1024:2048]                # repeats
+    tri[:16] = 7                               # a long segment
+    tgrad = torch.randn(4096, 800, generator=gen, device=device)
+    tplan = gk.make_plan(tri, n)
+    got = gk.gather_bwd_cuda(tgrad, tplan, n)
+    _check(torch.equal(got, gk.gather_bwd_plain(tgrad, tplan, n)) and
+           torch.equal(got.cpu(), torch.zeros(n, 800).index_add_(
+               0, tri.cpu(), tgrad.cpu())),
+           "gather_bwd kernel != plain version / CPU index_add_ on the "
+           "triplet gathers")
+    print(f"gather_bwd: bit-equal to the plain version and the CPU's "
+          f"index_add_ on the {n}-node neighbour table ({int(keep.sum())} "
+          f"valid of {keep.numel()} slots; float32 and bf16) and on 4,096 "
+          f"triplet gathers with repeats", flush=True)
+
+    valid_idx, g32 = idx_all[keep], grads[torch.float32]
+    g32_valid = g32[keep]
+    p_valid = int(keep.sum())
+    call = (lambda: gk.gather_bwd_cuda(g32, plan, n))
+    bound_ms, bound_by = _bound(4 * p_valid * width + 4 * n * width
+                                + 4 * p_valid + 4 * (n + 1))
+    wrapper_ms = _time_ms(call)
+    t = {"max_abs_err": 0.0, "ms": wrapper_ms, "wrapper_ms": wrapper_ms,
+         "plain_ms": _time_ms(lambda: gk.gather_bwd_plain(g32, plan, n)),
+         "library_ms": _time_ms(lambda: torch.zeros(
+             n, width, device=device).index_add_(0, valid_idx, g32_valid)),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         **_device_times("gather_bwd", call)}
+    t["share_of_bound"] = bound_ms / t["device_ms"]
+    b16 = grads[torch.bfloat16]
+    t["device_ms_bf16"] = _device_times(
+        "gather_bwd", lambda: gk.gather_bwd_cuda(b16, plan, n))["device_ms"]
+    tcall = (lambda: gk.gather_bwd_cuda(tgrad, tplan, n))
+    t["device_ms_triplets"] = _device_times("gather_bwd", tcall)["device_ms"]
+    t["library_ms_triplets"] = _time_ms(lambda: torch.zeros(
+        n, 800, device=device).index_add_(0, tri, tgrad))
+    t["bound_ms_triplets"] = _bound(4 * 4096 * 800 + 4 * n * 800
+                                    + 4 * 4096 + 4 * (n + 1))[0]
+    # the neighbour table's segment table, which each GAT layer of a train
+    # step builds
+    t["plan_ms"] = _time_ms(lambda: gk.make_plan(idx_all, n, keep))
+    out["gather_bwd"] = t
+    print(f"kernel gather_bwd: {p_valid} rows of {width} float32 into {n} "
+          f"(the GAT's neighbour gather at {n} nodes) device "
+          f"{t['device_ms']:.5f} ms (profiler {t['profiler_ms']}, queued "
+          f"bare {t['queued_ms']:.5f}), bf16 {t['device_ms_bf16']:.5f} ms, "
+          f"wrapper {wrapper_ms:.5f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"index_add_ {t['library_ms']:.5f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}, {100 * t['share_of_bound']:.1f}% of it); 4,096 x "
+          f"800 triplet rows device {t['device_ms_triplets']:.5f} ms, "
+          f"index_add_ {t['library_ms_triplets']:.5f} ms, bound "
+          f"{t['bound_ms_triplets']:.5f} ms; the neighbour table's segment "
+          f"table {t['plan_ms']:.5f} ms", flush=True)
+    return out
+
+
+def _tied_recall_input(n: int = 120, seed: int = 9) -> tuple:
+    """A two-lap loop whose embeddings take 3 values, so that each query's
+    k-th place is a tie among near and far candidates
+    (``tests/test_torch_train_graph.tied_recall_input``)."""
+    import numpy as np
+    from neural_spectral_codec_torch.data.synthetic import loop_trajectory
+    rng = np.random.default_rng(seed)
+    poses = loop_trajectory(n, radius=40.0, loops=2.0)
+    poses[:, :2, 3] += rng.normal(0, 0.5, (n, 2))
+    table = rng.normal(size=(3, 8)).astype(np.float32)
+    return table[rng.integers(0, 3, n)], poses
+
+
+def _state_equal(a, b) -> bool:
+    """Two trainers' model state and Adam state, bit for bit."""
+    import torch
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if not all(torch.equal(v, sb[k]) for k, v in sa.items()):
+        return False
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
+        "state"]
+    return all(torch.equal(v, ob[i][k]) for i, st in oa.items()
+               for k, v in st.items())
+
+
+def _flax_tree(named: dict, n_layers: int) -> dict:
+    """The JAX package's parameter tree (numpy leaves) of tensors keyed
+    like a ``SpectralGNN``'s ``named_parameters()``: the inverse of
+    ``models.convert.from_flax`` on a parameter-shaped tree."""
+    def a(name: str, transpose: bool = False):
+        x = named[name].detach().cpu().numpy()
+        return x.T if transpose else x
+    tree = {"Dense_0": {"kernel": a("input_proj.weight", True),
+                        "bias": a("input_proj.bias")},
+            "BatchNorm_0": {"scale": a("input_bn.weight"),
+                            "bias": a("input_bn.bias")},
+            "Dense_1": {"kernel": a("output_proj.weight", True),
+                        "bias": a("output_proj.bias")}}
+    for i in range(n_layers):
+        g = f"gat_layers.{i}"
+        tree[f"EdgeGATLayer_{i}"] = {
+            "lin": a(f"{g}.lin.weight", True),
+            "att_src": a(f"{g}.att_src")[None],
+            "att_dst": a(f"{g}.att_dst")[None], "bias": a(f"{g}.bias"),
+            "lin_edge": a(f"{g}.lin_edge.weight", True),
+            "att_edge": a(f"{g}.att_edge")[None]}
+        tree[f"BatchNorm_{i + 1}"] = {"scale": a(f"gat_bns.{i}.weight"),
+                                      "bias": a(f"gat_bns.{i}.bias")}
+    return tree
+
+
+def _converted_checkpoint(tr, path: Path) -> None:
+    """``tr``'s model and Adam state as ``convert_orbax_checkpoint.py``
+    writes a JAX trainer's: the Adam moments as optax trees through
+    ``convert.from_optax_adam`` onto a plain float-lr Adam on the CPU."""
+    import torch
+    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.models.convert import (
+        from_flax, from_optax_adam)
+    named = dict(tr.model.named_parameters())
+    st = tr.optimizer.state
+    mu = _flax_tree({n: st[p]["exp_avg"] for n, p in named.items()},
+                    tr.model.n_layers)
+    nu = _flax_tree({n: st[p]["exp_avg_sq"] for n, p in named.items()},
+                    tr.model.n_layers)
+    back = from_flax(mu)
+    _check(all(torch.equal(back[n], st[p]["exp_avg"].cpu())
+               for n, p in named.items()),
+           "train graphs: the optax tree does not map back to the moments")
+    model = SpectralGNN()
+    model.load_state_dict({k: v.cpu() for k, v in
+                           tr.model.state_dict().items()})
+    opt = torch.optim.Adam(model.parameters(), lr=tr.current_lr,
+                           weight_decay=1e-5)
+    count = int(next(iter(st.values()))["step"])
+    torch.save({"model": model.state_dict(),
+                "optimizer": from_optax_adam(count, mu, nu, model, opt),
+                "meta": {"epoch": 0, "global_step": count,
+                         "best_val_metric": 0.0,
+                         "epochs_without_improvement": 0,
+                         "train_losses": []}}, path)
+
+
+def _training_graphs(device) -> None:
+    """Phase 7d: every training graph family against its eager step on a
+    SCALE_NODES-node ``synthetic_city`` run (full-width SpectralGNN,
+    dropout 0.1 drawn from the trainer's generator, which the train graph
+    registers): the mined triplets equal; GRAPH_STEPS train steps replayed
+    against the same steps run eagerly from one state (losses,
+    parameters, BatchNorm buffers, Adam state bit-equal; the graph's
+    census holds 3 + n_layers gather-backward kernels); the step's
+    torch.profiler record holds G and no index_add kernel; the embedding
+    pass, the revisit scan and Recall@{1,5,10} equal; two seeded
+    one-epoch runs bit-equal; the tied-embedding recall equal to the
+    CPU's. Then one BIG_NODES-node train step: device ms of a replay and
+    host ms of a replayed and an eager step."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    from neural_spectral_codec_torch.keyframe.graph import build_graph
+    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.training import trainer as trmod
+    from neural_spectral_codec_torch.training import validation
+    from neural_spectral_codec_torch.training.miner import TripletMiner
+    from neural_spectral_codec_torch.training.trainer import GNNTrainer
+    from neural_spectral_codec_torch.utils.timing import device_ops
+
+    t_phase = time.perf_counter()
+    desc, poses, _ = synthetic_city(SCALE_NODES)
+    graph = build_graph(desc, poses, temporal_neighbors=5)
+    trip = {}
+    for use_graph in (True, False):
+        miner = TripletMiner(*MINE_PARAMS[:2], *MINE_PARAMS[2:4],
+                             int(MINE_PARAMS[4]), seed=SEED, device=device,
+                             use_graph=use_graph)
+        trip[use_graph] = miner.mine_triplets(desc, poses)
+    _check(len(trip[True]) > GRAPH_STEPS * 1000 and
+           np.array_equal(trip[True], trip[False]),
+           "train graphs: the mining graph's triplets differ from the eager "
+           "step's")
+    B = 4096
+    batch = np.zeros((GRAPH_STEPS * B, 3), np.int64)
+    rows = trip[True][:GRAPH_STEPS * B]
+    batch[:len(rows)] = rows
+    tmask = np.arange(GRAPH_STEPS * B) < len(rows)
+    trainers, losses = {}, {}
+    keep = tempfile.TemporaryDirectory(prefix="nsc_graphs_")
+    try:
+        for use_graph in (True, False):
+            tr = GNNTrainer(model=SpectralGNN(), checkpoint_dir=keep.name,
+                            seed=SEED, device=device, use_graph=use_graph)
+            exe = tr.train_step_executable(graph, B)
+            losses[use_graph] = [float(exe.run(
+                {"triplets": batch[s * B:(s + 1) * B],
+                 "tmask": tmask[s * B:(s + 1) * B]})[0]["loss"])
+                for s in range(GRAPH_STEPS)]
+            trainers[use_graph] = (tr, exe)
+        (tg, eg), (te, ee) = trainers[True], trainers[False]
+        _check(eg.graph is not None and ee.graph is None,
+               "train graphs: the graph trainer did not capture")
+        census = eg.census
+        print(f"train graph: {SCALE_NODES} nodes, captured in "
+              f"{eg.capture_s:.3f} s: {census['nodes']} nodes "
+              f"({census['kernels']} kernels, {census['memcpy']} copies, "
+              f"{census['memset']} memsets), gather-backward nodes "
+              f"{census['gather_bwd']}; losses {losses[True]} (eager "
+              f"{losses[False]})", flush=True)
+        same = losses[True] == losses[False] and _state_equal(tg, te)
+        _check(same, "train graph: the replayed steps differ from the "
+               "eager steps (losses, parameters, buffers or Adam state)")
+        # a JAX trainer's state as the Orbax converter writes it, loaded
+        # into a card trainer (capturable Adam, steps on the device)
+        _converted_checkpoint(tg, Path(keep.name) / "converted.pt")
+        conv = {}
+        for use_graph in (True, False):
+            tr = GNNTrainer(model=SpectralGNN(), checkpoint_dir=keep.name,
+                            seed=SEED + 2, device=device,
+                            use_graph=use_graph)
+            tr.load_checkpoint("converted")
+            group = tr.optimizer.param_groups[0]
+            steps_on_card = all(v["step"].device.type == "cuda"
+                                for v in tr.optimizer.state.values())
+            _check(group["capturable"] and steps_on_card and
+                   group["lr"] is tr._lr,
+                   "train graphs: the converted state did not load in the "
+                   "capturable form")
+            exe = tr.train_step_executable(graph, B)
+            conv[use_graph] = (float(exe.run(
+                {"triplets": batch[:B], "tmask": tmask[:B]})[0]["loss"]),
+                tr)
+        _check(conv[True][0] == conv[False][0] and
+               _state_equal(conv[True][1], conv[False][1]),
+               "train graphs: a step from the converted state differs "
+               "between graph and eager")
+        print(f"train graphs: a from_optax_adam checkpoint loads into the "
+              f"card trainers (capturable Adam, steps on the card) and "
+              f"steps equal through the graph and eagerly (loss "
+              f"{conv[True][0]})", flush=True)
+        del conv, tr, exe
+        ops = {}
+        for name, exe_ in (("eager", ee), ("graph", eg)):
+            ops[name] = [op for op, _ in device_ops(lambda: exe_.run(
+                {"triplets": batch[:B], "tmask": tmask[:B]}))]
+        names = {k: sorted({o.split("(")[0][:60] for o in v})
+                 for k, v in ops.items()}
+        atomic = [o for v in ops.values() for o in v
+                  if "index_add" in o or "indexFunc" in o]
+        print(f"train graph: a step's profiler record: eager "
+              f"{len(ops['eager'])} device operations, replay "
+              f"{len(ops['graph'])}; gather-backward kernels "
+              f"{sum('gather_bwd_kernel' in o for o in ops['eager'])} "
+              f"(eager); index_add kernels {atomic}", flush=True)
+        _check(not atomic and any("gather_bwd_kernel" in o
+                                  for o in ops["eager"]),
+               f"train graph: the step's record holds {atomic} or no G "
+               f"({names['eager'][:40]})")
+        _check(_state_equal(tg, te), "train graph: the profiled step "
+               "differs between graph and eager")
+        embs = {k: trainers[k][0].embed(graph) for k in (True, False)}
+        _check(np.array_equal(embs[True], embs[False]),
+               "embed graph: the replayed embeddings differ from eager")
+        pos3 = poses[:, :3, 3].astype(np.float32)
+        rev = {k: validation.find_revisit_queries(pos3, device=device,
+                                                  use_graph=k)
+               for k in (True, False)}
+        _check(len(rev[True]) > 100 and np.array_equal(rev[True],
+                                                       rev[False]),
+               "revisit graph: the replayed scan differs from eager")
+        rec = {k: validation.recall_at_ks(embs[True], poses, (1, 5, 10),
+                                          device=device, use_graph=k)
+               for k in (True, False)}
+        _check(rec[True] == rec[False], f"recall graph: {rec}")
+        print(f"train graphs: embeddings, {len(rev[True])} revisit queries "
+              f"and Recall@1/5/10 {rec[True][0]} equal through the graphs "
+              f"and eagerly", flush=True)
+
+        runs = []
+        for k in range(2):
+            tr = GNNTrainer(model=SpectralGNN(), checkpoint_dir=keep.name,
+                            seed=SEED, device=device)
+            miner = TripletMiner(*MINE_PARAMS[:2], *MINE_PARAMS[2:4],
+                                 int(MINE_PARAMS[4]), seed=SEED + 1,
+                                 device=device)
+            loss = tr.train_epoch(graph, miner, poses, desc)
+            runs.append((loss, tr))
+        _check(runs[0][0] == runs[1][0] and _state_equal(runs[0][1],
+                                                         runs[1][1]),
+               "train graphs: two seeded epochs differ")
+        print(f"train graphs: two seeded epochs on the card bit-equal (loss "
+              f"{runs[0][0]})", flush=True)
+        del runs, trainers, tg, te, eg, ee
+
+        emb, tposes = _tied_recall_input()
+        for k in (1, 5):
+            card = validation.recall_loop_closure(emb, tposes, k,
+                                                  device=device)
+            cpu = validation.recall_loop_closure(emb, tposes, k,
+                                                 device="cpu")
+            _check(card == cpu, f"tied recall@{k}: card {card}, CPU {cpu}")
+        print("recall: tied embeddings give the CPU's Recall@1 and @5 on the "
+              "card", flush=True)
+
+        desc, poses, _ = synthetic_city(BIG_NODES)
+        big = build_graph(desc, poses, temporal_neighbors=5)
+        rng = np.random.default_rng(SEED)
+        steps = rng.integers(0, BIG_NODES, (4, B, 3))
+        ones = np.ones(B, bool)
+        host = {}
+        for use_graph in (True, False):
+            tr = GNNTrainer(model=SpectralGNN(), checkpoint_dir=keep.name,
+                            seed=SEED, device=device, use_graph=use_graph)
+            exe = tr.train_step_executable(big, B)
+            exe.run({"triplets": steps[0], "tmask": ones})
+            times = []
+            for s in range(1, 4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run({"triplets": steps[s], "tmask": ones})
+                times.append(1e3 * (time.perf_counter() - t0))
+            host[use_graph] = statistics.median(times)
+            if use_graph:
+                replay_ms = _replay_ms(exe)
+        print(f"train graph: {BIG_NODES} nodes x {B} triplets: device ms of "
+              f"one replay {replay_ms:.3f} (CUDA events over {REPLAYS}), "
+              f"host ms a step (median of 3, fetch included) replayed "
+              f"{host[True]:.3f}, eager {host[False]:.3f}", flush=True)
+        del tr, exe
+    finally:
+        keep.cleanup()
+    from neural_spectral_codec_torch.training import miner as miner_mod
+    miner_mod.clear_cache()
+    validation.clear_cache()
+    torch.cuda.empty_cache()
+    print(f"train graphs: phase 7d wall {time.perf_counter() - t_phase:.2f} "
+          f"s; train family {trmod.STATS}", flush=True)
 
 
 def _train_step_vs_cpu(device) -> None:
@@ -1827,7 +2339,7 @@ def _train_entry(device, keep_pt: Path) -> dict:
 
     import torch
     from neural_spectral_codec_torch import train_multi_dataset
-    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.models import SpectralGNN, gnn
 
     try:
         import yaml
@@ -1837,12 +2349,13 @@ def _train_entry(device, keep_pt: Path) -> dict:
               flush=True)
     ring_cfg = copy.deepcopy(TRAINING_CONFIG)
     ring_cfg["encoding"].update({"ring_major": True, "n_elevation": 64})
-    runs = (("train", TRAINING_CONFIG, [], ("project", "spectral"),
-             ("ring_fold",)),
+    runs = (("train", TRAINING_CONFIG, [], ("project", "spectral", "mine",
+                                            "gather_bwd"), ("ring_fold",)),
             ("train_ring", ring_cfg, ["--synthetic-beams", "64",
                                       "--synthetic-sweep-order"],
-             ("ring_fold", "spectral"), ()))
+             ("ring_fold", "spectral", "mine", "gather_bwd"), ()))
     by_path = {}
+    eager_forwards = gnn.STATS["eager_forwards"]
     for name, cfg, extra, needed, unused in runs:
         with tempfile.TemporaryDirectory(prefix="nsc_train_") as ckpt:
             args = ["--synthetic", "120", "--epochs", "2", "--device",
@@ -1873,17 +2386,48 @@ def _train_entry(device, keep_pt: Path) -> dict:
         _check(same, f"{name}: the checkpoint does not reload to the "
                "trained state_dict")
         by_path[name] = launches
+    _check(gnn.STATS["eager_forwards"] == eager_forwards,
+           "train: the training entry point ran an eager full-graph "
+           "forward")
+    from neural_spectral_codec_torch.training import miner, validation
+    _check(not miner.cached_executables() and
+           not validation.cached_executables(),
+           "train: the mining or validation graphs outlived training")
     return by_path
 
 
-def _scale(device) -> None:
-    """Phase 7c: the 100k-scale entry point at SCALE_NODES nodes."""
+def _scale(device) -> dict:
+    """Phase 7c: the 100k-scale entry point at SCALE_NODES nodes, through
+    the training graphs and again eagerly; its second epoch through the
+    graphs must capture nothing. Returns its launches."""
     from neural_spectral_codec_torch.experiments import scale_100k
-    out = scale_100k.main(["--nodes", str(SCALE_NODES), "--device",
-                           str(device)])
+    from neural_spectral_codec_torch.models import gnn
+    eager_forwards = gnn.STATS["eager_forwards"]
+    out, launches = _counted(lambda: scale_100k.main(
+        ["--nodes", str(SCALE_NODES), "--device", str(device)]))
+    _check(gnn.STATS["eager_forwards"] == eager_forwards,
+           "scale: training ran an eager full-graph forward")
+    eager = out["eager"]
+    print(f"scale: {SCALE_NODES} nodes, graphs vs eager: mining "
+          f"{out['mining_s']:.3f} / {eager['mining_s']:.3f} s, ms a step "
+          f"{out['ms_per_step']:.3f} / {eager['ms_per_step']:.3f}, embed "
+          f"{out['embed_s']:.3f} / {eager['embed_s']:.3f} s, validation "
+          f"{out['validation_s']:.3f} / {eager['validation_s']:.3f} s; "
+          f"captures {out['captures']}, second epoch "
+          f"{out['captures_second_epoch']}; launches {launches}; allocated "
+          f"{out['allocated_mib']:.1f} MiB after the run, "
+          f"{out['allocated_after_release_mib']:.1f} after release_graphs",
+          flush=True)
     _check(math.isfinite(out["avg_loss"]) and
            all(0.0 <= out[f"recall@{k}"] <= 1.0 for k in (1, 5, 10)) and
            out["n_queries"] > 0, f"scale: {out}")
+    _check(not any(out["captures_second_epoch"].values()) and
+           all(v > 0 for v in out["replays_second_epoch"].values()) and
+           not any(eager["captures"].values()),
+           f"scale: captures after the first epoch {out}")
+    _check(launches["mine"] > 0 and launches["gather_bwd"] > 0,
+           f"scale: M or G never launched {launches}")
+    return launches
 
 
 def _write_store(path: Path, n_bins: int, seed: int) -> int:
@@ -4120,9 +4664,11 @@ def main() -> None:
     gnn_pt = Path(keep.name) / "gnn.pt"
     try:
         # -- 7. training ---------------------------------------------------
+        timing.update(_training_kernels(device))
         _train_step_vs_cpu(device)
+        _training_graphs(device)
         by_path.update(_train_entry(device, gnn_pt))
-        _scale(device)
+        by_path["scale"] = _scale(device)
 
         # -- 8. the online loop --------------------------------------------
         store = Path(keep.name) / "map.bin"
@@ -4172,6 +4718,12 @@ def main() -> None:
         "kabsch": ("neural_spectral_codec_torch/csrc/kabsch.cu",
                    "neural_spectral_codec_tpu/retrieval/verification.py:133",
                    timing["kabsch"]["max_abs_err"]),
+        "mine": ("neural_spectral_codec_torch/csrc/mine.cu",
+                 "neural_spectral_codec_tpu/training/miner.py:54",
+                 timing["mine"]["max_abs_err"]),
+        "gather_bwd": ("neural_spectral_codec_torch/csrc/gather_bwd.cu",
+                       "neural_spectral_codec_tpu/training/trainer.py:73",
+                       timing["gather_bwd"]["max_abs_err"]),
     }
     # "ms" keeps the meaning it had in earlier records: the wrapper's time
     # per call (one event pair per call; for the probes, loops of 200 calls)
@@ -4184,7 +4736,8 @@ def main() -> None:
                  "launches_by_path": {p: v[name] for p, v in by_path.items()},
                  "max_abs_err": err, "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                 "bound_by": t["bound_by"], "library_ms": None,
+                 "bound_by": t["bound_by"],
+                 "library_ms": t.get("library_ms"),
                  "library_note": NO_LIBRARY[name],
                  "device_ms": t["device_ms"], "wrapper_ms": t["wrapper_ms"],
                  "profiler_ms": t["profiler_ms"],
@@ -4193,13 +4746,19 @@ def main() -> None:
                     "device_ms_sweep", "queued_ms_sweep",
                     "device_ms_sweep_b1", "queued_ms_sweep_b1",
                     "device_ms_cold", "device_ms_cold_b1", "yardstick_ms",
-                    "share_of_bound", "solve_device_ms"):
+                    "share_of_bound", "solve_device_ms", "draw_device_ms",
+                    "device_ms_bf16", "device_ms_triplets",
+                    "library_ms_triplets", "bound_ms_triplets"):
             if key in t:
                 entry[key] = t[key]
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"
-        if name in ("nearest", "knn", "knn_pca", "kabsch"):
+        if name == "mine":
+            entry["draw_launches"] = sum(v["mine_draw"]
+                                         for v in by_path.values())
+        if name in ("nearest", "knn", "knn_pca", "kabsch", "mine",
+                    "gather_bwd"):
             entry["replaces_note"] = "not a pl.pallas_call site: the XLA " + {
                 "nearest": "correspondence search of _icp_kernel (:124-131)",
                 "knn": "k-NN selection of _knn_cov_matrices (:64-73)",
@@ -4207,21 +4766,33 @@ def main() -> None:
                            "of _knn_covariances (:85) and _knn_normals (:77)",
                 "kabsch": "weights of _icp_kernel's correspondences "
                           "(:129-131) and its p2p_step after the argmin: "
-                          "the gather, sums, SVD and det (:133-146)"}[name]
+                          "the gather, sums, SVD and det (:133-146)",
+                "mine": "masks, counts, categorical positive draw and tiled "
+                        "W1 running argmin of _mine_chunk (:54-98)",
+                "gather_bwd": "transpose of the row gathers in train_step's "
+                              "gradient (the triplet gathers, :86, and the "
+                              "GAT's jnp.take(h, neighbors), "
+                              "models/gnn.py:70)"}[name]
         record.append(entry)
     from neural_spectral_codec_torch import entry as entry_mod
     from neural_spectral_codec_torch.models import gnn
     from neural_spectral_codec_torch.retrieval import retriever, verification
-    from neural_spectral_codec_torch.utils.timing import REPEATED_SESSIONS
-    print(f"profiler: {REPEATED_SESSIONS} torch.profiler sessions recorded "
-          "no device operation and were repeated", flush=True)
+    from neural_spectral_codec_torch.utils import timing as timing_mod
+    print(f"profiler: {timing_mod.REPEATED_SESSIONS} torch.profiler "
+          f"sessions lost a marker and were repeated; "
+          f"{timing_mod.LOST_LEAD_IN} lead-in records lost; lead-in now "
+          f"{timing_mod.LEAD_IN} kernels", flush=True)
     # eager_steps: the comparison runs (use_graph off); eager_forwards and
     # sharded: the declared op-by-op paths (full-graph eval forwards, the
     # sharded retriever's queries)
+    from neural_spectral_codec_torch.training import (
+        miner, trainer, validation)
     counts = {"serving": serving_mod.STATS,
               "registration": verification.STATS,
               "prepare": verification.PREPARE_STATS, "query": retriever.STATS,
-              "eval": gnn.STATS, "entry": entry_mod.STATS}
+              "eval": gnn.STATS, "entry": entry_mod.STATS,
+              "mining": miner.STATS, "train": trainer.STATS,
+              "validation": validation.STATS}
     print(f"graphs, whole run: {json.dumps(counts)}", flush=True)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

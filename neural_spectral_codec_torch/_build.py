@@ -165,7 +165,8 @@ class CudaKernel:
 CENSUS = ("nodes", "kernels", "memcpy", "memset", "other", "project",
           "project_cooperative", "spectral", "spectral_cluster_width",
           "spectral_cluster_dim", "ring_fold", "unreadable_kernels",
-          "nearest", "knn", "nearest_cluster_width", "knn_pca", "kabsch")
+          "nearest", "knn", "nearest_cluster_width", "knn_pca", "kabsch",
+          "mine", "mine_draw", "gather_bwd")
 
 
 def graph_census(graph_handle: int) -> dict:
@@ -173,8 +174,9 @@ def graph_census(graph_handle: int) -> dict:
     keep_graph=True).raw_cuda_graph()``) by kind, the projection kernel's
     nodes with their cooperative attribute, the spectral kernel's with its
     cluster width, and the ring, nearest-neighbour (with its cluster
-    width), k-NN, k-NN PCA and Kabsch kernels' (``nsc_graph_census`` in
-    ``csrc/project.cu``). Raises on a CUDA error."""
+    width), k-NN, k-NN PCA, Kabsch, mining and gather-backward kernels'
+    (``nsc_graph_census`` in ``csrc/project.cu``). Raises on a CUDA
+    error."""
     lib = load_library()
     fn = lib.nsc_graph_census
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

@@ -361,10 +361,13 @@ extern "C" const void* nsc_nearest_kernel_handle();
 extern "C" const void* nsc_knn_kernel_handle();
 extern "C" const void* nsc_knn_pca_kernel_handle();
 extern "C" const void* nsc_kabsch_kernel_handle();
+extern "C" const void* nsc_mine_kernel_handle(int which);
+extern "C" const void* nsc_gather_bwd_kernel_handle(int dtype);
 
 // Census of a captured CUDA graph (a cudaGraph_t: the serving executables of
 // models/serving.py, the registration and prepare executables of
-// retrieval/verification.py), read back from its nodes. out (kCensusWords,):
+// retrieval/verification.py, the mining and train-step executables of
+// training/), read back from its nodes. out (kCensusWords,):
 //   0 nodes, 1 kernel nodes, 2 memcpy nodes, 3 memset nodes, 4 other nodes,
 //   5 nodes of this file's kernel, 6 of those with the cooperative launch
 //   attribute set (its grid barrier needs every CTA resident at once),
@@ -376,9 +379,12 @@ extern "C" const void* nsc_kabsch_kernel_handle();
 //   14 the cluster width the nearest-neighbour function requires
 //   (__cluster_dims__; 0 none), read when the graph holds one,
 //   15 k-NN PCA nodes (knn_pca.cu), 16 point-to-point update nodes
-//   (kernel R, kabsch.cu; its solve-only entry is not counted).
+//   (kernel R, kabsch.cu; its solve-only entry is not counted),
+//   17 and 18 the two mining kernels' nodes (counts and hard negatives, the
+//   draw; kernel M, mine.cu), 19 row-gather backward nodes (kernel G,
+//   gather_bwd.cu, either type).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
-constexpr int kCensusWords = 17;
+constexpr int kCensusWords = 20;
 
 extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
@@ -399,6 +405,9 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   const void* knn = nsc_knn_kernel_handle();
   const void* knn_pca = nsc_knn_pca_kernel_handle();
   const void* kabsch = nsc_kabsch_kernel_handle();
+  const void* mine[2] = {nsc_mine_kernel_handle(0), nsc_mine_kernel_handle(1)};
+  const void* gather_bwd[2] = {nsc_gather_bwd_kernel_handle(0),
+                               nsc_gather_bwd_kernel_handle(1)};
   out[0] = (long long)n;
   for (size_t i = 0; i < n; ++i) {
     cudaGraphNodeType type;
@@ -446,6 +455,12 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
       ++out[15];
     } else if (params.func == kabsch) {
       ++out[16];
+    } else if (params.func == mine[0]) {
+      ++out[17];
+    } else if (params.func == mine[1]) {
+      ++out[18];
+    } else if (params.func == gather_bwd[0] || params.func == gather_bwd[1]) {
+      ++out[19];
     }
   }
   return (int)cudaSuccess;

@@ -5,13 +5,21 @@
         --nodes 100000 --device cuda [--steps S] [--json out.json]
         [--compare-sharded [--shards 4]]
 
-Times, on the host clock with the device synchronised: the graph build,
+Times, on the host clock with the device synchronised (the kernels built
+first, apart): the graph build,
 hard-negative mining over all anchors, one epoch of 4096-triplet steps on
 the full-width SpectralGNN (800 → 256 → 800, 3 GAT layers, dropout 0.1)
 after one warm-up step, the eval embedding and Recall@{1,5,10} over all
-revisit queries (``training.validation.recall_loop_closure``; the JAX
-script ranks with ``evaluation.evaluate_place_recognition``). On a CUDA
-device it reads peak memory from ``torch.cuda.max_memory_allocated``.
+revisit queries (``training.validation.recall_at_ks``; the JAX
+script ranks with ``evaluation.evaluate_place_recognition``). Each is
+timed through the graph families (mining, train step, embedding pass,
+validation: one captured CUDA graph a step on a card) and again with
+their steps run op by op; the graph run then repeats mining, a step, the
+embedding and the recall pass as a second epoch, whose captures it
+reports (0 expected). On a CUDA device it reads peak memory from
+``torch.cuda.max_memory_allocated``, and the memory the training graphs
+held from ``torch.cuda.memory_allocated`` before and after
+``GNNTrainer.release_graphs``.
 ``--compare-sharded`` times the single-device step against the
 node-sharded one instead (``compare_sharded``).
 """
@@ -62,12 +70,42 @@ class _Fixed:
 
 
 def run(nodes: int, steps=None, device="cuda", log=print) -> dict:
-    """The measurement; returns its numbers (seconds, ms, GiB)."""
-    with tempfile.TemporaryDirectory(prefix="scale_ckpt_") as ckpt:
-        return _run(nodes, steps, device, ckpt, log)
+    """The measurement through the graphs and again with every graph
+    family's step run op by op (``use_graph=False``); returns its numbers
+    (seconds, ms, GiB): the graph run's at the top level, the eager run's
+    under ``"eager"``."""
+    out = None
+    for use_graph in (True, False):
+        with tempfile.TemporaryDirectory(prefix="scale_ckpt_") as ckpt:
+            got = _run(nodes, steps, device, ckpt, log, use_graph)
+        if out is None:
+            out = got
+        else:
+            out["eager"] = {k: got[k] for k in (
+                "mining_s", "epoch_s", "ms_per_step", "embed_s",
+                "validation_s", "avg_loss", "recall@1", "recall@5",
+                "recall@10", "captures")}
+    return out
 
 
-def _run(nodes, steps, device, ckpt, log) -> dict:
+def _families() -> dict:
+    """The training graph families' counters: {family: STATS}."""
+    from neural_spectral_codec_torch.models import gnn
+    from neural_spectral_codec_torch.training import (
+        miner, trainer, validation)
+    return {"mining": miner.STATS, "train": trainer.STATS,
+            "validation": validation.STATS, "embed": gnn.STATS}
+
+
+def _counts() -> dict:
+    return {f: dict(v) for f, v in _families().items()}
+
+
+def _delta(before: dict, key: str) -> dict:
+    return {f: v[key] - before[f][key] for f, v in _counts().items()}
+
+
+def _run(nodes, steps, device, ckpt, log, use_graph=True) -> dict:
     from neural_spectral_codec_torch.device import resolve_device
     from neural_spectral_codec_torch.keyframe.graph import build_graph
     from neural_spectral_codec_torch.models.gnn import SpectralGNN
@@ -75,19 +113,25 @@ def _run(nodes, steps, device, ckpt, log) -> dict:
         create_triplet_miner)
     from neural_spectral_codec_torch.training.trainer import GNNTrainer
     from neural_spectral_codec_torch.training.validation import (
-        recall_loop_closure)
+        recall_at_ks)
 
     dev = resolve_device(device)
+    mode = "graphs" if use_graph and dev.type == "cuda" else "eager"
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    out = {"nodes": nodes, "device": str(dev), "mode": mode}
     if dev.type == "cuda":
+        from neural_spectral_codec_torch import _build
+        t0 = time.perf_counter()
+        _build.load_library()      # built at first use: not in any stage
+        out["kernel_build_s"] = time.perf_counter() - t0
         torch.cuda.init()          # the peak-memory counters need a context
         torch.cuda.reset_peak_memory_stats(dev)
     desc, poses, _ = synthetic_city(nodes)
-    out = {"nodes": nodes, "device": str(dev)}
+    first = _counts()
 
     t0 = time.perf_counter()
     g = build_graph(desc, poses, temporal_neighbors=5)
@@ -95,12 +139,13 @@ def _run(nodes, steps, device, ckpt, log) -> dict:
 
     miner = create_triplet_miner(positive_distance_max=5.0,
                                  negative_distance_min=10.0,
-                                 negative_distance_max=100.0, device=dev)
+                                 negative_distance_max=100.0, device=dev,
+                                 use_graph=use_graph)
     t0 = time.perf_counter()
     triplets = miner.mine_triplets(desc, poses)
     out["mining_s"] = time.perf_counter() - t0
     out["n_triplets"] = int(len(triplets))
-    log(f"scale: {nodes} nodes on {dev}; graph build "
+    log(f"scale ({mode}): {nodes} nodes on {dev}; graph build "
         f"{out['graph_build_s']:.3f} s; mining {len(triplets)} triplets "
         f"over all anchors {out['mining_s']:.3f} s")
 
@@ -108,7 +153,8 @@ def _run(nodes, steps, device, ckpt, log) -> dict:
     if steps:
         triplets = triplets[:steps * B]
     trainer = GNNTrainer(model=SpectralGNN(), checkpoint_dir=ckpt,
-                         triplets_per_step=B, seed=0, device=dev)
+                         triplets_per_step=B, seed=0, device=dev,
+                         use_graph=use_graph)
     t0 = time.perf_counter()
     trainer.train_epoch(g, _Fixed(triplets[:B]), poses, desc)   # warm-up
     sync()
@@ -121,30 +167,66 @@ def _run(nodes, steps, device, ckpt, log) -> dict:
     out["epoch_steps"] = -(-len(triplets) // B)
     out["ms_per_step"] = 1e3 * out["epoch_s"] / out["epoch_steps"]
     out["avg_loss"] = float(loss)
-    log(f"scale: epoch of {out['epoch_steps']} steps x {B} triplets "
-        f"{out['epoch_s']:.3f} s = {out['ms_per_step']:.3f} ms/step "
-        f"(warm-up step {out['warmup_step_s']:.3f} s), avg loss "
+    log(f"scale ({mode}): epoch of {out['epoch_steps']} steps x {B} "
+        f"triplets {out['epoch_s']:.3f} s = {out['ms_per_step']:.3f} "
+        f"ms/step (warm-up step {out['warmup_step_s']:.3f} s), avg loss "
         f"{out['avg_loss']:.5f}")
 
     t0 = time.perf_counter()
     emb = trainer.embed(g)
     out["embed_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for k in (1, 5, 10):
-        r, nq = recall_loop_closure(emb, poses, k, device=dev)
-        out[f"recall@{k}"] = r
-    out["n_queries"] = nq
+    recall, out["n_queries"] = recall_at_ks(emb, poses, (1, 5, 10),
+                                            device=dev, use_graph=use_graph)
     out["validation_s"] = time.perf_counter() - t0
-    out["raw_recall@1"] = recall_loop_closure(desc, poses, 1, device=dev)[0]
-    log(f"scale: embed {out['embed_s']:.3f} s; Recall@1/5/10 "
+    out.update({f"recall@{k}": r for k, r in recall.items()})
+    out["raw_recall@1"] = recall_at_ks(desc, poses, (1,), device=dev,
+                                       use_graph=use_graph)[0][1]
+    log(f"scale ({mode}): embed {out['embed_s']:.3f} s; Recall@1/5/10 "
         f"{out['recall@1']:.4f}/{out['recall@5']:.4f}/"
-        f"{out['recall@10']:.4f} over {nq} queries in "
+        f"{out['recall@10']:.4f} over {out['n_queries']} queries in "
         f"{out['validation_s']:.3f} s; raw descriptors R@1 "
         f"{out['raw_recall@1']:.4f}")
+    out["captures"] = _delta(first, "captures")
+    if mode == "graphs":
+        # a second epoch of each family: mining, the train steps, the
+        # embedding pass and validation again, which must capture nothing
+        second = _counts()
+        t0 = time.perf_counter()
+        miner.mine_triplets(desc, poses)
+        out["mining_s_second"] = time.perf_counter() - t0
+        trainer.epoch = 2
+        trainer.train_epoch(g, _Fixed(triplets[:B]), poses, desc)
+        t0 = time.perf_counter()
+        emb = trainer.embed(g)
+        out["embed_s_second"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recall_at_ks(emb, poses, (1, 5, 10), device=dev, use_graph=use_graph)
+        out["validation_s_second"] = time.perf_counter() - t0
+        out["captures_second_epoch"] = _delta(second, "captures")
+        out["replays_second_epoch"] = _delta(second, "replays")
+        log(f"scale ({mode}): second epoch: mining "
+            f"{out['mining_s_second']:.3f} s, embed "
+            f"{out['embed_s_second']:.3f} s, recall "
+            f"{out['validation_s_second']:.3f} s; captures "
+            f"{out['captures_second_epoch']}, replays "
+            f"{out['replays_second_epoch']}")
+    log(f"scale ({mode}): captures in the run {out['captures']}")
     if dev.type == "cuda":
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-        log(f"scale: peak device memory {out['peak_memory_gib']:.3f} GiB "
-            f"(torch.cuda.max_memory_allocated)")
+        sync()
+        held = torch.cuda.memory_allocated(dev)
+        trainer.release_graphs()
+        sync()
+        out["allocated_mib"] = held / 2**20
+        out["allocated_after_release_mib"] = (
+            torch.cuda.memory_allocated(dev) / 2**20)
+        log(f"scale ({mode}): peak device memory "
+            f"{out['peak_memory_gib']:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated); allocated "
+            f"{out['allocated_mib']:.1f} MiB after the run, "
+            f"{out['allocated_after_release_mib']:.1f} MiB after "
+            f"release_graphs (torch.cuda.memory_allocated)")
     return out
 
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neural_spectral_codec_torch.keyframe.graph import KeyframeGraph
+from neural_spectral_codec_torch.models.gather_kernel import gather_rows
 from neural_spectral_codec_torch.utils.graph_exec import (
     Arena, ExecutableCache, GraphStep, SharedPool)
 
@@ -206,10 +207,12 @@ class EdgeGATLayer(nn.Module):
         n = neighbors.shape[0]
         c, f32 = self._c, (lambda t: t.to(torch.float32))
         att_src, att_dst = c(_on(self.att_src, h)), c(_on(self.att_dst, h))
-        # index_select, not h_all[neighbors]: its backward is an
-        # index_add, where advanced indexing's sorts the indices (94% of a
-        # train step's device time at 20,000 nodes on an H100)
-        h_nbr = h_all.index_select(0, neighbors.reshape(-1)).view(
+        # gather_rows, not h_all[neighbors]: advanced indexing's backward
+        # sorts the indices (94% of a train step's device time at 20,000
+        # nodes on an H100) and index_select's adds with atomics; its
+        # backward is kernel G over the valid slots' segment table
+        h_nbr = gather_rows(h_all, neighbors.reshape(-1),
+                            valid=mask.reshape(-1)).view(
             *neighbors.shape, -1)                        # (n, D, C)
         a_dst = f32(h @ att_dst)                         # (n,)
         logits = f32(h_nbr @ att_src) + a_dst[:, None]   # (n, D)

@@ -312,9 +312,10 @@ class ServingExecutable:
 
     def _capture(self) -> None:
         """Run the step once on the capture stream, then capture it."""
+        pool = POOL.handle(self.device)
         graph, credits, self.capture_s = capture_graph(
-            self._step, POOL.stream(self.device), POOL.handle(self.device),
-            _kernels())
+            self._step, POOL.stream(self.device), pool, _kernels(),
+            track=lambda g: POOL.track(self.device, pool, g))
         from neural_spectral_codec_torch import _build
         census = _build.graph_census(graph.raw_cuda_graph())
         if census["project_cooperative"] != census["project"]:

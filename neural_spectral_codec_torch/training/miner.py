@@ -1,6 +1,5 @@
 """Triplet mining: all-pairs masks per anchor chunk and a hard-negative
-W₁ argmin over database tiles. Port of ``neural_spectral_codec_tpu/
-training/miner.py``.
+W₁ argmin. Port of ``neural_spectral_codec_tpu/training/miner.py``.
 
 Semantics (reference ``triplet_miner.py``):
   * positives: distance < 5 m AND temporal gap ≥ 30 frames
@@ -9,13 +8,18 @@ Semantics (reference ``triplet_miner.py``):
     anchor; "semi-hard" = the median candidate; "random" = uniform
   * per-sequence mining when sequence ids are given
 
-Anchors run in chunks of 2048; each chunk holds (chunk, n) masks and
-distances. The hard-negative search walks the database in 4096-row tiles
-with ``torch.cdist(p=1)`` on the CDFs and keeps a running min, so no
-(chunk, tile, D) temporary is ever built. Positives (and random
-negatives) are drawn with ``torch.multinomial`` from the miner's
-``torch.Generator``: the JAX package's ``jax.random.categorical`` draws
-cannot be reproduced, only their support (the masks).
+Anchors run in chunks of 2048. The "hard" strategy, the one the training
+configuration uses, is JAX's one-dispatch ``_mine_chunk`` as a
+``MiningExecutable``: kernel M (``training/mine_kernel.py``,
+``csrc/mine.cu``) computes each anchor's masks, counts, hard negative and
+positive draw without building a (chunk, n) matrix; on a card each chunk
+is one replay of a captured CUDA graph. Its positive is the r-th positive
+in index order with r = min(⌊u · count⌋, count − 1), u ~ U[0, 1) drawn
+from the miner's ``torch.Generator`` (one u an anchor): uniform over the
+positive mask, as ``jax.random.categorical`` is, whose bits cannot be
+reproduced. "semi-hard" and "random" run op by op (the declared eager
+path, counted in ``STATS["eager_chunks"]``), with (chunk, n) masks and
+``torch.multinomial`` draws.
 """
 
 from __future__ import annotations
@@ -26,10 +30,17 @@ import numpy as np
 import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
+from neural_spectral_codec_torch.training import mine_kernel
+from neural_spectral_codec_torch.utils.graph_exec import (
+    Arena, ExecutableCache, GraphStep, SharedPool)
 
 ANCHOR_CHUNK = 2048
 TILE = 4096
 STRATEGIES = ("hard", "semi-hard", "random")
+
+POOL = SharedPool()     # every mining graph of a device: one memory pool
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "eager_chunks": 0}
+_CACHE = ExecutableCache()
 
 
 def _draw(mask: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -47,52 +58,19 @@ def _w1_tiles(acdf: torch.Tensor, cdfs: torch.Tensor):
                               p=1.0)[0]
 
 
-def hard_negatives(acdf: torch.Tensor, cdfs: torch.Tensor,
-                   neg_mask: torch.Tensor) -> torch.Tensor:
-    """Per anchor row, the index of the masked candidate with the least
-    W₁ (index 0 when none): a running min over tiles; the earlier index
-    wins a tie, as in the JAX ``fori_loop`` (miner.py:79-96)."""
-    count = acdf.shape[0]
-    best = torch.full((count,), float("inf"), device=acdf.device)
-    best_i = torch.zeros(count, dtype=torch.int64, device=acdf.device)
-    for t0, w1 in _w1_tiles(acdf, cdfs):
-        w1 = w1.masked_fill(~neg_mask[:, t0:t0 + w1.shape[1]], float("inf"))
-        targ = w1.argmin(dim=1)
-        tmin = w1.gather(1, targ[:, None])[:, 0]
-        upd = tmin < best
-        best = torch.where(upd, tmin, best)
-        best_i = torch.where(upd, targ + t0, best_i)
-    return best_i
-
-
-def _mine_chunk(positions: torch.Tensor, cdfs: torch.Tensor,
-                generator: torch.Generator, params: Tuple[float, ...],
-                start: int, count: int, strategy: str):
+def _mine_chunk_eager(positions: torch.Tensor, cdfs: torch.Tensor,
+                      generator: torch.Generator, params: Tuple[float, ...],
+                      start: int, count: int, strategy: str):
     """(pos_idx, neg_idx, valid) for anchors ``start .. start+count`` of
-    one sequence (JAX ``_mine_chunk``, miner.py:55)."""
+    one sequence, "semi-hard" or "random", op by op (JAX ``_mine_chunk``,
+    miner.py:55)."""
     n = positions.shape[0]
     dev = positions.device
-    # ‖a − p‖ from per-coordinate differences, as the JAX norm computes it
-    a = positions[start:start + count]
-    d2 = None
-    for c in range(positions.shape[1]):
-        diff = a[:, c, None] - positions[None, :, c]
-        d2 = diff * diff if d2 is None else d2 + diff * diff
-    d = torch.sqrt(d2)
-    del d2, diff
-    ai = start + torch.arange(count, dtype=torch.int32, device=dev)
-    gap = (ai[:, None]
-           - torch.arange(n, dtype=torch.int32, device=dev)[None, :]).abs()
-    not_self = gap > 0
-    pos_mask = (d < params[0]) & (gap >= params[1]) & not_self
-    neg_mask = ((d >= params[2]) & (d <= params[3])
-                & (gap >= params[4]) & not_self)
-    del d, gap, not_self
+    a = torch.arange(start, start + count, dtype=torch.int64, device=dev)
+    pos_mask, neg_mask = mine_kernel.chunk_masks(positions, a, 0, n, params)
     pos_idx = _draw(pos_mask, generator)
     acdf = cdfs[start:start + count]
-    if strategy == "hard":
-        neg_idx = hard_negatives(acdf, cdfs, neg_mask)
-    elif strategy == "semi-hard":
+    if strategy == "semi-hard":
         w1 = torch.cat([w for _, w in _w1_tiles(acdf, cdfs)], dim=1)
         masked = w1.masked_fill(~neg_mask, float("inf"))
         order = torch.sort(masked, dim=1, stable=True).indices
@@ -101,19 +79,119 @@ def _mine_chunk(positions: torch.Tensor, cdfs: torch.Tensor,
     else:
         neg_idx = _draw(neg_mask, generator)
     valid = pos_mask.any(dim=1) & neg_mask.any(dim=1)
+    if dev.type == "cuda":
+        STATS["eager_chunks"] += 1
     return pos_idx, neg_idx, valid
+
+
+class MiningExecutable(GraphStep):
+    """JAX's ``_mine_chunk`` ("hard", miner.py:54) for one (device,
+    sequence length n, chunk c, bins, thresholds): kernel M's two entries
+    on anchors ``start .. start + c``, ``start`` and the c draws u staged
+    each chunk (``utils/graph_exec.GraphStep``). The sequence's positions
+    and CDFs sit in a device arena (``load_sequence``, once a sequence).
+    Outputs, fetched in one download a chunk: int32 ``pos_idx``,
+    ``neg_idx``, ``count_pos``, ``count_neg`` and bool ``valid``."""
+
+    def __init__(self, n: int, chunk: int, bins: int,
+                 params: Tuple[float, ...], device: torch.device,
+                 use_graph: bool = True):
+        super().__init__(device, use_graph, POOL, STATS)
+        self.chunk, self.params = chunk, tuple(params)
+        f32, i32 = torch.float32, torch.int32
+        self.data = Arena([("positions", (n, 3), f32),
+                           ("cdfs", (n, bins), f32)], device, host=False)
+        self.inputs = Arena([("start", (1,), i32), ("u", (chunk,), f32)],
+                            device)
+        self.outputs = Arena([("pos_idx", (chunk,), i32),
+                              ("neg_idx", (chunk,), i32),
+                              ("count_pos", (chunk,), i32),
+                              ("count_neg", (chunk,), i32),
+                              ("valid", (chunk,), torch.bool)], device)
+
+    def load_sequence(self, positions: torch.Tensor,
+                      cdfs: torch.Tensor) -> None:
+        self.load(self.data, {"positions": positions, "cdfs": cdfs})
+
+    def _kernels(self) -> tuple:
+        return (mine_kernel.HARD, mine_kernel.DRAW)
+
+    def _check(self, graph) -> None:
+        from neural_spectral_codec_torch._build import graph_census
+        self.census = graph_census(graph.raw_cuda_graph())
+        if (self.census["mine"], self.census["mine_draw"]) != (1, 1):
+            raise RuntimeError(f"the mining graph holds {self.census['mine']}"
+                               f" counting and {self.census['mine_draw']} "
+                               "draw kernels, not one each")
+
+    def _step(self) -> None:
+        d, i = self.data.dev, self.inputs.dev
+        out = mine_kernel.mine(d["positions"], d["cdfs"], i["start"],
+                               self.chunk, self.params, i["u"], tile=TILE)
+        for name, value in zip(out._fields, out):
+            self.outputs.dev[name].copy_(value)
+
+
+def mining_executable(n: int, chunk: int, bins: int,
+                      params: Tuple[float, ...], device: torch.device,
+                      use_graph: bool = True) -> MiningExecutable:
+    """The cached mining step of (device, n, chunk, bins, thresholds)."""
+    graphed = use_graph and device.type == "cuda"
+    return _CACHE.get((str(device), int(n), int(chunk), int(bins),
+                       tuple(params), graphed),
+                      lambda: MiningExecutable(n, chunk, bins, params,
+                                               device, use_graph))
+
+
+def cached_executables() -> list:
+    """The mining executables in the cache, oldest first."""
+    return _CACHE.values()
+
+
+def clear_cache() -> None:
+    """Drop every cached mining executable (and with them their graphs)."""
+    _CACHE.clear()
+
+
+def _mine_hard(positions: torch.Tensor, cdfs: torch.Tensor,
+               generator: torch.Generator, params: Tuple[float, ...],
+               chunk: int, use_graph: bool):
+    """Every anchor of one sequence through its ``MiningExecutable``: the
+    chunks' starts are s = 0, c, 2c, ... with the last one moved back to
+    n − c (JAX's revisit scan does the same, validation.py:53), so one
+    graph serves the whole sequence; the last chunk keeps only its new
+    anchors. c draws u a chunk. Numpy (pos, neg, valid)."""
+    n = positions.shape[0]
+    c = min(chunk, n)
+    exe = mining_executable(n, c, cdfs.shape[1], params, positions.device,
+                            use_graph)
+    exe.load_sequence(positions, cdfs)
+    outs = []
+    for s in range(0, n, c):
+        start = min(s, n - c)
+        u = torch.rand(c, generator=generator, device=positions.device)
+        out, _ = exe.run({"start": np.array([start], np.int32), "u": u})
+        lo = s - start
+        outs.append(tuple(out[k][lo:] for k in ("pos_idx", "neg_idx",
+                                                "valid")))
+    return tuple(np.concatenate([o[i] for o in outs]).astype(
+        np.int64 if i < 2 else bool) for i in range(3))
 
 
 def _mine_kernel_chunked(positions: torch.Tensor, cdfs: torch.Tensor,
                          generator: torch.Generator,
                          params: Tuple[float, ...], strategy: str,
-                         chunk: int = ANCHOR_CHUNK):
+                         chunk: int = ANCHOR_CHUNK, use_graph: bool = True):
     """All anchors of one sequence in chunks (JAX
     ``_mine_kernel_chunked``, miner.py:29); numpy (pos, neg, valid).
-    Each chunk's result is fetched before the next starts, so one
-    chunk's (chunk, n) masks are live at a time."""
+    "hard" runs the ``MiningExecutable``; the other strategies fetch each
+    chunk's result before the next starts, so one chunk's (chunk, n)
+    masks are live at a time."""
+    if strategy == "hard":
+        return _mine_hard(positions, cdfs, generator, params, chunk,
+                          use_graph)
     n = positions.shape[0]
-    outs = [tuple(t.cpu().numpy() for t in _mine_chunk(
+    outs = [tuple(t.cpu().numpy() for t in _mine_chunk_eager(
         positions, cdfs, generator, params, s, min(s + chunk, n) - s,
         strategy)) for s in range(0, n, chunk)]
     return tuple(np.concatenate([o[i] for o in outs]) for i in range(3))
@@ -121,7 +199,9 @@ def _mine_kernel_chunked(positions: torch.Tensor, cdfs: torch.Tensor,
 
 class TripletMiner:
     """Offline miner over a keyframe set (JAX ``TripletMiner``,
-    miner.py:114). Masks, W₁ and draws run on ``device``."""
+    miner.py:114). Masks, W₁ and draws run on ``device``; with
+    ``use_graph`` (the default) the "hard" chunks replay a captured graph
+    on a card, without it they run the same step eagerly."""
 
     def __init__(self, positive_distance_max: float = 5.0,
                  positive_temporal_min: int = 30,
@@ -129,7 +209,8 @@ class TripletMiner:
                  negative_distance_max: float = 50.0,
                  negative_temporal_min: int = 30,
                  mining_strategy: str = "hard",
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, device: DeviceLike = "cuda",
+                 use_graph: bool = True):
         if mining_strategy not in STRATEGIES:
             raise ValueError(f"mining_strategy {mining_strategy!r} not in "
                              f"{STRATEGIES}")
@@ -140,6 +221,7 @@ class TripletMiner:
             negative_temporal_min], dtype=np.float32))
         self.mining_strategy = mining_strategy
         self.device = resolve_device(device)
+        self.use_graph = use_graph
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
     def mine_triplets(self, descriptors: np.ndarray, poses: np.ndarray,
@@ -165,7 +247,7 @@ class TripletMiner:
             for _ in range(n_triplets_per_anchor):
                 pos_i, neg_i, valid = _mine_kernel_chunked(
                     pos_d, cdf_d, self._gen, self.params,
-                    self.mining_strategy)
+                    self.mining_strategy, use_graph=self.use_graph)
                 anchors = np.nonzero(valid)[0]
                 triplets.append(np.stack([sel[anchors], sel[pos_i[anchors]],
                                           sel[neg_i[anchors]]], axis=1))
@@ -181,10 +263,12 @@ def create_triplet_miner(positive_distance_max: float = 5.0,
                          negative_temporal_min: int = 30,
                          mining_strategy: str = "hard",
                          seed: int = 0,
-                         device: DeviceLike = "cuda") -> TripletMiner:
+                         device: DeviceLike = "cuda",
+                         use_graph: bool = True) -> TripletMiner:
     return TripletMiner(positive_distance_max, positive_temporal_min,
                         negative_distance_min, negative_distance_max,
-                        negative_temporal_min, mining_strategy, seed, device)
+                        negative_temporal_min, mining_strategy, seed, device,
+                        use_graph)
 
 
 class BatchTripletMiner:

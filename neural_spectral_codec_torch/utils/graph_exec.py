@@ -3,7 +3,10 @@ as one captured CUDA graph on a card: the serving step
 (``models/serving.py``), the verifier's registration
 (``retrieval/verification.py``), the stage-1 query
 (``retrieval/retriever.py``), the split-mode eval forward
-(``models/gnn.py``) and ``entry()``'s forward (``entry.py``).
+(``models/gnn.py``), ``entry()``'s forward (``entry.py``) and the training
+programs: the miner's chunk (``training/miner.py``), the train step
+(``training/trainer.py``) and validation's two scans
+(``training/validation.py``).
 
 ``Arena``: named typed sections of one device buffer, staged through one
 pinned host buffer of the same layout. ``capture_graph``: one warm-up run
@@ -76,13 +79,18 @@ class Arena:
 
 
 def capture_graph(step: Callable[[], None], stream: torch.cuda.Stream,
-                  pool, kernels: Sequence
+                  pool, kernels: Sequence, generators: Sequence = (),
+                  track: Optional[Callable[[object], None]] = None
                   ) -> Tuple[torch.cuda.CUDAGraph, Dict[object, int], float]:
     """Run ``step`` once on ``stream`` (which fills the per-stream scratch,
     cached tables and library workspaces its launches use), then capture
     it on ``stream`` into a ``CUDAGraph`` in memory ``pool``, in
     ``thread_local`` mode (other threads may launch, and capture into
-    other pools, meanwhile).
+    other pools, meanwhile). ``generators`` (CUDA ``torch.Generator``s the
+    step draws from, other than the device's default one) are registered
+    with the graph, so that each replay draws the numbers the next eager
+    step would and advances them as that step would. ``track`` is given
+    the graph before its capture (``SharedPool.track``).
 
     Returns (graph, credits, capture seconds). ``credits`` maps each of
     ``kernels`` (``_build.CudaKernel``) that launched inside the capture to
@@ -94,6 +102,10 @@ def capture_graph(step: Callable[[], None], stream: torch.cuda.Stream,
         step()
     before = [(k.launches, k.last_args) for k in kernels]
     graph = torch.cuda.CUDAGraph(keep_graph=True)
+    if track is not None:
+        track(graph)
+    for gen in generators:
+        graph.register_generator_state(gen)
     t0 = time.perf_counter()
     with torch.cuda.graph(graph, pool=pool, stream=stream,
                           capture_error_mode="thread_local"):
@@ -131,24 +143,33 @@ class SharedPool:
     pool). Graphs of one pool must never run at the same time: a family
     either replays on one thread's stream only (the serving graphs), or
     captures and replays on the pool's stream under its lock
-    (``GraphStep``). On the CPU only the lock exists."""
+    (``GraphStep``). On the CPU only the lock exists.
+
+    The allocator refuses a capture into a pool whose graphs have all been
+    freed (its memory may then be returned to the card), so the graphs
+    captured into the pool are counted while they live (``track``) and,
+    once the last one is gone, the next capture gets a new pool."""
 
     def __init__(self):
-        self._by_device: Dict[object, tuple] = {}
-        self._guard = threading.Lock()
+        self._by_device: Dict[object, list] = {}
+        self._live: Dict[tuple, int] = {}     # (device, pool) -> graphs
+        self._guard = threading.RLock()
 
-    def _get(self, device: torch.device) -> tuple:
+    def _get(self, device: torch.device) -> list:
         key = _device_key(device)
+        cuda = device.type == "cuda"
         with self._guard:
             if key not in self._by_device:
-                cuda = device.type == "cuda"
-                self._by_device[key] = (
-                    torch.cuda.graph_pool_handle() if cuda else None,
-                    torch.cuda.Stream(device) if cuda else None,
-                    threading.RLock())
-            return self._by_device[key]
+                self._by_device[key] = [
+                    None, torch.cuda.Stream(device) if cuda else None,
+                    threading.RLock()]
+            entry = self._by_device[key]
+            if cuda and entry[0] is None:
+                entry[0] = torch.cuda.graph_pool_handle()
+            return entry
 
     def handle(self, device: torch.device):
+        """The pool the next capture on ``device`` goes into."""
         return self._get(device)[0]
 
     def stream(self, device: torch.device) -> torch.cuda.Stream:
@@ -157,15 +178,39 @@ class SharedPool:
     def lock(self, device: torch.device) -> threading.RLock:
         return self._get(device)[2]
 
+    def track(self, device: torch.device, handle, graph) -> None:
+        """Count ``graph``, made for a capture into pool ``handle`` on
+        ``device``, while it lives; when the last graph of the device's
+        current pool is gone, that pool is not handed out again."""
+        key = (_device_key(device), tuple(handle))
+        with self._guard:
+            self._live[key] = self._live.get(key, 0) + 1
+        weakref.finalize(graph, self._untrack, key)
+
+    def _untrack(self, key: tuple) -> None:
+        with self._guard:
+            self._live[key] -= 1
+            if self._live[key]:
+                return
+            del self._live[key]
+            entry = self._by_device.get(key[0])
+            if entry is not None and entry[0] is not None and \
+                    tuple(entry[0]) == key[1]:
+                entry[0] = None
+
     def bytes(self, device: torch.device) -> int:
-        """Bytes the allocator holds in this pool on ``device``."""
+        """Bytes the allocator holds in this family's pools on
+        ``device``."""
         key = _device_key(device)
         if device.type != "cuda" or key not in self._by_device:
             return 0
-        pool = tuple(self._by_device[key][0])
+        with self._guard:
+            pools = {p for k, p in self._live if k == key}
+            if self._by_device[key][0] is not None:
+                pools.add(tuple(self._by_device[key][0]))
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if seg["device"] == key
-                   and tuple(seg["segment_pool_id"]) == pool)
+                   and tuple(seg["segment_pool_id"]) in pools)
 
 
 class ExecutableCache:
@@ -225,10 +270,16 @@ class GraphStep:
     Subclasses set ``inputs`` and ``outputs`` (``Arena``) and define
     ``_step`` (reads ``inputs.dev``, writes ``outputs.dev``: static
     shapes, no host sync); ``_kernels`` names the hand-written kernels a
-    capture may hold and ``_check`` reads the captured graph back."""
+    capture may hold, ``_generators`` the generators it draws from, and
+    ``_check`` reads the captured graph back. A step that updates state in
+    place (a train step) sets ``warmup_is_the_run``: the capture's warm-up
+    run is then the run's step, and the capturing run does not replay.
+    ``load`` copies device tensors into sections of another arena the step
+    reads (data kept on the device across runs)."""
 
     inputs: Arena
     outputs: Arena
+    warmup_is_the_run = False
 
     def __init__(self, device: torch.device, use_graph: bool,
                  pool: SharedPool, stats: Dict[str, int]):
@@ -249,6 +300,33 @@ class GraphStep:
 
     def _kernels(self) -> tuple:
         return ()
+
+    def _generators(self) -> tuple:
+        return ()
+
+    def load(self, arena: Arena, values: Dict[str, torch.Tensor]) -> None:
+        """Copy ``values`` (tensors on this step's device, or host tensors
+        on the CPU) into the sections of ``arena`` (``host=False``) of the
+        same names, on the pool's stream under its lock, ordered after the
+        caller's work and before the next run."""
+        with self.pool.lock(self.device):
+            if self.device.type != "cuda":
+                for name, value in values.items():
+                    arena.dev[name].copy_(value)
+                return
+            caller = torch.cuda.current_stream(self.device)
+            stream = self.pool.stream(self.device)
+            with torch.cuda.device(self.device):
+                stream.wait_stream(caller)
+                with torch.cuda.stream(stream):
+                    for name, value in values.items():
+                        if value.device != self.device:
+                            raise ValueError(
+                                f"load {name}: on {value.device}, the step "
+                                f"runs on {self.device}")
+                        value.record_stream(stream)
+                        arena.dev[name].copy_(value)
+                caller.wait_stream(stream)
 
     def _check(self, graph: torch.cuda.CUDAGraph) -> None:
         """Read a captured graph back (``census``) and raise on a fault;
@@ -305,11 +383,11 @@ class GraphStep:
                     if self.use_graph and self.graph is None:
                         self._capture(stream)
                         captured = True
-                    if self.graph is not None:
-                        replay(self.graph, self.credits, self.stats)
-                    else:
+                    if self.graph is None:
                         self._step()
                         self.stats["eager_steps"] += 1
+                    elif not (captured and self.warmup_is_the_run):
+                        replay(self.graph, self.credits, self.stats)
                     if fetch:
                         self.outputs.download()
                         self._done.record(stream)
@@ -325,9 +403,10 @@ class GraphStep:
             return out, captured
 
     def _capture(self, stream: torch.cuda.Stream) -> None:
+        pool = self.pool.handle(self.device)
         graph, credits, self.capture_s = capture_graph(
-            self._step, stream, self.pool.handle(self.device),
-            self._kernels())
+            self._step, stream, pool, self._kernels(), self._generators(),
+            track=lambda g: self.pool.track(self.device, pool, g))
         self._check(graph)
         self.graph, self.credits = graph, credits
         self.stats["captures"] += 1
