@@ -404,6 +404,8 @@ SCALE_NODES = 20_000
 MINE_NODES = 100_000           # kernel M timed on one chunk of this many
 MINE_CHUNK = 2048              # anchors (training/miner.py ANCHOR_CHUNK)
 MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)   # scale_100k's thresholds
+DRAW_OPS = 12                  # a frame's mask in M's draw: 3 subtractions,
+#                                3 products, 2 sums, a sqrt, 3 comparisons
 GRAPH_STEPS = 3                # train graph vs eager: steps compared
 BIG_NODES = 100_000            # one train-step replay timed at this size
 STORE_ROWS = 100_000           # phase 8: the resumed map's records
@@ -1848,28 +1850,42 @@ def _training_kernels(device) -> dict:
     pos, cdf = _mine_inputs(n, device)
     cases = [(min(s, n - MINE_CHUNK), MINE_CHUNK)
              for s in range(0, n, MINE_CHUNK)]
+    n_chunks = len(cases)
     cases += [(0, 1), (n - 37, 37), (n // 2, 100)]
-    valid = 0
-    for start, count in cases:
+    valid, mined = 0, []
+    for k, (start, count) in enumerate(cases):
         u = torch.rand(count, generator=gen, device=device)
         st = torch.tensor([start], dtype=torch.int32, device=device)
         want = mk.mine_plain(pos, cdf, start, count, params, u)
-        bad = _same_mined(mk.mine_cuda(pos, cdf, st, count, params, u), want)
+        got = mk.mine_cuda(pos, cdf, st, count, params, u)
+        bad = _same_mined(got, want)
         _check(not bad, f"mine kernel != plain version (start {start}, "
                f"count {count}): {bad} differ")
         valid += int(want.valid.sum())
+        if k < n_chunks:     # the miner keeps a moved-back chunk's new ones
+            mined.append([t[k * MINE_CHUNK - start:] for t in got])
     print(f"mine: bit-equal to the plain version (draws, hard negatives, "
-          f"counts, valid) on the {len(cases) - 3} chunks of a {n}-frame "
+          f"counts, valid) on the {n_chunks} chunks of a {n}-frame "
           f"sequence and 3 partial chunks ({valid} valid anchors)",
           flush=True)
+    # one 4,096-triplet batch of M's own output, as the trainer's first
+    # epoch takes it (its seeded shuffle): the plans of kernel G below
+    pos_i, neg_i, _, _, ok = (torch.cat(f) for f in zip(*mined))
+    anchors = torch.nonzero(ok)[:, 0]
+    trip = torch.stack([anchors, pos_i[anchors].long(),
+                        neg_i[anchors].long()], dim=1)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        len(trip))[:4096]).to(device)
+    mined_batch = trip[perm]
     del pos, cdf
     pos, cdf = _mine_inputs(MINE_NODES, device)
     bins, start = cdf.shape[1], MINE_NODES // 2
     u = torch.rand(MINE_CHUNK, generator=gen, device=device)
     st = torch.tensor([start], dtype=torch.int32, device=device)
+    scratch = mk.mine_scratch(MINE_NODES, MINE_CHUNK, device)
 
     def call():
-        return mk.mine_cuda(pos, cdf, st, MINE_CHUNK, params, u)
+        return mk.mine_cuda(pos, cdf, st, MINE_CHUNK, params, u, scratch)
 
     def plain():
         return mk.mine_plain(pos, cdf, start, MINE_CHUNK, params, u)
@@ -1890,15 +1906,27 @@ def _training_kernels(device) -> dict:
     t["draw_device_ms"] = _device_times("mine_draw", call, profiled=10,
                                         queued_calls=20)["device_ms"]
     t["share_of_bound"] = bound_ms / t["device_ms"]
+    # the draw's own bound: the masks of the frames from the split's first
+    # to the drawn positive, for each anchor with one (DRAW_OPS a frame),
+    # or its bytes (positions, u, counts, the splits' counts, pos_idx)
+    got = call()
+    splits = scratch[0].shape[0]
+    scanned = mk.draw_frames(got.pos_idx, got.count_pos, MINE_NODES, splits)
+    t["draw_bound_ms"], t["draw_bound_by"] = _bound(
+        12 * MINE_NODES + 4 * MINE_CHUNK * (3 + splits),
+        n_ops_no_fma=DRAW_OPS * scanned)
+    t["draw_frames_scanned"] = scanned
     out = {"mine": t}
     print(f"kernel mine: {MINE_CHUNK} x {MINE_NODES} x {bins} bins, device "
           f"{t['device_ms']:.4f} ms (profiler {t['profiler_ms']}, queued "
-          f"bare {t['queued_ms']:.4f}), draw entry {t['draw_device_ms']:.4f}"
-          f" ms, wrapper {wrapper_ms:.4f} ms, plain {t['plain_ms']:.1f} ms, "
-          f"yardstick cdist {t['yardstick_ms']:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {100 * t['share_of_bound']:.1f}% "
-          f"of it)", flush=True)
-    del pos, cdf
+          f"bare {t['queued_ms']:.4f}), wrapper {wrapper_ms:.4f} ms, plain "
+          f"{t['plain_ms']:.1f} ms, yardstick cdist {t['yardstick_ms']:.3f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{100 * t['share_of_bound']:.1f}% of it); draw entry "
+          f"{t['draw_device_ms']:.5f} ms over {splits} splits, bound "
+          f"{t['draw_bound_ms']:.5f} ms ({t['draw_bound_by']}: {scanned} "
+          f"frames scanned)", flush=True)
+    del pos, cdf, scratch
 
     desc, poses, _ = synthetic_city(n)
     g = graph_to_tensors(build_graph(desc, poses, temporal_neighbors=5),
@@ -1921,19 +1949,37 @@ def _training_kernels(device) -> dict:
         grads[dtype] = grad
     tri = torch.randint(0, n, (4096,), generator=gen, device=device)
     tri[:1024] = tri[1024:2048]                # repeats
+    tri_free = tri.clone()
     tri[:16] = 7                               # a long segment
     tgrad = torch.randn(4096, 800, generator=gen, device=device)
     tplan = gk.make_plan(tri, n)
-    got = gk.gather_bwd_cuda(tgrad, tplan, n)
-    _check(torch.equal(got, gk.gather_bwd_plain(tgrad, tplan, n)) and
-           torch.equal(got.cpu(), torch.zeros(n, 800).index_add_(
-               0, tri.cpu(), tgrad.cpu())),
-           "gather_bwd kernel != plain version / CPU index_add_ on the "
-           "triplet gathers")
+    plans = {"random": (tri, tplan),
+             "random_no16": (tri_free, gk.make_plan(tri_free, n))}
+    plans.update({f"mined_{name}": (mined_batch[:, c].contiguous(),
+                                    gk.make_plan(mined_batch[:, c], n))
+                  for c, name in enumerate(("anchor", "positive",
+                                            "negative"))})
+    for name, (idx, pl) in plans.items():
+        g = tgrad[:len(idx)]
+        got = gk.gather_bwd_cuda(g, pl, n)
+        _check(torch.equal(got, gk.gather_bwd_plain(g, pl, n)) and
+               torch.equal(got.cpu(), torch.zeros(n, 800).index_add_(
+                   0, idx.cpu(), g.cpu())),
+               f"gather_bwd kernel != plain version / CPU index_add_ on the "
+               f"{name} triplet plan")
+        gb = g.to(torch.bfloat16)
+        _check(torch.equal(gk.gather_bwd_cuda(gb, pl, n).cpu(), torch.zeros(
+                   n, 800, dtype=torch.bfloat16).index_add_(
+                   0, idx.cpu(), gb.cpu())),
+               f"gather_bwd kernel != CPU index_add_ on the {name} triplet "
+               f"plan (bf16)")
     print(f"gather_bwd: bit-equal to the plain version and the CPU's "
           f"index_add_ on the {n}-node neighbour table ({int(keep.sum())} "
-          f"valid of {keep.numel()} slots; float32 and bf16) and on 4,096 "
-          f"triplet gathers with repeats", flush=True)
+          f"valid of {keep.numel()} slots; float32 and bf16) and on "
+          f"{len(plans)} triplet plans (4,096 random gathers with repeats, "
+          f"with and without a 16-position segment; the anchor, positive "
+          f"and negative columns of {len(mined_batch)} mined triplets; "
+          f"float32 and bf16)", flush=True)
 
     valid_idx, g32 = idx_all[keep], grads[torch.float32]
     g32_valid = g32[keep]
@@ -1961,6 +2007,22 @@ def _training_kernels(device) -> dict:
     # the neighbour table's segment table, which each GAT layer of a train
     # step builds
     t["plan_ms"] = _time_ms(lambda: gk.make_plan(idx_all, n, keep))
+    for name, (idx, pl) in plans.items():
+        if name == "random":
+            continue        # device_ms_triplets above
+        seg = pl.offsets[1:] - pl.offsets[:-1]
+        g = tgrad[:len(idx)]
+        t[f"device_ms_{name}"] = _device_times(
+            "gather_bwd", lambda: gk.gather_bwd_cuda(g, pl, n))["device_ms"]
+        t[f"longest_segment_{name}"] = int(seg.max())
+        t[f"rows_{name}"] = int((seg > 0).sum())
+        print(f"gather_bwd, {name} triplet plan: {len(idx)} x 800 float32 "
+              f"into {n} rows, longest segment {t[f'longest_segment_{name}']}"
+              f", {t[f'rows_{name}']} non-empty rows: device "
+              f"{t[f'device_ms_{name}']:.5f} ms", flush=True)
+    seg = tplan.offsets[1:] - tplan.offsets[:-1]
+    t["longest_segment_random"] = int(seg.max())
+    t["rows_random"] = int((seg > 0).sum())
     out["gather_bwd"] = t
     print(f"kernel gather_bwd: {p_valid} rows of {width} float32 into {n} "
           f"(the GAT's neighbour gather at {n} nodes) device "
@@ -1969,7 +2031,9 @@ def _training_kernels(device) -> dict:
           f"wrapper {wrapper_ms:.5f} ms, plain {t['plain_ms']:.4f} ms, "
           f"index_add_ {t['library_ms']:.5f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}, {100 * t['share_of_bound']:.1f}% of it); 4,096 x "
-          f"800 triplet rows device {t['device_ms_triplets']:.5f} ms, "
+          f"800 triplet rows (longest segment {t['longest_segment_random']}, "
+          f"{t['rows_random']} non-empty rows) device "
+          f"{t['device_ms_triplets']:.5f} ms, "
           f"index_add_ {t['library_ms_triplets']:.5f} ms, bound "
           f"{t['bound_ms_triplets']:.5f} ms; the neighbour table's segment "
           f"table {t['plan_ms']:.5f} ms", flush=True)
@@ -4747,10 +4811,14 @@ def main() -> None:
                     "device_ms_sweep_b1", "queued_ms_sweep_b1",
                     "device_ms_cold", "device_ms_cold_b1", "yardstick_ms",
                     "share_of_bound", "solve_device_ms", "draw_device_ms",
+                    "draw_bound_ms", "draw_bound_by", "draw_frames_scanned",
                     "device_ms_bf16", "device_ms_triplets",
                     "library_ms_triplets", "bound_ms_triplets"):
             if key in t:
                 entry[key] = t[key]
+        entry.update({k: v for k, v in t.items()
+                      if k.startswith(("device_ms_random", "device_ms_mined",
+                                       "longest_segment_", "rows_"))})
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"

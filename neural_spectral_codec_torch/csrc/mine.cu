@@ -33,42 +33,83 @@
 // FMA), so a 2,048-anchor chunk against 100,000 frames of 800 bins is
 // 3.28e11 operations, 9.8 ms at 33.5 T non-FMA operations a second (the
 // masks add ~12 operations a pair, 0.8%); the bytes (the CDFs, 320 MB) take
-// 0.1 ms. A 100,000-frame sequence is 49 chunks: 0.48 s.
+// 0.1 ms. A 100,000-frame sequence is 49 chunks: 0.48 s. At that bound the
+// FP32 pipes issue every cycle, so every other instruction takes a slot
+// from them: the design keeps the others few.
 //
-// Design, simple first: a CTA of 256 threads (16 x 16) owns kBA = 64
-// anchors and walks its split of the frames in tiles of kBJ = 64 rows; each
-// thread holds 4 anchors x 4 rows of W1 sums in registers and reads both
-// from shared memory, where the CTA stages kK = 32 bins of the anchors' and
-// the tile's CDFs at a time (bin-major, so a thread's 4 anchors or 4 rows
-// are one float4). Bins past B count as 0 in both (adding +0 to a sum of
-// absolute values leaves its bits). After a tile's last bin the thread
-// forms its 16 pairs' masks and keeps, per anchor, the counts and the
-// (W1, j) of its least negative, its rows visited in increasing j (a
-// strict < keeps the first). The frames are cut into `splits` contiguous
-// parts (grid.x), so that enough CTAs fill the card; the 16 threads of an
-// anchor merge by (W1, j) (lower j on equal W1) in shared memory, each
-// split writes one partial (W1, j, counts) an anchor, and the last CTA of
-// the anchor tile to finish (a ticket, after a fence) merges the splits the
-// same way: the answer does not depend on the split. The draw: one warp an
-// anchor, 32 frames a step, a ballot of the positive mask and its
-// population count until the r-th positive is reached. Later work: keep
-// the anchors' CDFs resident, double-buffer the tiles (cp.async or TMA).
+// Design. A CTA of 256 threads (16 x 16) owns kBA = 128 anchors and walks
+// its split of the frames in tiles of kBJ = 128 rows; each thread holds
+// 8 anchors x 8 frames of W1 sums in registers (anchors tx + 16 i, frames
+// ty + 16 j). The CTA's CDF rows (its anchors' and the tile's) come in
+// slabs of kK = 32 bins through a ring of kStages = 2 shared-memory stages
+// filled by cp.async (16-byte copies of 4 bins; 4-byte copies when the rows
+// are not 16-byte aligned), one slab ahead, one barrier a slab; the copies
+// run on across tile boundaries, so the masks after a tile's last slab
+// overlap the next tile's loads. Rows stay row-major (bins contiguous,
+// padded to kRow = 36 floats): a thread reads 4 bins of one anchor or
+// frame as a float4, 8 + 8 such reads for 256 W1 additions; the 8 anchors
+// a quarter-warp reads are 8 consecutive rows, 144 bytes apart, which fall
+// in 8 distinct 16-byte bank groups, and its frame read is one row (a
+// broadcast). Bins past B, anchors past count and frames past n are
+// zero-filled by the copies (adding +0 to a sum of absolute values leaves
+// its bits) and never reported. The anchors' CDFs are staged again for
+// every tile, through the same ring: 128 anchors x 800 bins (400 KB) do not
+// fit beside the ring, and 64 resident anchors (200 KB) would leave one CTA
+// an SM with 64 x 256 tiles, which reads as many bytes a pair from L2 as
+// 128 x 128 tiles that restage both (1/64 of a row a pair a bin) and would
+// wait on every barrier with the whole SM. A thread's per-anchor state
+// (least W1 and its j, the two counts) lives in shared memory and is
+// touched only after each tile: the registers hold the 64 sums and the
+// operands (kCtasPerSm = 2 CTAs an SM, at most 128 registers a thread; 32
+// bins and 2 stages, against 16 and 3, halve the barriers and spill
+// nothing: 14.2 against 15.4 ms a 2,048 x 100,000 x 800 chunk on an H100).
+// After a tile's last slab the thread forms its 64 pairs' masks and keeps,
+// per anchor, the counts and the (W1, j) of its least negative, its frames
+// visited in increasing j (a strict < keeps the first). The frames are cut
+// into `splits` contiguous parts (grid.x; training/mine_kernel.py
+// row_splits: as many as fill kCtasPerSm CTAs an SM in one wave); the 16
+// threads of an anchor merge by (W1, j) (lower j on equal W1) in shared
+// memory, each split writes one partial (W1, j, counts) an anchor, and the
+// last CTA of the anchor tile to finish (a ticket, after a fence) merges the
+// splits the same way: the answer does not depend on the split.
+//
+// The draw: one warp an anchor reads its splits' positive counts (the
+// partials the first entry wrote), 32 at a time with a warp prefix sum,
+// finds the split that holds the r-th positive, and walks that split's
+// frames only, 128 a step (4 frames a lane, loaded together), by ballots
+// of the positive mask and their population counts.
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBA = 64;                 // anchors a CTA
-constexpr int kBJ = 64;                 // frames a tile
-constexpr int kK = 32;                  // bins staged at a time
-constexpr int kPer = 4;                 // anchors (and frames) a thread
-constexpr int kPad = 4;                 // shared row padding (floats)
-constexpr int kLanes = kBA / kPer;      // 16 threads across the anchors
+constexpr int kBA = 128;                // anchors a CTA
+constexpr int kBJ = 128;                // frames a tile
+constexpr int kPer = 8;                 // anchors (and frames) a thread
+constexpr int kLanes = 16;              // threads across anchors, frames
+constexpr int kK = 32;                  // bins a stage
+constexpr int kStages = 2;              // stages in the ring
+constexpr int kRow = 36;                // floats a staged row (kK + 4 padding)
+constexpr int kCtasPerSm = 2;
+constexpr int kDrawUnroll = 4;          // frames a lane a draw step
 constexpr int kNone = INT_MAX;          // no negative yet
 constexpr int kDrawWarps = kThreads / 32;
+constexpr int kStageFloats = (kBA + kBJ) * kRow;
+
+static_assert(kLanes * kPer == kBA && kLanes * kPer == kBJ, "tile shape");
+static_assert(kLanes * kLanes == kThreads, "16 x 16 threads");
+static_assert(kRow >= kK && kRow % 4 == 0 && kK % 4 == 0, "row layout");
+// a thread's 16-byte copies: 4 bins of rows tid / kQuads + h * kCopyRows
+// (h < kCopies) of the anchors and of the tile
+constexpr int kQuads = kK / 4;
+constexpr int kCopyRows = kThreads / kQuads;
+constexpr int kCopies = kBA / kCopyRows;
+static_assert(kCopies * kCopyRows == kBA && kBA == kBJ, "copy layout");
 
 struct Params {
   float pos_max, pos_gap, neg_min, neg_max, neg_gap;
@@ -80,6 +121,13 @@ struct Partial {
   int count_pos;
   int count_neg;
 };
+
+// the ring, the threads' per-anchor state, the anchors' positions, the
+// frame positions of kStages tiles
+constexpr size_t kSmemBytes = sizeof(float) * kStages * kStageFloats +
+                              sizeof(Partial) * kPer * kThreads +
+                              sizeof(float4) * kBA +
+                              sizeof(float) * kStages * 3 * kBJ;
 
 // (w, j) before (bw, bj): the lesser W1, the lower index on a tie.
 __device__ __forceinline__ bool before(float w, int j, float bw, int bj) {
@@ -104,116 +152,228 @@ __device__ __forceinline__ float3 position(const float* pts, int i) {
   return make_float3(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The first frame tile of split s of `splits` over n_tiles tiles: split s
+// takes the tiles split_tile(s) .. split_tile(s + 1) - 1
+// (training/mine_kernel.py split_frames).
+__device__ __forceinline__ int split_tile(int n_tiles, int s, int splits) {
+  return (int)((long long)n_tiles * s / splits);
+}
+
+// cp.async of kBytes (16 or 4) into shared memory; 0 source bytes fill
+// the destination with zeros (src is then not read).
+template <int kBytes>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(full ? 16 : 0) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(full ? 4 : 0) : "memory");
+  }
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy group but the newest kStages - 2 has landed (this thread's)
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 mine_hard_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
                  const int* __restrict__ start_at, int n, int count, int bins,
-                 Params prm, int splits, Partial* __restrict__ partial,
-                 int* __restrict__ tickets, int* __restrict__ neg_idx,
-                 int* __restrict__ count_pos, int* __restrict__ count_neg,
-                 uint8_t* __restrict__ valid) {
-  __shared__ __align__(16) float as[kK][kBA + kPad];
-  __shared__ __align__(16) float cs[kK][kBJ + kPad];
-  __shared__ Partial merge[kLanes][kBA];
+                 Params prm, int splits, int vec,
+                 Partial* __restrict__ partial, int* __restrict__ tickets,
+                 int* __restrict__ neg_idx, int* __restrict__ count_pos,
+                 int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  Partial* state = reinterpret_cast<Partial*>(ring + kStages * kStageFloats);
+  float4* apos = reinterpret_cast<float4*>(state + kPer * kThreads);
+  float* fpos = reinterpret_cast<float*>(apos + kBA);
   __shared__ int last;
 
   const int start = *start_at;
   const int tile = blockIdx.y;
   const int split = blockIdx.x;
-  const int tx = threadIdx.x % kLanes;          // anchors tx*4 .. tx*4+3
-  const int ty = threadIdx.x / kLanes;          // rows ty*4 .. ty*4+3
-  const int a0 = tile * kBA;                    // first anchor (chunk index)
+  const int tid = threadIdx.x;
+  const int tx = tid % kLanes;          // anchors tx + 16 i
+  const int ty = tid / kLanes;          // frames ty + 16 j of each tile
+  const int a0 = tile * kBA;            // first anchor (chunk index)
 
-  float3 pa[kPer];
-  int ag[kPer];
-  float best_w[kPer];
-  int best_j[kPer], cpos[kPer], cneg[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int a = a0 + tx * kPer + i;
-    ag[i] = start + (a < count ? a : 0);
-    pa[i] = position(pts, ag[i]);
-    best_w[i] = __int_as_float(0x7f800000);     // +inf
-    best_j[i] = kNone;
-    cpos[i] = cneg[i] = 0;
+  if (tid < kBA) {
+    // an anchor past count stands in as the chunk's first (never reported)
+    const int ag = start + (a0 + tid < count ? a0 + tid : 0);
+    const float3 p = position(pts, ag);
+    apos[tid] = make_float4(p.x, p.y, p.z, __int_as_float(ag));
   }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    state[i * kThreads + tid] = {__int_as_float(0x7f800000), kNone, 0, 0};
 
   const int n_tiles = (n + kBJ - 1) / kBJ;
-  const int t_begin = (int)((long long)n_tiles * split / splits);
-  const int t_end = (int)((long long)n_tiles * (split + 1) / splits);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * kBJ;
-    float acc[kPer][kPer];
+  const int t_begin = split_tile(n_tiles, split, splits);
+  const int t_end = split_tile(n_tiles, split + 1, splits);
+  const int slabs = (bins + kK - 1) / kK;
+  const int total = (t_end - t_begin) * slabs;
+
+  // The copies: 16-byte ones take 4 bins of the rows tid / kQuads + h *
+  // kCopyRows of the anchors and of the tile, so a thread's source rows
+  // are fixed for the CTA (anchors) and for a tile (frames); 4-byte ones
+  // take bin tid % kK of every (kThreads / kK)-th row. A tile's frame
+  // positions (3 x 128 floats) come with its first slab, into one of
+  // kStages buffers (tile index mod kStages: the epilogue of tile t reads
+  // its buffer before tile t + kStages is staged).
+  const int quad = 4 * (tid % kQuads), row4 = tid / kQuads;
+  int arow[kCopies], frow[kCopies];     // source rows, -1: none (zeros)
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) acc[i][j] = 0.0f;
-    for (int b0 = 0; b0 < bins; b0 += kK) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < kBA * kK; e += kThreads) {
-        const int r = e / kK, b = e % kK;
-        const int a = a0 + r, j = j0 + r;
-        const bool in_bins = b0 + b < bins;
-        as[b][r] = in_bins && a < count
-                       ? cdf[(long long)(start + a) * bins + b0 + b] : 0.0f;
-        cs[b][r] = in_bins && j < n
-                       ? cdf[(long long)j * bins + b0 + b] : 0.0f;
+  for (int h = 0; h < kCopies; ++h) {
+    const int a = a0 + row4 + kCopyRows * h;
+    arow[h] = a < count ? start + a : -1;
+    frow[h] = -1;
+  }
+  auto src = [&](int row, int b) {
+    return cdf + (long long)(row < 0 ? 0 : row) * bins + b;
+  };
+  int stage_t = t_begin, stage_b = 0, stage_slot = 0;
+  auto stage_next = [&]() {        // the next slab of the walk, then advance
+    float* slot = ring + stage_slot * kStageFloats;
+    const int j0 = stage_t * kBJ, b0 = stage_b * kK;
+    if (stage_b == 0) {
+      float* fp = fpos + (stage_t % kStages) * (3 * kBJ);
+      for (int e = tid; e < 3 * kBJ; e += kThreads) {
+        const bool ok = 3LL * j0 + e < 3LL * n;
+        copy_async<4>(fp + e, ok ? pts + 3LL * j0 + e : pts, ok);
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int b = 0; b < kK; ++b) {
-        const float4 av = *reinterpret_cast<const float4*>(&as[b][tx * kPer]);
-        const float4 cv = *reinterpret_cast<const float4*>(&cs[b][ty * kPer]);
-        const float x[kPer] = {av.x, av.y, av.z, av.w};
-        const float y[kPer] = {cv.x, cv.y, cv.z, cv.w};
 #pragma unroll
-        for (int i = 0; i < kPer; ++i)
-#pragma unroll
-          for (int j = 0; j < kPer; ++j)
-            acc[i][j] = __fadd_rn(acc[i][j], fabsf(__fsub_rn(x[i], y[j])));
+      for (int h = 0; h < kCopies; ++h) {
+        const int j = j0 + row4 + kCopyRows * h;
+        frow[h] = j < n ? j : -1;
       }
     }
+    if (vec) {
+      const bool in = b0 + quad < bins;
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int jg = j0 + ty * kPer + j;
-      if (jg >= n) break;
-      const float3 pj = position(pts, jg);
+      for (int h = 0; h < kCopies; ++h) {
+        const int r = row4 + kCopyRows * h;
+        copy_async<16>(slot + r * kRow + quad, src(arow[h], b0 + quad),
+                       in && arow[h] >= 0);
+        copy_async<16>(slot + (kBA + r) * kRow + quad,
+                       src(frow[h], b0 + quad), in && frow[h] >= 0);
+      }
+    } else {
+      const int k = tid % kK;
+      const bool in = b0 + k < bins;
+#pragma unroll 4
+      for (int r = tid / kK; r < kBA + kBJ; r += kThreads / kK) {
+        const bool anchor = r < kBA;
+        const int row = anchor ? start + a0 + r : j0 + r - kBA;
+        const bool ok = in && (anchor ? a0 + r < count : row < n);
+        copy_async<4>(slot + r * kRow + k,
+                      ok ? cdf + (long long)row * bins + b0 + k : cdf, ok);
+      }
+    }
+    if (++stage_b == slabs) { stage_b = 0; ++stage_t; }
+    if (++stage_slot == kStages) stage_slot = 0;
+  };
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        bool pos, neg;
-        masks(pa[i], pj, ag[i], jg, prm, &pos, &neg);
-        cpos[i] += pos;
-        cneg[i] += neg;
-        if (neg && acc[i][j] < best_w[i]) {
-          best_w[i] = acc[i][j];
-          best_j[i] = jg;
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < total) stage_next();
+    commit_copies();
+  }
+
+  float acc[kPer][kPer] = {};
+  int cur_t = t_begin, cur_b = 0, cur_slot = 0;
+  for (int g = 0; g < total; ++g) {
+    wait_copies();
+    __syncthreads();              // slab g is in; slab g - 1 is consumed
+    if (g + kStages - 1 < total) stage_next();
+    commit_copies();
+    if (cur_b == 0) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) acc[i][j] = 0.0f;
+    }
+    const float* as = ring + cur_slot * kStageFloats + tx * kRow;
+    const float* fs = ring + cur_slot * kStageFloats + (kBA + ty) * kRow;
+#pragma unroll 1
+    for (int kb = 0; kb < kK; kb += 4) {
+      float4 a[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + kLanes * i * kRow + kb);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float4 c = *reinterpret_cast<const float4*>(
+            fs + kLanes * j * kRow + kb);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          float s = acc[i][j];
+          s = __fadd_rn(s, fabsf(__fsub_rn(a[i].x, c.x)));
+          s = __fadd_rn(s, fabsf(__fsub_rn(a[i].y, c.y)));
+          s = __fadd_rn(s, fabsf(__fsub_rn(a[i].z, c.z)));
+          s = __fadd_rn(s, fabsf(__fsub_rn(a[i].w, c.w)));
+          acc[i][j] = s;
         }
       }
     }
+    if (cur_b == slabs - 1) {     // the tile's last bins: masks and minima
+      const int j0 = cur_t * kBJ;
+      const float* fp = fpos + (cur_t % kStages) * (3 * kBJ);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float4 pa4 = apos[tx + kLanes * i];
+        const float3 pa = make_float3(pa4.x, pa4.y, pa4.z);
+        const int ag = __float_as_int(pa4.w);
+        Partial st = state[i * kThreads + tid];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int jl = ty + kLanes * j, jg = j0 + jl;
+          if (jg < n) {
+            bool pos, neg;
+            masks(pa, make_float3(fp[3 * jl], fp[3 * jl + 1], fp[3 * jl + 2]),
+                  ag, jg, prm, &pos, &neg);
+            st.count_pos += pos;
+            st.count_neg += neg;
+            if (neg && acc[i][j] < st.w) {
+              st.w = acc[i][j];
+              st.j = jg;
+            }
+          }
+        }
+        state[i * kThreads + tid] = st;
+      }
+    }
+    if (++cur_b == slabs) { cur_b = 0; ++cur_t; }
+    if (++cur_slot == kStages) cur_slot = 0;
   }
 
-  // the 16 row-threads of each anchor, then this split's partial
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-    merge[ty][tx * kPer + i] = {best_w[i], best_j[i], cpos[i], cneg[i]};
+  // the 16 frame-threads of each anchor, then this split's partial
   __syncthreads();
-  if (threadIdx.x < kBA && a0 + (int)threadIdx.x < count) {
-    Partial m = merge[0][threadIdx.x];
-    for (int r = 1; r < kLanes; ++r) {
-      const Partial q = merge[r][threadIdx.x];
+  if (tid < kBA && a0 + tid < count) {
+    const int i = tid / kLanes, x = tid % kLanes;
+    Partial m = state[i * kThreads + x];
+    for (int y = 1; y < kLanes; ++y) {
+      const Partial q = state[i * kThreads + y * kLanes + x];
       if (before(q.w, q.j, m.w, m.j)) { m.w = q.w; m.j = q.j; }
       m.count_pos += q.count_pos;
       m.count_neg += q.count_neg;
     }
-    partial[(long long)split * count + a0 + threadIdx.x] = m;
+    partial[(long long)split * count + a0 + tid] = m;
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
+  if (tid == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int a = a0 + threadIdx.x;
-  if (threadIdx.x < kBA && a < count) {
+  const int a = a0 + tid;
+  if (tid < kBA && a < count) {
     float w = __int_as_float(0x7f800000);
     int j = kNone, np = 0, nn = 0;
     for (int s = 0; s < splits; ++s) {
@@ -229,15 +389,17 @@ mine_hard_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
     count_neg[a] = nn;
     valid[a] = np > 0 && nn > 0;
   }
-  if (threadIdx.x == 0) tickets[tile] = 0;
+  if (tid == 0) tickets[tile] = 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
 mine_draw_kernel(const float* __restrict__ pts,
                  const int* __restrict__ start_at, int n, int count,
                  Params prm, const float* __restrict__ u,
-                 const int* __restrict__ count_pos,
+                 const int* __restrict__ count_pos, int splits,
+                 const Partial* __restrict__ partial,
                  int* __restrict__ pos_idx) {
+  const unsigned full = 0xffffffffu;
   const int a = blockIdx.x * kDrawWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (a >= count) return;
@@ -248,31 +410,73 @@ mine_draw_kernel(const float* __restrict__ pts,
     return;
   }
   const int r = min((int)floorf(__fmul_rn(u[a], (float)cnt)), cnt - 1);
-  const float3 pa = position(pts, ag);
-  int seen = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    bool pos = false, neg;
-    if (j < n) masks(pa, position(pts, j), ag, j, prm, &pos, &neg);
-    const unsigned m = __ballot_sync(0xffffffffu, pos);
-    const int c = __popc(m);
-    if (seen + c > r) {
-      if (pos && __popc(m & ((1u << lane) - 1u)) == r - seen) pos_idx[a] = j;
-      return;
+  // the split that holds the r-th positive, and the positives before it
+  int split = -1, seen = 0;
+  for (int s0 = 0; s0 < splits; s0 += 32) {
+    const int s = s0 + lane;
+    const int c = s < splits ? partial[(long long)s * count + a].count_pos : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(full, incl, o);
+      if (lane >= o) incl += v;
     }
-    seen += c;
+    const unsigned past = __ballot_sync(full, seen + incl > r);
+    if (past) {
+      const int l = __ffs(past) - 1;
+      split = s0 + l;
+      seen += __shfl_sync(full, incl - c, l);
+      break;
+    }
+    seen += __shfl_sync(full, incl, 31);
   }
-  if (lane == 0) pos_idx[a] = 0;   // unreachable while cnt is the count
+  if (split < 0) {                // unreachable while the counts hold
+    if (lane == 0) pos_idx[a] = 0;
+    return;
+  }
+  const int rr = r - seen;                      // its rank in the split
+  const int n_tiles = (n + kBJ - 1) / kBJ;
+  const int lo = split_tile(n_tiles, split, splits) * kBJ;
+  const int hi = min(split_tile(n_tiles, split + 1, splits) * kBJ, n);
+  const float3 pa = position(pts, ag);
+  int found = 0;
+  for (int j0 = lo; j0 < hi; j0 += 32 * kDrawUnroll) {
+    bool pos[kDrawUnroll];
+#pragma unroll
+    for (int q = 0; q < kDrawUnroll; ++q) {
+      const int j = j0 + 32 * q + lane;
+      bool neg;
+      pos[q] = false;
+      if (j < hi) masks(pa, position(pts, j), ag, j, prm, &pos[q], &neg);
+    }
+#pragma unroll
+    for (int q = 0; q < kDrawUnroll; ++q) {
+      const unsigned m = __ballot_sync(full, pos[q]);
+      const int c = __popc(m);
+      if (found + c > rr) {
+        if (pos[q] && __popc(m & ((1u << lane) - 1u)) == rr - found)
+          pos_idx[a] = j0 + 32 * q + lane;
+        return;
+      }
+      found += c;
+    }
+  }
+  if (lane == 0) pos_idx[a] = 0;   // unreachable while the counts hold
 }
+
+// dynamic shared memory allowed so far, per device (0: the default 48 KB)
+int g_smem_allowed[nsc::kMaxDevices] = {};
 
 }  // namespace
 
 // One chunk's counts and hard negatives. pts (n, 3) and cdf (n, bins)
 // float32, start (1,) int32 on the device (start + count <= n); partial
-// (splits * count) 16-byte entries and tickets (ceil(count / 64),) int32 at
-// 0 (left at 0) as scratch; neg_idx, count_pos, count_neg (count,) int32 and
-// valid (count,) uint8 out. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue, nothing launched, for sizes out of range).
+// (splits * count) 16-byte entries and tickets (ceil(count / 128),) int32
+// at 0 (left at 0) as scratch; neg_idx, count_pos, count_neg (count,) int32
+// and valid (count,) uint8 out. splits <= ceil(n / 128). Launches splits x
+// ceil(count / 128) CTAs of 256 threads with kSmemBytes of dynamic shared
+// memory. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue,
+// nothing launched, for sizes out of range).
 extern "C" int nsc_mine_hard(const void* pts, const void* cdf,
                              const void* start, int n, int count, int bins,
                              float pos_max, float pos_gap, float neg_min,
@@ -280,33 +484,53 @@ extern "C" int nsc_mine_hard(const void* pts, const void* cdf,
                              void* partial, void* tickets, void* neg_idx,
                              void* count_pos, void* count_neg, void* valid,
                              void* stream) {
-  if (n < 1 || count < 1 || count > n || bins < 1 || splits < 1)
+  if (n < 1 || count < 1 || count > n || bins < 1 || splits < 1 ||
+      splits > (n + kBJ - 1) / kBJ)
     return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = nsc::current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (g_smem_allowed[dev] < (int)kSmemBytes) {
+    err = cudaFuncSetAttribute(mine_hard_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    g_smem_allowed[dev] = (int)kSmemBytes;
+  }
+  // 16-byte copies need every row 16-byte aligned
+  const int vec = bins % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(cdf) % 16 == 0;
   const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
   const dim3 grid(splits, (count + kBA - 1) / kBA);
-  mine_hard_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  mine_hard_kernel<<<grid, kThreads, kSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const float*>(cdf),
-      static_cast<const int*>(start), n, count, bins, prm, splits,
+      static_cast<const int*>(start), n, count, bins, prm, splits, vec,
       static_cast<Partial*>(partial), static_cast<int*>(tickets),
       static_cast<int*>(neg_idx), static_cast<int*>(count_pos),
       static_cast<int*>(count_neg), static_cast<uint8_t*>(valid));
   return (int)cudaGetLastError();
 }
 
-// One chunk's positives: u (count,) float32 in [0, 1) and count_pos
-// (count,) int32 (nsc_mine_hard's) in, pos_idx (count,) int32 out.
+// One chunk's positives: u (count,) float32 in [0, 1), count_pos (count,)
+// int32 and partial (splits * count entries) as nsc_mine_hard left them,
+// with the same splits; pos_idx (count,) int32 out.
 extern "C" int nsc_mine_draw(const void* pts, const void* start, int n,
                              int count, float pos_max, float pos_gap,
                              float neg_min, float neg_max, float neg_gap,
-                             const void* u, const void* count_pos,
-                             void* pos_idx, void* stream) {
-  if (n < 1 || count < 1 || count > n) return (int)cudaErrorInvalidValue;
+                             const void* u, const void* count_pos, int splits,
+                             const void* partial, void* pos_idx,
+                             void* stream) {
+  if (n < 1 || count < 1 || count > n || splits < 1 ||
+      splits > (n + kBJ - 1) / kBJ)
+    return (int)cudaErrorInvalidValue;
   const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
   mine_draw_kernel<<<(count + kDrawWarps - 1) / kDrawWarps, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int*>(start), n,
       count, prm, static_cast<const float*>(u),
-      static_cast<const int*>(count_pos), static_cast<int*>(pos_idx));
+      static_cast<const int*>(count_pos), splits,
+      static_cast<const Partial*>(partial), static_cast<int*>(pos_idx));
   return (int)cudaGetLastError();
 }
 

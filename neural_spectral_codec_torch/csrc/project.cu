@@ -382,7 +382,7 @@ extern "C" const void* nsc_gather_bwd_kernel_handle(int dtype);
 //   (kernel R, kabsch.cu; its solve-only entry is not counted),
 //   17 and 18 the two mining kernels' nodes (counts and hard negatives, the
 //   draw; kernel M, mine.cu), 19 row-gather backward nodes (kernel G,
-//   gather_bwd.cu, either type).
+//   gather_bwd.cu, any of its four instances).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
 constexpr int kCensusWords = 20;
 
@@ -406,8 +406,9 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   const void* knn_pca = nsc_knn_pca_kernel_handle();
   const void* kabsch = nsc_kabsch_kernel_handle();
   const void* mine[2] = {nsc_mine_kernel_handle(0), nsc_mine_kernel_handle(1)};
-  const void* gather_bwd[2] = {nsc_gather_bwd_kernel_handle(0),
-                               nsc_gather_bwd_kernel_handle(1)};
+  const void* gather_bwd[4] = {
+      nsc_gather_bwd_kernel_handle(0), nsc_gather_bwd_kernel_handle(1),
+      nsc_gather_bwd_kernel_handle(2), nsc_gather_bwd_kernel_handle(3)};
   out[0] = (long long)n;
   for (size_t i = 0; i < n; ++i) {
     cudaGraphNodeType type;
@@ -459,7 +460,8 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
       ++out[17];
     } else if (params.func == mine[1]) {
       ++out[18];
-    } else if (params.func == gather_bwd[0] || params.func == gather_bwd[1]) {
+    } else if (params.func == gather_bwd[0] || params.func == gather_bwd[1] ||
+               params.func == gather_bwd[2] || params.func == gather_bwd[3]) {
       ++out[19];
     }
   }

@@ -2,7 +2,7 @@
 points, on the same card, in turns.
 
     python -m neural_spectral_codec_torch.experiments.kernel_ab \\
-        --other-csrc DIR [--cases nearest,knn,knn_pca] [--json out.json]
+        --other-csrc DIR [--cases nearest,knn,mine,...] [--json out.json]
 
 ``DIR`` holds another version of ``csrc/`` (for example a parent
 commit's, unpacked with ``git archive <commit> neural_spectral_codec_torch/csrc``).
@@ -10,20 +10,27 @@ It is compiled with ``_build.NVCC_FLAGS`` into a second library beside
 this tree's. Each serving kernel (K1 at B=8 and B=1, K2 at B=8 and B=1,
 K3 at B=8 and B=1 on random-order scans), the ring-fold probe (P1 at
 the probe shape), the verifier's searches (N at 4,096 × 4,096, K at
-4,096 points with k = 20, on two prepared frames: ``prepared_frames``)
-and its k-NN PCA (C, covariances of the first frame at k = 20) is called
-once through its wrapper; then both libraries' entry points are launched
-on those same arguments, bare and queued behind a spin kernel
-(``utils.timing.time_queued_ms``, 200 launches), in the order other,
-this, this, other, twice. For N and K the other side's last output must
-equal the wrapper's bit for bit; for C it must lie within 1e-5 of it on
-the rows whose relative eigen-gap is at least 0.1, where a float64 solve
-is determined well below that (``pca_within_bar``). Prints and returns each
-side's median device µs; for N where the time of this tree's
-``csrc/nearest.cu`` goes (``nearest_stamps``: a build with
-``-DNSC_NEAREST_STAMPS``), and for K its merges a row on the same frames
-(``knn_merge_counts``: a build with ``-DNSC_KNN_COUNT``). ``--cases``
-keeps the named cases only. Needs a CUDA card.
+4,096 points with k = 20, on two prepared frames: ``prepared_frames``),
+its k-NN PCA (C, covariances of the first frame at k = 20) and the
+training path's kernels (M's two entries on a 2,048-anchor chunk of a
+100,000-frame ``synthetic_city`` sequence; G on the GAT's neighbour table
+of a 20,000-node one, float32 and bf16, and on 4,096 × 800 float32
+triplet rows into its 20,000 rows, with and without a 16-position
+segment) is called once through its wrapper; then both libraries' entry
+points are launched on those same arguments (M's with the other side's
+own splits and scratch, and its draw with the parent's arguments, when
+``other_m_abi`` says the other side is the PR 19 kernel), bare and queued
+behind a spin kernel (``utils.timing.time_queued_ms``, 200 launches; M 3
+and its draw 20), in the order other, this, this, other, twice. For N,
+K, M and G the other side's last output must equal the wrapper's bit for
+bit; for C it must lie within 1e-5 of it on the rows whose relative
+eigen-gap is at least 0.1, where a float64 solve is determined well below
+that (``pca_within_bar``). Prints and returns each side's median device
+µs; for N where the time of this tree's ``csrc/nearest.cu`` goes
+(``nearest_stamps``: a build with ``-DNSC_NEAREST_STAMPS``), and for K
+its merges a row on the same frames (``knn_merge_counts``: a build with
+``-DNSC_KNN_COUNT``). ``--cases`` keeps the named cases only. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -199,6 +206,113 @@ def _outputs(result) -> tuple:
         result if isinstance(result, tuple) else (result,)))
 
 
+MINE_NODES, MINE_CHUNK = 100_000, 2048
+MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)    # scale_100k's thresholds
+GRAPH_NODES = 20_000
+LAUNCHES = {"mine": 3, "mine_draw": 20}          # else 200
+TRAINING_CASES = ("mine", "mine_draw", "gather_bwd", "gather_bwd_bf16",
+                  "gather_bwd_triplets", "gather_bwd_triplets_no16")
+
+
+def other_m_abi(csrc: Path) -> bool:
+    """Whether ``csrc/mine.cu`` in ``csrc`` is the PR 19 kernel M: 64-anchor
+    CTAs and a draw entry without the splits' partials."""
+    text = (csrc / "mine.cu").read_text()
+    return "constexpr int kBA = 64;" in text
+
+
+def mine_inputs(n: int, device) -> tuple:
+    """(positions, CDFs) of an n-frame ``synthetic_city`` sequence on
+    ``device``, the CDFs as the miner forms them."""
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    desc, poses, _ = synthetic_city(n)
+    cdfs = np.cumsum(desc / np.maximum(desc.sum(1, keepdims=True), 1e-12),
+                     axis=1).astype(np.float32)
+    return (torch.from_numpy(poses[:, :3, 3].astype(np.float32)).to(device),
+            torch.from_numpy(cdfs).to(device))
+
+
+def _training_cases(dev, old_m: bool) -> tuple:
+    """M's and G's cases: {name: (kernel, call, other_args,
+    other_argtypes)}, other_args mapping this side's last arguments to the
+    other side's and other_argtypes the other entry's ctypes types (None:
+    the same), and the tensors they use, kept alive by the caller."""
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    from neural_spectral_codec_torch.keyframe.graph import (
+        build_graph, graph_to_tensors)
+    from neural_spectral_codec_torch.models import gather_kernel as gk
+    from neural_spectral_codec_torch.training import mine_kernel as mk
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = tuple(float(v) for v in np.array(MINE_PARAMS, np.float32))
+    pos, cdf = mine_inputs(MINE_NODES, dev)
+    start = torch.tensor([MINE_NODES // 2], dtype=torch.int32, device=dev)
+    u = torch.rand(MINE_CHUNK, generator=gen, device=dev)
+    scratch = mk.mine_scratch(MINE_NODES, MINE_CHUNK, dev)
+    keep = [pos, cdf, start, u, scratch]
+    old = {}
+    if old_m:
+        # the PR 19 kernel: 64-anchor CTAs over ~2 CTAs an SM, its own
+        # scratch; a draw entry without splits and partials
+        tiles = -(-MINE_CHUNK // 64)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        old["splits"] = max(1, min(-(-MINE_NODES // 64),
+                                   -(-2 * sms // tiles)))
+        old["partial"] = torch.empty((old["splits"], MINE_CHUNK, 4),
+                                     dtype=torch.int32, device=dev)
+        old["tickets"] = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        keep.append(old)
+
+    def hard_other(args):
+        if not old_m:
+            return args
+        # (pts, cdf, start, n, count, bins, 5 thresholds, splits, partial,
+        #  tickets, neg_idx, count_pos, count_neg, valid, stream)
+        return (*args[:11], old["splits"], old["partial"].data_ptr(),
+                old["tickets"].data_ptr(), *args[14:])
+
+    def draw_other(args):
+        # (pts, start, n, count, 5 thresholds, u, count_pos, [splits,
+        #  partial,] pos_idx, stream)
+        return (*args[:11], *args[13:]) if old_m else args
+    draw_types = ([*mk.DRAW.argtypes[:11], *mk.DRAW.argtypes[13:]]
+                  if old_m else None)
+
+    def mine_call():
+        return mk.mine_cuda(pos, cdf, start, MINE_CHUNK, params, u, scratch)
+
+    desc, poses, _ = synthetic_city(GRAPH_NODES)
+    g = graph_to_tensors(build_graph(desc, poses, temporal_neighbors=5), dev)
+    slots = g.mask.reshape(-1)
+    nbr = g.neighbors.reshape(-1)
+    plan = gk.make_plan(nbr, GRAPH_NODES, slots)
+    g32 = torch.randn(nbr.numel(), 256, generator=gen, device=dev) * slots[
+        :, None]
+    b16 = g32.to(torch.bfloat16)
+    tri = torch.randint(0, GRAPH_NODES, (4096,), generator=gen, device=dev)
+    tri[:1024] = tri[1024:2048]                  # repeats
+    tplan_free = gk.make_plan(tri, GRAPH_NODES)
+    tri16 = tri.clone()
+    tri16[:16] = 7                               # a 16-position segment
+    tplan = gk.make_plan(tri16, GRAPH_NODES)
+    tgrad = torch.randn(4096, 800, generator=gen, device=dev)
+    keep += [g, plan, g32, b16, tplan, tplan_free, tgrad]
+    cases = {
+        "mine": (mk.HARD, mine_call, hard_other, None),
+        "mine_draw": (mk.DRAW, mine_call, draw_other, draw_types),
+        "gather_bwd": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
+            g32, plan, GRAPH_NODES), None, None),
+        "gather_bwd_bf16": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
+            b16, plan, GRAPH_NODES), None, None),
+        "gather_bwd_triplets": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
+            tgrad, tplan, GRAPH_NODES), None, None),
+        "gather_bwd_triplets_no16": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
+            tgrad, tplan_free, GRAPH_NODES), None, None),
+    }
+    return cases, keep
+
+
 def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     from neural_spectral_codec_torch import _build, resolve_device
     from neural_spectral_codec_torch.ops import (
@@ -262,30 +376,41 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     cases["knn_pca"] = (pca_kernel.KNN_PCA,
                         lambda: pca_kernel.knn_pca_cuda(
                             scene_a, idx20, "covariances", 1e-3))
+    cases = {name: (kernel, call, None, None)
+             for name, (kernel, call) in cases.items()}
+    training, keep_training = {}, []
+    if not cases_kept or set(cases_kept) & set(TRAINING_CASES):
+        training, keep_training = _training_cases(
+            dev, other_m_abi(Path(other_csrc)))
+    cases.update(training)
     if cases_kept:
         cases = {n: c for n, c in cases.items() if n in cases_kept}
     out = {}
-    for name, (kernel, call) in cases.items():
+    for name, (kernel, call, other_args, other_types) in cases.items():
         keep = call()            # the wrapper's arguments stay alive
         torch.cuda.synchronize()
         want = _outputs(keep)
         args = kernel.last_args
+        oargs = other_args(args) if other_args else args
         fn = getattr(other, kernel.symbol)
-        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        fn.argtypes = other_types or kernel.argtypes
+        fn.restype = ctypes.c_int
 
         def launch_other():
-            err = fn(*args)
+            err = fn(*oargs)
             if err != 0:
                 raise RuntimeError(f"{kernel.symbol} (other): CUDA error "
                                    f"{err}")
         sides = {"other": launch_other, "this": kernel.bare()}
         times = {"other": [], "this": []}
+        launches = LAUNCHES.get(name, 200)
         for side in ("other", "this", "this", "other") * 2:
-            times[side].append(1e3 * time_queued_ms(sides[side], n=200))
+            times[side].append(1e3 * time_queued_ms(
+                sides[side], n=launches, repeats=3 if launches < 20 else 5))
         out[name] = {"other_us": statistics.median(times["other"]),
                      "this_us": statistics.median(times["this"]),
                      "runs_us": times}
-        if name in searches:     # the last launch was the other side's
+        if name in searches or name in training:   # the other side's last
             torch.cuda.synchronize()
             got = _outputs(keep)
             same = all(torch.equal(_bits(a), _bits(b))
@@ -304,6 +429,7 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
         log(f"{name}: other {out[name]['other_us']:.3f} µs, this "
             f"{out[name]['this_us']:.3f} µs")
         del keep
+    del keep_training
     if "nearest" in cases:
         out["nearest_phases_us"] = nearest_stamps(scene_a, scene_b, mask_b,
                                                   out_dir)

@@ -28,12 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
-ANCHORS_PER_CTA = 64       # kBA in csrc/mine.cu
-ROWS_PER_TILE = 64         # kBJ
+ANCHORS_PER_CTA = 128      # kBA in csrc/mine.cu
+ROWS_PER_TILE = 128        # kBJ
+CTAS_PER_SM = 2            # kCtasPerSm
 TILE = 4096                # mine_plain's frames a tile
 CPU_BLOCK = 1024           # w1_in_order's rows a block on the CPU
 
@@ -49,7 +50,9 @@ def _kernels() -> tuple:
         *[ctypes.c_void_p] * 7]),
         CudaKernel("nsc_mine_draw", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            *[ctypes.c_float] * 5, *[ctypes.c_void_p] * 4]))
+            *[ctypes.c_float] * 5, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]))
 
 
 def __getattr__(name: str):
@@ -167,11 +170,34 @@ def _sm_count(index: int) -> int:
 
 
 def row_splits(n: int, count: int, sm_count: int) -> int:
-    """The kernel's frame splits (grid.x): about two CTAs an SM over the
-    chunk's anchor tiles, at most one split a frame tile. The answer does
-    not depend on it."""
+    """The kernel's frame splits (grid.x): as many as fit the chunk's
+    anchor tiles into one wave of CTAS_PER_SM CTAs an SM (a second,
+    partial wave would take as long as the first), at least one, at most
+    one split a frame tile. The answer does not depend on it."""
     tiles = -(-count // ANCHORS_PER_CTA)
-    return max(1, min(-(-n // ROWS_PER_TILE), -(-2 * sm_count // tiles)))
+    return max(1, min(-(-n // ROWS_PER_TILE),
+                      CTAS_PER_SM * sm_count // tiles))
+
+
+def split_frames(n: int, splits: int) -> list:
+    """The frames [lo, hi) of each split, in split order: split s takes
+    the frame tiles ⌊T·s / splits⌋ .. ⌊T·(s + 1) / splits⌋ − 1 of the T =
+    ⌈n / ROWS_PER_TILE⌉ tiles (the kernel's ``split_tile``)."""
+    tiles = -(-n // ROWS_PER_TILE)
+    return [(tiles * s // splits * ROWS_PER_TILE,
+             min(tiles * (s + 1) // splits * ROWS_PER_TILE, n))
+            for s in range(splits)]
+
+
+def draw_frames(pos_idx: torch.Tensor, count_pos: torch.Tensor, n: int,
+                splits: int) -> int:
+    """The frames whose masks the draw entry needs on a chunk's result:
+    for each anchor with a positive, its split's frames from the first to
+    the drawn positive (the walk cannot stop sooner)."""
+    lo = torch.tensor([a for a, _ in split_frames(n, splits)])
+    p = pos_idx.cpu().to(torch.int64)
+    first = lo[torch.searchsorted(lo, p, right=True) - 1]
+    return int(((p - first + 1) * (count_pos.cpu() > 0)).sum())
 
 
 def _check(t: torch.Tensor, shape: tuple, dtype, dev, what: str) -> None:
@@ -185,13 +211,27 @@ def _check(t: torch.Tensor, shape: tuple, dtype, dev, what: str) -> None:
     check_contiguous(t, f"mine_cuda {what}")
 
 
+def mine_scratch(n: int, count: int, device) -> tuple:
+    """Kernel M's scratch for a (n, count) chunk on a card: the splits'
+    partials (splits, count, 4) int32, which the draw entry reads after the
+    first entry, and the anchor tiles' tickets (at 0)."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    splits = row_splits(n, count, _sm_count(index))
+    return (torch.empty((splits, count, 4), dtype=torch.int32, device=dev),
+            torch.zeros(-(-count // ANCHORS_PER_CTA), dtype=torch.int32,
+                        device=dev))
+
+
 def mine_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
               start: torch.Tensor, count: int, params: Sequence[float],
-              u: torch.Tensor) -> Mined:
+              u: torch.Tensor, scratch: Optional[tuple] = None) -> Mined:
     """Launch kernel M's two entries on the card: positions (n, 3), cdfs
     (n, B), u (count,) float32 and start (1,) int32 (start + count ≤ n, read
-    on the device), all on one card. Types, shapes and contiguity are
-    checked first (``ValueError``, nothing launched)."""
+    on the device), all on one card; ``scratch`` is ``mine_scratch``'s
+    (allocated here when None; a caller that launches the entries again by
+    hand keeps it). Types, shapes and contiguity are checked first
+    (``ValueError``, nothing launched)."""
     dev = positions.device
     if dev.type != "cuda":
         raise ValueError(f"mine_cuda needs CUDA tensors, got {dev}")
@@ -204,12 +244,12 @@ def mine_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
            "cdfs")
     _check(start, (1,), torch.int32, dev, "start")
     _check(u, (count,), f32, dev, "u")
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    splits = row_splits(n, count, _sm_count(index))
+    partial, tickets = scratch or mine_scratch(n, count, dev)
+    splits = partial.shape[0]
+    if (partial.shape[1:] != (count, 4) or partial.device != dev
+            or tickets.shape != (-(-count // ANCHORS_PER_CTA),)):
+        raise ValueError("mine_cuda: scratch of another chunk (mine_scratch)")
     i32 = torch.int32
-    partial = torch.empty((splits, count, 4), dtype=i32, device=dev)
-    tickets = torch.zeros(-(-count // ANCHORS_PER_CTA), dtype=i32,
-                          device=dev)
     out = Mined(*(torch.empty(count, dtype=i32, device=dev)
                   for _ in range(4)),
                 torch.empty(count, dtype=torch.bool, device=dev))
@@ -223,8 +263,8 @@ def mine_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
              out.count_pos.data_ptr(), out.count_neg.data_ptr(),
              out.valid.data_ptr(), stream)
         draw(positions.data_ptr(), start.data_ptr(), n, count, *p,
-             u.data_ptr(), out.count_pos.data_ptr(), out.pos_idx.data_ptr(),
-             stream)
+             u.data_ptr(), out.count_pos.data_ptr(), splits,
+             partial.data_ptr(), out.pos_idx.data_ptr(), stream)
     return out
 
 

@@ -2,7 +2,8 @@
 mining executable (``training/miner.py``) on the CPU: the plain version
 against the JAX miner's "hard" strategy, a numpy model of the kernel's
 frame split and merge against the plain version bit for bit, the r-th
-positive draw, and the entry points' refusal of a card that is not there.
+positive draw and a model of the kernel's split-first draw against it,
+and the entry points' refusal of a card that is not there.
 
 The kernel runs only on a card (``chip_smoke.py`` phase 7 holds it
 against ``mine_plain`` there, bit for bit); the model holds its visiting
@@ -163,13 +164,14 @@ def _before(w, j, bw, bj):
 def mine_model(positions, cdfs, start, count, splits):
     """Kernel M's hard negatives as ``csrc/mine.cu`` finds them: anchor
     tiles of kBA, frames in tiles of kBJ cut into ``splits`` contiguous
-    parts, each thread's rows ty·kPer .. ty·kPer + kPer − 1 of every tile
-    visited in increasing order with a strict <, then the threads of an
-    anchor merged by (W₁, index), then the splits. Returns (index, W₁)."""
+    parts, each thread's rows ty, ty + kLanes, ..., ty + (kPer − 1)·kLanes
+    of every tile visited in increasing order with a strict <, then the
+    threads of an anchor merged by (W₁, index), then the splits. Returns
+    (index, W₁)."""
     n = len(positions)
     ba, bj, per = M_SRC["kBA"], M_SRC["kBJ"], M_SRC["kPer"]
     groups = M_SRC["kThreads"] // (ba // per)     # row-threads of an anchor
-    assert groups * per == bj
+    assert groups * per == bj and groups == M_SRC["kLanes"]
     anchors = np.arange(start, start + count)
     _, neg = _masks(positions, anchors)
     w1 = _w1(cdfs[anchors], cdfs)
@@ -185,7 +187,7 @@ def mine_model(positions, cdfs, start, count, splits):
                 bw, bjx = np.float32(np.inf), none
                 for t in range(lo, hi):
                     for jj in range(per):
-                        j = t * bj + ty * per + jj
+                        j = t * bj + ty + groups * jj
                         if j < n and neg[a, j] and w1[a, j] < bw:
                             bw, bjx = w1[a, j], j
                 if _before(bw, bjx, *part):
@@ -231,18 +233,28 @@ def test_split_model_equals_plain(case, splits):
 
 
 def test_row_splits_cover_the_frames():
-    """``row_splits`` gives about two CTAs an SM, never more splits than
-    frame tiles, and the splits' tile ranges cover every tile once."""
-    for n, count in ((100_000, 2048), (20_000, 2048), (300, 64), (64, 1)):
-        s = mine_kernel.row_splits(n, count, 132)
+    """``row_splits`` fills one wave of kCtasPerSm CTAs an SM as far as the
+    anchor tiles allow (one more split would start a second wave), never
+    more splits than frame tiles, and the splits' tile ranges, and
+    ``split_frames``' frame ranges, cover every tile and frame once."""
+    per_sm, sms = M_SRC["kCtasPerSm"], 132
+    for n, count in ((100_000, 2048), (20_000, 2048), (300, 64), (64, 1),
+                     (100_000, 40_000)):
+        s = mine_kernel.row_splits(n, count, sms)
         tiles = -(-n // mine_kernel.ROWS_PER_TILE)
+        anchor_tiles = -(-count // mine_kernel.ANCHORS_PER_CTA)
         assert 1 <= s <= tiles
+        assert s == 1 or s * anchor_tiles <= per_sm * sms
+        assert s == tiles or (s + 1) * anchor_tiles > per_sm * sms
         cover = [t for k in range(s) for t in range(tiles * k // s,
                                                     tiles * (k + 1) // s)]
         assert cover == list(range(tiles))
-    assert mine_kernel.row_splits(100_000, 2048, 132) * 32 >= 2 * 132
-    assert (mine_kernel.ANCHORS_PER_CTA, mine_kernel.ROWS_PER_TILE) == (
-        M_SRC["kBA"], M_SRC["kBJ"])
+        frames = [j for lo, hi in mine_kernel.split_frames(n, s)
+                  for j in range(lo, hi)]
+        assert frames == list(range(n))
+    assert mine_kernel.row_splits(100_000, 2048, sms) * 16 >= 0.95 * 2 * sms
+    assert (mine_kernel.ANCHORS_PER_CTA, mine_kernel.ROWS_PER_TILE,
+            mine_kernel.CTAS_PER_SM) == (M_SRC["kBA"], M_SRC["kBJ"], per_sm)
 
 
 # ---------------- the positive draw ----------------
@@ -304,6 +316,85 @@ def test_draw_is_uniform_over_four_positives():
     assert sum(counts.values()) == 2000
     sd = math.sqrt(2000 * 0.25 * 0.75)
     assert all(abs(c - 500) <= 5 * sd for c in counts.values()), counts
+
+
+def draw_model(positions, start, count, splits, u):
+    """Kernel M's draw as ``csrc/mine.cu`` makes it: each anchor's
+    positives counted split by split (the partials of the first entry),
+    the split that holds the r-th positive found from those counts in
+    split order, then that split's frames walked to its (r − the earlier
+    splits' count)-th positive; 0 without a positive."""
+    anchors = np.arange(start, start + count)
+    pos, _ = _masks(positions, anchors)
+    bounds = mine_kernel.split_frames(len(positions), splits)
+    out = np.zeros(count, np.int64)
+    for a in range(count):
+        counts = [int(pos[a, lo:hi].sum()) for lo, hi in bounds]
+        cnt = sum(counts)
+        if cnt == 0:
+            continue
+        r = min(int(np.floor(np.float32(u[a]) * np.float32(cnt))), cnt - 1)
+        seen = 0
+        for (lo, hi), c in zip(bounds, counts):
+            if seen + c > r:
+                out[a] = lo + np.flatnonzero(pos[a, lo:hi])[r - seen]
+                break
+            seen += c
+    return out
+
+
+def _split_positive_counts(positions, anchors, splits):
+    pos, _ = _masks(positions, anchors)
+    return np.array([[pos[a, lo:hi].sum() for lo, hi in
+                      mine_kernel.split_frames(len(positions), splits)]
+                     for a in range(len(anchors))])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("u_kind", ["boundary", "random"])
+def test_draw_model_equals_plain(splits, u_kind):
+    """The split-first draw gives ``mine_plain``'s positive for every
+    anchor, at 1, 2, 3 and 5 splits of 600 frames (5 tiles): with u that
+    puts r on a split boundary (the first positive after the first split
+    that holds one, or its last), or random u; among the anchors some
+    have every positive in the last split and one (moved far away) has
+    none."""
+    positions, cdfs, _, _ = _data(n=600, seed=21)
+    positions[110] = [1e4, 1e4, 0.0]              # no positive
+    start, count = 60, 420
+    anchors = np.arange(start, start + count)
+    counts = _split_positive_counts(positions, anchors, splits)
+    total = counts.sum(1)
+    rng = np.random.default_rng(22)
+    if u_kind == "boundary":
+        first = counts[np.arange(count), (counts > 0).argmax(1)]
+        r = np.where(rng.random(count) < 0.5, first, first - 1)
+        r = np.clip(r, 0, np.maximum(total - 1, 0))
+        u = ((r + 0.5) / np.maximum(total, 1)).astype(np.float32)
+        assert (np.floor(u * total.astype(np.float32)) == r)[total > 0].all()
+    else:
+        u = rng.random(count).astype(np.float32)
+    want = mine_kernel.mine_plain(_t(positions), _t(cdfs), start, count,
+                                  TPARAMS, _t(u), tile=64).pos_idx.numpy()
+    np.testing.assert_array_equal(draw_model(positions, start, count,
+                                             splits, u), want)
+    assert total[110 - start] == 0 and want[110 - start] == 0
+    assert (total > 0).sum() > 300
+    if splits > 1:
+        last_only = (counts[:, -1] == total) & (total > 0)
+        assert last_only.any()
+        crossing = (counts > 0).sum(1) > 1       # positives in 2+ splits
+        assert crossing.any()
+
+
+def test_draw_frames_counts_the_walk():
+    """``draw_frames``: the frames from each drawn positive's split start
+    to the positive itself, for the anchors that have a positive."""
+    lo = [a for a, _ in mine_kernel.split_frames(1000, 3)]
+    assert lo == [0, 256, 640]
+    got = mine_kernel.draw_frames(torch.tensor([5, 400, 999, 640]),
+                                  torch.tensor([1, 0, 3, 2]), 1000, 3)
+    assert got == 6 + 0 + 360 + 1
 
 
 # ---------------- the executable ----------------

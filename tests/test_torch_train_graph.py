@@ -1,7 +1,8 @@
 """Kernel G (``csrc/gather_bwd.cu``, ``models/gather_kernel.py``) and the
 training graph families on the CPU, where each executable runs its step
-eagerly (``utils/graph_exec.GraphStep``): G's plain version against the
-CPU's ``index_add_`` bit for bit, the gathers' autograd, the train step
+eagerly (``utils/graph_exec.GraphStep``): G's plain version and a numpy
+model of the kernel's schedule against the CPU's ``index_add_`` bit for
+bit, the gathers' autograd, the train step
 executable against JAX's ``train_step``, seeded runs, the learning-rate
 tensor, checkpoints and ``from_optax_adam`` with the executable, the
 revisit and recall executables against JAX (the last chunk overlapped or
@@ -13,6 +14,7 @@ there, bit for bit). Small shapes: 2-layer narrow GNNs, or the full-width
 one on 64 nodes where JAX's step is the reference."""
 
 import copy
+import re
 import sys
 from pathlib import Path
 
@@ -166,6 +168,132 @@ def test_neighbour_table_holds_the_valid_slots_only():
     plan = gk.make_plan(nb.reshape(-1), 3, mask.reshape(-1))
     assert plan.offsets.tolist() == [0, 1, 3, 4]
     assert plan.order[:4].tolist() == [2, 0, 4, 5]
+
+
+def _g_constants() -> dict:
+    """The ``constexpr int kName = <literal>;`` lines of csrc/gather_bwd.cu."""
+    text = (REPO / "neural_spectral_codec_torch" / "csrc" /
+            "gather_bwd.cu").read_text()
+    return {m[1]: int(m[2]) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def g_model(grad, plan, n_rows, warps, width=4):
+    """Kernel G as ``csrc/gather_bwd.cu`` orders its work, in numpy: items
+    (row, slice of 32 chunks of ``width`` columns), warp w taking the items
+    w, w + warps, ... 32 at a time; a batch's empty items written as zeros,
+    then its other items' (item, position) pairs as one list, the items
+    with more than kDepth positions first, each lane's item and position
+    found from the prefix sums and ``at`` as the kernel finds them, summed
+    in float32 in list order, each item written when the list moves on.
+    Returns (out, writes): the (n_rows, C) sums rounded once to grad's type
+    and the number of times each (row, slice) was written."""
+    depth = _g_constants()["kDepth"]
+    order, offsets = plan.order.numpy(), plan.offsets.numpy()
+    g = grad.float().numpy()
+    n_cols = g.shape[1]
+    chunks = n_cols // width
+    slices = -(-chunks // 32)
+    items = n_rows * slices
+    out = np.full((n_rows, n_cols), np.nan, np.float32)
+    writes = np.zeros((n_rows, slices), np.int64)
+    lanes = np.arange(32)
+
+    def write(r, c, acc):
+        cols = slice(c * width, min((c + 32) * width, n_cols))
+        out[r, cols] = acc[:cols.stop - cols.start]
+        writes[r, c // 32] += 1
+
+    for w in range(warps):
+        for base in range(w, items, 32 * warps):
+            mine = base + lanes * warps
+            ok = mine < items
+            row = np.where(ok, mine // slices, 0)
+            col = np.where(ok, (mine - row * slices) * 32, 0)
+            lo = np.where(ok, offsets[row], 0)
+            ln = np.where(ok, offsets[row + 1] - lo, 0)
+            for l in np.flatnonzero(ok & (ln == 0)):
+                write(row[l], col[l], np.zeros(32 * width, np.float32))
+            longer = ln > depth
+            x = np.cumsum(np.where(longer, ln, 0))
+            y = np.cumsum(np.where(longer, 0, ln))
+            total = x[31] + y[31]
+            end = np.where(longer, x, x[31] + y)
+            begin = end - ln
+            cur, acc = -1, None
+            for f0 in range(0, total, 32):
+                f = f0 + lanes
+                own = np.zeros(32, np.int64)
+                for l in np.flatnonzero((ln > 0) & (begin < f0 + 32)
+                                        & (end > f0)):
+                    own = np.where((f >= begin[l]) & (f < end[l]), l, own)
+                at = lo[own] + f - begin[own]
+                p = np.where(f < total, order[np.minimum(at, len(order) - 1)],
+                             0)
+                for k in range(min(32, total - f0)):
+                    if own[k] != cur:
+                        if cur >= 0:
+                            write(row[cur], col[cur], acc)
+                        cur = own[k]
+                        acc = np.zeros(32 * width, np.float32)
+                    c0 = col[cur] * width
+                    part = g[p[k], c0:c0 + 32 * width]
+                    acc[:len(part)] = acc[:len(part)] + part
+            if cur >= 0:
+                write(row[cur], col[cur], acc)
+    return torch.from_numpy(out).to(grad.dtype), writes
+
+
+def _g_plan(case, rng):
+    """(index, n_rows): a neighbour table of in-degree ~4, a triplet
+    column of 600 into 2,000 rows with one row gathered 300 times, or
+    rows every one of which is gathered."""
+    if case == "neighbours":
+        return rng.integers(0, 300, 1200), 300
+    if case == "long-segment":
+        idx = rng.integers(0, 2000, 600)
+        idx[rng.permutation(600)[:300]] = 1234
+        return idx, 2000
+    return rng.permutation(np.repeat(np.arange(150), 3)), 150
+
+
+@pytest.mark.parametrize("warps", [1, 5, 64])
+@pytest.mark.parametrize("case", ["neighbours", "long-segment", "full"])
+def test_g_model_covers_each_item_once_and_equals_index_add(case, warps):
+    """The model of G's schedule writes every (row, slice) exactly once,
+    whatever the number of warps, and its sums equal the CPU's
+    ``index_add_`` bit for bit, float32 (300 columns: 3 slices of 128
+    float32, the last one 44 wide) and bf16 (256 columns at 8 a chunk: 1
+    slice), on a neighbour-like table, a plan with a 300-position segment
+    and one with no empty row."""
+    rng = np.random.default_rng(31)
+    idx, n = _g_plan(case, rng)
+    plan = gk.make_plan(_t(idx), n)
+    for dtype, n_cols, width in ((torch.float32, 300, 4),
+                                 (torch.bfloat16, 256, 8)):
+        grad = (_t(rng.normal(size=(len(idx), n_cols)) * 10.0 **
+                   rng.integers(-3, 3, (len(idx), 1)))).to(dtype)
+        got, writes = g_model(grad, plan, n, warps, width)
+        assert (writes == 1).all()
+        want = torch.zeros(n, n_cols, dtype=dtype).index_add_(0, _t(idx),
+                                                              grad)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_bwd_plain_long_segment_equals_index_add(dtype):
+    """A plan with a 300-position segment on one row (and 300 positions
+    elsewhere): ``gather_bwd_plain`` equals the CPU's ``index_add_`` into
+    zeros bit for bit."""
+    rng = np.random.default_rng(32)
+    idx, n = _g_plan("long-segment", rng)
+    plan = gk.make_plan(_t(idx), n)
+    seg = plan.offsets[1:] - plan.offsets[:-1]
+    assert int(seg.max()) >= 300
+    grad = _t(rng.normal(size=(len(idx), 80)).astype(np.float32)).to(dtype)
+    assert torch.equal(gk.gather_bwd_plain(grad, plan, n),
+                       torch.zeros(n, 80, dtype=dtype).index_add_(
+                           0, _t(idx), grad))
 
 
 # ---------------- the train step executable ----------------
