@@ -106,7 +106,12 @@ weights and data made from seeds:
    plain version (draws with the same u, hard negatives, counts, valid)
    on every 2,048-anchor chunk of a 20,000-frame ``synthetic_city``
    sequence and on partial chunks, then timed on one 2,048 x 100,000
-   chunk; kernel G (the gathers' backward) bit-equal to its plain version
+   chunk; kernel M's other three entries (the "semi-hard" W₁ block, the
+   "random" counts, the draw over either mask) and kernel S (the row
+   select at count_neg // 2) bit-equal to their plain versions on the
+   same chunks (S also against ``torch.sort(stable=True)`` and on rows of
+   ties, ±0, ±inf, NaN, odd widths and strides), each timed at 2,048 x
+   100,000; kernel G (the gathers' backward) bit-equal to its plain version
    and to the CPU's ``index_add_`` on the GAT neighbour table of a
    20,000-node graph (float32 and bf16) and on 4,096 triplet gathers with
    repeats, timed against ``index_add_``; (d) the training graph families
@@ -116,7 +121,11 @@ weights and data made from seeds:
    embeddings, revisit queries and Recall@{1,5,10}; the step's profiler
    record holds G and no index_add kernel; two seeded epochs bit-equal;
    Recall@1 and @5 on tied embeddings equal to the CPU's; one
-   100,000-node train step replayed and run eagerly, timed;
+   100,000-node train step replayed and run eagerly, timed; the
+   "semi-hard" and "random" mining graphs: the eager step's triplets at
+   20,000 nodes, no capture in a second epoch, no op-by-op chunk, the
+   CPU's anchors (semi-hard: and negatives) at 3,000 nodes with every
+   draw inside its masks, a 100,000-node epoch timed;
    (a) one full-width train step (512 nodes, dropout 0, TF32
    off) on the card against the same step on the CPU from identical
    state, after hard-negative mining on both (the card's anchors and hard
@@ -205,7 +214,11 @@ weights and data made from seeds:
    checkpoint, a finite loss). Every keyframe descriptor of both
    benchmark runs within 1e-4 of the CPU plain encoder; each evaluation
    on the card equal to the same function on the CPU over the same
-   embeddings (``_eval_same``); the rotation check passed;
+   embeddings (``_eval_same``); the rotation check passed; the ranking
+   graph (``evaluation.RankExecutable``) equal to the eager step and the
+   CPU on 6,000 descriptors in chunks of 1,000 (the last padded) and on
+   tied embeddings, then 100,000 embeddings through the graph and
+   eagerly, timed, with the ranking pool's MiB;
 10. multi-device and bf16 (``parallel/``, one controller, ``Mesh``):
    ``create_mesh()`` over every card (printed), four logical shards of
    the first (``Mesh([cuda:0] * 4)``) and, on a machine with more cards,
@@ -253,7 +266,8 @@ weights and data made from seeds:
    ``compute_overlap`` on the same stride-subsampled clouds.
 
 Launch counts are set to 0 just before each path (4, each entry point of
-5, 6, each entry-point run of 7, 8's one-dispatch run, its verifier
+5, 6, each entry-point run of 7 and 7d's counted mining run of each other
+strategy, 8's one-dispatch run, its verifier
 comparison and its warm torch-verifier session, each entry-point
 run of 9, each sharded encoder call and the dry run of 10, each call and
 experiment of 11) and read just after. Any failure raises
@@ -262,8 +276,9 @@ before the last is the kernels' JSON record (launches per path and in
 total, device, wrapper and plain times, bound, ``ms`` the wrapper's time
 per call as earlier records held it, and ``library_ms`` null
 with the reason: no single PyTorch call computes any kernel's function;
-kernels N, K, C and R also carry ``yardstick_ms``: two calls for N and
-K, one that computes part of the function for C and R)
+kernels N, K, C, R, M's two W₁ entries and S also carry
+``yardstick_ms``: two calls for N, K and S, one that computes part of the
+function for the others)
 and the last is ``{"ok": true, "device": {...}}``. Before them it
 prints every graph family's captures, replays and eager steps over the
 whole run, and the declared op-by-op paths on the card: full-graph eval
@@ -372,11 +387,23 @@ NO_LIBRARY = {
               "port never calls on a card",
     "mine": "no one call; yardstick_ms times torch.cdist(p=1) of the "
             "chunk's CDFs against every frame's, the W1 matrix alone (not "
-            "the masks, counts, argmin or draw), which only the op-by-op "
-            "semi-hard strategy calls",
+            "the masks, counts, argmin or draw), which the port no longer "
+            "calls",
     "gather_bwd": "torch.index_add_ of the same rows into zeros (library_ms; "
                   "atomics, so its sum order changes from run to run), which "
                   "the port's train step no longer calls",
+    "mine_rows": "no one call; yardstick_ms times torch.cdist(p=1) of the "
+                 "chunk's CDFs against every frame's (the W1 matrix, not the "
+                 "masks, the +inf outside the negatives or the counts), "
+                 "which the port no longer calls",
+    "mine_counts": "no PyTorch call counts a distance and gap mask's "
+                   "members without building the (chunk, n) masks",
+    "mine_draw_mask": "the r-th member of a mask in index order; "
+                      "torch.multinomial draws from the same support with "
+                      "another rule",
+    "select": "no one call: torch.kthvalue takes one place for every row; "
+              "yardstick_ms times torch.sort(stable=True) + gather (two "
+              "calls), which the port no longer calls",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -393,6 +420,10 @@ KERNEL_NAMES = {
     "mine": ("mine_hard_kernel",),
     "mine_draw": ("mine_draw_kernel",),
     "gather_bwd": ("gather_bwd_kernel",),
+    "mine_counts": ("mine_counts_kernel",),
+    "mine_rows": ("mine_rows_kernel",),
+    "mine_draw_mask": ("mine_draw_mask_kernel",),
+    "select": ("select_rows_kernel",),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -406,6 +437,10 @@ MINE_CHUNK = 2048              # anchors (training/miner.py ANCHOR_CHUNK)
 MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)   # scale_100k's thresholds
 DRAW_OPS = 12                  # a frame's mask in M's draw: 3 subtractions,
 #                                3 products, 2 sums, a sqrt, 3 comparisons
+MINE_CPU_NODES = 3000          # phase 7d: other strategies, card vs CPU
+MINE_EAGER_CHUNKS = 3          # phase 7d: eager chunks timed at BIG_NODES
+RANK_CPU_NODES = 6000          # phase 9: ranking graph vs eager vs CPU
+RANK_CPU_CHUNK = 1000          # phase 9: its query chunk (last one padded)
 GRAPH_STEPS = 3                # train graph vs eager: steps compared
 BIG_NODES = 100_000            # one train-step replay timed at this size
 STORE_ROWS = 100_000           # phase 8: the resumed map's records
@@ -1756,7 +1791,8 @@ def _all_kernels() -> dict:
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.retrieval import (
         knn_kernel, nearest_kernel, pca_kernel)
-    from neural_spectral_codec_torch.training import mine_kernel
+    from neural_spectral_codec_torch.training import (
+        mine_kernel, select_kernel)
     return {"spectral": spectral_kernel.KERNEL,
             "ring_fold": ring_kernel.KERNEL,
             "project": projection_kernel.KERNEL,
@@ -1769,7 +1805,11 @@ def _all_kernels() -> dict:
             "kabsch": pca_kernel.KABSCH,
             "mine": mine_kernel.HARD,
             "mine_draw": mine_kernel.DRAW,
-            "gather_bwd": gather_kernel.KERNEL}
+            "gather_bwd": gather_kernel.KERNEL,
+            "mine_counts": mine_kernel.COUNTS,
+            "mine_rows": mine_kernel.ROWS,
+            "mine_draw_mask": mine_kernel.DRAW_MASK,
+            "select": select_kernel.KERNEL}
 
 
 def _counted(run) -> tuple:
@@ -2037,6 +2077,215 @@ def _training_kernels(device) -> dict:
           f"index_add_ {t['library_ms_triplets']:.5f} ms, bound "
           f"{t['bound_ms_triplets']:.5f} ms; the neighbour table's segment "
           f"table {t['plan_ms']:.5f} ms", flush=True)
+    return out
+
+
+def _select_rows(device) -> list:
+    """Phase 7k's rows for kernel S beyond the W₁ blocks: (name, block,
+    places) with many ties, ±0, ±inf and NaN, widths that are not a
+    multiple of 4, rows off a 16-byte boundary and a row stride wider than
+    the row, places at both ends."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(SEED + 52)
+
+    def places(x):
+        k = torch.randint(0, x.shape[1], (x.shape[0],), generator=g,
+                          device=device, dtype=torch.int32)
+        k[0], k[-1] = 0, x.shape[1] - 1
+        return k
+
+    out = []
+    for rows, n in ((64, 4096), (33, 1001), (8, 100_003), (1, 1), (5, 3)):
+        levels = torch.tensor([-float("inf"), -1.5, -0.0, 0.0, 0.25, 0.25,
+                               7.0, float("inf"), float("nan")],
+                              device=device)
+        tied = levels[torch.randint(0, len(levels), (rows, n), generator=g,
+                                    device=device)]
+        out.append((f"ties {rows}x{n}", tied, places(tied)))
+        rnd = torch.randn(rows, n, generator=g, device=device)
+        rnd[:, ::7] = float("inf")
+        out.append((f"random {rows}x{n}", rnd, places(rnd)))
+    wide = torch.randn(16, 2051, generator=g, device=device)
+    out.append(("off 16 bytes", wide[:, 1:], places(wide[:, 1:])))
+    out.append(("row stride 2051", wide[:, :2048], places(wide[:, :2048])))
+    same = torch.full((4, 5000), float("inf"), device=device)
+    out.append(("all +inf", same, places(same)))
+    return out
+
+
+def _mining_entries(device) -> dict:
+    """Phase 7k: kernel M's other three entries (``mine_kernel``
+    ``counts_cuda``, ``rows_cuda``, ``draw_cuda``) and kernel S
+    (``select_kernel.select_cuda``) against their plain versions on the
+    card, bit for bit, on every MINE_CHUNK-anchor chunk of a
+    SCALE_NODES-frame ``synthetic_city`` sequence (the last moved back) and
+    on partial chunks (1 anchor, the last 37, 100 in the middle): the
+    counts, the W₁ block, the draws over either mask after each entry
+    (u of 0 and just under 1 included), S at count_neg // 2 of the block
+    (also against ``torch.sort(stable=True)``); S also on ``_select_rows``.
+    Then each timed at MINE_CHUNK x MINE_NODES x 800: device, wrapper and
+    plain time, the bound, the yardsticks (``torch.cdist(p=1)`` for the
+    rows entry, ``torch.sort(stable=True)`` + ``gather`` for S)."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.training import mine_kernel as mk
+    from neural_spectral_codec_torch.training import select_kernel as sk
+
+    params = tuple(float(v) for v in np.array(MINE_PARAMS, np.float32))
+    gen = torch.Generator(device=device).manual_seed(SEED + 51)
+    n = SCALE_NODES
+    pos, cdf = _mine_inputs(n, device)
+    cases = [(min(s, n - MINE_CHUNK), MINE_CHUNK)
+             for s in range(0, n, MINE_CHUNK)]
+    cases += [(0, 1), (n - 37, 37), (n // 2, 100)]
+    below_one = float(np.nextafter(np.float32(1), np.float32(0)))
+    drawn = {"pos": 0, "neg": 0}
+    for start, count in cases:
+        st = torch.tensor([start], dtype=torch.int32, device=device)
+        u = torch.rand(count, generator=gen, device=device)
+        u[:count // 4] = 0.0
+        u[count // 4:count // 2] = below_one
+        scratch = mk.mine_scratch(n, count, device)
+        want = mk.counts_plain(pos, start, count, params)
+        where = f"(start {start}, count {count})"
+        for entry in ("counts", "rows"):
+            if entry == "counts":
+                got = mk.counts_cuda(pos, st, count, params, scratch)
+            else:
+                w1 = torch.empty((count, n), device=device)
+                got = mk.rows_cuda(pos, cdf, st, count, params, w1, scratch)
+                want_w1, want_r = mk.rows_plain(pos, cdf, start, count,
+                                                params)
+                _check(torch.equal(w1.view(torch.int32),
+                                   want_w1.view(torch.int32)) and
+                       all(torch.equal(a, b) for a, b in zip(want_r, want)),
+                       f"mine_rows kernel != plain version {where}")
+            _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                   f"mine_{entry} kernel: counts != plain version {where}")
+            for which in ("pos", "neg"):
+                cnt = getattr(want, f"count_{which}")
+                g = mk.draw_cuda(pos, st, count, params, u, cnt, which,
+                                 scratch)
+                w = mk.draw_plain(pos, start, count, params, u, cnt, which)
+                _check(torch.equal(g, w), f"mine_draw_mask ({which}, after "
+                       f"mine_{entry}) != plain version {where}")
+                drawn[which] += int((cnt > 0).sum())
+        k = want.count_neg // 2
+        got = sk.select_cuda(w1, k)
+        _check(torch.equal(got, sk.select_plain(w1, k)) and
+               torch.equal(got.long(), torch.sort(
+                   w1, dim=1, stable=True).indices.gather(
+                   1, k.long()[:, None])[:, 0]),
+               f"select kernel != plain version / stable sort on the W1 "
+               f"block {where}")
+    print(f"mine_counts, mine_rows, mine_draw_mask, select: bit-equal to "
+          f"their plain versions on the {len(cases) - 3} chunks of a "
+          f"{n}-frame sequence and 3 partial chunks ({drawn['pos']} "
+          f"positive and {drawn['neg']} negative draws a draw entry; S at "
+          f"count_neg // 2 also equal to torch.sort(stable=True))",
+          flush=True)
+    for name, x, k in _select_rows(device):
+        _check(torch.equal(sk.select_cuda(x, k), sk.select_plain(x, k)),
+               f"select kernel != plain version on {name}")
+    print("select: bit-equal to the plain version on rows of ties, ±0, "
+          "±inf and NaN, odd widths, rows off 16 bytes, a wider row stride "
+          "and all +inf", flush=True)
+    del pos, cdf, w1, want_w1
+
+    pos, cdf = _mine_inputs(MINE_NODES, device)
+    bins, start, c = cdf.shape[1], MINE_NODES // 2, MINE_CHUNK
+    st = torch.tensor([start], dtype=torch.int32, device=device)
+    u = torch.rand(c, generator=gen, device=device)
+    scratch = mk.mine_scratch(MINE_NODES, c, device)
+    splits = scratch[0].shape[0]
+    w1 = torch.empty((c, MINE_NODES), device=device)
+    out = {}
+
+    def rows():
+        return mk.rows_cuda(pos, cdf, st, c, params, w1, scratch)
+
+    want_w1, want = mk.rows_plain(pos, cdf, start, c, params)
+    got = rows()
+    _check(torch.equal(w1.view(torch.int32), want_w1.view(torch.int32)) and
+           all(torch.equal(a, b) for a, b in zip(got, want)),
+           f"mine_rows kernel != plain version at {c} x {MINE_NODES}")
+    del want_w1
+    t = {"max_abs_err": 0.0, "plain_ms": _once_ms(
+             lambda: mk.rows_plain(pos, cdf, start, c, params)),
+         "yardstick_ms": _few_ms(lambda: torch.cdist(
+             cdf[start:start + c][None], cdf[None], p=1.0), 3),
+         **_device_times("mine_rows", rows, profiled=10, queued_calls=3)}
+    t["bound_ms"], t["bound_by"] = _bound(
+        4 * MINE_NODES * (3 + bins) + 4 * c * MINE_NODES + 13 * c,
+        n_ops_no_fma=2 * bins * c * MINE_NODES)
+    out["mine_rows"] = t
+
+    def counts():
+        return mk.counts_cuda(pos, st, c, params, scratch)
+
+    t = {"max_abs_err": 0.0,
+         "plain_ms": _once_ms(lambda: mk.counts_plain(pos, start, c,
+                                                      params)),
+         **_device_times("mine_counts", counts, profiled=20,
+                         queued_calls=20)}
+    t["bound_ms"], t["bound_by"] = _bound(
+        12 * MINE_NODES + 9 * c, n_ops_no_fma=DRAW_OPS * c * MINE_NODES)
+    out["mine_counts"] = t
+    cnt = counts()
+    _check(all(torch.equal(a, b) for a, b in zip(
+        cnt, mk.counts_plain(pos, start, c, params))),
+        f"mine_counts kernel != plain version at {c} x {MINE_NODES}")
+
+    def draw_neg():
+        return mk.draw_cuda(pos, st, c, params, u, cnt.count_neg, "neg",
+                            scratch)
+
+    got = draw_neg()
+    _check(torch.equal(got, mk.draw_plain(pos, start, c, params, u,
+                                          cnt.count_neg, "neg")),
+           f"mine_draw_mask kernel != plain version at {c} x {MINE_NODES}")
+    scanned = mk.draw_frames(got, cnt.count_neg, MINE_NODES, splits)
+    t = {"max_abs_err": 0.0, "plain_ms": _once_ms(lambda: mk.draw_plain(
+             pos, start, c, params, u, cnt.count_neg, "neg")),
+         "frames_scanned": scanned,
+         **_device_times("mine_draw_mask", draw_neg, profiled=20,
+                         queued_calls=20)}
+    t["bound_ms"], t["bound_by"] = _bound(
+        12 * MINE_NODES + 4 * c * (3 + splits),
+        n_ops_no_fma=DRAW_OPS * scanned)
+    out["mine_draw_mask"] = t
+
+    rows()
+    k = want.count_neg // 2
+
+    def select():
+        return sk.select_cuda(w1, k)
+
+    _check(torch.equal(select(), sk.select_plain(w1, k)),
+           f"select kernel != plain version at {c} x {MINE_NODES}")
+    t = {"max_abs_err": 0.0, "plain_ms": _once_ms(
+             lambda: sk.select_plain(w1, k)),
+         "yardstick_ms": _few_ms(lambda: torch.sort(
+             w1, dim=1, stable=True).indices.gather(
+             1, k.long()[:, None]), 3),
+         **_device_times("select", select, profiled=20, queued_calls=20)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * c * MINE_NODES + 8 * c)
+    out["select"] = t
+    calls = {"mine_rows": rows, "mine_counts": counts,
+             "mine_draw_mask": draw_neg, "select": select}
+    for name, t in out.items():
+        t["wrapper_ms"] = t["ms"] = _few_ms(calls[name], 5)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        extra = (f", yardstick {t['yardstick_ms']:.3f} ms"
+                 if "yardstick_ms" in t else "")
+        print(f"kernel {name}: {c} x {MINE_NODES} x {bins} bins, device "
+              f"{t['device_ms']:.5f} ms (profiler {t['profiler_ms']}, "
+              f"queued bare {t['queued_ms']:.5f}), wrapper "
+              f"{t['wrapper_ms']:.5f} ms, plain {t['plain_ms']:.3f} ms"
+              f"{extra}, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+              f"{100 * t['share_of_bound']:.1f}% of it)", flush=True)
+    print(f"kernel mine_draw_mask: negatives, {scanned} frames scanned "
+          f"from the {splits} splits' starts", flush=True)
     return out
 
 
@@ -2316,6 +2565,131 @@ def _training_graphs(device) -> None:
     torch.cuda.empty_cache()
     print(f"train graphs: phase 7d wall {time.perf_counter() - t_phase:.2f} "
           f"s; train family {trmod.STATS}", flush=True)
+
+
+def _strategy_miner(strategy: str, device, use_graph: bool = True,
+                    seed: int = SEED):
+    from neural_spectral_codec_torch.training.miner import TripletMiner
+    return TripletMiner(*MINE_PARAMS[:2], *MINE_PARAMS[2:4],
+                        int(MINE_PARAMS[4]), mining_strategy=strategy,
+                        seed=seed, device=device, use_graph=use_graph)
+
+
+def _mining_graphs(device) -> dict:
+    """Phase 7d, the "semi-hard" and "random" mining graphs: at
+    SCALE_NODES nodes the triplets through the graphs equal the same
+    steps run eagerly (same seed), the graph's census holds its kernels,
+    a second epoch captures nothing and ``STATS["eager_chunks"]`` stays
+    0; at MINE_CPU_NODES nodes the card's anchors (and semi-hard
+    negatives) equal the CPU's and every draw lies inside the CPU's
+    masks; at BIG_NODES nodes an epoch through the graph (wall, host
+    clock), a chunk's replay on the device and, on MINE_EAGER_CHUNKS
+    chunks, the eager step's wall. Returns the launches of the counted
+    graph runs, one a strategy."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+    from neural_spectral_codec_torch.training import mine_kernel as mk
+    from neural_spectral_codec_torch.training import miner as miner_mod
+
+    need = {"semi-hard": ("mine_rows", "select", "mine_draw_mask"),
+            "random": ("mine_counts", "mine_draw_mask")}
+    params = tuple(float(v) for v in np.array(MINE_PARAMS, np.float32))
+    by_path = {}
+    desc, poses, _ = synthetic_city(SCALE_NODES)
+    for strategy in ("semi-hard", "random"):
+        miner_mod.clear_cache()
+        eager = _strategy_miner(strategy, device, False).mine_triplets(
+            desc, poses)
+        graphed = _strategy_miner(strategy, device)
+        trip, launches = _counted(lambda: graphed.mine_triplets(desc, poses))
+        by_path[f"mine_{strategy.replace('-', '_')}"] = launches
+        _check(len(trip) > 1000 and np.array_equal(trip, eager),
+               f"mining graph ({strategy}): the triplets differ from the "
+               "eager step's")
+        exe = [e for e in miner_mod.cached_executables()
+               if e.graph is not None]
+        _check(len(exe) == 1, f"mining graph ({strategy}): {len(exe)} "
+               "captured executables, not 1")
+        caps, reps = miner_mod.STATS["captures"], miner_mod.STATS["replays"]
+        again = graphed.mine_triplets(desc, poses)
+        _check(miner_mod.STATS["captures"] == caps and
+               miner_mod.STATS["replays"] > reps and len(again) > 1000,
+               f"mining graph ({strategy}): the second epoch captured")
+        c = exe[0].census
+        print(f"mining graph ({strategy}): {SCALE_NODES} nodes, captured in "
+              f"{exe[0].capture_s:.3f} s, {c['nodes']} nodes ({c['kernels']}"
+              f" kernels; {', '.join(f'{k} {c[k]}' for k in need[strategy])}"
+              f"), {len(trip)} triplets equal to the eager step's, second "
+              f"epoch captured nothing; launches {launches}", flush=True)
+        _check(all(launches[k] > 0 for k in need[strategy]) and
+               launches["mine"] == 0 and launches["mine_draw"] == 0,
+               f"mining graph ({strategy}): launches {launches}")
+    _check(miner_mod.STATS["eager_chunks"] == 0,
+           f"mining: op-by-op chunks on the card {miner_mod.STATS}")
+
+    desc, poses, _ = synthetic_city(MINE_CPU_NODES)
+    positions = torch.from_numpy(poses[:, :3, 3].astype(np.float32))
+    for strategy in ("semi-hard", "random"):
+        card = _strategy_miner(strategy, device).mine_triplets(desc, poses)
+        cpu = _strategy_miner(strategy, "cpu").mine_triplets(desc, poses)
+        a = torch.from_numpy(card[:, 0])
+        pos, neg = mk.chunk_masks(positions, a, 0, len(positions), params)
+        rows = torch.arange(len(card))
+        inside = bool(pos[rows, torch.from_numpy(card[:, 1])].all() and
+                      neg[rows, torch.from_numpy(card[:, 2])].all())
+        same = np.array_equal(card[:, 0], cpu[:, 0]) and (
+            strategy == "random" or np.array_equal(card[:, 2], cpu[:, 2]))
+        _check(len(card) > 100 and same and inside,
+               f"mining ({strategy}): the card's triplets are not the "
+               f"CPU's (anchors{', negatives' * (strategy != 'random')}) "
+               "or fall outside its masks")
+        print(f"mining ({strategy}): {MINE_CPU_NODES} nodes, the card's "
+              f"{len(card)} anchors{' and negatives' * (strategy != 'random')}"
+              f" equal the CPU's, every draw inside the CPU's masks",
+              flush=True)
+
+    desc, poses, _ = synthetic_city(BIG_NODES)
+    pos_d, cdf_d = _mine_inputs(BIG_NODES, device)
+    for strategy in ("semi-hard", "random"):
+        miner_mod.clear_cache()
+        graphed = _strategy_miner(strategy, device)
+        t0 = time.perf_counter()
+        graphed.mine_triplets(desc, poses)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trip = graphed.mine_triplets(desc, poses)
+        epoch_s = time.perf_counter() - t0
+        exe = miner_mod.cached_executables()[0]
+        replay_ms = _replay_ms(exe)
+        host = {}
+        for use_graph in (True, False):
+            e = miner_mod.mining_executable(
+                BIG_NODES, MINE_CHUNK, cdf_d.shape[1], params, pos_d.device,
+                use_graph, strategy)
+            e.load_sequence(pos_d, cdf_d)
+            times = []
+            for k in range(MINE_EAGER_CHUNKS + 1):
+                u = torch.rand((miner_mod.DRAWS[strategy], MINE_CHUNK),
+                               device=device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.run({"start": np.array([k * MINE_CHUNK], np.int32),
+                       "u": u})
+                times.append(1e3 * (time.perf_counter() - t0))
+            host[use_graph] = statistics.median(times[1:])
+        print(f"mining graph ({strategy}): {BIG_NODES} nodes, an epoch "
+              f"through the graph {epoch_s:.3f} s ({len(trip)} triplets; "
+              f"first epoch with its capture {first_s:.3f} s); a chunk "
+              f"{replay_ms:.3f} ms on the device (replays, CUDA events), "
+              f"host ms a chunk (median of {MINE_EAGER_CHUNKS}) replayed "
+              f"{host[True]:.3f}, eager {host[False]:.3f}; mining pool "
+              f"{miner_mod.POOL.bytes(device) / 2**20:.1f} MiB", flush=True)
+    miner_mod.clear_cache()
+    del pos_d, cdf_d
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def _train_step_vs_cpu(device) -> None:
@@ -3691,6 +4065,68 @@ def _datasets_and_evaluation(device, gnn_pt: str) -> dict:
     return by_path
 
 
+def _rank_graphs(device) -> None:
+    """Phase 9, the evaluation's ranking (``evaluation.RankExecutable``):
+    ``evaluate_place_recognition`` through the graphs equals the same
+    steps run eagerly on the card and the CPU's (``_eval_same``), on
+    RANK_CPU_NODES ``synthetic_city`` descriptors in query chunks of
+    RANK_CPU_CHUNK (the last padded) and on tied embeddings; one executable
+    a shape. Then BIG_NODES embeddings through the graph and eagerly (wall,
+    host clock) and the ranking pool's MiB."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch import evaluation
+    from neural_spectral_codec_torch.experiments.scale_100k import (
+        synthetic_city)
+
+    desc, poses, _ = synthetic_city(RANK_CPU_NODES)
+    tied, tposes = _tied_recall_input()
+    for name, emb, ps, chunk in (("synthetic_city", desc, poses,
+                                  RANK_CPU_CHUNK),
+                                 ("tied", tied, tposes, 16)):
+        evaluation.clear_cache()
+        got = {g: evaluation.evaluate_place_recognition(
+            emb, ps, query_chunk=chunk, device=device, use_graph=g)
+            for g in (True, False)}
+        want = evaluation.evaluate_place_recognition(
+            emb, ps, query_chunk=chunk, device="cpu")
+        graphs = [e for e in evaluation.cached_executables()
+                  if e.graph is not None]
+        _check(got[True] == got[False] and len(graphs) == 1,
+               f"ranking graph ({name}): the graph's evaluation differs "
+               f"from the eager step's, or {len(graphs)} graphs")
+        err = _eval_same(got[True], want, emb)
+        n_chunks = -(-got[True]["n_queries"] // chunk)
+        print(f"ranking graph ({name}): {len(emb)} embeddings, "
+              f"{got[True]['n_queries']} queries in {n_chunks} chunks of "
+              f"{chunk} (the last padded): graph == eager on the card, == "
+              f"the CPU (tau² within {err:.3e}); recall@1 "
+              f"{got[True]['recall@1']:.4f}", flush=True)
+    _check(evaluation.STATS["replays"] > 0,
+           f"ranking: no graph replay {evaluation.STATS}")
+
+    desc, poses, _ = synthetic_city(BIG_NODES)
+    evaluation.clear_cache()
+    wall = {}
+    for use_graph in (True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluation.evaluate_place_recognition(
+            desc, poses, device=device, use_graph=use_graph)
+        torch.cuda.synchronize()
+        wall.setdefault(use_graph, []).append(time.perf_counter() - t0)
+        _check(0.0 <= res["recall@1"] <= 1.0 and res["n_queries"] > 0,
+               f"ranking at {BIG_NODES}: {res}")
+    print(f"ranking graph: {BIG_NODES} embeddings x {desc.shape[1]}, "
+          f"{res['n_queries']} queries in chunks of 4096: evaluation wall "
+          f"{wall[True][1]:.3f} s through the graph (first, with its "
+          f"capture, {wall[True][0]:.3f} s), {wall[False][0]:.3f} s eagerly;"
+          f" recall@1 {res['recall@1']:.4f}; ranking pool "
+          f"{evaluation.POOL.bytes(device) / 2**20:.1f} MiB", flush=True)
+    evaluation.clear_cache()
+    torch.cuda.empty_cache()
+
+
 def _meshes(device) -> list:
     """Phase 10's meshes: every CUDA card (printed), four logical shards
     of the first, and, where the machine has more than one card, up to
@@ -4729,8 +5165,10 @@ def main() -> None:
     try:
         # -- 7. training ---------------------------------------------------
         timing.update(_training_kernels(device))
+        timing.update(_mining_entries(device))
         _train_step_vs_cpu(device)
         _training_graphs(device)
+        by_path.update(_mining_graphs(device))
         by_path.update(_train_entry(device, gnn_pt))
         by_path["scale"] = _scale(device)
 
@@ -4740,6 +5178,7 @@ def main() -> None:
 
         # -- 9. datasets and evaluation ------------------------------------
         by_path.update(_datasets_and_evaluation(device, str(gnn_pt)))
+        _rank_graphs(device)
 
         # -- 10. the multi-device layer, bf16 --------------------------------
         by_path.update(_parallel(device, store))
@@ -4788,6 +5227,18 @@ def main() -> None:
         "gather_bwd": ("neural_spectral_codec_torch/csrc/gather_bwd.cu",
                        "neural_spectral_codec_tpu/training/trainer.py:73",
                        timing["gather_bwd"]["max_abs_err"]),
+        "mine_counts": ("neural_spectral_codec_torch/csrc/mine.cu",
+                        "neural_spectral_codec_tpu/training/miner.py:64",
+                        timing["mine_counts"]["max_abs_err"]),
+        "mine_rows": ("neural_spectral_codec_torch/csrc/mine.cu",
+                      "neural_spectral_codec_tpu/training/miner.py:99",
+                      timing["mine_rows"]["max_abs_err"]),
+        "mine_draw_mask": ("neural_spectral_codec_torch/csrc/mine.cu",
+                           "neural_spectral_codec_tpu/training/miner.py:108",
+                           timing["mine_draw_mask"]["max_abs_err"]),
+        "select": ("neural_spectral_codec_torch/csrc/select.cu",
+                   "neural_spectral_codec_tpu/training/miner.py:102",
+                   timing["select"]["max_abs_err"]),
     }
     # "ms" keeps the meaning it had in earlier records: the wrapper's time
     # per call (one event pair per call; for the probes, loops of 200 calls)
@@ -4813,7 +5264,8 @@ def main() -> None:
                     "share_of_bound", "solve_device_ms", "draw_device_ms",
                     "draw_bound_ms", "draw_bound_by", "draw_frames_scanned",
                     "device_ms_bf16", "device_ms_triplets",
-                    "library_ms_triplets", "bound_ms_triplets"):
+                    "library_ms_triplets", "bound_ms_triplets",
+                    "frames_scanned"):
             if key in t:
                 entry[key] = t[key]
         entry.update({k: v for k, v in t.items()
@@ -4825,8 +5277,8 @@ def main() -> None:
         if name == "mine":
             entry["draw_launches"] = sum(v["mine_draw"]
                                          for v in by_path.values())
-        if name in ("nearest", "knn", "knn_pca", "kabsch", "mine",
-                    "gather_bwd"):
+        if name not in ("spectral", "ring_fold", "project", "ring_probe",
+                        "roll_floor", "roll_min_chain"):
             entry["replaces_note"] = "not a pl.pallas_call site: the XLA " + {
                 "nearest": "correspondence search of _icp_kernel (:124-131)",
                 "knn": "k-NN selection of _knn_cov_matrices (:64-73)",
@@ -4840,7 +5292,16 @@ def main() -> None:
                 "gather_bwd": "transpose of the row gathers in train_step's "
                               "gradient (the triplet gathers, :86, and the "
                               "GAT's jnp.take(h, neighbors), "
-                              "models/gnn.py:70)"}[name]
+                              "models/gnn.py:70)",
+                "mine_counts": "masks and counts of _mine_chunk (:59-66, "
+                               ":110) for the random strategy",
+                "mine_rows": "W1 block, masked with +inf, of _mine_chunk "
+                             "(:99-100) for the semi-hard strategy",
+                "mine_draw_mask": "categorical draws of _mine_chunk over the "
+                                  "positives (:67-68) and the negatives "
+                                  "(:107-109)",
+                "select": "argsort and take at count // 2 of _mine_chunk "
+                          "(:101-105)"}[name]
         record.append(entry)
     from neural_spectral_codec_torch import entry as entry_mod
     from neural_spectral_codec_torch.models import gnn

@@ -78,6 +78,31 @@
 // finds the split that holds the r-th positive, and walks that split's
 // frames only, 128 a step (4 frames a lane, loaded together), by ballots
 // of the positive mask and their population counts.
+//
+// Three more entries serve the miner's other strategies (JAX's
+// _mine_chunk with "semi-hard" and "random", :99-111):
+//   nsc_mine_rows   (semi-hard) the first entry's walk with the least-W1
+//                   search replaced by a write of the (count, n) W1 block,
+//                   W1[a, j] where j is a negative of a and +inf elsewhere,
+//                   with the counts, valid and the same per-split partial
+//                   counts. Its sums are the first entry's, bit for bit. The
+//                   stores are 16 rows x 8 bytes a warp; the L2 joins them
+//                   into whole sectors (the block is 0.82 GB at 2,048 x
+//                   100,000, 0.25 ms of writes beside ~14 ms of sums).
+//   nsc_mine_counts (random) the masks alone: counts, valid and partials,
+//                   no CDF read; 128 anchors x 128-frame tiles a CTA of 256
+//                   threads as above, each tile's positions staged in shared
+//                   memory, the splits merged by the last CTA the same way.
+//                   Bound: 12 operations a pair, 2,048 x 100,000 in 0.073
+//                   ms at 33.5 T a second.
+//   nsc_mine_draw_mask  the draw over either mask (which = 0 positives, 1
+//                   negatives): r = min(floor(u * count), count - 1) of that
+//                   mask's count, the r-th member in index order, 0 when
+//                   the count is 0; the walk of the draw above on the
+//                   partials of whichever entry ran before it. With which
+//                   = 0 it gives nsc_mine_draw's answer.
+// The semi-hard negative itself is kernel S (select.cu) on the W1 block at
+// rank count_neg / 2.
 #include <climits>
 #include <cstdint>
 
@@ -183,19 +208,72 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, kCtasPerSm)
-mine_hard_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
-                 const int* __restrict__ start_at, int n, int count, int bins,
-                 Params prm, int splits, int vec,
-                 Partial* __restrict__ partial, int* __restrict__ tickets,
-                 int* __restrict__ neg_idx, int* __restrict__ count_pos,
-                 int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
+// The 16 frame-threads of each of the CTA's anchors merged (state: their
+// per-anchor Partials, kPer x kThreads), this split's partial written, and
+// the last CTA of the anchor tile to finish (a ticket, after a fence)
+// merging the splits in split order: the counts, valid and, with kHard,
+// the least-W1 negative.
+template <bool kHard>
+__device__ __forceinline__ void merge_splits(
+    const Partial* state, int tid, int a0, int count, int split, int splits,
+    int tile, Partial* __restrict__ partial, int* __restrict__ tickets,
+    int* __restrict__ neg_idx, int* __restrict__ count_pos,
+    int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
+  __shared__ int last;
+  __syncthreads();
+  if (tid < kBA && a0 + tid < count) {
+    const int i = tid / kLanes, x = tid % kLanes;
+    Partial m = state[i * kThreads + x];
+    for (int y = 1; y < kLanes; ++y) {
+      const Partial q = state[i * kThreads + y * kLanes + x];
+      if (before(q.w, q.j, m.w, m.j)) { m.w = q.w; m.j = q.j; }
+      m.count_pos += q.count_pos;
+      m.count_neg += q.count_neg;
+    }
+    partial[(long long)split * count + a0 + tid] = m;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int a = a0 + tid;
+  if (tid < kBA && a < count) {
+    float w = __int_as_float(0x7f800000);
+    int j = kNone, np = 0, nn = 0;
+    for (int s = 0; s < splits; ++s) {
+      const Partial* q = partial + (long long)s * count + a;
+      const float qw = __ldcg(&q->w);
+      const int qj = __ldcg(&q->j);
+      if (before(qw, qj, w, j)) { w = qw; j = qj; }
+      np += __ldcg(&q->count_pos);
+      nn += __ldcg(&q->count_neg);
+    }
+    if (kHard) neg_idx[a] = j == kNone ? 0 : j;
+    count_pos[a] = np;
+    count_neg[a] = nn;
+    valid[a] = np > 0 && nn > 0;
+  }
+  if (tid == 0) tickets[tile] = 0;
+}
+
+// The W1 walk of one (split, anchor tile) CTA: with kRows false the first
+// entry (least-W1 negatives), with kRows true the W1-row entry (w1, the
+// (count, n) block, written instead).
+template <bool kRows>
+__device__ __forceinline__ void w1_walk(
+    const float* __restrict__ pts, const float* __restrict__ cdf,
+    const int* __restrict__ start_at, int n, int count, int bins,
+    const Params& prm, int splits, int vec, Partial* __restrict__ partial,
+    int* __restrict__ tickets, int* __restrict__ neg_idx,
+    int* __restrict__ count_pos, int* __restrict__ count_neg,
+    uint8_t* __restrict__ valid, float* __restrict__ w1) {
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   Partial* state = reinterpret_cast<Partial*>(ring + kStages * kStageFloats);
   float4* apos = reinterpret_cast<float4*>(state + kPer * kThreads);
   float* fpos = reinterpret_cast<float*>(apos + kBA);
-  __shared__ int last;
 
   const int start = *start_at;
   const int tile = blockIdx.y;
@@ -340,7 +418,11 @@ mine_hard_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
                   ag, jg, prm, &pos, &neg);
             st.count_pos += pos;
             st.count_neg += neg;
-            if (neg && acc[i][j] < st.w) {
+            if (kRows) {
+              if (a0 + tx + kLanes * i < count)
+                w1[(long long)(a0 + tx + kLanes * i) * n + jg] =
+                    neg ? acc[i][j] : __int_as_float(0x7f800000);
+            } else if (neg && acc[i][j] < st.w) {
               st.w = acc[i][j];
               st.j = jg;
             }
@@ -353,68 +435,116 @@ mine_hard_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
     if (++cur_slot == kStages) cur_slot = 0;
   }
 
-  // the 16 frame-threads of each anchor, then this split's partial
-  __syncthreads();
-  if (tid < kBA && a0 + tid < count) {
-    const int i = tid / kLanes, x = tid % kLanes;
-    Partial m = state[i * kThreads + x];
-    for (int y = 1; y < kLanes; ++y) {
-      const Partial q = state[i * kThreads + y * kLanes + x];
-      if (before(q.w, q.j, m.w, m.j)) { m.w = q.w; m.j = q.j; }
-      m.count_pos += q.count_pos;
-      m.count_neg += q.count_neg;
-    }
-    partial[(long long)split * count + a0 + tid] = m;
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int a = a0 + tid;
-  if (tid < kBA && a < count) {
-    float w = __int_as_float(0x7f800000);
-    int j = kNone, np = 0, nn = 0;
-    for (int s = 0; s < splits; ++s) {
-      const Partial* q = partial + (long long)s * count + a;
-      const float qw = __ldcg(&q->w);
-      const int qj = __ldcg(&q->j);
-      if (before(qw, qj, w, j)) { w = qw; j = qj; }
-      np += __ldcg(&q->count_pos);
-      nn += __ldcg(&q->count_neg);
-    }
-    neg_idx[a] = j == kNone ? 0 : j;
-    count_pos[a] = np;
-    count_neg[a] = nn;
-    valid[a] = np > 0 && nn > 0;
-  }
-  if (tid == 0) tickets[tile] = 0;
+  merge_splits<!kRows>(state, tid, a0, count, split, splits, tile, partial,
+                       tickets, neg_idx, count_pos, count_neg, valid);
 }
 
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+mine_hard_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
+                 const int* __restrict__ start_at, int n, int count, int bins,
+                 Params prm, int splits, int vec,
+                 Partial* __restrict__ partial, int* __restrict__ tickets,
+                 int* __restrict__ neg_idx, int* __restrict__ count_pos,
+                 int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
+  w1_walk<false>(pts, cdf, start_at, n, count, bins, prm, splits, vec,
+                 partial, tickets, neg_idx, count_pos, count_neg, valid,
+                 nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+mine_rows_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
+                 const int* __restrict__ start_at, int n, int count, int bins,
+                 Params prm, int splits, int vec,
+                 Partial* __restrict__ partial, int* __restrict__ tickets,
+                 float* __restrict__ w1, int* __restrict__ count_pos,
+                 int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
+  w1_walk<true>(pts, cdf, start_at, n, count, bins, prm, splits, vec,
+                partial, tickets, nullptr, count_pos, count_neg, valid, w1);
+}
+
+// The masks alone: a CTA of 256 threads (16 x 16) owns kBA anchors and
+// walks its split's frame tiles of kBJ rows, each tile's positions loaded
+// into shared memory first; a thread counts 8 anchors x 8 frames a tile
+// (anchors tx + 16 i, frames ty + 16 j) in registers, then the threads of
+// an anchor and the splits merge as the first entry's do.
 __global__ void __launch_bounds__(kThreads)
-mine_draw_kernel(const float* __restrict__ pts,
-                 const int* __restrict__ start_at, int n, int count,
-                 Params prm, const float* __restrict__ u,
-                 const int* __restrict__ count_pos, int splits,
-                 const Partial* __restrict__ partial,
-                 int* __restrict__ pos_idx) {
+mine_counts_kernel(const float* __restrict__ pts,
+                   const int* __restrict__ start_at, int n, int count,
+                   Params prm, int splits, Partial* __restrict__ partial,
+                   int* __restrict__ tickets, int* __restrict__ count_pos,
+                   int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
+  __shared__ Partial state[kPer * kThreads];
+  __shared__ float4 apos[kBA];
+  __shared__ float fpos[3 * kBJ];
+  const int start = *start_at;
+  const int tile = blockIdx.y, split = blockIdx.x, tid = threadIdx.x;
+  const int tx = tid % kLanes, ty = tid / kLanes, a0 = tile * kBA;
+  if (tid < kBA) {
+    const int ag = start + (a0 + tid < count ? a0 + tid : 0);
+    const float3 p = position(pts, ag);
+    apos[tid] = make_float4(p.x, p.y, p.z, __int_as_float(ag));
+  }
+  int cp[kPer] = {}, cn[kPer] = {};
+  const int n_tiles = (n + kBJ - 1) / kBJ;
+  const int t_end = split_tile(n_tiles, split + 1, splits);
+  for (int t = split_tile(n_tiles, split, splits); t < t_end; ++t) {
+    const int j0 = t * kBJ;
+    __syncthreads();              // the last tile's positions are read
+    for (int e = tid; e < 3 * kBJ; e += kThreads)
+      fpos[e] = 3LL * j0 + e < 3LL * n ? pts[3LL * j0 + e] : 0.0f;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const float4 pa4 = apos[tx + kLanes * i];
+      const float3 pa = make_float3(pa4.x, pa4.y, pa4.z);
+      const int ag = __float_as_int(pa4.w);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int jl = ty + kLanes * j, jg = j0 + jl;
+        if (jg < n) {
+          bool pos, neg;
+          masks(pa, make_float3(fpos[3 * jl], fpos[3 * jl + 1],
+                                fpos[3 * jl + 2]), ag, jg, prm, &pos, &neg);
+          cp[i] += pos;
+          cn[i] += neg;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    state[i * kThreads + tid] = {__int_as_float(0x7f800000), kNone, cp[i],
+                                 cn[i]};
+  merge_splits<false>(state, tid, a0, count, split, splits, tile, partial,
+                      tickets, nullptr, count_pos, count_neg, valid);
+}
+
+// One warp an anchor: the r-th member in index order of its positive mask
+// (neg false) or negative mask (neg true), r = min(floor(u * count),
+// count - 1), found from the splits' counts of that mask in `partial`,
+// then by a walk of that split's frames; 0 when the count is 0.
+__device__ __forceinline__ void draw_member(
+    const float* __restrict__ pts, const int* __restrict__ start_at, int n,
+    int count, const Params& prm, const float* __restrict__ u,
+    const int* __restrict__ counts, int splits,
+    const Partial* __restrict__ partial, int* __restrict__ idx, bool neg) {
   const unsigned full = 0xffffffffu;
   const int a = blockIdx.x * kDrawWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (a >= count) return;
   const int ag = *start_at + a;
-  const int cnt = count_pos[a];
+  const int cnt = counts[a];
   if (cnt == 0) {
-    if (lane == 0) pos_idx[a] = 0;
+    if (lane == 0) idx[a] = 0;
     return;
   }
   const int r = min((int)floorf(__fmul_rn(u[a], (float)cnt)), cnt - 1);
-  // the split that holds the r-th positive, and the positives before it
+  // the split that holds the r-th member, and the members before it
   int split = -1, seen = 0;
   for (int s0 = 0; s0 < splits; s0 += 32) {
     const int s = s0 + lane;
-    const int c = s < splits ? partial[(long long)s * count + a].count_pos : 0;
+    const Partial* q = partial + (long long)s * count + a;
+    const int c = s < splits ? (neg ? q->count_neg : q->count_pos) : 0;
     int incl = c;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -431,7 +561,7 @@ mine_draw_kernel(const float* __restrict__ pts,
     seen += __shfl_sync(full, incl, 31);
   }
   if (split < 0) {                // unreachable while the counts hold
-    if (lane == 0) pos_idx[a] = 0;
+    if (lane == 0) idx[a] = 0;
     return;
   }
   const int rr = r - seen;                      // its rank in the split
@@ -441,31 +571,102 @@ mine_draw_kernel(const float* __restrict__ pts,
   const float3 pa = position(pts, ag);
   int found = 0;
   for (int j0 = lo; j0 < hi; j0 += 32 * kDrawUnroll) {
-    bool pos[kDrawUnroll];
+    bool in[kDrawUnroll];
 #pragma unroll
     for (int q = 0; q < kDrawUnroll; ++q) {
       const int j = j0 + 32 * q + lane;
-      bool neg;
-      pos[q] = false;
-      if (j < hi) masks(pa, position(pts, j), ag, j, prm, &pos[q], &neg);
+      bool pos = false, ng = false;
+      if (j < hi) masks(pa, position(pts, j), ag, j, prm, &pos, &ng);
+      in[q] = neg ? ng : pos;
     }
 #pragma unroll
     for (int q = 0; q < kDrawUnroll; ++q) {
-      const unsigned m = __ballot_sync(full, pos[q]);
+      const unsigned m = __ballot_sync(full, in[q]);
       const int c = __popc(m);
       if (found + c > rr) {
-        if (pos[q] && __popc(m & ((1u << lane) - 1u)) == rr - found)
-          pos_idx[a] = j0 + 32 * q + lane;
+        if (in[q] && __popc(m & ((1u << lane) - 1u)) == rr - found)
+          idx[a] = j0 + 32 * q + lane;
         return;
       }
       found += c;
     }
   }
-  if (lane == 0) pos_idx[a] = 0;   // unreachable while the counts hold
+  if (lane == 0) idx[a] = 0;   // unreachable while the counts hold
 }
 
-// dynamic shared memory allowed so far, per device (0: the default 48 KB)
+__global__ void __launch_bounds__(kThreads)
+mine_draw_kernel(const float* __restrict__ pts,
+                 const int* __restrict__ start_at, int n, int count,
+                 Params prm, const float* __restrict__ u,
+                 const int* __restrict__ count_pos, int splits,
+                 const Partial* __restrict__ partial,
+                 int* __restrict__ pos_idx) {
+  draw_member(pts, start_at, n, count, prm, u, count_pos, splits, partial,
+              pos_idx, false);
+}
+
+__global__ void __launch_bounds__(kThreads)
+mine_draw_mask_kernel(const float* __restrict__ pts,
+                      const int* __restrict__ start_at, int n, int count,
+                      Params prm, int which, const float* __restrict__ u,
+                      const int* __restrict__ counts, int splits,
+                      const Partial* __restrict__ partial,
+                      int* __restrict__ idx) {
+  draw_member(pts, start_at, n, count, prm, u, counts, splits, partial, idx,
+              which != 0);
+}
+
+// dynamic shared memory allowed so far, per device (0: the default 48 KB),
+// of the first entry's kernel and of the W1-row entry's
 int g_smem_allowed[nsc::kMaxDevices] = {};
+int g_rows_smem_allowed[nsc::kMaxDevices] = {};
+
+// Both W1 walks' launch: the checks, the shared-memory opt-in, the copy
+// width and the grid. Returns cudaGetLastError() after the launch.
+template <bool kRows>
+int launch_w1_walk(const void* pts, const void* cdf, const void* start,
+                   int n, int count, int bins, const Params& prm, int splits,
+                   void* partial, void* tickets, void* out, void* count_pos,
+                   void* count_neg, void* valid, void* stream) {
+  if (n < 1 || count < 1 || count > n || bins < 1 || splits < 1 ||
+      splits > (n + kBJ - 1) / kBJ)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = nsc::current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int* allowed = kRows ? g_rows_smem_allowed : g_smem_allowed;
+  if (allowed[dev] < (int)kSmemBytes) {
+    const void* fn = kRows ? reinterpret_cast<const void*>(mine_rows_kernel)
+                           : reinterpret_cast<const void*>(mine_hard_kernel);
+    err = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev] = (int)kSmemBytes;
+  }
+  // 16-byte copies need every row 16-byte aligned
+  const int vec = bins % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(cdf) % 16 == 0;
+  const dim3 grid(splits, (count + kBA - 1) / kBA);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto p = static_cast<const float*>(pts);
+  const auto c = static_cast<const float*>(cdf);
+  const auto st = static_cast<const int*>(start);
+  const auto part = static_cast<Partial*>(partial);
+  const auto tk = static_cast<int*>(tickets);
+  const auto cp = static_cast<int*>(count_pos);
+  const auto cn = static_cast<int*>(count_neg);
+  const auto ok = static_cast<uint8_t*>(valid);
+  if (kRows)
+    mine_rows_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+        p, c, st, n, count, bins, prm, splits, vec, part, tk,
+        static_cast<float*>(out), cp, cn, ok);
+  else
+    mine_hard_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+        p, c, st, n, count, bins, prm, splits, vec, part, tk,
+        static_cast<int*>(out), cp, cn, ok);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -484,30 +685,47 @@ extern "C" int nsc_mine_hard(const void* pts, const void* cdf,
                              void* partial, void* tickets, void* neg_idx,
                              void* count_pos, void* count_neg, void* valid,
                              void* stream) {
-  if (n < 1 || count < 1 || count > n || bins < 1 || splits < 1 ||
+  const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
+  return launch_w1_walk<false>(pts, cdf, start, n, count, bins, prm, splits,
+                               partial, tickets, neg_idx, count_pos,
+                               count_neg, valid, stream);
+}
+
+// One chunk's W1 block for "semi-hard": as nsc_mine_hard, with w1 (count,
+// n) float32 out (W1 where the frame is a negative of the anchor, +inf
+// elsewhere) in place of neg_idx. The partials are left as nsc_mine_hard
+// leaves them, for nsc_mine_draw_mask.
+extern "C" int nsc_mine_rows(const void* pts, const void* cdf,
+                             const void* start, int n, int count, int bins,
+                             float pos_max, float pos_gap, float neg_min,
+                             float neg_max, float neg_gap, int splits,
+                             void* partial, void* tickets, void* w1,
+                             void* count_pos, void* count_neg, void* valid,
+                             void* stream) {
+  const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
+  return launch_w1_walk<true>(pts, cdf, start, n, count, bins, prm, splits,
+                              partial, tickets, w1, count_pos, count_neg,
+                              valid, stream);
+}
+
+// One chunk's counts for "random": as nsc_mine_hard without the CDFs and
+// without neg_idx. Launches splits x ceil(count / 128) CTAs of 256 threads
+// (static shared memory only).
+extern "C" int nsc_mine_counts(const void* pts, const void* start, int n,
+                               int count, float pos_max, float pos_gap,
+                               float neg_min, float neg_max, float neg_gap,
+                               int splits, void* partial, void* tickets,
+                               void* count_pos, void* count_neg, void* valid,
+                               void* stream) {
+  if (n < 1 || count < 1 || count > n || splits < 1 ||
       splits > (n + kBJ - 1) / kBJ)
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = nsc::current_device(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (g_smem_allowed[dev] < (int)kSmemBytes) {
-    err = cudaFuncSetAttribute(mine_hard_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    g_smem_allowed[dev] = (int)kSmemBytes;
-  }
-  // 16-byte copies need every row 16-byte aligned
-  const int vec = bins % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(cdf) % 16 == 0;
   const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
-  const dim3 grid(splits, (count + kBA - 1) / kBA);
-  mine_hard_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(cdf),
-      static_cast<const int*>(start), n, count, bins, prm, splits, vec,
-      static_cast<Partial*>(partial), static_cast<int*>(tickets),
-      static_cast<int*>(neg_idx), static_cast<int*>(count_pos),
+  mine_counts_kernel<<<dim3(splits, (count + kBA - 1) / kBA), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pts), static_cast<const int*>(start), n,
+      count, prm, splits, static_cast<Partial*>(partial),
+      static_cast<int*>(tickets), static_cast<int*>(count_pos),
       static_cast<int*>(count_neg), static_cast<uint8_t*>(valid));
   return (int)cudaGetLastError();
 }
@@ -534,9 +752,38 @@ extern "C" int nsc_mine_draw(const void* pts, const void* start, int n,
   return (int)cudaGetLastError();
 }
 
-// The two kernels (0 the counts and hard negatives, 1 the draw), for the
-// census of captured graphs (nsc_graph_census in project.cu).
+// One chunk's draw over the positives (which 0) or the negatives (which 1):
+// u (count,) float32 in [0, 1), counts (count,) int32 that mask's counts,
+// partial as any of the three entries above left it, with the same
+// splits; idx (count,) int32 out.
+extern "C" int nsc_mine_draw_mask(const void* pts, const void* start, int n,
+                                  int count, float pos_max, float pos_gap,
+                                  float neg_min, float neg_max, float neg_gap,
+                                  int which, const void* u, const void* counts,
+                                  int splits, const void* partial, void* idx,
+                                  void* stream) {
+  if (n < 1 || count < 1 || count > n || splits < 1 ||
+      splits > (n + kBJ - 1) / kBJ || which < 0 || which > 1)
+    return (int)cudaErrorInvalidValue;
+  const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
+  mine_draw_mask_kernel<<<(count + kDrawWarps - 1) / kDrawWarps, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pts), static_cast<const int*>(start), n,
+      count, prm, which, static_cast<const float*>(u),
+      static_cast<const int*>(counts), splits,
+      static_cast<const Partial*>(partial), static_cast<int*>(idx));
+  return (int)cudaGetLastError();
+}
+
+// Kernel M's kernels, for the census of captured graphs (nsc_graph_census
+// in project.cu): 0 the counts and hard negatives, 1 the draw, 2 the counts
+// alone, 3 the W1 rows, 4 the draw over either mask.
 extern "C" const void* nsc_mine_kernel_handle(int which) {
-  return which == 0 ? reinterpret_cast<const void*>(mine_hard_kernel)
-                    : reinterpret_cast<const void*>(mine_draw_kernel);
+  switch (which) {
+    case 0: return reinterpret_cast<const void*>(mine_hard_kernel);
+    case 1: return reinterpret_cast<const void*>(mine_draw_kernel);
+    case 2: return reinterpret_cast<const void*>(mine_counts_kernel);
+    case 3: return reinterpret_cast<const void*>(mine_rows_kernel);
+    default: return reinterpret_cast<const void*>(mine_draw_mask_kernel);
+  }
 }

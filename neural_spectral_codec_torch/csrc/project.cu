@@ -363,6 +363,7 @@ extern "C" const void* nsc_knn_pca_kernel_handle();
 extern "C" const void* nsc_kabsch_kernel_handle();
 extern "C" const void* nsc_mine_kernel_handle(int which);
 extern "C" const void* nsc_gather_bwd_kernel_handle(int dtype);
+extern "C" const void* nsc_select_kernel_handle();
 
 // Census of a captured CUDA graph (a cudaGraph_t: the serving executables of
 // models/serving.py, the registration and prepare executables of
@@ -382,9 +383,11 @@ extern "C" const void* nsc_gather_bwd_kernel_handle(int dtype);
 //   (kernel R, kabsch.cu; its solve-only entry is not counted),
 //   17 and 18 the two mining kernels' nodes (counts and hard negatives, the
 //   draw; kernel M, mine.cu), 19 row-gather backward nodes (kernel G,
-//   gather_bwd.cu, any of its four instances).
+//   gather_bwd.cu, any of its four instances), 20-22 kernel M's other
+//   three kernels' nodes (the counts alone, the W1 rows, the draw over
+//   either mask), 23 row-select nodes (kernel S, select.cu).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
-constexpr int kCensusWords = 20;
+constexpr int kCensusWords = 24;
 
 extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
@@ -405,7 +408,10 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   const void* knn = nsc_knn_kernel_handle();
   const void* knn_pca = nsc_knn_pca_kernel_handle();
   const void* kabsch = nsc_kabsch_kernel_handle();
-  const void* mine[2] = {nsc_mine_kernel_handle(0), nsc_mine_kernel_handle(1)};
+  const void* mine[5] = {nsc_mine_kernel_handle(0), nsc_mine_kernel_handle(1),
+                         nsc_mine_kernel_handle(2), nsc_mine_kernel_handle(3),
+                         nsc_mine_kernel_handle(4)};
+  const void* row_select = nsc_select_kernel_handle();
   const void* gather_bwd[4] = {
       nsc_gather_bwd_kernel_handle(0), nsc_gather_bwd_kernel_handle(1),
       nsc_gather_bwd_kernel_handle(2), nsc_gather_bwd_kernel_handle(3)};
@@ -463,6 +469,14 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
     } else if (params.func == gather_bwd[0] || params.func == gather_bwd[1] ||
                params.func == gather_bwd[2] || params.func == gather_bwd[3]) {
       ++out[19];
+    } else if (params.func == mine[2]) {
+      ++out[20];
+    } else if (params.func == mine[3]) {
+      ++out[21];
+    } else if (params.func == mine[4]) {
+      ++out[22];
+    } else if (params.func == row_select) {
+      ++out[23];
     }
   }
   return (int)cudaSuccess;

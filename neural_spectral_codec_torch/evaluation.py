@@ -4,7 +4,9 @@ JAX package, on one device):
   * ``evaluate_place_recognition``: Recall@K and a thresholded
     precision/recall/F1 curve over revisit queries (a revisit is another
     frame less than ``distance_threshold`` away and more than
-    ``skip_frames`` older), ranked on ``device`` in query chunks;
+    ``skip_frames`` older), ranked on ``device`` in query chunks, each
+    chunk one step of a ``RankExecutable`` (on a card, one replay of a
+    captured CUDA graph);
   * ``run_benchmark``: per sequence, keyframe descriptors (the batch
     encoders, so the projection or ring-fold kernel and the spectral
     kernel on a CUDA device) → the GNN when weights are loaded →
@@ -29,8 +31,14 @@ import torch
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.retrieval.retriever import (  # noqa: F401
     smallest_k)
+from neural_spectral_codec_torch.utils.graph_exec import (
+    Arena, ExecutableCache, GraphStep, SharedPool)
 
 logger = logging.getLogger(__name__)
+
+POOL = SharedPool()     # every ranking graph of a device: one memory pool
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
+_CACHE = ExecutableCache()
 
 
 def _sync(dev: torch.device) -> None:
@@ -58,12 +66,14 @@ def _hit_chunk(emb64: torch.Tensor, sq: torch.Tensor, pos: torch.Tensor,
     in any accumulation order (cuBLAS and the CPU sum a float32 product in
     different orders, and the identity cancels near 0: the top-1
     distances, and the thresholds of the P/R curve taken from them, would
-    differ between the card and the CPU)."""
+    differ between the card and the CPU). The (c, n) blocks are updated in
+    place where the order of the operations allows it, so the chunk's
+    temporaries stay few."""
     dot = (emb64[q] @ emb64.T).to(torch.float32)
-    d2 = sq[q][:, None] + sq[None, :] - 2.0 * dot
-    gap = (q[:, None] - torch.arange(emb64.shape[0], device=emb64.device)
-           [None, :]).abs()
-    d2 = torch.where(gap > skip_frames, d2, torch.inf)
+    d2 = torch.add(sq[q][:, None], sq[None, :]).sub_(dot.mul_(2.0))
+    j = torch.arange(emb64.shape[0], device=emb64.device)[None, :]
+    d2.masked_fill_((j >= (q - skip_frames)[:, None])
+                    & (j <= (q + skip_frames)[:, None]), torch.inf)
     top_d2, topk = smallest_k(d2, kmax)
     geo = torch.linalg.vector_norm(pos[q][:, None, :] - pos[topk], dim=-1)
     top1 = torch.sqrt(torch.clamp(top_d2[:, 0], min=0.0))
@@ -73,16 +83,68 @@ def _hit_chunk(emb64: torch.Tensor, sq: torch.Tensor, pos: torch.Tensor,
     return hit, top1
 
 
+class RankExecutable(GraphStep):
+    """JAX's jitted ``_hit_chunk`` (evaluation.py:82) for one (device, n
+    embeddings, width D, query chunk c, kmax, skip_frames): the float64
+    embeddings, their float32 squared norms and the positions in the
+    device arena ``data`` (``load``, once a call), a chunk of query indices
+    and the distance threshold staged a chunk; out the (c, kmax) ``hits``
+    and the (c,) top-1 distances ``top1``."""
+
+    def __init__(self, n: int, dim: int, chunk: int, kmax: int,
+                 skip_frames: int, device: torch.device,
+                 use_graph: bool = True):
+        super().__init__(device, use_graph, POOL, STATS)
+        self.kmax, self.skip_frames = kmax, skip_frames
+        self.data = Arena([("emb64", (n, dim), torch.float64),
+                           ("sq", (n,), torch.float32),
+                           ("positions", (n, 3), torch.float32)], device,
+                          host=False)
+        self.inputs = Arena([("queries", (chunk,), torch.int64),
+                             ("threshold", (), torch.float32)], device)
+        self.outputs = Arena([("hits", (chunk, kmax), torch.bool),
+                              ("top1", (chunk,), torch.float32)], device)
+
+    def _step(self) -> None:
+        d, i, o = self.data.dev, self.inputs.dev, self.outputs.dev
+        hit, top1 = _hit_chunk(d["emb64"], d["sq"], d["positions"],
+                               i["queries"], self.kmax, i["threshold"],
+                               self.skip_frames)
+        o["hits"].copy_(hit)
+        o["top1"].copy_(top1)
+
+
+def cached_executables() -> list:
+    """The ranking executables in the cache, oldest first."""
+    return _CACHE.values()
+
+
+def clear_cache() -> None:
+    """Drop every cached ranking executable (and with them their
+    graphs)."""
+    _CACHE.clear()
+
+
 def evaluate_place_recognition(embeddings: np.ndarray, poses: np.ndarray,
                                k_values: Sequence[int] = (1, 5, 10),
                                distance_threshold: float = 5.0,
                                skip_frames: int = 30,
                                query_chunk: int = 4096,
                                n_curve_points: int = 20,
-                               device: DeviceLike = "cuda"
+                               device: DeviceLike = "cuda",
+                               use_graph: bool = True
                                ) -> Dict[str, float]:
     """Recall@K plus a thresholded precision/recall/F1 curve over revisit
     queries (JAX ``evaluate_place_recognition``, evaluation.py:37).
+
+    The queries are ranked in chunks of c = ``query_chunk`` when there are
+    more queries than that, else all of them, as JAX's (its :115, the last
+    chunk padded with its last query and trimmed after), so one
+    ``RankExecutable`` serves every chunk; on a card each chunk is one
+    graph replay with ``use_graph``, without it the same step runs
+    eagerly. The executable stays cached, and its graph's pool reserved,
+    until ``clear_cache()``, which ``run_benchmark`` calls when it
+    returns.
 
     A query's top-1 match is accepted iff its embedding distance ≤ τ, τ
     swept over the observed top-1 distance quantiles and +inf:
@@ -113,14 +175,26 @@ def evaluate_place_recognition(embeddings: np.ndarray, poses: np.ndarray,
     sq = (emb64 * emb64).sum(dim=1).to(torch.float32)
     pos = torch.from_numpy(np.asarray(positions, np.float32)).to(dev)
     kmax = max(k_values)
-    qs = torch.from_numpy(queries[:, 0].astype(np.int64)).to(dev)
+    qs = queries[:, 0].astype(np.int64)
+    c = query_chunk if len(qs) > query_chunk else len(qs)
+    n, dim = emb64.shape
+    exe = _CACHE.get((str(dev), n, dim, c, kmax, int(skip_frames),
+                      use_graph and dev.type == "cuda"),
+                     lambda: RankExecutable(n, dim, c, kmax,
+                                            int(skip_frames), dev,
+                                            use_graph))
+    exe.load(exe.data, {"emb64": emb64, "sq": sq, "positions": pos})
+    thr = np.float32(distance_threshold)
     parts, dparts = [], []
     with torch.no_grad():
-        for s in range(0, len(qs), query_chunk):
-            h, d1 = _hit_chunk(emb64, sq, pos, qs[s:s + query_chunk], kmax,
-                               distance_threshold, skip_frames)
-            parts.append(h.cpu().numpy())
-            dparts.append(d1.cpu().numpy())
+        for s in range(0, len(qs), c):
+            part = qs[s:s + c]
+            got = len(part)
+            if got < c:
+                part = np.concatenate([part, np.repeat(part[-1:], c - got)])
+            res, _ = exe.run({"queries": part, "threshold": thr})
+            parts.append(res["hits"][:got])
+            dparts.append(res["top1"][:got])
     hit = np.concatenate(parts)                   # (Q, kmax)
     top1_dist = np.concatenate(dparts)            # (Q,)
 
@@ -298,6 +372,7 @@ def run_benchmark(loaders: Sequence, config: Dict,
             [m["best_f1"] for m in results["sequences"].values()]))
         results["mean"] = agg
 
+    clear_cache()       # the ranking graphs' pool holds (c, n) temporaries
     if results_path:
         Path(results_path).parent.mkdir(parents=True, exist_ok=True)
         with open(results_path, "w") as f:

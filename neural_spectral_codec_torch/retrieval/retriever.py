@@ -84,9 +84,10 @@ def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     integer of the same total order (-0 before +0) in the high word and
     its column in the low word, so the keys are distinct."""
     bits = d.contiguous().view(torch.int32)
-    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
     col = torch.arange(d.shape[-1], device=d.device, dtype=torch.int64)
-    keys = torch.topk((order << 32) | col, k, dim=-1, largest=False).values
+    keys = torch.topk(keys.bitwise_left_shift_(32).bitwise_or_(col), k,
+                      dim=-1, largest=False).values
     idx = keys & 0xFFFFFFFF
     return d.gather(-1, idx), idx
 

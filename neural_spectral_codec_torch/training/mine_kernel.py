@@ -1,6 +1,6 @@
-"""One chunk of the triplet miner's "hard" strategy: its plain PyTorch
-version and the binding of its hand-written kernel, ``csrc/mine.cu``
-(kernel M).
+"""One chunk of the triplet miner: its plain PyTorch version and the
+binding of its hand-written kernel, ``csrc/mine.cu`` (kernel M), for each
+of the three strategies.
 
 It is no Pallas kernel's port: the JAX package leaves this work to XLA
 inside its mining program (``neural_spectral_codec_tpu/training/miner.py``
@@ -22,6 +22,16 @@ the same support.
 bin by bin in the kernel's order: the two agree bit for bit. A CPU tensor
 takes the plain version, a CUDA tensor the kernel (or the binding raises).
 The kernel's header has its design and bound.
+
+Kernel M's other three entries serve "semi-hard" and "random" (JAX
+``_mine_chunk``, :99-111), each with its plain version, bit-equal to it:
+``mine_rows`` (``rows_plain``) writes the chunk's (count, n) W₁ block, in
+the same order, +inf outside each anchor's negatives, with the counts;
+``mine_counts`` (``counts_plain``) gives the counts alone; ``mine_draw``
+(``draw_plain``) takes the r-th member in index order of the positive or
+the negative mask, r = min(⌊u · count⌋, count − 1), 0 when the count is 0.
+On a card the draw reads the per-split counts that the entry before it
+left in the scratch (``mine_scratch``), so both take the same scratch.
 """
 
 from __future__ import annotations
@@ -55,12 +65,46 @@ def _kernels() -> tuple:
             ctypes.c_void_p]))
 
 
+@functools.lru_cache(maxsize=None)
+def _other_kernels() -> tuple:
+    from neural_spectral_codec_torch._build import CudaKernel
+    params = [ctypes.c_float] * 5
+    return (CudaKernel("nsc_mine_counts", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        *params, ctypes.c_int, *[ctypes.c_void_p] * 6]),
+        CudaKernel("nsc_mine_rows", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, *params, ctypes.c_int,
+            *[ctypes.c_void_p] * 7]),
+        CudaKernel("nsc_mine_draw_mask", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            *params, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]))
+
+
+_ENTRIES = {"HARD": (_kernels, 0), "DRAW": (_kernels, 1),
+            "COUNTS": (_other_kernels, 0), "ROWS": (_other_kernels, 1),
+            "DRAW_MASK": (_other_kernels, 2)}
+WHICH = {"pos": 0, "neg": 1}        # the draw's masks
+
+
 def __getattr__(name: str):
-    # kernel M's two entries, each with its launch count: HARD (counts and
-    # hard negatives) and DRAW (the positive)
-    if name in ("HARD", "DRAW"):
-        return _kernels()[name == "DRAW"]
+    # kernel M's five entries, each with its launch count: HARD (counts and
+    # hard negatives), DRAW (the positive), COUNTS (the counts alone), ROWS
+    # (the W₁ block) and DRAW_MASK (the draw over either mask)
+    if name in _ENTRIES:
+        table, i = _ENTRIES[name]
+        return table()[i]
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+class Counts(NamedTuple):
+    """One chunk's int32 ``count_pos``, ``count_neg`` and bool ``valid``,
+    each (count,)."""
+    count_pos: torch.Tensor
+    count_neg: torch.Tensor
+    valid: torch.Tensor
 
 
 class Mined(NamedTuple):
@@ -125,9 +169,8 @@ def mine_plain(positions: torch.Tensor, cdfs: torch.Tensor,
     keeps a tie; NaN sums are never taken, as in the kernel)."""
     n = positions.shape[0]
     dev = positions.device
-    s = int(start)
-    a = torch.arange(s, s + count, dtype=torch.int64, device=dev)
-    acdf = cdfs[s:s + count]
+    a = _anchors(start, count, dev)
+    acdf = cdfs[int(start):int(start) + count]
     inf = torch.tensor(float("inf"), device=dev)
     best = torch.full((count,), float("inf"), device=dev)
     best_i = torch.zeros(count, dtype=torch.int64, device=dev)
@@ -145,23 +188,98 @@ def mine_plain(positions: torch.Tensor, cdfs: torch.Tensor,
         upd = tmin < best
         best = torch.where(upd, tmin, best)
         best_i = torch.where(upd, targ + j0, best_i)
-    # the r-th positive in index order
-    cnt = cpos.to(torch.float32)
-    r = torch.minimum(torch.floor(u * cnt).to(torch.int64), cpos - 1)
-    pos_i = torch.zeros(count, dtype=torch.int64, device=dev)
-    seen = torch.zeros(count, dtype=torch.int64, device=dev)
-    found = cpos == 0
-    for j0 in range(0, n, tile):
-        j1 = min(j0 + tile, n)
-        pos, _ = chunk_masks(positions, a, j0, j1, params)
-        at = pos & (torch.cumsum(pos, dim=1) + seen[:, None] == r[:, None] + 1)
-        hit = at.any(dim=1) & ~found
-        pos_i = torch.where(hit, at.to(torch.uint8).argmax(dim=1) + j0, pos_i)
-        found |= hit
-        seen += pos.sum(dim=1)
+    pos_i = _member(positions, a, params, u, cpos, 0, tile)
     i32 = torch.int32
     return Mined(pos_i.to(i32), best_i.to(i32), cpos.to(i32), cneg.to(i32),
                  (cpos > 0) & (cneg > 0))
+
+
+def _member(positions: torch.Tensor, a: torch.Tensor,
+            params: Sequence[float], u: torch.Tensor, cnt: torch.Tensor,
+            which: int, tile: int) -> torch.Tensor:
+    """For each anchor of ``a`` the r-th member in index order of its
+    positive (``which`` 0) or negative (1) mask, r = min(⌊u · cnt⌋, cnt −
+    1) in float32, 0 where ``cnt`` is 0; int64, the frames in tiles."""
+    n, dev = positions.shape[0], positions.device
+    cnt = cnt.to(torch.int64)
+    r = torch.minimum(torch.floor(u * cnt.to(torch.float32)).to(
+        torch.int64), cnt - 1)
+    out = torch.zeros(len(a), dtype=torch.int64, device=dev)
+    seen = torch.zeros(len(a), dtype=torch.int64, device=dev)
+    found = cnt == 0
+    for j0 in range(0, n, tile):
+        m = chunk_masks(positions, a, j0, min(j0 + tile, n), params)[which]
+        at = m & (torch.cumsum(m, dim=1) + seen[:, None] == r[:, None] + 1)
+        hit = at.any(dim=1) & ~found
+        out = torch.where(hit, at.to(torch.uint8).argmax(dim=1) + j0, out)
+        found |= hit
+        seen += m.sum(dim=1)
+    return out
+
+
+def _anchors(start, count: int, dev) -> torch.Tensor:
+    s = int(start)
+    return torch.arange(s, s + count, dtype=torch.int64, device=dev)
+
+
+def _counts(cpos: torch.Tensor, cneg: torch.Tensor) -> Counts:
+    return Counts(cpos.to(torch.int32), cneg.to(torch.int32),
+                  (cpos > 0) & (cneg > 0))
+
+
+def counts_plain(positions: torch.Tensor, start: Union[int, torch.Tensor],
+                 count: int, params: Sequence[float],
+                 tile: int = TILE) -> Counts:
+    """The counts entry's function with torch operations: the positive
+    and negative counts of anchors ``start .. start + count`` and
+    ``valid``, the frames in tiles of ``tile``."""
+    n, dev = positions.shape[0], positions.device
+    a = _anchors(start, count, dev)
+    cpos = torch.zeros(count, dtype=torch.int64, device=dev)
+    cneg = torch.zeros(count, dtype=torch.int64, device=dev)
+    for j0 in range(0, n, tile):
+        pos, neg = chunk_masks(positions, a, j0, min(j0 + tile, n), params)
+        cpos += pos.sum(dim=1)
+        cneg += neg.sum(dim=1)
+    return _counts(cpos, cneg)
+
+
+def rows_plain(positions: torch.Tensor, cdfs: torch.Tensor,
+               start: Union[int, torch.Tensor], count: int,
+               params: Sequence[float], out: Optional[torch.Tensor] = None,
+               tile: int = TILE) -> tuple:
+    """The W₁-row entry's function with torch operations: (the (count, n)
+    float32 block, ``Counts``), the block W₁ summed bin by bin in the
+    kernel's order where the frame is a negative of the anchor and +inf
+    elsewhere, written into ``out`` when it is given."""
+    n, dev = positions.shape[0], positions.device
+    a = _anchors(start, count, dev)
+    acdf = cdfs[int(start):int(start) + count]
+    if out is None:
+        out = torch.empty((count, n), dtype=torch.float32, device=dev)
+    cpos = torch.zeros(count, dtype=torch.int64, device=dev)
+    cneg = torch.zeros(count, dtype=torch.int64, device=dev)
+    for j0 in range(0, n, tile):
+        j1 = min(j0 + tile, n)
+        pos, neg = chunk_masks(positions, a, j0, j1, params)
+        cpos += pos.sum(dim=1)
+        cneg += neg.sum(dim=1)
+        out[:, j0:j1] = w1_in_order(acdf, cdfs[j0:j1]).masked_fill_(
+            ~neg, float("inf"))
+    return out, _counts(cpos, cneg)
+
+
+def draw_plain(positions: torch.Tensor, start: Union[int, torch.Tensor],
+               count: int, params: Sequence[float], u: torch.Tensor,
+               counts: torch.Tensor, which: str, tile: int = TILE
+               ) -> torch.Tensor:
+    """The mask draw's function with torch operations: per anchor the
+    r-th member in index order of its positive (``which`` "pos") or
+    negative ("neg") mask, r = min(⌊u · count⌋, count − 1) with ``counts``
+    that mask's counts, 0 when the count is 0; int32."""
+    a = _anchors(start, count, positions.device)
+    return _member(positions, a, params, u, counts, WHICH[which],
+                   tile).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,6 +329,11 @@ def _check(t: torch.Tensor, shape: tuple, dtype, dev, what: str) -> None:
     check_contiguous(t, f"mine_cuda {what}")
 
 
+def _check_cdfs(cdfs: torch.Tensor, n: int, dev) -> None:
+    _check(cdfs, (n, cdfs.shape[1] if cdfs.dim() == 2 else -1),
+           torch.float32, dev, "cdfs")
+
+
 def mine_scratch(n: int, count: int, device) -> tuple:
     """Kernel M's scratch for a (n, count) chunk on a card: the splits'
     partials (splits, count, 4) int32, which the draw entry reads after the
@@ -232,23 +355,12 @@ def mine_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
     (allocated here when None; a caller that launches the entries again by
     hand keeps it). Types, shapes and contiguity are checked first
     (``ValueError``, nothing launched)."""
+    n, (partial, tickets) = _entry_checks(positions, start, count, scratch,
+                                          "mine_cuda")
     dev = positions.device
-    if dev.type != "cuda":
-        raise ValueError(f"mine_cuda needs CUDA tensors, got {dev}")
-    n = positions.shape[0]
-    if not 1 <= count <= n:
-        raise ValueError(f"mine_cuda: count {count} outside 1 .. {n}")
-    f32 = torch.float32
-    _check(positions, (n, 3), f32, dev, "positions")
-    _check(cdfs, (n, cdfs.shape[1] if cdfs.dim() == 2 else -1), f32, dev,
-           "cdfs")
-    _check(start, (1,), torch.int32, dev, "start")
-    _check(u, (count,), f32, dev, "u")
-    partial, tickets = scratch or mine_scratch(n, count, dev)
+    _check_cdfs(cdfs, n, dev)
+    _check(u, (count,), torch.float32, dev, "u")
     splits = partial.shape[0]
-    if (partial.shape[1:] != (count, 4) or partial.device != dev
-            or tickets.shape != (-(-count // ANCHORS_PER_CTA),)):
-        raise ValueError("mine_cuda: scratch of another chunk (mine_scratch)")
     i32 = torch.int32
     out = Mined(*(torch.empty(count, dtype=i32, device=dev)
                   for _ in range(4)),
@@ -276,3 +388,130 @@ def mine(positions: torch.Tensor, cdfs: torch.Tensor, start, count: int,
     if positions.device.type == "cpu":
         return mine_plain(positions, cdfs, start, count, params, u, tile)
     return mine_cuda(positions, cdfs, start, count, params, u)
+
+
+def _entry_checks(positions: torch.Tensor, start: torch.Tensor, count: int,
+                  scratch: Optional[tuple], what: str) -> tuple:
+    """The checks every entry's wrapper makes of the positions, start,
+    count and scratch (``mine_scratch``'s, made here when None); returns
+    (n, scratch)."""
+    dev = positions.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    n = positions.shape[0]
+    if not 1 <= count <= n:
+        raise ValueError(f"{what}: count {count} outside 1 .. {n}")
+    _check(positions, (n, 3), torch.float32, dev, "positions")
+    _check(start, (1,), torch.int32, dev, "start")
+    scratch = scratch or mine_scratch(n, count, dev)
+    partial, tickets = scratch
+    if (partial.shape[1:] != (count, 4) or partial.device != dev
+            or tickets.shape != (-(-count // ANCHORS_PER_CTA),)):
+        raise ValueError(f"{what}: scratch of another chunk (mine_scratch)")
+    return n, scratch
+
+
+def counts_cuda(positions: torch.Tensor, start: torch.Tensor, count: int,
+                params: Sequence[float], scratch: Optional[tuple] = None
+                ) -> Counts:
+    """Launch kernel M's counts entry on the card (shapes and types as
+    ``mine_cuda``'s); ``scratch`` receives the per-split counts that
+    ``draw_cuda`` reads."""
+    n, (partial, tickets) = _entry_checks(positions, start, count, scratch,
+                                          "counts_cuda")
+    dev = positions.device
+    out = Counts(torch.empty(count, dtype=torch.int32, device=dev),
+                 torch.empty(count, dtype=torch.int32, device=dev),
+                 torch.empty(count, dtype=torch.bool, device=dev))
+    with torch.cuda.device(dev):
+        _other_kernels()[0](
+            positions.data_ptr(), start.data_ptr(), n, count,
+            *[float(v) for v in params], partial.shape[0],
+            partial.data_ptr(), tickets.data_ptr(), out.count_pos.data_ptr(),
+            out.count_neg.data_ptr(), out.valid.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def rows_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
+              start: torch.Tensor, count: int, params: Sequence[float],
+              out: torch.Tensor, scratch: Optional[tuple] = None) -> Counts:
+    """Launch kernel M's W₁-row entry on the card: ``out`` (count, n)
+    float32, contiguous, receives the block; returns the counts.
+    ``scratch`` receives the per-split counts that ``draw_cuda`` reads."""
+    n, (partial, tickets) = _entry_checks(positions, start, count, scratch,
+                                          "rows_cuda")
+    dev = positions.device
+    _check_cdfs(cdfs, n, dev)
+    _check(out, (count, n), torch.float32, dev, "out")
+    res = Counts(torch.empty(count, dtype=torch.int32, device=dev),
+                 torch.empty(count, dtype=torch.int32, device=dev),
+                 torch.empty(count, dtype=torch.bool, device=dev))
+    with torch.cuda.device(dev):
+        _other_kernels()[1](
+            positions.data_ptr(), cdfs.data_ptr(), start.data_ptr(), n,
+            count, cdfs.shape[1], *[float(v) for v in params],
+            partial.shape[0], partial.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), res.count_pos.data_ptr(),
+            res.count_neg.data_ptr(), res.valid.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return res
+
+
+def draw_cuda(positions: torch.Tensor, start: torch.Tensor, count: int,
+              params: Sequence[float], u: torch.Tensor, counts: torch.Tensor,
+              which: str, scratch: tuple) -> torch.Tensor:
+    """Launch kernel M's mask draw on the card: ``u`` (count,) float32,
+    ``counts`` (count,) int32 the mask's counts and ``scratch`` as the
+    entry launched before it (``counts_cuda``, ``rows_cuda`` or
+    ``mine_cuda``) left it; int32 (count,) out."""
+    if scratch is None:
+        raise ValueError("draw_cuda: needs the scratch of the entry before "
+                         "it")
+    n, (partial, _) = _entry_checks(positions, start, count, scratch,
+                                    "draw_cuda")
+    dev = positions.device
+    _check(u, (count,), torch.float32, dev, "u")
+    _check(counts, (count,), torch.int32, dev, "counts")
+    out = torch.empty(count, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _other_kernels()[2](
+            positions.data_ptr(), start.data_ptr(), n, count,
+            *[float(v) for v in params], WHICH[which], u.data_ptr(),
+            counts.data_ptr(), partial.shape[0], partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def mine_counts(positions: torch.Tensor, start, count: int,
+                params: Sequence[float], scratch: Optional[tuple] = None,
+                tile: int = TILE) -> Counts:
+    """Kernel M's counts entry on CUDA tensors, its plain version on CPU
+    tensors (``scratch`` unused there)."""
+    if positions.device.type == "cpu":
+        return counts_plain(positions, start, count, params, tile)
+    return counts_cuda(positions, start, count, params, scratch)
+
+
+def mine_rows(positions: torch.Tensor, cdfs: torch.Tensor, start,
+              count: int, params: Sequence[float], out: torch.Tensor,
+              scratch: Optional[tuple] = None, tile: int = TILE) -> Counts:
+    """Kernel M's W₁-row entry on CUDA tensors, its plain version on CPU
+    tensors: the block into ``out``, the counts returned."""
+    if positions.device.type == "cpu":
+        return rows_plain(positions, cdfs, start, count, params, out,
+                          tile)[1]
+    return rows_cuda(positions, cdfs, start, count, params, out, scratch)
+
+
+def mine_draw(positions: torch.Tensor, start, count: int,
+              params: Sequence[float], u: torch.Tensor, counts: torch.Tensor,
+              which: str, scratch: Optional[tuple] = None,
+              tile: int = TILE) -> torch.Tensor:
+    """Kernel M's mask draw on CUDA tensors (after an entry that filled
+    ``scratch``), its plain version on CPU tensors."""
+    if positions.device.type == "cpu":
+        return draw_plain(positions, start, count, params, u, counts, which,
+                          tile)
+    return draw_cuda(positions, start, count, params, u, counts, which,
+                     scratch)

@@ -8,18 +8,24 @@ Semantics (reference ``triplet_miner.py``):
     anchor; "semi-hard" = the median candidate; "random" = uniform
   * per-sequence mining when sequence ids are given
 
-Anchors run in chunks of 2048. The "hard" strategy, the one the training
-configuration uses, is JAX's one-dispatch ``_mine_chunk`` as a
-``MiningExecutable``: kernel M (``training/mine_kernel.py``,
-``csrc/mine.cu``) computes each anchor's masks, counts, hard negative and
-positive draw without building a (chunk, n) matrix; on a card each chunk
-is one replay of a captured CUDA graph. Its positive is the r-th positive
-in index order with r = min(⌊u · count⌋, count − 1), u ~ U[0, 1) drawn
-from the miner's ``torch.Generator`` (one u an anchor): uniform over the
-positive mask, as ``jax.random.categorical`` is, whose bits cannot be
-reproduced. "semi-hard" and "random" run op by op (the declared eager
-path, counted in ``STATS["eager_chunks"]``), with (chunk, n) masks and
-``torch.multinomial`` draws.
+Anchors run in chunks of 2048, each chunk JAX's one-dispatch
+``_mine_chunk`` as a ``MiningExecutable`` of its strategy: on a card each
+chunk is one replay of a captured CUDA graph of kernel M's entries
+(``training/mine_kernel.py``, ``csrc/mine.cu``), none of which builds a
+(chunk, n) matrix but "semi-hard"'s W₁ block:
+
+  * "hard": the counts and the least-W₁ negative, then the positive draw;
+  * "semi-hard": the (chunk, n) W₁ block (+inf outside the negatives) and
+    the counts, kernel S (``training/select_kernel.py``, ``csrc/select.cu``)
+    at place count_neg // 2 of each row's stable order (JAX's
+    ``order[cnt // 2]``), then the positive draw;
+  * "random": the counts, then a draw over the positives and one over the
+    negatives.
+
+A draw takes the r-th member of its mask in index order with r = min(⌊u ·
+count⌋, count − 1), u ~ U[0, 1) drawn from the miner's ``torch.Generator``
+(one u an anchor and draw): uniform over the mask, as
+``jax.random.categorical`` is, whose bits cannot be reproduced.
 """
 
 from __future__ import annotations
@@ -30,79 +36,52 @@ import numpy as np
 import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
-from neural_spectral_codec_torch.training import mine_kernel
+from neural_spectral_codec_torch.training import mine_kernel, select_kernel
 from neural_spectral_codec_torch.utils.graph_exec import (
     Arena, ExecutableCache, GraphStep, SharedPool)
 
 ANCHOR_CHUNK = 2048
-TILE = 4096
+TILE = 4096              # the plain versions' frames a tile (CPU steps)
 STRATEGIES = ("hard", "semi-hard", "random")
+DRAWS = {"hard": 1, "semi-hard": 1, "random": 2}   # u values an anchor
+# the kernels each strategy's graph holds, by census name, with their count
+CENSUS = {"hard": {"mine": 1, "mine_draw": 1},
+          "semi-hard": {"mine_rows": 1, "select": 1, "mine_draw_mask": 1},
+          "random": {"mine_counts": 1, "mine_draw_mask": 2}}
 
 POOL = SharedPool()     # every mining graph of a device: one memory pool
+# eager_chunks stays 0: every strategy runs its executable (kept so that a
+# reader of STATS sees no op-by-op chunk)
 STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "eager_chunks": 0}
 _CACHE = ExecutableCache()
 
 
-def _draw(mask: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One uniform draw per row among its True columns (rows without one
-    draw among all columns; the miner marks them invalid)."""
-    has = mask.any(dim=1, keepdim=True)
-    w = torch.where(has, mask, True).to(torch.float32)
-    return torch.multinomial(w, 1, generator=generator)[:, 0]
-
-
-def _w1_tiles(acdf: torch.Tensor, cdfs: torch.Tensor):
-    """Yield (start, (chunk, tile) W₁ block) over ``TILE``-row tiles."""
-    for t0 in range(0, cdfs.shape[0], TILE):
-        yield t0, torch.cdist(acdf[None], cdfs[None, t0:t0 + TILE],
-                              p=1.0)[0]
-
-
-def _mine_chunk_eager(positions: torch.Tensor, cdfs: torch.Tensor,
-                      generator: torch.Generator, params: Tuple[float, ...],
-                      start: int, count: int, strategy: str):
-    """(pos_idx, neg_idx, valid) for anchors ``start .. start+count`` of
-    one sequence, "semi-hard" or "random", op by op (JAX ``_mine_chunk``,
-    miner.py:55)."""
-    n = positions.shape[0]
-    dev = positions.device
-    a = torch.arange(start, start + count, dtype=torch.int64, device=dev)
-    pos_mask, neg_mask = mine_kernel.chunk_masks(positions, a, 0, n, params)
-    pos_idx = _draw(pos_mask, generator)
-    acdf = cdfs[start:start + count]
-    if strategy == "semi-hard":
-        w1 = torch.cat([w for _, w in _w1_tiles(acdf, cdfs)], dim=1)
-        masked = w1.masked_fill(~neg_mask, float("inf"))
-        order = torch.sort(masked, dim=1, stable=True).indices
-        cnt = neg_mask.sum(dim=1)
-        neg_idx = order.gather(1, (cnt // 2)[:, None])[:, 0]
-    else:
-        neg_idx = _draw(neg_mask, generator)
-    valid = pos_mask.any(dim=1) & neg_mask.any(dim=1)
-    if dev.type == "cuda":
-        STATS["eager_chunks"] += 1
-    return pos_idx, neg_idx, valid
-
-
 class MiningExecutable(GraphStep):
-    """JAX's ``_mine_chunk`` ("hard", miner.py:54) for one (device,
-    sequence length n, chunk c, bins, thresholds): kernel M's two entries
-    on anchors ``start .. start + c``, ``start`` and the c draws u staged
-    each chunk (``utils/graph_exec.GraphStep``). The sequence's positions
-    and CDFs sit in a device arena (``load_sequence``, once a sequence).
-    Outputs, fetched in one download a chunk: int32 ``pos_idx``,
-    ``neg_idx``, ``count_pos``, ``count_neg`` and bool ``valid``."""
+    """JAX's ``_mine_chunk`` (miner.py:54) for one (device, sequence length
+    n, chunk c, bins, thresholds, strategy): kernel M's entries (and, for
+    "semi-hard", kernel S) on anchors ``start .. start + c``, ``start``
+    and the draws' u (``DRAWS[strategy]`` rows of c: for "random" the
+    positives' first) staged each chunk (``utils/graph_exec.GraphStep``).
+    The sequence's positions and CDFs sit in a device arena
+    (``load_sequence``, once a sequence), and so does "semi-hard"'s (c, n)
+    W₁ block, at a fixed address. Outputs, fetched in one download a chunk:
+    int32 ``pos_idx``, ``neg_idx``, ``count_pos``, ``count_neg`` and bool
+    ``valid``."""
 
     def __init__(self, n: int, chunk: int, bins: int,
                  params: Tuple[float, ...], device: torch.device,
-                 use_graph: bool = True):
+                 use_graph: bool = True, strategy: str = "hard"):
+        if strategy not in STRATEGIES:
+            raise ValueError(f"strategy {strategy!r} not in {STRATEGIES}")
         super().__init__(device, use_graph, POOL, STATS)
-        self.chunk, self.params = chunk, tuple(params)
+        self.chunk, self.params, self.strategy = chunk, tuple(params), strategy
         f32, i32 = torch.float32, torch.int32
-        self.data = Arena([("positions", (n, 3), f32),
-                           ("cdfs", (n, bins), f32)], device, host=False)
-        self.inputs = Arena([("start", (1,), i32), ("u", (chunk,), f32)],
-                            device)
+        data = [("positions", (n, 3), f32), ("cdfs", (n, bins), f32)]
+        if strategy == "semi-hard":
+            data.append(("w1", (chunk, n), f32))
+        self.data = Arena(data, device, host=False)
+        self.inputs = Arena([("start", (1,), i32),
+                             ("u", (DRAWS[strategy], chunk), f32)], device)
         self.outputs = Arena([("pos_idx", (chunk,), i32),
                               ("neg_idx", (chunk,), i32),
                               ("count_pos", (chunk,), i32),
@@ -114,33 +93,58 @@ class MiningExecutable(GraphStep):
         self.load(self.data, {"positions": positions, "cdfs": cdfs})
 
     def _kernels(self) -> tuple:
-        return (mine_kernel.HARD, mine_kernel.DRAW)
+        mk = mine_kernel
+        return {"hard": (mk.HARD, mk.DRAW),
+                "semi-hard": (mk.ROWS, select_kernel.KERNEL, mk.DRAW_MASK),
+                "random": (mk.COUNTS, mk.DRAW_MASK)}[self.strategy]
 
     def _check(self, graph) -> None:
         from neural_spectral_codec_torch._build import graph_census
         self.census = graph_census(graph.raw_cuda_graph())
-        if (self.census["mine"], self.census["mine_draw"]) != (1, 1):
-            raise RuntimeError(f"the mining graph holds {self.census['mine']}"
-                               f" counting and {self.census['mine_draw']} "
-                               "draw kernels, not one each")
+        want = CENSUS[self.strategy]
+        got = {k: self.census[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"the {self.strategy} mining graph holds "
+                               f"{got} kernel nodes, not {want}")
 
     def _step(self) -> None:
-        d, i = self.data.dev, self.inputs.dev
-        out = mine_kernel.mine(d["positions"], d["cdfs"], i["start"],
-                               self.chunk, self.params, i["u"], tile=TILE)
-        for name, value in zip(out._fields, out):
-            self.outputs.dev[name].copy_(value)
+        d, i, o = self.data.dev, self.inputs.dev, self.outputs.dev
+        pos, start, u = d["positions"], i["start"], i["u"]
+        c, prm, mk = self.chunk, self.params, mine_kernel
+        if self.strategy == "hard":
+            out = mk.mine(pos, d["cdfs"], start, c, prm, u[0], tile=TILE)
+            for name, value in zip(out._fields, out):
+                o[name].copy_(value)
+            return
+        scratch = (None if pos.device.type == "cpu"
+                   else mk.mine_scratch(pos.shape[0], c, pos.device))
+        if self.strategy == "semi-hard":
+            counts = mk.mine_rows(pos, d["cdfs"], start, c, prm, d["w1"],
+                                  scratch, tile=TILE)
+            neg = select_kernel.select(d["w1"], counts.count_neg // 2)
+        else:
+            counts = mk.mine_counts(pos, start, c, prm, scratch, tile=TILE)
+            neg = mk.mine_draw(pos, start, c, prm, u[1], counts.count_neg,
+                               "neg", scratch, tile=TILE)
+        o["pos_idx"].copy_(mk.mine_draw(pos, start, c, prm, u[0],
+                                        counts.count_pos, "pos", scratch,
+                                        tile=TILE))
+        o["neg_idx"].copy_(neg)
+        for name, value in zip(counts._fields, counts):
+            o[name].copy_(value)
 
 
 def mining_executable(n: int, chunk: int, bins: int,
                       params: Tuple[float, ...], device: torch.device,
-                      use_graph: bool = True) -> MiningExecutable:
-    """The cached mining step of (device, n, chunk, bins, thresholds)."""
+                      use_graph: bool = True,
+                      strategy: str = "hard") -> MiningExecutable:
+    """The cached mining step of (device, n, chunk, bins, thresholds,
+    strategy)."""
     graphed = use_graph and device.type == "cuda"
     return _CACHE.get((str(device), int(n), int(chunk), int(bins),
-                       tuple(params), graphed),
+                       tuple(params), strategy, graphed),
                       lambda: MiningExecutable(n, chunk, bins, params,
-                                               device, use_graph))
+                                               device, use_graph, strategy))
 
 
 def cached_executables() -> list:
@@ -153,23 +157,27 @@ def clear_cache() -> None:
     _CACHE.clear()
 
 
-def _mine_hard(positions: torch.Tensor, cdfs: torch.Tensor,
-               generator: torch.Generator, params: Tuple[float, ...],
-               chunk: int, use_graph: bool):
-    """Every anchor of one sequence through its ``MiningExecutable``: the
-    chunks' starts are s = 0, c, 2c, ... with the last one moved back to
-    n − c (JAX's revisit scan does the same, validation.py:53), so one
-    graph serves the whole sequence; the last chunk keeps only its new
-    anchors. c draws u a chunk. Numpy (pos, neg, valid)."""
+def _mine_kernel_chunked(positions: torch.Tensor, cdfs: torch.Tensor,
+                         generator: torch.Generator,
+                         params: Tuple[float, ...], strategy: str,
+                         chunk: int = ANCHOR_CHUNK, use_graph: bool = True):
+    """All anchors of one sequence (JAX ``_mine_kernel_chunked``,
+    miner.py:29) through its ``MiningExecutable``; numpy (pos, neg,
+    valid). The chunks' starts are s = 0, c, 2c, ... with the last one
+    moved back to n − c (JAX's revisit scan does the same,
+    validation.py:53), so one graph serves the whole sequence; the last
+    chunk keeps only its new anchors. ``DRAWS[strategy]`` × c draws u a
+    chunk from ``generator``."""
     n = positions.shape[0]
     c = min(chunk, n)
     exe = mining_executable(n, c, cdfs.shape[1], params, positions.device,
-                            use_graph)
+                            use_graph, strategy)
     exe.load_sequence(positions, cdfs)
     outs = []
     for s in range(0, n, c):
         start = min(s, n - c)
-        u = torch.rand(c, generator=generator, device=positions.device)
+        u = torch.rand((DRAWS[strategy], c), generator=generator,
+                       device=positions.device)
         out, _ = exe.run({"start": np.array([start], np.int32), "u": u})
         lo = s - start
         outs.append(tuple(out[k][lo:] for k in ("pos_idx", "neg_idx",
@@ -178,30 +186,11 @@ def _mine_hard(positions: torch.Tensor, cdfs: torch.Tensor,
         np.int64 if i < 2 else bool) for i in range(3))
 
 
-def _mine_kernel_chunked(positions: torch.Tensor, cdfs: torch.Tensor,
-                         generator: torch.Generator,
-                         params: Tuple[float, ...], strategy: str,
-                         chunk: int = ANCHOR_CHUNK, use_graph: bool = True):
-    """All anchors of one sequence in chunks (JAX
-    ``_mine_kernel_chunked``, miner.py:29); numpy (pos, neg, valid).
-    "hard" runs the ``MiningExecutable``; the other strategies fetch each
-    chunk's result before the next starts, so one chunk's (chunk, n)
-    masks are live at a time."""
-    if strategy == "hard":
-        return _mine_hard(positions, cdfs, generator, params, chunk,
-                          use_graph)
-    n = positions.shape[0]
-    outs = [tuple(t.cpu().numpy() for t in _mine_chunk_eager(
-        positions, cdfs, generator, params, s, min(s + chunk, n) - s,
-        strategy)) for s in range(0, n, chunk)]
-    return tuple(np.concatenate([o[i] for o in outs]) for i in range(3))
-
-
 class TripletMiner:
     """Offline miner over a keyframe set (JAX ``TripletMiner``,
     miner.py:114). Masks, W₁ and draws run on ``device``; with
-    ``use_graph`` (the default) the "hard" chunks replay a captured graph
-    on a card, without it they run the same step eagerly."""
+    ``use_graph`` (the default) every chunk replays a captured graph on a
+    card, without it the same step runs eagerly."""
 
     def __init__(self, positive_distance_max: float = 5.0,
                  positive_temporal_min: int = 30,

@@ -3,10 +3,11 @@ as one captured CUDA graph on a card: the serving step
 (``models/serving.py``), the verifier's registration
 (``retrieval/verification.py``), the stage-1 query
 (``retrieval/retriever.py``), the split-mode eval forward
-(``models/gnn.py``), ``entry()``'s forward (``entry.py``) and the training
-programs: the miner's chunk (``training/miner.py``), the train step
-(``training/trainer.py``) and validation's two scans
-(``training/validation.py``).
+(``models/gnn.py``), ``entry()``'s forward (``entry.py``), the training
+programs: the miner's chunk of each strategy (``training/miner.py``), the
+train step (``training/trainer.py``) and validation's two scans
+(``training/validation.py``), and the evaluation's ranking
+(``evaluation.py``).
 
 ``Arena``: named typed sections of one device buffer, staged through one
 pinned host buffer of the same layout. ``capture_graph``: one warm-up run

@@ -416,15 +416,33 @@ def test_mining_executable_runs_the_step_on_the_cpu():
     tminer.clear_cache()
 
 
-def test_other_strategies_stay_op_by_op():
-    """"semi-hard" and "random" run the op-by-op chunk (no executable)."""
+@pytest.mark.parametrize("strategy", ["hard", "semi-hard", "random"])
+def test_each_strategy_builds_one_executable(strategy):
+    """Each strategy runs its own ``MiningExecutable``, one a (n, chunk,
+    strategy): two sequences of 150 frames (chunks of 64, the last moved
+    back) mined twice make one executable and 2 × 2 × 3 eager steps on the
+    CPU, none captured; a second strategy on the same shapes makes a
+    second executable."""
     tminer.clear_cache()
-    _, _, desc, poses = _data(seed=13)
-    for strategy in ("semi-hard", "random"):
-        out = tminer.TripletMiner(mining_strategy=strategy,
-                                  device="cpu").mine_triplets(desc, poses)
-        assert len(out) > 50
-    assert tminer.cached_executables() == []
+    before = dict(tminer.STATS)
+    positions, cdfs, _, _ = _data(seed=13)
+    p, c = _t(positions), _t(cdfs)
+    for _ in range(2):
+        for seed in (1, 2):
+            _, _, valid = tminer._mine_kernel_chunked(
+                p, c, torch.Generator().manual_seed(seed), TPARAMS, strategy,
+                chunk=64)
+            assert valid.sum() > 50
+    assert [e.strategy for e in tminer.cached_executables()] == [strategy]
+    assert tminer.STATS["eager_steps"] - before["eager_steps"] == 2 * 2 * 3
+    assert tminer.STATS["captures"] == before["captures"]
+    assert tminer.STATS["eager_chunks"] == before["eager_chunks"]
+    other = "random" if strategy != "random" else "hard"
+    tminer._mine_kernel_chunked(p, c, torch.Generator().manual_seed(3),
+                                TPARAMS, other, chunk=64)
+    assert [e.strategy for e in tminer.cached_executables()] == [strategy,
+                                                                 other]
+    tminer.clear_cache()
 
 
 # ---------------- no card ----------------
