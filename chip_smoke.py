@@ -110,11 +110,15 @@ weights and data made from seeds:
    "random" counts, the draw over either mask) and kernel S (the row
    select at count_neg // 2) bit-equal to their plain versions on the
    same chunks (S also against ``torch.sort(stable=True)`` and on rows of
-   ties, ±0, ±inf, NaN, odd widths and strides), each timed at 2,048 x
-   100,000; kernel G (the gathers' backward) bit-equal to its plain version
-   and to the CPU's ``index_add_`` on the GAT neighbour table of a
-   20,000-node graph (float32 and bf16) and on 4,096 triplet gathers with
-   repeats, timed against ``index_add_``; (d) the training graph families
+   ties, ±0, ±inf, NaN, odd widths and strides, in both regimes and every
+   cluster width, with runs of ties across slice edges; the counts entry
+   and the draws after it also on pairs at each squared bound and one
+   ulp either side), each timed at 2,048 x 100,000 (the counts entry's
+   gate: kept pairs, both bounds); kernel G (the gathers' backward)
+   bit-equal to its plain version and to the CPU's ``index_add_`` on the
+   GAT neighbour table of a 20,000-node graph (float32 and bf16) and on
+   4,096 triplet gathers with repeats, timed against ``index_add_``; (d)
+   the training graph families
    (mining, train step, embedding pass, revisit scan, recall) against
    their eager steps on a 20,000-node run: the same triplets, three train
    steps with equal losses, parameters, buffers and Adam state, equal
@@ -423,7 +427,7 @@ KERNEL_NAMES = {
     "mine_counts": ("mine_counts_kernel",),
     "mine_rows": ("mine_rows_kernel",),
     "mine_draw_mask": ("mine_draw_mask_kernel",),
-    "select": ("select_rows_kernel",),
+    "select": ("select_cluster_kernel", "select_rows_kernel"),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -2084,8 +2088,14 @@ def _select_rows(device) -> list:
     """Phase 7k's rows for kernel S beyond the W₁ blocks: (name, block,
     places) with many ties, ±0, ±inf and NaN, widths that are not a
     multiple of 4, rows off a 16-byte boundary and a row stride wider than
-    the row, places at both ends."""
+    the row, places at both ends; widths of every cluster layout (1, 2, 4
+    and 8 CTAs a row at 2 CTAs an SM, 8 at 1 an SM) and of the streaming
+    regime (450,001 columns); and runs of one value across every slice
+    edge of 2, 4 and 8-CTA rows, the rows at every 16-byte phase, with
+    places on both sides of each edge."""
     import torch
+    from neural_spectral_codec_torch.training.select_kernel import (
+        select_layout)
     g = torch.Generator(device=device).manual_seed(SEED + 52)
 
     def places(x):
@@ -2095,7 +2105,8 @@ def _select_rows(device) -> list:
         return k
 
     out = []
-    for rows, n in ((64, 4096), (33, 1001), (8, 100_003), (1, 1), (5, 3)):
+    for rows, n in ((64, 4096), (33, 1001), (8, 100_003), (1, 1), (5, 3),
+                    (5, 30_000), (3, 200_000), (4, 300_000), (2, 450_001)):
         levels = torch.tensor([-float("inf"), -1.5, -0.0, 0.0, 0.25, 0.25,
                                7.0, float("inf"), float("nan")],
                               device=device)
@@ -2110,7 +2121,106 @@ def _select_rows(device) -> list:
     out.append(("row stride 2051", wide[:, :2048], places(wide[:, :2048])))
     same = torch.full((4, 5000), float("inf"), device=device)
     out.append(("all +inf", same, places(same)))
+    for n in (30_001, 100_000, 300_000):
+        ctas = select_layout(n)
+        width = -(-n // ctas)
+        row = torch.rand(n + 1, generator=g, device=device) + 1.0
+        for e in range(width, n, width):
+            row[e - 100:e + 101] = 0.5          # a run across the edge
+        first = int((row[1:] < 0.5).sum())
+        run = int((row[1:] == 0.5).sum())
+        offs = [0, 99, 100, 101, 199, 200, 201, run // 2, run - 1, run]
+        # row stride n + 1: the rows start at every 16-byte phase
+        block = row[None].repeat(len(offs), 1)
+        for name, x in (("from column 0", block[:, :n]),
+                        ("from column 1", block[:, 1:])):
+            k = torch.tensor([first + o for o in offs], dtype=torch.int32,
+                             device=device)
+            out.append((f"a run across each of the {ctas - 1} slice edges "
+                        f"of {n} columns, {name}", x, k))
     return out
+
+
+def _bound_positions(params) -> "np.ndarray":
+    """Frame positions whose pairs sit exactly at the counts entry's
+    squared bounds (``mine_kernel.mask_bounds``) and one ulp either side,
+    and at distances within ±3 ulps of each distance threshold along x and
+    along the xy diagonal: frames 0-127 at the origin and then one
+    128-frame tile a probe, so each tile's box touches the anchors' at that
+    sum of squares; a last tile holds a NaN coordinate."""
+    import numpy as np
+    from neural_spectral_codec_torch.training import mine_kernel as mk
+    f32 = np.float32
+
+    def exact(bound):                  # (dx, dz): dx² + dz² == bound
+        d = np.sqrt(bound)
+        for _ in range(4000):
+            d = np.nextafter(d, f32(0))
+            rest = f32(bound - d * d)
+            e0 = np.sqrt(rest) if rest > 0 else f32(0)
+            for e in (e0, np.nextafter(e0, f32(0)), np.nextafter(e0, f32(9)),
+                      np.nextafter(np.nextafter(e0, f32(0)), f32(0)),
+                      np.nextafter(np.nextafter(e0, f32(9)), f32(9))):
+                if rest > 0 and d * d + e * e == bound:
+                    return [d, f32(0), e]
+        raise RuntimeError(f"no pair sums to {bound}")
+
+    probes = []
+    for t in (params[0], params[2], params[3]):
+        d = f32(t)
+        for _ in range(3):
+            d = np.nextafter(d, f32(0))
+        for _ in range(7):
+            e = f32(d / np.sqrt(f32(2)))
+            probes += [[d, f32(0), f32(0)], [e, e, f32(0)]]
+            d = np.nextafter(d, f32(np.inf))
+    for bound in mk.mask_bounds(tuple(params))[:3]:
+        for v in (np.nextafter(f32(bound), f32(0)), f32(bound),
+                  np.nextafter(f32(bound), f32(np.inf))):
+            probes.append(exact(v))
+    tiles = [np.zeros((128, 3), np.float32)]
+    tiles += [np.tile(np.array(p, np.float32), (128, 1)) for p in probes]
+    nan = np.tile(np.array([params[3], 0, 0], np.float32), (128, 1))
+    nan[5, 1] = np.nan
+    return np.concatenate(tiles + [nan])
+
+
+def _counts_at_bounds(device) -> int:
+    """Phase 7k: M's counts entry, and both mask draws after it, against
+    their plain versions, bit for bit, on ``_bound_positions`` at
+    ``scale_100k``'s thresholds and the miner's defaults (anchors: the
+    first tile, then the first 2,048 frames); the chunks tested."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.training import mine_kernel as mk
+    cases = 0
+    for prm in (MINE_PARAMS, (5.0, 30.0, 10.0, 50.0, 30.0)):
+        params = tuple(float(v) for v in np.array(prm, np.float32))
+        pos = torch.from_numpy(_bound_positions(params)).to(device)
+        n = pos.shape[0]
+        for start, count in ((0, 128), (0, min(2048, n)), (n - 300, 300)):
+            st = torch.tensor([start], dtype=torch.int32, device=device)
+            scratch = mk.mine_scratch(n, count, device)
+            got = mk.counts_cuda(pos, st, count, params, scratch)
+            want = mk.counts_plain(pos, start, count, params)
+            where = f"at the bounds (thresholds {prm}, start {start}, " \
+                    f"count {count})"
+            _check(all(torch.equal(a, b) for a, b in zip(got, want)) and
+                   int(want.count_neg.sum()) > 0,
+                   f"mine_counts kernel: counts != plain version {where}")
+            u = torch.linspace(0, float(np.nextafter(np.float32(1),
+                                                     np.float32(0))),
+                               count, device=device)
+            for which in ("pos", "neg"):
+                cnt = getattr(want, f"count_{which}")
+                _check(torch.equal(
+                    mk.draw_cuda(pos, st, count, params, u, cnt, which,
+                                 scratch),
+                    mk.draw_plain(pos, start, count, params, u, cnt, which)),
+                    f"mine_draw_mask ({which}) after mine_counts != plain "
+                    f"version {where}")
+            cases += 1
+    return cases
 
 
 def _mining_entries(device) -> dict:
@@ -2122,10 +2232,15 @@ def _mining_entries(device) -> dict:
     on partial chunks (1 anchor, the last 37, 100 in the middle): the
     counts, the W₁ block, the draws over either mask after each entry
     (u of 0 and just under 1 included), S at count_neg // 2 of the block
-    (also against ``torch.sort(stable=True)``); S also on ``_select_rows``.
+    (also against ``torch.sort(stable=True)``); the counts entry and both
+    draws after it on ``_counts_at_bounds``; S also on ``_select_rows``
+    (both regimes, every cluster width, slice edges in runs of ties).
     Then each timed at MINE_CHUNK x MINE_NODES x 800: device, wrapper and
-    plain time, the bound, the yardsticks (``torch.cdist(p=1)`` for the
-    rows entry, ``torch.sort(stable=True)`` + ``gather`` for S)."""
+    plain time, the bound (the counts entry's over the pairs its gate
+    keeps, ``mine_kernel.gate_pairs``, with the all-pairs bound, the kept
+    share and the splits' imbalance beside it), the yardsticks
+    (``torch.cdist(p=1)`` for the rows entry, ``torch.sort(stable=True)``
+    + ``gather`` for S)."""
     import numpy as np
     import torch
     from neural_spectral_codec_torch.training import mine_kernel as mk
@@ -2184,12 +2299,27 @@ def _mining_entries(device) -> dict:
           f"positive and {drawn['neg']} negative draws a draw entry; S at "
           f"count_neg // 2 also equal to torch.sort(stable=True))",
           flush=True)
+    at_bounds = _counts_at_bounds(device)
+    print(f"mine_counts, mine_draw_mask: bit-equal to their plain versions "
+          f"on {at_bounds} chunks whose pairs sit at, and one ulp either "
+          f"side of, each squared bound, and a NaN position", flush=True)
+    regimes = set()
     for name, x, k in _select_rows(device):
-        _check(torch.equal(sk.select_cuda(x, k), sk.select_plain(x, k)),
-               f"select kernel != plain version on {name}")
-    print("select: bit-equal to the plain version on rows of ties, ±0, "
-          "±inf and NaN, odd widths, rows off 16 bytes, a wider row stride "
-          "and all +inf", flush=True)
+        got = sk.select_cuda(x, k)
+        _check(torch.equal(got, sk.select_plain(x, k)) and
+               torch.equal(got.long(), torch.sort(
+                   x, dim=1, stable=True).indices.gather(
+                   1, k.long().clamp(0, x.shape[1] - 1)[:, None])[:, 0]),
+               f"select kernel != plain version / stable sort on {name}")
+        regimes.add(sk.select_layout(x.shape[1]))
+    _check(regimes >= {0, 1, 2, 4, 8},
+           f"select: the rows reached the layouts {sorted(regimes)}")
+    print(f"select: bit-equal to the plain version and torch.sort(stable="
+          f"True) on rows of ties, ±0, ±inf and NaN, odd widths, rows off "
+          f"16 bytes, a wider row stride, all +inf and runs of ties across "
+          f"every slice edge, in the cluster layouts "
+          f"{sorted(regimes - {0})} and the streaming regime (0)",
+          flush=True)
     del pos, cdf, w1, want_w1
 
     pos, cdf = _mine_inputs(MINE_NODES, device)
@@ -2228,8 +2358,16 @@ def _mining_entries(device) -> dict:
                                                       params)),
          **_device_times("mine_counts", counts, profiled=20,
                          queued_calls=20)}
+    gate = mk.gate_pairs(pos, start, c, params, splits)
+    # the bound of the pairs the gate leaves (what this data needs), and
+    # the all-pairs bound beside it
     t["bound_ms"], t["bound_by"] = _bound(
-        12 * MINE_NODES + 9 * c, n_ops_no_fma=DRAW_OPS * c * MINE_NODES)
+        12 * MINE_NODES + 9 * c, n_ops_no_fma=DRAW_OPS * gate["kept"])
+    t["all_pairs_bound_ms"] = _bound(
+        12 * MINE_NODES + 9 * c, n_ops_no_fma=DRAW_OPS * c * MINE_NODES)[0]
+    t["kept_pair_share"] = gate["kept"] / gate["pairs"]
+    t["split_imbalance"] = max(gate["per_split"]) / (
+        sum(gate["per_split"]) / len(gate["per_split"]))
     out["mine_counts"] = t
     cnt = counts()
     _check(all(torch.equal(a, b) for a, b in zip(
@@ -2286,6 +2424,15 @@ def _mining_entries(device) -> dict:
               f"{100 * t['share_of_bound']:.1f}% of it)", flush=True)
     print(f"kernel mine_draw_mask: negatives, {scanned} frames scanned "
           f"from the {splits} splits' starts", flush=True)
+    t = out["mine_counts"]
+    print(f"kernel mine_counts: the gate keeps {gate['kept']} of "
+          f"{gate['pairs']} pairs ({100 * t['kept_pair_share']:.2f}%); "
+          f"bound over the kept pairs {t['bound_ms']:.5f} ms "
+          f"({100 * t['share_of_bound']:.1f}% of it), all-pairs bound "
+          f"{t['all_pairs_bound_ms']:.5f} ms "
+          f"({100 * t['all_pairs_bound_ms'] / t['device_ms']:.1f}% of it); "
+          f"kept pairs a split, the most over the mean "
+          f"{t['split_imbalance']:.2f} over {splits} splits", flush=True)
     return out
 
 
@@ -2592,6 +2739,8 @@ def _mining_graphs(device) -> dict:
         synthetic_city)
     from neural_spectral_codec_torch.training import mine_kernel as mk
     from neural_spectral_codec_torch.training import miner as miner_mod
+    from neural_spectral_codec_torch.training.select_kernel import (
+        select_layout)
 
     need = {"semi-hard": ("mine_rows", "select", "mine_draw_mask"),
             "random": ("mine_counts", "mine_draw_mask")}
@@ -2621,7 +2770,9 @@ def _mining_graphs(device) -> dict:
         print(f"mining graph ({strategy}): {SCALE_NODES} nodes, captured in "
               f"{exe[0].capture_s:.3f} s, {c['nodes']} nodes ({c['kernels']}"
               f" kernels; {', '.join(f'{k} {c[k]}' for k in need[strategy])}"
-              f"), {len(trip)} triplets equal to the eager step's, second "
+              + (f"; S's cluster width {c['select_cluster_dim']}"
+                 if strategy == "semi-hard" else "")
+              + f"), {len(trip)} triplets equal to the eager step's, second "
               f"epoch captured nothing; launches {launches}", flush=True)
         _check(all(launches[k] > 0 for k in need[strategy]) and
                launches["mine"] == 0 and launches["mine_draw"] == 0,
@@ -2656,12 +2807,31 @@ def _mining_graphs(device) -> dict:
         miner_mod.clear_cache()
         graphed = _strategy_miner(strategy, device)
         t0 = time.perf_counter()
-        graphed.mine_triplets(desc, poses)
+        first = graphed.mine_triplets(desc, poses)
         first_s = time.perf_counter() - t0
+        caps = miner_mod.STATS["captures"]
         t0 = time.perf_counter()
         trip = graphed.mine_triplets(desc, poses)
         epoch_s = time.perf_counter() - t0
         exe = miner_mod.cached_executables()[0]
+        c = exe.census
+        eager = _strategy_miner(strategy, device, False).mine_triplets(
+            desc, poses)
+        _check(miner_mod.STATS["captures"] == caps and
+               np.array_equal(first, eager) and len(trip) > 10_000,
+               f"mining graph ({strategy}), {BIG_NODES} nodes: the second "
+               f"epoch captured, or the graph's triplets differ from the "
+               f"eager step's")
+        _check(strategy != "semi-hard" or c["select_cluster_dim"] ==
+               select_layout(BIG_NODES) > 1,
+               f"mining graph (semi-hard), {BIG_NODES} nodes: S's node is "
+               f"not a cluster of {select_layout(BIG_NODES)} ({c})")
+        census = ", ".join(f"{k} {c[k]}" for k in need[strategy])
+        print(f"mining graph ({strategy}): {BIG_NODES} nodes, {len(first)} "
+              f"triplets equal to the eager step's, second epoch captured "
+              f"nothing; census {census}"
+              + (f", S a cluster node of width {c['select_cluster_dim']}"
+                 if strategy == "semi-hard" else ""), flush=True)
         replay_ms = _replay_ms(exe)
         host = {}
         for use_graph in (True, False):

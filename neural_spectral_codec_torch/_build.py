@@ -167,7 +167,7 @@ CENSUS = ("nodes", "kernels", "memcpy", "memset", "other", "project",
           "spectral_cluster_dim", "ring_fold", "unreadable_kernels",
           "nearest", "knn", "nearest_cluster_width", "knn_pca", "kabsch",
           "mine", "mine_draw", "gather_bwd", "mine_counts", "mine_rows",
-          "mine_draw_mask", "select")
+          "mine_draw_mask", "select", "select_cluster_dim")
 
 
 def graph_census(graph_handle: int) -> dict:
@@ -176,8 +176,9 @@ def graph_census(graph_handle: int) -> dict:
     nodes with their cooperative attribute, the spectral kernel's with its
     cluster width, and the ring, nearest-neighbour (with its cluster
     width), k-NN, k-NN PCA, Kabsch, mining (each of kernel M's five),
-    gather-backward and row-select kernels' (``nsc_graph_census`` in
-    ``csrc/project.cu``). Raises on a CUDA error."""
+    gather-backward and row-select kernels' (the last row-select node's
+    cluster width: ``nsc_graph_census`` in ``csrc/project.cu``). Raises on
+    a CUDA error."""
     lib = load_library()
     fn = lib.nsc_graph_census
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

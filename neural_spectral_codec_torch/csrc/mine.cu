@@ -93,8 +93,14 @@
 //                   no CDF read; 128 anchors x 128-frame tiles a CTA of 256
 //                   threads as above, each tile's positions staged in shared
 //                   memory, the splits merged by the last CTA the same way.
-//                   Bound: 12 operations a pair, 2,048 x 100,000 in 0.073
-//                   ms at 33.5 T a second.
+//                   No square root and no int-to-float: the thresholds come
+//                   as exact bounds on the rounded sum of squares and on
+//                   the integer gap (Bounds), and a tile whose box, against
+//                   the anchors' box, bounds every pair's sum of squares
+//                   away from both masks is skipped (skip_block). Bound: 12
+//                   operations a pair, 2,048 x 100,000 in 0.073 ms at 33.5 T
+//                   a second; over the pairs of the tiles the gate keeps
+//                   (training/mine_kernel.py gate_pairs), less.
 //   nsc_mine_draw_mask  the draw over either mask (which = 0 positives, 1
 //                   negatives): r = min(floor(u * count), count - 1) of that
 //                   mask's count, the r-th member in index order, 0 when
@@ -462,54 +468,207 @@ mine_rows_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
                 partial, tickets, nullptr, count_pos, count_neg, valid, w1);
 }
 
+// The counts entry's thresholds (training/mine_kernel.py mask_bounds): for
+// a pair's rounded sum of squares s = (dx*dx + dy*dy) + dz*dz (+0 to +inf,
+// or NaN) and its gap g,
+//     pos = s < pos_s && g >= pos_gap
+//     neg = s >= neg_lo_s && s <= neg_hi_s && g >= neg_gap
+// give masks()'s masks: sqrt_rn is correctly rounded and monotone, so
+// sqrt_rn(s) < t <=> s < (the least s' with sqrt_rn(s') >= t), and so on;
+// (float)g >= g_t <=> g >= (the least int32 whose float is >= g_t); both
+// gap bounds are at least 1 (the test g > 0). A NaN s, or a NaN bound,
+// fails every comparison, as a NaN distance or threshold does.
+struct Bounds {
+  float pos_s, neg_lo_s, neg_hi_s;
+  int pos_gap, neg_gap;
+};
+
+__device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// min and max that keep a NaN (of either argument)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return b < a || b != b ? b : a;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return b > a || b != b ? b : a;
+}
+
+// The box (min x, y, z, max x, y, z) of the positions that the first
+// kBoxWarps warps' threads hold with `in` set (a NaN coordinate makes its
+// min and max NaN), into box[6] for every thread; part (kBoxWarps * 6
+// floats) is scratch. Every thread calls it; it ends in a barrier.
+constexpr int kBoxWarps = kBA / 32;     // the threads that hold a position
+static_assert(kBA == kBJ, "one box shape for anchors and frames");
+__device__ __forceinline__ void box_of(float3 p, bool in, float* part,
+                                       float* box) {
+  const unsigned full = 0xffffffffu;
+  const float inf = __int_as_float(0x7f800000);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp < kBoxWarps) {
+    float v[6] = {in ? p.x : inf, in ? p.y : inf, in ? p.z : inf,
+                  in ? p.x : -inf, in ? p.y : -inf, in ? p.z : -inf};
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        v[c] = nan_min(v[c], __shfl_xor_sync(full, v[c], o));
+        v[c + 3] = nan_max(v[c + 3], __shfl_xor_sync(full, v[c + 3], o));
+      }
+    }
+    if (lane < 6) {
+      float w = v[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) w = lane == c ? v[c] : w;
+      part[warp * 6 + lane] = w;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 6; ++c) box[c] = part[c];
+#pragma unroll
+  for (int w = 1; w < kBoxWarps; ++w) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      box[c] = nan_min(box[c], part[w * 6 + c]);
+      box[c + 3] = nan_max(box[c + 3], part[w * 6 + c + 3]);
+    }
+  }
+}
+
+// The least |d| of the rounded differences d of a value in [amin, amax]
+// and one in [fmin, fmax], from dlo = amin - fmax and dhi = amax - fmin
+// (rounded; rounding is monotone, so every d lies in [dlo, dhi]); NaN
+// where dlo or dhi is NaN.
+__device__ __forceinline__ float least_abs(float dlo, float dhi) {
+  if (dlo > 0.0f) return dlo;
+  if (dhi < 0.0f) return -dhi;
+  return dlo == dlo && dhi == dhi ? 0.0f : __int_as_float(0x7fc00000);
+}
+
+// Whether no pair of an anchor in box a and a frame in box f can be a
+// positive or a negative: bounds on every pair's s from the boxes, in the
+// pair test's rounded operations and order (training/mine_kernel.py
+// tile_gate). A NaN lower bound makes it false.
+__device__ __forceinline__ bool skip_block(const float* a, const float* f,
+                                           const Bounds& b) {
+  float lo[3], hi[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float dlo = __fsub_rn(a[c], f[c + 3]);
+    const float dhi = __fsub_rn(a[c + 3], f[c]);
+    lo[c] = least_abs(dlo, dhi);
+    hi[c] = fmaxf(fabsf(dlo), fabsf(dhi));
+  }
+  const float s_lo = sum_sq(lo[0], lo[1], lo[2]);
+  const float s_hi = sum_sq(hi[0], hi[1], hi[2]);
+  return s_lo >= b.pos_s && (s_hi < b.neg_lo_s || s_lo > b.neg_hi_s);
+}
+
+// One tile's pairs for a thread: its 8 anchors (tx + 16 i) against its 8
+// frames (ty + 16 j) of the tile's positions in shared memory, counted
+// into cp and cn; with kGaps the gap tests too, without them only the
+// sums of squares (a tile whose every pair passes both gap tests).
+template <bool kGaps>
+__device__ __forceinline__ void count_tile(const float4* apos,
+                                           const float* fpos, int j0, int tx,
+                                           int ty, const Bounds& bnd,
+                                           int (&cp)[kPer], int (&cn)[kPer]) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const float4 pa = apos[tx + kLanes * i];
+    const int ag = __float_as_int(pa.w);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int jl = ty + kLanes * j;
+      const float s = sum_sq(__fsub_rn(pa.x, fpos[3 * jl]),
+                             __fsub_rn(pa.y, fpos[3 * jl + 1]),
+                             __fsub_rn(pa.z, fpos[3 * jl + 2]));
+      const bool pos = s < bnd.pos_s;
+      const bool neg = s >= bnd.neg_lo_s && s <= bnd.neg_hi_s;
+      if (kGaps) {
+        const int gap = abs(ag - (j0 + jl));
+        cp[i] += pos && gap >= bnd.pos_gap;
+        cn[i] += neg && gap >= bnd.neg_gap;
+      } else {
+        cp[i] += pos;
+        cn[i] += neg;
+      }
+    }
+  }
+}
+
 // The masks alone: a CTA of 256 threads (16 x 16) owns kBA anchors and
-// walks its split's frame tiles of kBJ rows, each tile's positions loaded
-// into shared memory first; a thread counts 8 anchors x 8 frames a tile
-// (anchors tx + 16 i, frames ty + 16 j) in registers, then the threads of
-// an anchor and the splits merge as the first entry's do.
+// walks its split's frame tiles of kBJ rows. Each tile's positions are
+// loaded (one frame a thread of the first kBJ, the next tile's loads
+// issued before this tile's tests) into shared memory, frames past n as
+// NaN (which fail every test); the box of the tile's frames against the
+// box of the CTA's anchors decides whether any pair can count
+// (skip_block); if one can, a thread tests 8 anchors x 8 frames
+// (anchors tx + 16 i, frames ty + 16 j) against the Bounds in registers,
+// without the gap tests where the tile lies beyond both gap bounds of
+// every anchor (count_tile<false>: most kept tiles, on other laps).
+// The threads of an anchor and the splits merge as the first entry's do.
 __global__ void __launch_bounds__(kThreads)
 mine_counts_kernel(const float* __restrict__ pts,
                    const int* __restrict__ start_at, int n, int count,
-                   Params prm, int splits, Partial* __restrict__ partial,
+                   Bounds bnd, int splits, Partial* __restrict__ partial,
                    int* __restrict__ tickets, int* __restrict__ count_pos,
                    int* __restrict__ count_neg, uint8_t* __restrict__ valid) {
   __shared__ Partial state[kPer * kThreads];
   __shared__ float4 apos[kBA];
   __shared__ float fpos[3 * kBJ];
+  __shared__ float part[kBoxWarps * 6];
   const int start = *start_at;
   const int tile = blockIdx.y, split = blockIdx.x, tid = threadIdx.x;
   const int tx = tid % kLanes, ty = tid / kLanes, a0 = tile * kBA;
-  if (tid < kBA) {
-    const int ag = start + (a0 + tid < count ? a0 + tid : 0);
-    const float3 p = position(pts, ag);
-    apos[tid] = make_float4(p.x, p.y, p.z, __int_as_float(ag));
+  const float nan = __int_as_float(0x7fc00000);
+  float abox[6], fbox[6];
+  {
+    const bool in = tid < kBA && a0 + tid < count;
+    float3 p = make_float3(0.0f, 0.0f, 0.0f);
+    if (tid < kBA) {
+      const int ag = start + (in ? a0 + tid : 0);
+      p = position(pts, ag);
+      apos[tid] = make_float4(p.x, p.y, p.z, __int_as_float(ag));
+    }
+    box_of(p, in, part, abox);   // its barrier also publishes apos
   }
   int cp[kPer] = {}, cn[kPer] = {};
+  const int a_first = start + a0, a_last = start + min(a0 + kBA, count) - 1;
   const int n_tiles = (n + kBJ - 1) / kBJ;
   const int t_end = split_tile(n_tiles, split + 1, splits);
-  for (int t = split_tile(n_tiles, split, splits); t < t_end; ++t) {
+  int t = split_tile(n_tiles, split, splits);
+  auto load = [&](int tt) {     // frame tt * kBJ + tid, NaN past n
+    const int jg = tt * kBJ + tid;
+    return tid < kBJ && tt < t_end && jg < n ? position(pts, jg)
+                                             : make_float3(nan, nan, nan);
+  };
+  float3 next = load(t);
+  for (; t < t_end; ++t) {
     const int j0 = t * kBJ;
-    __syncthreads();              // the last tile's positions are read
-    for (int e = tid; e < 3 * kBJ; e += kThreads)
-      fpos[e] = 3LL * j0 + e < 3LL * n ? pts[3LL * j0 + e] : 0.0f;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float4 pa4 = apos[tx + kLanes * i];
-      const float3 pa = make_float3(pa4.x, pa4.y, pa4.z);
-      const int ag = __float_as_int(pa4.w);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int jl = ty + kLanes * j, jg = j0 + jl;
-        if (jg < n) {
-          bool pos, neg;
-          masks(pa, make_float3(fpos[3 * jl], fpos[3 * jl + 1],
-                                fpos[3 * jl + 2]), ag, jg, prm, &pos, &neg);
-          cp[i] += pos;
-          cn[i] += neg;
-        }
-      }
+    const float3 pj = next;
+    next = load(t + 1);
+    __syncthreads();              // the last tile's positions and box read
+    if (tid < kBJ) {
+      fpos[3 * tid] = pj.x;
+      fpos[3 * tid + 1] = pj.y;
+      fpos[3 * tid + 2] = pj.z;
     }
+    box_of(pj, tid < kBJ && j0 + tid < n, part, fbox);
+    if (skip_block(abox, fbox, bnd)) continue;   // the same in every thread
+    // the least gap between the group's anchors (consecutive frames) and
+    // the tile's frames: where it reaches both gap bounds, every pair
+    // passes both gap tests (the stand-ins past count go unreported)
+    const int j_last = min(j0 + kBJ, n) - 1;
+    const int gap_min = j0 > a_last ? j0 - a_last
+                        : a_first > j_last ? a_first - j_last : 0;
+    if (gap_min >= max(bnd.pos_gap, bnd.neg_gap))
+      count_tile<false>(apos, fpos, j0, tx, ty, bnd, cp, cn);
+    else
+      count_tile<true>(apos, fpos, j0, tx, ty, bnd, cp, cn);
   }
 #pragma unroll
   for (int i = 0; i < kPer; ++i)
@@ -709,22 +868,24 @@ extern "C" int nsc_mine_rows(const void* pts, const void* cdf,
 }
 
 // One chunk's counts for "random": as nsc_mine_hard without the CDFs and
-// without neg_idx. Launches splits x ceil(count / 128) CTAs of 256 threads
-// (static shared memory only).
+// without neg_idx, the thresholds as Bounds (training/mine_kernel.py
+// mask_bounds: pos_s, neg_lo_s, neg_hi_s on the rounded sum of squares,
+// pos_gap and neg_gap >= 1 on the integer gap). Launches splits x
+// ceil(count / 128) CTAs of 256 threads (static shared memory only).
 extern "C" int nsc_mine_counts(const void* pts, const void* start, int n,
-                               int count, float pos_max, float pos_gap,
-                               float neg_min, float neg_max, float neg_gap,
+                               int count, float pos_s, float neg_lo_s,
+                               float neg_hi_s, int pos_gap, int neg_gap,
                                int splits, void* partial, void* tickets,
                                void* count_pos, void* count_neg, void* valid,
                                void* stream) {
   if (n < 1 || count < 1 || count > n || splits < 1 ||
-      splits > (n + kBJ - 1) / kBJ)
+      splits > (n + kBJ - 1) / kBJ || pos_gap < 1 || neg_gap < 1)
     return (int)cudaErrorInvalidValue;
-  const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
+  const Bounds bnd = {pos_s, neg_lo_s, neg_hi_s, pos_gap, neg_gap};
   mine_counts_kernel<<<dim3(splits, (count + kBA - 1) / kBA), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int*>(start), n,
-      count, prm, splits, static_cast<Partial*>(partial),
+      count, bnd, splits, static_cast<Partial*>(partial),
       static_cast<int*>(tickets), static_cast<int*>(count_pos),
       static_cast<int*>(count_neg), static_cast<uint8_t*>(valid));
   return (int)cudaGetLastError();

@@ -363,7 +363,7 @@ extern "C" const void* nsc_knn_pca_kernel_handle();
 extern "C" const void* nsc_kabsch_kernel_handle();
 extern "C" const void* nsc_mine_kernel_handle(int which);
 extern "C" const void* nsc_gather_bwd_kernel_handle(int dtype);
-extern "C" const void* nsc_select_kernel_handle();
+extern "C" const void* nsc_select_kernel_handle(int which);
 
 // Census of a captured CUDA graph (a cudaGraph_t: the serving executables of
 // models/serving.py, the registration and prepare executables of
@@ -385,9 +385,11 @@ extern "C" const void* nsc_select_kernel_handle();
 //   draw; kernel M, mine.cu), 19 row-gather backward nodes (kernel G,
 //   gather_bwd.cu, any of its four instances), 20-22 kernel M's other
 //   three kernels' nodes (the counts alone, the W1 rows, the draw over
-//   either mask), 23 row-select nodes (kernel S, select.cu).
+//   either mask), 23 row-select nodes (kernel S, select.cu, either
+//   regime), 24 the cluster-dimension attribute of the last row-select
+//   node (x; 0 for the streaming regime, which sets none).
 // Returns the first error of the graph queries (cudaSuccess: out is whole).
-constexpr int kCensusWords = 24;
+constexpr int kCensusWords = 25;
 
 extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   for (int i = 0; i < kCensusWords; ++i) out[i] = 0;
@@ -411,7 +413,8 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
   const void* mine[5] = {nsc_mine_kernel_handle(0), nsc_mine_kernel_handle(1),
                          nsc_mine_kernel_handle(2), nsc_mine_kernel_handle(3),
                          nsc_mine_kernel_handle(4)};
-  const void* row_select = nsc_select_kernel_handle();
+  const void* row_select[2] = {nsc_select_kernel_handle(0),
+                               nsc_select_kernel_handle(1)};
   const void* gather_bwd[4] = {
       nsc_gather_bwd_kernel_handle(0), nsc_gather_bwd_kernel_handle(1),
       nsc_gather_bwd_kernel_handle(2), nsc_gather_bwd_kernel_handle(3)};
@@ -475,8 +478,14 @@ extern "C" int nsc_graph_census(void* graph_handle, long long* out) {
       ++out[21];
     } else if (params.func == mine[4]) {
       ++out[22];
-    } else if (params.func == row_select) {
+    } else if (params.func == row_select[0] ||
+               params.func == row_select[1]) {
       ++out[23];
+      cudaLaunchAttributeValue v = {};
+      err = cudaGraphKernelNodeGetAttribute(
+          nodes[i], cudaLaunchAttributeClusterDimension, &v);
+      if (err != cudaSuccess) return (int)err;
+      out[24] = params.func == row_select[0] ? v.clusterDim.x : 0;
     }
   }
   return (int)cudaSuccess;

@@ -16,21 +16,28 @@ training path's kernels (M's two entries on a 2,048-anchor chunk of a
 100,000-frame ``synthetic_city`` sequence; G on the GAT's neighbour table
 of a 20,000-node one, float32 and bf16, and on 4,096 × 800 float32
 triplet rows into its 20,000 rows, with and without a 16-position
-segment) is called once through its wrapper; then both libraries' entry
-points are launched on those same arguments (M's with the other side's
-own splits and scratch, and its draw with the parent's arguments, when
-``other_m_abi`` says the other side is the PR 19 kernel), bare and queued
-behind a spin kernel (``utils.timing.time_queued_ms``, 200 launches; M 3
-and its draw 20), in the order other, this, this, other, twice. For N,
-K, M and G the other side's last output must equal the wrapper's bit for
-bit; for C it must lie within 1e-5 of it on the rows whose relative
+segment; S on that chunk's W₁ block at count_neg // 2 and M's counts
+entry on the chunk) is called once through its wrapper; then both
+libraries' entry points are launched on those same arguments (M's with
+the other side's own splits and scratch, and its draw with the parent's
+arguments, when ``other_m_abi`` says the other side is the 64-anchor
+kernel; S without the regime argument and the counts entry with the
+five float thresholds when ``other_select_abi`` and ``other_counts_abi``
+say the other side is the earlier, one-CTA-a-row S and sqrt-testing
+counts entry), bare and queued behind a spin kernel
+(``utils.timing.time_queued_ms``, 200 launches; M 3, its draw and S 20,
+the counts entry 50), in the order other, this, this, other, twice. For
+N, K, M (each entry), G and S the other side's last output must equal
+the wrapper's bit for bit; for C it must lie within 1e-5 of it on the
+rows whose relative
 eigen-gap is at least 0.1, where a float64 solve is determined well below
 that (``pca_within_bar``). Prints and returns each side's median device
 µs; for N where the time of this tree's ``csrc/nearest.cu`` goes
-(``nearest_stamps``: a build with ``-DNSC_NEAREST_STAMPS``), and for K
-its merges a row on the same frames (``knn_merge_counts``: a build with
-``-DNSC_KNN_COUNT``). ``--cases`` keeps the named cases only. Needs a
-CUDA card.
+(``nearest_stamps``: a build with ``-DNSC_NEAREST_STAMPS``), for S where
+the time of its cluster regime goes (``select_stamps``: a build with
+``-DNSC_SELECT_STAMPS``), and for K its merges a row on the same frames
+(``knn_merge_counts``: a build with ``-DNSC_KNN_COUNT``). ``--cases``
+keeps the named cases only. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -167,6 +174,55 @@ def nearest_stamps(moved: torch.Tensor, dst: torch.Tensor,
     return out
 
 
+SELECT_STAMPS = ("load", "scan0", "exchange0", "scan1", "exchange1",
+                 "passes_end", "finish")
+
+
+def select_stamps(x: torch.Tensor, k: torch.Tensor, out_dir: Path) -> dict:
+    """Where kernel S's time goes in its cluster regime on one block:
+    ``csrc/select.cu`` built with ``-DNSC_SELECT_STAMPS`` (each cluster
+    CTA's global timer at eight points) and launched 3 times; of the last
+    launch, the mean µs over the CTAs of each phase (the slice's copy, the
+    first pass's histogram, its choice with the cluster barrier before it,
+    the second pass's, the rest of the passes with the last barrier, and
+    the finish), the mean CTA life, the span, and the CTAs a phase was
+    seen in (a CTA that ended before a stamp has none there)."""
+    from neural_spectral_codec_torch.training.select_kernel import (
+        KERNEL, select_layout, select_plain)
+    lib = build_diagnostic("select.cu", "NSC_SELECT_STAMPS", out_dir)
+    lib.nsc_select_rows.argtypes = KERNEL.argtypes
+    lib.nsc_select_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    rows, n = x.shape
+    ctas = select_layout(n)
+    out = torch.empty(rows, dtype=torch.int32, device=x.device)
+    for _ in range(3):
+        err = lib.nsc_select_rows(x.data_ptr(), rows, n, x.stride(0),
+                                  k.data_ptr(), out.data_ptr(), ctas,
+                                  torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"select (stamped build): CUDA error {err}")
+    torch.cuda.synchronize()
+    if not torch.equal(out, select_plain(x, k)):
+        raise RuntimeError("select (stamped build) != plain version")
+    n_ctas = rows * ctas
+    buf = (ctypes.c_ulonglong * (n_ctas * 8))()
+    err = lib.nsc_select_stamps(buf, n_ctas)
+    if err != 0:
+        raise RuntimeError(f"nsc_select_stamps: CUDA error {err}")
+    t = np.array(buf, dtype=np.float64).reshape(n_ctas, 8)
+    seen = t >= t[:, :1]              # stamps of this launch
+    res = {}
+    for i, name in enumerate(SELECT_STAMPS):
+        ok = seen[:, i] & seen[:, i + 1]
+        res[name] = float((t[ok, i + 1] - t[ok, i]).mean()) / 1e3
+        res[f"{name}_ctas"] = int(ok.sum())
+    last = np.where(seen, t, -np.inf).max(axis=1)
+    res["cta_life"] = float((last - t[:, 0]).mean()) / 1e3
+    res["span"] = float(last.max() - t[:, 0].min()) / 1e3
+    res["ctas"] = ctas
+    return res
+
+
 PCA_TOL = 1e-5       # kernel C against another build: covariances, on
 PCA_GAP = 0.1        # the rows of relative eigen-gap >= PCA_GAP
 
@@ -209,9 +265,11 @@ def _outputs(result) -> tuple:
 MINE_NODES, MINE_CHUNK = 100_000, 2048
 MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)    # scale_100k's thresholds
 GRAPH_NODES = 20_000
-LAUNCHES = {"mine": 3, "mine_draw": 20}          # else 200
+LAUNCHES = {"mine": 3, "mine_draw": 20, "select": 20,
+            "mine_counts": 50}                   # else 200
 TRAINING_CASES = ("mine", "mine_draw", "gather_bwd", "gather_bwd_bf16",
-                  "gather_bwd_triplets", "gather_bwd_triplets_no16")
+                  "gather_bwd_triplets", "gather_bwd_triplets_no16",
+                  "select", "mine_counts")
 
 
 def other_m_abi(csrc: Path) -> bool:
@@ -219,6 +277,19 @@ def other_m_abi(csrc: Path) -> bool:
     CTAs and a draw entry without the splits' partials."""
     text = (csrc / "mine.cu").read_text()
     return "constexpr int kBA = 64;" in text
+
+
+def other_counts_abi(csrc: Path) -> bool:
+    """Whether ``csrc/mine.cu`` in ``csrc`` has the earlier counts entry:
+    the five float thresholds (a sqrt and an int-to-float a pair) in
+    place of ``mask_bounds``' squared and integer bounds."""
+    return "int pos_gap, int neg_gap" not in (csrc / "mine.cu").read_text()
+
+
+def other_select_abi(csrc: Path) -> bool:
+    """Whether ``csrc/select.cu`` in ``csrc`` is the earlier kernel S: one
+    streaming CTA a row, no regime argument."""
+    return "int ctas" not in (csrc / "select.cu").read_text()
 
 
 def mine_inputs(n: int, device) -> tuple:
@@ -233,7 +304,8 @@ def mine_inputs(n: int, device) -> tuple:
             torch.from_numpy(cdfs).to(device))
 
 
-def _training_cases(dev, old_m: bool) -> tuple:
+def _training_cases(dev, old_m: bool, old_counts: bool = False,
+                    old_select: bool = False) -> tuple:
     """M's and G's cases: {name: (kernel, call, other_args,
     other_argtypes)}, other_args mapping this side's last arguments to the
     other side's and other_argtypes the other entry's ctypes types (None:
@@ -244,6 +316,7 @@ def _training_cases(dev, old_m: bool) -> tuple:
         build_graph, graph_to_tensors)
     from neural_spectral_codec_torch.models import gather_kernel as gk
     from neural_spectral_codec_torch.training import mine_kernel as mk
+    from neural_spectral_codec_torch.training import select_kernel as sk
     gen = torch.Generator(device=dev).manual_seed(7)
     params = tuple(float(v) for v in np.array(MINE_PARAMS, np.float32))
     pos, cdf = mine_inputs(MINE_NODES, dev)
@@ -282,6 +355,25 @@ def _training_cases(dev, old_m: bool) -> tuple:
     def mine_call():
         return mk.mine_cuda(pos, cdf, start, MINE_CHUNK, params, u, scratch)
 
+    # S on the chunk's W₁ block at count_neg // 2 ("semi-hard"), and M's
+    # counts entry ("random"), on the same chunk
+    w1 = torch.empty((MINE_CHUNK, MINE_NODES), device=dev)
+    place = mk.rows_cuda(pos, cdf, start, MINE_CHUNK, params, w1,
+                         scratch).count_neg // 2
+
+    def select_other(args):
+        # (x, rows, n, ld, k, out, [ctas,] stream)
+        return (*args[:6], args[7]) if old_select else args
+
+    def counts_other(args):
+        # (pts, start, n, count, 3 bounds, 2 gaps | 5 thresholds, splits,
+        #  partial, tickets, count_pos, count_neg, valid, stream)
+        return (*args[:4], *params, *args[9:]) if old_counts else args
+    select_types = ([*sk.KERNEL.argtypes[:6], sk.KERNEL.argtypes[7]]
+                    if old_select else None)
+    counts_types = ([*mk.COUNTS.argtypes[:4], *[ctypes.c_float] * 5,
+                     *mk.COUNTS.argtypes[9:]] if old_counts else None)
+
     desc, poses, _ = synthetic_city(GRAPH_NODES)
     g = graph_to_tensors(build_graph(desc, poses, temporal_neighbors=5), dev)
     slots = g.mask.reshape(-1)
@@ -297,7 +389,7 @@ def _training_cases(dev, old_m: bool) -> tuple:
     tri16[:16] = 7                               # a 16-position segment
     tplan = gk.make_plan(tri16, GRAPH_NODES)
     tgrad = torch.randn(4096, 800, generator=gen, device=dev)
-    keep += [g, plan, g32, b16, tplan, tplan_free, tgrad]
+    keep += [g, plan, g32, b16, tplan, tplan_free, tgrad, w1, place]
     cases = {
         "mine": (mk.HARD, mine_call, hard_other, None),
         "mine_draw": (mk.DRAW, mine_call, draw_other, draw_types),
@@ -309,6 +401,11 @@ def _training_cases(dev, old_m: bool) -> tuple:
             tgrad, tplan, GRAPH_NODES), None, None),
         "gather_bwd_triplets_no16": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
             tgrad, tplan_free, GRAPH_NODES), None, None),
+        "select": (sk.KERNEL, lambda: sk.select_cuda(w1, place),
+                   select_other, select_types),
+        "mine_counts": (mk.COUNTS, lambda: mk.counts_cuda(
+            pos, start, MINE_CHUNK, params, scratch), counts_other,
+            counts_types),
     }
     return cases, keep
 
@@ -381,7 +478,9 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     training, keep_training = {}, []
     if not cases_kept or set(cases_kept) & set(TRAINING_CASES):
         training, keep_training = _training_cases(
-            dev, other_m_abi(Path(other_csrc)))
+            dev, other_m_abi(Path(other_csrc)),
+            other_counts_abi(Path(other_csrc)),
+            other_select_abi(Path(other_csrc)))
     cases.update(training)
     if cases_kept:
         cases = {n: c for n, c in cases.items() if n in cases_kept}
@@ -429,18 +528,24 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
         log(f"{name}: other {out[name]['other_us']:.3f} µs, this "
             f"{out[name]['this_us']:.3f} µs")
         del keep
-    del keep_training
     if "nearest" in cases:
         out["nearest_phases_us"] = nearest_stamps(scene_a, scene_b, mask_b,
                                                   out_dir)
         log("nearest phases, µs (mean over CTAs): " + ", ".join(
             f"{n} {v:.3f}" for n, v in out["nearest_phases_us"].items()))
+    if "select" in cases:
+        x, place = keep_training[-2:]
+        out["select_phases_us"] = select_stamps(x, place, out_dir)
+        log("select phases, µs (mean over the cluster CTAs): " + ", ".join(
+            f"{n} {v:.3f}" for n, v in out["select_phases_us"].items()
+            if not n.endswith("_ctas")))
     if "knn" in cases:
         for k in (20, 16):
             counts = knn_merge_counts(scene_a, mask_a, k, out_dir)
             out[f"knn_merges_k{k}"] = counts
             log(f"knn merges a row, k = {k}: " + ", ".join(
                 f"{n} {v:.3f}" for n, v in counts.items()))
+    del keep_training
     return out
 
 

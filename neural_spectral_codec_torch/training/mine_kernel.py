@@ -32,6 +32,13 @@ the same order, +inf outside each anchor's negatives, with the counts;
 the negative mask, r = min(⌊u · count⌋, count − 1), 0 when the count is 0.
 On a card the draw reads the per-split counts that the entry before it
 left in the scratch (``mine_scratch``), so both take the same scratch.
+
+The counts entry tests no distance: ``mask_bounds`` turns the thresholds
+into bounds on the rounded sum of squares s and on the integer gap that
+give the same masks (IEEE ``sqrt`` is correctly rounded and monotone), and
+the kernel skips each (128-anchor group, 128-frame tile) whose pairs
+provably hold no positive and no negative (``tile_gate``: bounds on s
+from the two bounding boxes, in the pair test's rounded operations).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 ANCHORS_PER_CTA = 128      # kBA in csrc/mine.cu
@@ -47,6 +55,7 @@ ROWS_PER_TILE = 128        # kBJ
 CTAS_PER_SM = 2            # kCtasPerSm
 TILE = 4096                # mine_plain's frames a tile
 CPU_BLOCK = 1024           # w1_in_order's rows a block on the CPU
+INT32_MAX = 2**31 - 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,7 +80,8 @@ def _other_kernels() -> tuple:
     params = [ctypes.c_float] * 5
     return (CudaKernel("nsc_mine_counts", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        *params, ctypes.c_int, *[ctypes.c_void_p] * 6]),
+        *[ctypes.c_float] * 3, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *[ctypes.c_void_p] * 6]),
         CudaKernel("nsc_mine_rows", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, *params, ctypes.c_int,
@@ -121,15 +131,18 @@ def chunk_masks(positions: torch.Tensor, a: torch.Tensor, j0: int,
                 j1: int, params: Sequence[float]):
     """(pos, neg) masks (len(a), j1 − j0) of the anchors at global indices
     ``a`` against frames j0 .. j1 − 1: ‖a − p‖ from per-coordinate
-    differences, (dx² + dy²) + dz² each rounded, then sqrt; the temporal
-    gap against the float32 thresholds."""
+    differences, (dx² + dy²) + dz² each rounded, then the correctly
+    rounded float32 sqrt (computed in float64 and rounded once: PyTorch's
+    CPU float32 ``sqrt`` is not correctly rounded on every value, its CUDA
+    one and the kernel's ``__fsqrt_rn`` are); the temporal gap against the
+    float32 thresholds."""
     rows = positions[j0:j1]
     pa = positions[a]
     d2 = None
     for c in range(positions.shape[1]):
         diff = pa[:, c, None] - rows[None, :, c]
         d2 = diff * diff if d2 is None else d2 + diff * diff
-    d = torch.sqrt(d2)
+    d = torch.sqrt(d2.double()).float()
     gap = (a.to(torch.int32)[:, None] - torch.arange(
         j0, j1, dtype=torch.int32, device=a.device)[None, :]).abs()
     fgap = gap.to(torch.float32)
@@ -242,6 +255,157 @@ def counts_plain(positions: torch.Tensor, start: Union[int, torch.Tensor],
         cpos += pos.sum(dim=1)
         cneg += neg.sum(dim=1)
     return _counts(cpos, cneg)
+
+
+class MaskBounds(NamedTuple):
+    """The counts entry's thresholds (``mask_bounds``). For a pair's
+    rounded sum of squares s (+0 to +inf, or NaN) and its integer gap g
+    (0 ≤ g < 2³¹ − 1), the masks of ``chunk_masks`` are
+        positive ⇔ s < pos_s and g ≥ pos_gap
+        negative ⇔ s ≥ neg_lo_s and s ≤ neg_hi_s and g ≥ neg_gap
+    (a NaN bound fails every comparison, as a NaN threshold does; the
+    gaps' bounds are at least 1, which is the test g > 0)."""
+    pos_s: float
+    neg_lo_s: float
+    neg_hi_s: float
+    pos_gap: int
+    neg_gap: int
+
+
+_INF_BITS = 0x7F800000     # +inf's bits: the last non-negative float32
+
+
+def _f32(bits: int) -> np.float32:
+    return np.array(bits, np.uint32).view(np.float32)[()]
+
+
+def sqrt_least(t: float) -> np.float32:
+    """The least float32 s in [+0, +inf] with sqrt(s) ≥ t (float32 sqrt,
+    correctly rounded), by bisection over the bit patterns; NaN for a NaN
+    t. Since sqrt is monotone, for every s ≥ +0 and NaN: sqrt(s) < t ⇔
+    s < L and sqrt(s) ≥ t ⇔ s ≥ L."""
+    t = np.float32(t)
+    if np.isnan(t):
+        return np.float32(np.nan)
+    lo, hi = 0, _INF_BITS            # sqrt(+inf) = +inf ≥ t: hi holds
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.sqrt(_f32(mid)) >= t:
+            hi = mid
+        else:
+            lo = mid + 1
+    return _f32(lo)
+
+
+def sqrt_greatest(t: float) -> np.float32:
+    """The greatest float32 s in [+0, +inf] with sqrt(s) ≤ t, by bisection
+    over the bit patterns; NaN where there is none (t NaN or below 0).
+    For every s ≥ +0 and NaN: sqrt(s) ≤ t ⇔ s ≤ U."""
+    t = np.float32(t)
+    if not np.float32(0) <= t:       # NaN, or below sqrt(+0)
+        return np.float32(np.nan)
+    lo, hi = 0, _INF_BITS            # sqrt(+0) ≤ t: lo holds
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if np.sqrt(_f32(mid)) <= t:
+            lo = mid
+        else:
+            hi = mid - 1
+    return _f32(lo)
+
+
+def gap_least(g: float) -> int:
+    """The least int32 i ≥ 0 whose float32 value is ≥ g, by bisection: for
+    every gap 0 .. 2³¹ − 2, float32(gap) ≥ g ⇔ gap ≥ G. Where no int32 is
+    (g NaN or above 2³¹) it is 2³¹ − 1, which no gap of a sequence of at
+    most 2³¹ − 1 frames reaches."""
+    g = np.float32(g)
+    if not np.float32(INT32_MAX) >= g:
+        return INT32_MAX
+    lo, hi = 0, INT32_MAX
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.float32(mid) >= g:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+@functools.lru_cache(maxsize=64)
+def mask_bounds(params: tuple) -> MaskBounds:
+    """The thresholds (pos_max, pos_gap, neg_min, neg_max, neg_gap), each
+    rounded to float32, as the bounds of ``MaskBounds``: the same masks
+    with no square root and no int-to-float conversion."""
+    p = [float(v) for v in params]
+    return MaskBounds(float(sqrt_least(p[0])), float(sqrt_least(p[2])),
+                      float(sqrt_greatest(p[3])), max(gap_least(p[1]), 1),
+                      max(gap_least(p[4]), 1))
+
+
+def _boxes(v: torch.Tensor, rows: int) -> tuple:
+    """Per group of ``rows`` consecutive rows of v (m, 3): the per-column
+    min and max, (groups, 3) each; a NaN in a group makes its column's
+    min and max NaN."""
+    groups = -(-v.shape[0] // rows)
+    pad = groups * rows - v.shape[0]
+    lo = torch.cat([v, v.new_full((pad, 3), float("inf"))])
+    hi = torch.cat([v, v.new_full((pad, 3), -float("inf"))])
+    return (lo.view(groups, rows, 3).amin(dim=1),
+            hi.view(groups, rows, 3).amax(dim=1))
+
+
+def tile_gate(positions: torch.Tensor, start: Union[int, torch.Tensor],
+              count: int, bounds: MaskBounds) -> torch.Tensor:
+    """(anchor groups, frame tiles) bool: which (ANCHORS_PER_CTA-anchor
+    group, ROWS_PER_TILE-frame tile) blocks the counts entry tests, as
+    ``csrc/mine.cu`` decides it. From the boxes of the group's anchors and
+    the tile's frames, per coordinate dlo = amin − fmax and dhi = amax −
+    fmin (rounded): every pair's rounded difference lies in [dlo, dhi],
+    so |d| ≥ dlo where dlo > 0, ≥ −dhi where dhi < 0, else ≥ 0 (NaN where
+    dlo or dhi is NaN), and |d| ≤ max(|dlo|, |dhi|); squared and summed
+    in the pair test's rounded operations and order, these bound every
+    pair's s from below (s_lo) and above (s_hi), rounding being monotone.
+    A block is skipped where s_lo ≥ pos_s and (s_hi < neg_lo_s or s_lo >
+    neg_hi_s): no pair can be a positive or a negative. A NaN s_lo (a NaN
+    coordinate, or ∞ − ∞) makes the test false: the block is tested."""
+    s = int(start)
+    amin, amax = _boxes(positions[s:s + count], ANCHORS_PER_CTA)
+    fmin, fmax = _boxes(positions, ROWS_PER_TILE)
+    dlo = amin[:, None, :] - fmax[None, :, :]
+    dhi = amax[:, None, :] - fmin[None, :, :]
+    zero = torch.where(torch.isnan(dlo) | torch.isnan(dhi),
+                       float("nan"), 0.0)
+    low = torch.where(dlo > 0, dlo, torch.where(dhi < 0, -dhi, zero))
+    high = torch.maximum(dlo.abs(), dhi.abs())
+
+    def s_of(d):
+        sq = d * d
+        return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+    s_lo, s_hi = s_of(low), s_of(high)
+    skip = (s_lo >= bounds.pos_s) & ((s_hi < bounds.neg_lo_s)
+                                     | (s_lo > bounds.neg_hi_s))
+    return ~skip
+
+
+def gate_pairs(positions: torch.Tensor, start: Union[int, torch.Tensor],
+               count: int, params: Sequence[float], splits: int) -> dict:
+    """What the counts entry's gate leaves on one chunk (``tile_gate``):
+    the pairs of the blocks it tests (``kept``), all pairs (``pairs``), and
+    per frame split (``split_frames``) the pairs tested."""
+    n = positions.shape[0]
+    keep = tile_gate(positions, start, count,
+                     mask_bounds(tuple(params))).cpu()
+    arows = torch.full((keep.shape[0],), ANCHORS_PER_CTA)
+    arows[-1] = count - ANCHORS_PER_CTA * (keep.shape[0] - 1)
+    frows = torch.full((keep.shape[1],), ROWS_PER_TILE)
+    frows[-1] = n - ROWS_PER_TILE * (keep.shape[1] - 1)
+    per_tile = (keep * arows[:, None]).sum(dim=0) * frows
+    per_split = [int(per_tile[lo // ROWS_PER_TILE:-(-hi // ROWS_PER_TILE)]
+                     .sum()) for lo, hi in split_frames(n, splits)]
+    return {"kept": int(per_tile.sum()), "pairs": count * n,
+            "per_split": per_split}
 
 
 def rows_plain(positions: torch.Tensor, cdfs: torch.Tensor,
@@ -415,8 +579,8 @@ def counts_cuda(positions: torch.Tensor, start: torch.Tensor, count: int,
                 params: Sequence[float], scratch: Optional[tuple] = None
                 ) -> Counts:
     """Launch kernel M's counts entry on the card (shapes and types as
-    ``mine_cuda``'s); ``scratch`` receives the per-split counts that
-    ``draw_cuda`` reads."""
+    ``mine_cuda``'s) with the thresholds as ``mask_bounds``; ``scratch``
+    receives the per-split counts that ``draw_cuda`` reads."""
     n, (partial, tickets) = _entry_checks(positions, start, count, scratch,
                                           "counts_cuda")
     dev = positions.device
@@ -426,7 +590,7 @@ def counts_cuda(positions: torch.Tensor, start: torch.Tensor, count: int,
     with torch.cuda.device(dev):
         _other_kernels()[0](
             positions.data_ptr(), start.data_ptr(), n, count,
-            *[float(v) for v in params], partial.shape[0],
+            *mask_bounds(tuple(float(v) for v in params)), partial.shape[0],
             partial.data_ptr(), tickets.data_ptr(), out.count_pos.data_ptr(),
             out.count_neg.data_ptr(), out.valid.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -101,7 +101,10 @@ class MiningExecutable(GraphStep):
     def _check(self, graph) -> None:
         from neural_spectral_codec_torch._build import graph_census
         self.census = graph_census(graph.raw_cuda_graph())
-        want = CENSUS[self.strategy]
+        want = dict(CENSUS[self.strategy])
+        if self.strategy == "semi-hard":     # S's node, in its regime
+            want["select_cluster_dim"] = select_kernel.select_layout(
+                self.data.dev["w1"].shape[1])
         got = {k: self.census[k] for k in want}
         if got != want:
             raise RuntimeError(f"the {self.strategy} mining graph holds "

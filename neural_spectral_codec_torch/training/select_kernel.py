@@ -19,6 +19,12 @@ the largest) joined with their column into one int64 key, so the keys
 are distinct and one sort of them is the stable order. A CPU tensor
 takes the plain version, a CUDA tensor the kernel (or the binding
 raises). The kernel's header has its design and bound.
+
+The kernel has two regimes, chosen by the row length n alone
+(``select_layout``): up to ``CLUSTER_MAX × SLICE_ONE`` columns a row
+is held in the shared memory of a cluster of ``select_layout(n)`` CTAs,
+one contiguous slice each; a longer row streams from device memory
+through one CTA.
 """
 
 from __future__ import annotations
@@ -29,6 +35,24 @@ import functools
 import torch
 
 
+CLUSTER_MAX = 8            # kClusterMax in csrc/select.cu
+SLICE_TWO = 25_600         # kSliceTwo: columns a CTA at 2 CTAs an SM
+SLICE_ONE = 54_784         # kSliceOne: columns a CTA at 1 CTA an SM
+
+
+def select_layout(n: int) -> int:
+    """The kernel's regime for rows of n columns: the cluster width C
+    (CTAs a row, each holding a slice of ⌈n / C⌉ columns in its shared
+    memory), ⌈n / SLICE_TWO⌉ while that is at most CLUSTER_MAX, else
+    CLUSTER_MAX while ⌈n / CLUSTER_MAX⌉ ≤ SLICE_ONE; 0 (one CTA a row,
+    streaming the row from device memory) past that."""
+    for slice_max in (SLICE_TWO, SLICE_ONE):
+        ctas = -(-n // slice_max)
+        if ctas <= CLUSTER_MAX:
+            return ctas if slice_max == SLICE_TWO else CLUSTER_MAX
+    return 0
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     # bound at first use: the miner imports this module, and importing the
@@ -36,7 +60,7 @@ def _kernel():
     from neural_spectral_codec_torch._build import CudaKernel
     return CudaKernel("nsc_select_rows", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def __getattr__(name: str):
@@ -68,10 +92,10 @@ def select_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def select_cuda(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Launch kernel S on the card: x (rows, n) float32 with contiguous
-    rows (any row stride ≥ n), k (rows,) int32 on the same card; (rows,)
-    int32 out. Types, shapes and devices are checked first
-    (``ValueError``, nothing launched)."""
+    """Launch kernel S on the card in the regime ``select_layout(n)``
+    gives: x (rows, n) float32 with contiguous rows (any row stride ≥ n),
+    k (rows,) int32 on the same card; (rows,) int32 out. Types, shapes and
+    devices are checked first (``ValueError``, nothing launched)."""
     from neural_spectral_codec_torch._build import check_contiguous
     dev = x.device
     if dev.type != "cuda":
@@ -89,7 +113,8 @@ def select_cuda(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _kernel()(x.data_ptr(), rows, x.shape[1], x.stride(0), k.data_ptr(),
-                  out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                  out.data_ptr(), select_layout(x.shape[1]),
+                  torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
