@@ -114,7 +114,10 @@ weights and data made from seeds:
    cluster width, with runs of ties across slice edges; the counts entry
    and the draws after it also on pairs at each squared bound and one
    ulp either side), each timed at 2,048 x 100,000 (the counts entry's
-   gate: kept pairs, both bounds); kernel G (the gathers' backward)
+   gate: kept pairs, both bounds; the draw over both masks after the
+   counts entry and the positive draw after the hard entry, with the
+   rounds an anchor, the frames read and the tiles its gate kept); kernel
+   G (the gathers' backward)
    bit-equal to its plain version and to the CPU's ``index_add_`` on the
    GAT neighbour table of a 20,000-node graph (float32 and bf16) and on
    4,096 triplet gathers with repeats, timed against ``index_add_``; (d)
@@ -440,7 +443,11 @@ MINE_NODES = 100_000           # kernel M timed on one chunk of this many
 MINE_CHUNK = 2048              # anchors (training/miner.py ANCHOR_CHUNK)
 MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)   # scale_100k's thresholds
 DRAW_OPS = 12                  # a frame's mask in M's draw: 3 subtractions,
-#                                3 products, 2 sums, a sqrt, 3 comparisons
+#                                3 products, 2 sums, the gap, 3 comparisons
+BOX_OPS = 18                   # a tile's box test in M's draw (the least,
+#                                the positives'): 6 subtractions, 6
+#                                comparisons for the least |d|, 3 products,
+#                                2 sums, 1 comparison
 MINE_CPU_NODES = 3000          # phase 7d: other strategies, card vs CPU
 MINE_EAGER_CHUNKS = 3          # phase 7d: eager chunks timed at BIG_NODES
 RANK_CPU_NODES = 6000          # phase 9: ranking graph vs eager vs CPU
@@ -591,6 +598,28 @@ def _bound(n_bytes: float, n_flops: float = 0.0,
     t_ops = n_flops / FP32_FLOPS + n_ops_no_fma / FP32_OPS_NO_FMA
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _draw_bounds(walk: dict, scanned: int, count: int, splits: int
+                 ) -> dict:
+    """M's draw's bounds on one chunk's draws (``count`` anchors), from
+    ``walk`` (its ``mine_kernel.draw_rounds``, the model of the gated
+    walk) and ``scanned`` (``draw_frames``): ``bound_ms`` over the work the
+    gated function needs, DRAW_OPS a frame of the kept tiles up to each
+    member and BOX_OPS a box test, or the bytes of the distinct frames and
+    boxes it reads, u, the counts, the splits' counts and the draw; beside
+    it ``scan_bound_ms``, DRAW_OPS a frame from the split's first to each
+    member, or every position's bytes and the same others (the bound
+    before the gate)."""
+    per_anchor = 4 * count * (3 + splits)
+    ms, by = _bound(
+        12 * walk["model_frames_touched"] + 24 * walk["model_tiles_touched"]
+        + per_anchor,
+        n_ops_no_fma=DRAW_OPS * walk["model_frames_needed"]
+        + BOX_OPS * walk["model_tiles_tested"])
+    return {"bound_ms": ms, "bound_by": by, "frames_scanned": scanned,
+            "scan_bound_ms": _bound(12 * MINE_NODES + per_anchor,
+                                    n_ops_no_fma=DRAW_OPS * scanned)[0]}
 
 
 def _spectral_ops(imgs, cfg) -> int:
@@ -1892,6 +1921,7 @@ def _training_kernels(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 50)
     n = SCALE_NODES
     pos, cdf = _mine_inputs(n, device)
+    boxes = mk.tile_boxes(pos)
     cases = [(min(s, n - MINE_CHUNK), MINE_CHUNK)
              for s in range(0, n, MINE_CHUNK)]
     n_chunks = len(cases)
@@ -1901,7 +1931,7 @@ def _training_kernels(device) -> dict:
         u = torch.rand(count, generator=gen, device=device)
         st = torch.tensor([start], dtype=torch.int32, device=device)
         want = mk.mine_plain(pos, cdf, start, count, params, u)
-        got = mk.mine_cuda(pos, cdf, st, count, params, u)
+        got = mk.mine_cuda(pos, cdf, st, count, params, u, boxes)
         bad = _same_mined(got, want)
         _check(not bad, f"mine kernel != plain version (start {start}, "
                f"count {count}): {bad} differ")
@@ -1927,9 +1957,11 @@ def _training_kernels(device) -> dict:
     u = torch.rand(MINE_CHUNK, generator=gen, device=device)
     st = torch.tensor([start], dtype=torch.int32, device=device)
     scratch = mk.mine_scratch(MINE_NODES, MINE_CHUNK, device)
+    boxes = mk.tile_boxes(pos)      # alive for the bare launches
 
     def call():
-        return mk.mine_cuda(pos, cdf, st, MINE_CHUNK, params, u, scratch)
+        return mk.mine_cuda(pos, cdf, st, MINE_CHUNK, params, u, boxes,
+                            scratch)
 
     def plain():
         return mk.mine_plain(pos, cdf, start, MINE_CHUNK, params, u)
@@ -1947,19 +1979,24 @@ def _training_kernels(device) -> dict:
              cdf[start:start + MINE_CHUNK][None], cdf[None], p=1.0), 3),
          "bound_ms": bound_ms, "bound_by": bound_by,
          **_device_times("mine", call, profiled=10, queued_calls=3)}
-    t["draw_device_ms"] = _device_times("mine_draw", call, profiled=10,
-                                        queued_calls=20)["device_ms"]
+    # the draw's device time after the first entry (each profiled call
+    # launches both; the positions are cold after its 320 MB of CDFs), and
+    # queued bare draws (warm)
+    draw = _device_times("mine_draw", call, profiled=10, queued_calls=20)
+    t["draw_device_ms"], t["draw_queued_ms"] = (draw["device_ms"],
+                                                draw["queued_ms"])
     t["share_of_bound"] = bound_ms / t["device_ms"]
-    # the draw's own bound: the masks of the frames from the split's first
-    # to the drawn positive, for each anchor with one (DRAW_OPS a frame),
-    # or its bytes (positions, u, counts, the splits' counts, pos_idx)
+    # the draw's own bounds (_draw_bounds): over the gated work, and over
+    # the frames from the split's first to the drawn positive
     got = call()
     splits = scratch[0].shape[0]
-    scanned = mk.draw_frames(got.pos_idx, got.count_pos, MINE_NODES, splits)
-    t["draw_bound_ms"], t["draw_bound_by"] = _bound(
-        12 * MINE_NODES + 4 * MINE_CHUNK * (3 + splits),
-        n_ops_no_fma=DRAW_OPS * scanned)
-    t["draw_frames_scanned"] = scanned
+    walk = mk.draw_rounds(pos, start, got.pos_idx, got.count_pos, params,
+                          "pos", splits)
+    t.update({f"draw_{k}": v for k, v in _draw_bounds(
+        walk, mk.draw_frames(got.pos_idx, got.count_pos, MINE_NODES,
+                             splits), MINE_CHUNK, splits).items()})
+    t.update({f"draw_{k}": v for k, v in walk.items()})
+    t["draw_share_of_bound"] = t["draw_bound_ms"] / t["draw_device_ms"]
     out = {"mine": t}
     print(f"kernel mine: {MINE_CHUNK} x {MINE_NODES} x {bins} bins, device "
           f"{t['device_ms']:.4f} ms (profiler {t['profiler_ms']}, queued "
@@ -1967,9 +2004,19 @@ def _training_kernels(device) -> dict:
           f"{t['plain_ms']:.1f} ms, yardstick cdist {t['yardstick_ms']:.3f} "
           f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
           f"{100 * t['share_of_bound']:.1f}% of it); draw entry "
-          f"{t['draw_device_ms']:.5f} ms over {splits} splits, bound "
-          f"{t['draw_bound_ms']:.5f} ms ({t['draw_bound_by']}: {scanned} "
-          f"frames scanned)", flush=True)
+          f"{t['draw_device_ms']:.5f} ms after the first entry (queued "
+          f"bare {t['draw_queued_ms']:.5f}) over {splits} splits, bound "
+          f"{t['draw_bound_ms']:.5f} ms ({t['draw_bound_by']}, "
+          f"{100 * t['draw_share_of_bound']:.1f}% of it; "
+          f"{t['draw_model_frames_needed']} frames of kept tiles, "
+          f"{t['draw_model_tiles_tested']} box tests), scan bound "
+          f"{t['draw_scan_bound_ms']:.5f} ms "
+          f"({t['draw_frames_scanned']} frames from the splits' starts); "
+          f"model: rounds an anchor mean {t['draw_model_rounds_mean']:.3f}, "
+          f"max {t['draw_model_rounds_max']}, "
+          f"{t['draw_model_frames_read']} frames read, tiles kept before "
+          f"the positive's {t['draw_model_tiles_kept_mean']:.2f} on average",
+          flush=True)
     del pos, cdf, scratch
 
     desc, poses, _ = synthetic_city(n)
@@ -2197,7 +2244,7 @@ def _counts_at_bounds(device) -> int:
     for prm in (MINE_PARAMS, (5.0, 30.0, 10.0, 50.0, 30.0)):
         params = tuple(float(v) for v in np.array(prm, np.float32))
         pos = torch.from_numpy(_bound_positions(params)).to(device)
-        n = pos.shape[0]
+        n, boxes = pos.shape[0], mk.tile_boxes(pos)
         for start, count in ((0, 128), (0, min(2048, n)), (n - 300, 300)):
             st = torch.tensor([start], dtype=torch.int32, device=device)
             scratch = mk.mine_scratch(n, count, device)
@@ -2215,7 +2262,7 @@ def _counts_at_bounds(device) -> int:
                 cnt = getattr(want, f"count_{which}")
                 _check(torch.equal(
                     mk.draw_cuda(pos, st, count, params, u, cnt, which,
-                                 scratch),
+                                 scratch, boxes),
                     mk.draw_plain(pos, start, count, params, u, cnt, which)),
                     f"mine_draw_mask ({which}) after mine_counts != plain "
                     f"version {where}")
@@ -2235,8 +2282,11 @@ def _mining_entries(device) -> dict:
     (also against ``torch.sort(stable=True)``); the counts entry and both
     draws after it on ``_counts_at_bounds``; S also on ``_select_rows``
     (both regimes, every cluster width, slice edges in runs of ties).
-    Then each timed at MINE_CHUNK x MINE_NODES x 800: device, wrapper and
-    plain time, the bound (the counts entry's over the pairs its gate
+    Then each timed at MINE_CHUNK x MINE_NODES x 800 (the mask draw over
+    the negatives and, under ``pos_``, the positives after the counts
+    entry, with ``mine_kernel.draw_rounds``' rounds, frames read and
+    tiles kept): device, wrapper and plain time, the bound (the counts
+    entry's over the pairs its gate
     keeps, ``mine_kernel.gate_pairs``, with the all-pairs bound, the kept
     share and the splits' imbalance beside it), the yardsticks
     (``torch.cdist(p=1)`` for the rows entry, ``torch.sort(stable=True)``
@@ -2250,6 +2300,7 @@ def _mining_entries(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 51)
     n = SCALE_NODES
     pos, cdf = _mine_inputs(n, device)
+    boxes = mk.tile_boxes(pos)
     cases = [(min(s, n - MINE_CHUNK), MINE_CHUNK)
              for s in range(0, n, MINE_CHUNK)]
     cases += [(0, 1), (n - 37, 37), (n // 2, 100)]
@@ -2280,7 +2331,7 @@ def _mining_entries(device) -> dict:
             for which in ("pos", "neg"):
                 cnt = getattr(want, f"count_{which}")
                 g = mk.draw_cuda(pos, st, count, params, u, cnt, which,
-                                 scratch)
+                                 scratch, boxes)
                 w = mk.draw_plain(pos, start, count, params, u, cnt, which)
                 _check(torch.equal(g, w), f"mine_draw_mask ({which}, after "
                        f"mine_{entry}) != plain version {where}")
@@ -2374,23 +2425,35 @@ def _mining_entries(device) -> dict:
         cnt, mk.counts_plain(pos, start, c, params))),
         f"mine_counts kernel != plain version at {c} x {MINE_NODES}")
 
-    def draw_neg():
-        return mk.draw_cuda(pos, st, c, params, u, cnt.count_neg, "neg",
-                            scratch)
+    boxes = mk.tile_boxes(pos)      # alive for the bare launches
 
-    got = draw_neg()
-    _check(torch.equal(got, mk.draw_plain(pos, start, c, params, u,
-                                          cnt.count_neg, "neg")),
-           f"mine_draw_mask kernel != plain version at {c} x {MINE_NODES}")
-    scanned = mk.draw_frames(got, cnt.count_neg, MINE_NODES, splits)
-    t = {"max_abs_err": 0.0, "plain_ms": _once_ms(lambda: mk.draw_plain(
-             pos, start, c, params, u, cnt.count_neg, "neg")),
-         "frames_scanned": scanned,
-         **_device_times("mine_draw_mask", draw_neg, profiled=20,
-                         queued_calls=20)}
-    t["bound_ms"], t["bound_by"] = _bound(
-        12 * MINE_NODES + 4 * c * (3 + splits),
-        n_ops_no_fma=DRAW_OPS * scanned)
+    def drawer(which):
+        return lambda: mk.draw_cuda(pos, st, c, params, u,
+                                    getattr(cnt, f"count_{which}"), which,
+                                    scratch, boxes)
+
+    # both mask draws after the counts entry: the negatives' numbers are
+    # the entry's, the positives' beside them under pos_
+    draw_neg = drawer("neg")
+    t = {"max_abs_err": 0.0}
+    for which in ("neg", "pos"):
+        counts_w = getattr(cnt, f"count_{which}")
+        got = drawer(which)()
+        _check(torch.equal(got, mk.draw_plain(pos, start, c, params, u,
+                                              counts_w, which)),
+               f"mine_draw_mask ({which}) kernel != plain version at {c} x "
+               f"{MINE_NODES}")
+        walk = mk.draw_rounds(pos, start, got, counts_w, params, which,
+                              splits)
+        d = {"plain_ms": _once_ms(lambda: mk.draw_plain(
+                 pos, start, c, params, u, counts_w, which)),
+             **walk, **_draw_bounds(walk, mk.draw_frames(
+                 got, counts_w, MINE_NODES, splits), c, splits),
+             **_device_times("mine_draw_mask", drawer(which), profiled=20,
+                             queued_calls=20)}
+        d["share_of_bound"] = d["bound_ms"] / d["device_ms"]
+        t.update(d if which == "neg" else
+                 {f"pos_{k}": v for k, v in d.items()})
     out["mine_draw_mask"] = t
 
     rows()
@@ -2422,8 +2485,24 @@ def _mining_entries(device) -> dict:
               f"{t['wrapper_ms']:.5f} ms, plain {t['plain_ms']:.3f} ms"
               f"{extra}, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
               f"{100 * t['share_of_bound']:.1f}% of it)", flush=True)
-    print(f"kernel mine_draw_mask: negatives, {scanned} frames scanned "
-          f"from the {splits} splits' starts", flush=True)
+    t = out["mine_draw_mask"]
+    for which, pre in (("negatives", ""), ("positives", "pos_")):
+        print(f"kernel mine_draw_mask: {which} after mine_counts, device "
+              f"{t[pre + 'device_ms']:.5f} ms (queued bare "
+              f"{t[pre + 'queued_ms']:.5f}), bound {t[pre + 'bound_ms']:.5f} "
+              f"ms ({t[pre + 'bound_by']}, "
+              f"{100 * t[pre + 'share_of_bound']:.1f}% of it; "
+              f"{t[pre + 'model_frames_needed']} frames of kept tiles, "
+              f"{t[pre + 'model_tiles_tested']} box tests), scan bound "
+              f"{t[pre + 'scan_bound_ms']:.5f} ms "
+              f"({100 * t[pre + 'scan_bound_ms'] / t[pre + 'device_ms']:.1f}"
+              f"% of it; {t[pre + 'frames_scanned']} frames from the "
+              f"{splits} splits' starts); model: "
+              f"{t[pre + 'model_frames_read']} frames read, rounds an "
+              f"anchor mean {t[pre + 'model_rounds_mean']:.3f}, max "
+              f"{t[pre + 'model_rounds_max']}, tiles kept before the "
+              f"member's {t[pre + 'model_tiles_kept_mean']:.2f} on average",
+              flush=True)
     t = out["mine_counts"]
     print(f"kernel mine_counts: the gate keeps {gate['kept']} of "
           f"{gate['pairs']} pairs ({100 * t['kept_pair_share']:.2f}%); "
@@ -5431,16 +5510,16 @@ def main() -> None:
                     "device_ms_sweep", "queued_ms_sweep",
                     "device_ms_sweep_b1", "queued_ms_sweep_b1",
                     "device_ms_cold", "device_ms_cold_b1", "yardstick_ms",
-                    "share_of_bound", "solve_device_ms", "draw_device_ms",
-                    "draw_bound_ms", "draw_bound_by", "draw_frames_scanned",
-                    "device_ms_bf16", "device_ms_triplets",
-                    "library_ms_triplets", "bound_ms_triplets",
-                    "frames_scanned"):
+                    "share_of_bound", "solve_device_ms", "device_ms_bf16",
+                    "device_ms_triplets", "library_ms_triplets",
+                    "bound_ms_triplets"):
             if key in t:
                 entry[key] = t[key]
         entry.update({k: v for k, v in t.items()
                       if k.startswith(("device_ms_random", "device_ms_mined",
-                                       "longest_segment_", "rows_"))})
+                                       "longest_segment_", "rows_", "draw_",
+                                       "pos_", "frames_", "scan_",
+                                       "model_"))})
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"

@@ -73,11 +73,31 @@
 // last CTA of the anchor tile to finish (a ticket, after a fence) merges the
 // splits the same way: the answer does not depend on the split.
 //
-// The draw: one warp an anchor reads its splits' positive counts (the
-// partials the first entry wrote), 32 at a time with a warp prefix sum,
-// finds the split that holds the r-th positive, and walks that split's
-// frames only, 128 a step (4 frames a lane, loaded together), by ballots
-// of the positive mask and their population counts.
+// The draw: one CTA of kDrawWarps warps an anchor. Every warp reads the
+// anchor's per-split counts of the drawn mask (the partials the entry
+// before it wrote), 32 at a time with a warp prefix sum, and finds the
+// split that holds the r-th member and the rank rr within it. The CTA then
+// tests the box of each of that split's 128-frame tiles (one a thread;
+// the sequence's tile boxes, training/mine_kernel.py tile_boxes, made once
+// a sequence) against the anchor, with the counts entry's box bounds
+// (box_sums), and lists in index order the tiles that can hold a member of the drawn
+// mask. It walks that list in rounds: in each, warp w counts the members
+// of the round's w-th listed tile (4 frames a lane, loaded together; no
+// load waits on another), the CTA forms one prefix over the warps' counts
+// in shared memory, and the round in which the running count passes rr is
+// the last: the warp that holds the member finds it by ballots and
+// population counts. The gate changes which tiles are read, never the
+// answer: a skipped tile holds no member. At 2,048 x 100,000, by the
+// design's model (training/mine_kernel.py draw_rounds), it keeps 1.2 of
+// the ~25 tiles before a positive and 3.7 before a negative, so 1.4 and
+// 2.6 rounds an anchor (at most 3 and 6) where a warp took ~25 (at most
+// 49) dependent steps; the CTA's first loads (the counts, the first
+// 32 splits' counts, the anchor's position) go out together. 2 warps a
+// CTA beat 1, 4 and 8 on an H100 (experiments/kernel_ab.py, in turns): a
+// CTA has little to do, and small CTAs put every anchor of a chunk on the
+// card at once. The mask is the counts entry's (Bounds: the rounded sum
+// of squares and the integer gap against mask_bounds' exact bounds), with
+// no square root and no int-to-float.
 //
 // Three more entries serve the miner's other strategies (JAX's
 // _mine_chunk with "semi-hard" and "random", :99-111):
@@ -104,9 +124,16 @@
 //   nsc_mine_draw_mask  the draw over either mask (which = 0 positives, 1
 //                   negatives): r = min(floor(u * count), count - 1) of that
 //                   mask's count, the r-th member in index order, 0 when
-//                   the count is 0; the walk of the draw above on the
+//                   the count is 0; the rounds of the draw above on the
 //                   partials of whichever entry ran before it. With which
-//                   = 0 it gives nsc_mine_draw's answer.
+//                   = 0 it gives nsc_mine_draw's answer. Bound: 12
+//                   operations a frame of the kept tiles up to the member
+//                   and 18 a box test, or the bytes of the distinct frames
+//                   and boxes read (chip_smoke.py _draw_bounds), a few
+//                   tenths of a us at 2,048 x 100,000; what holds a draw is
+//                   the latency of its dependent loads (counts, boxes, a
+//                   round's positions), which the gate and the rounds make
+//                   few.
 // The semi-hard negative itself is kernel S (select.cu) on the W1 block at
 // rank count_neg / 2.
 #include <climits>
@@ -127,9 +154,12 @@ constexpr int kK = 32;                  // bins a stage
 constexpr int kStages = 2;              // stages in the ring
 constexpr int kRow = 36;                // floats a staged row (kK + 4 padding)
 constexpr int kCtasPerSm = 2;
-constexpr int kDrawUnroll = 4;          // frames a lane a draw step
 constexpr int kNone = INT_MAX;          // no negative yet
-constexpr int kDrawWarps = kThreads / 32;
+constexpr int kDrawWarps = 2;           // warps of a draw CTA (one anchor)
+constexpr int kDrawUnroll = 4;          // frames a lane a draw round
+constexpr int kDrawTile = 32 * kDrawUnroll;   // frames a warp a round
+constexpr int kDrawGate = 32 * kDrawWarps;    // tiles a gate pass
+static_assert(kDrawTile == 128, "a draw warp's frames are one frame tile");
 constexpr int kStageFloats = (kBA + kBJ) * kRow;
 
 static_assert(kLanes * kPer == kBA && kLanes * kPer == kBJ, "tile shape");
@@ -165,7 +195,9 @@ __device__ __forceinline__ bool before(float w, int j, float bw, int bj) {
   return w < bw || (w == bw && j < bj);
 }
 
-// The masks of anchor a (position pa) and frame j (position pj).
+// The masks of anchor a (position pa) and frame j (position pj), as the
+// W1 walk tests them; the counts entry and the draws test the same masks
+// on Bounds (below), with no square root.
 __device__ __forceinline__ void masks(float3 pa, float3 pj, int a, int j,
                                       const Params& p, bool* pos, bool* neg) {
   const float dx = __fsub_rn(pa.x, pj.x);
@@ -468,9 +500,9 @@ mine_rows_kernel(const float* __restrict__ pts, const float* __restrict__ cdf,
                 partial, tickets, nullptr, count_pos, count_neg, valid, w1);
 }
 
-// The counts entry's thresholds (training/mine_kernel.py mask_bounds): for
-// a pair's rounded sum of squares s = (dx*dx + dy*dy) + dz*dz (+0 to +inf,
-// or NaN) and its gap g,
+// The counts entry's and the draws' thresholds (training/mine_kernel.py
+// mask_bounds): for a pair's rounded sum of squares s = (dx*dx + dy*dy) +
+// dz*dz (+0 to +inf, or NaN) and its gap g,
 //     pos = s < pos_s && g >= pos_gap
 //     neg = s >= neg_lo_s && s <= neg_hi_s && g >= neg_gap
 // give masks()'s masks: sqrt_rn is correctly rounded and monotone, so
@@ -548,22 +580,31 @@ __device__ __forceinline__ float least_abs(float dlo, float dhi) {
   return dlo == dlo && dhi == dhi ? 0.0f : __int_as_float(0x7fc00000);
 }
 
-// Whether no pair of an anchor in box a and a frame in box f can be a
-// positive or a negative: bounds on every pair's s from the boxes, in the
-// pair test's rounded operations and order (training/mine_kernel.py
-// tile_gate). A NaN lower bound makes it false.
-__device__ __forceinline__ bool skip_block(const float* a, const float* f,
-                                           const Bounds& b) {
+// Bounds s_lo, s_hi on every pair's s of a point in the box [a_lo, a_hi]
+// and one in box f (min x, y, z, max x, y, z), in the pair test's rounded
+// operations and order (training/mine_kernel.py tile_gate); s_lo is NaN
+// where a coordinate is.
+__device__ __forceinline__ void box_sums(const float* a_lo,
+                                         const float* a_hi, const float* f,
+                                         float& s_lo, float& s_hi) {
   float lo[3], hi[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float dlo = __fsub_rn(a[c], f[c + 3]);
-    const float dhi = __fsub_rn(a[c + 3], f[c]);
+    const float dlo = __fsub_rn(a_lo[c], f[c + 3]);
+    const float dhi = __fsub_rn(a_hi[c], f[c]);
     lo[c] = least_abs(dlo, dhi);
     hi[c] = fmaxf(fabsf(dlo), fabsf(dhi));
   }
-  const float s_lo = sum_sq(lo[0], lo[1], lo[2]);
-  const float s_hi = sum_sq(hi[0], hi[1], hi[2]);
+  s_lo = sum_sq(lo[0], lo[1], lo[2]);
+  s_hi = sum_sq(hi[0], hi[1], hi[2]);
+}
+
+// Whether no pair of an anchor in box a and a frame in box f can be a
+// positive or a negative (box_sums). A NaN lower bound makes it false.
+__device__ __forceinline__ bool skip_block(const float* a, const float* f,
+                                           const Bounds& b) {
+  float s_lo, s_hi;
+  box_sums(a, a + 3, f, s_lo, s_hi);
   return s_lo >= b.pos_s && (s_hi < b.neg_lo_s || s_lo > b.neg_hi_s);
 }
 
@@ -678,32 +719,70 @@ mine_counts_kernel(const float* __restrict__ pts,
                       tickets, nullptr, count_pos, count_neg, valid);
 }
 
-// One warp an anchor: the r-th member in index order of its positive mask
-// (neg false) or negative mask (neg true), r = min(floor(u * count),
-// count - 1), found from the splits' counts of that mask in `partial`,
-// then by a walk of that split's frames; 0 when the count is 0.
+// Whether frame j (position pj) is a member of anchor ag's (position pa)
+// positive mask (neg false) or negative mask (neg true): the counts
+// entry's test on the rounded sum of squares and the integer gap.
+__device__ __forceinline__ bool member(float3 pa, float3 pj, int ag, int j,
+                                       const Bounds& b, bool neg) {
+  const float s = sum_sq(__fsub_rn(pa.x, pj.x), __fsub_rn(pa.y, pj.y),
+                         __fsub_rn(pa.z, pj.z));
+  const int gap = abs(ag - j);
+  return neg ? s >= b.neg_lo_s && s <= b.neg_hi_s && gap >= b.neg_gap
+             : s < b.pos_s && gap >= b.pos_gap;
+}
+
+// Whether no frame of a tile whose box is f (min x, y, z, max x, y, z; NaN
+// where the tile holds a NaN) can be a member of the anchor's (position
+// pa) positive mask (neg false) or negative mask (neg true): box_sums with
+// the anchor for the anchors' box. A NaN lower bound makes it false.
+__device__ __forceinline__ bool skip_tile(float3 pa, const float* f,
+                                          const Bounds& b, bool neg) {
+  const float a[3] = {pa.x, pa.y, pa.z};
+  float s_lo, s_hi;
+  box_sums(a, a, f, s_lo, s_hi);
+  if (!neg) return s_lo >= b.pos_s;
+  return s_hi < b.neg_lo_s || s_lo > b.neg_hi_s;
+}
+
+// One CTA an anchor (blockIdx.x): the r-th member in index order of its
+// positive mask (neg false) or negative mask (neg true), r = min(floor(u *
+// count), count - 1), found from the splits' counts of that mask in
+// `partial`, then among that split's tiles whose box (`boxes`, the
+// tile_boxes of the sequence) can hold a member, in rounds of kDrawWarps
+// tiles (one a warp); 0 when the count is 0. Every exit is taken by the
+// whole CTA.
 __device__ __forceinline__ void draw_member(
-    const float* __restrict__ pts, const int* __restrict__ start_at, int n,
-    int count, const Params& prm, const float* __restrict__ u,
-    const int* __restrict__ counts, int splits,
+    const float* __restrict__ pts, const float* __restrict__ boxes,
+    const int* __restrict__ start_at, int n, int count, const Bounds& bnd,
+    const float* __restrict__ u, const int* __restrict__ counts, int splits,
     const Partial* __restrict__ partial, int* __restrict__ idx, bool neg) {
+  __shared__ int warp_count[2][kDrawWarps];   // a round's, double-buffered
+  __shared__ int warp_kept[kDrawWarps];
+  __shared__ int kept[kDrawGate];             // a pass's kept tiles
   const unsigned full = 0xffffffffu;
-  const int a = blockIdx.x * kDrawWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (a >= count) return;
-  const int ag = *start_at + a;
+  const int a = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the mask's count of the anchor in split s (0 past the splits)
+  auto split_count = [&](int s) {
+    const Partial* q = partial + (long long)s * count + a;
+    return s < splits ? (neg ? q->count_neg : q->count_pos) : 0;
+  };
+  // loaded together: the first 32 splits' counts beside the anchor's
+  const int first = split_count(lane);
   const int cnt = counts[a];
+  const float ua = u[a];
+  const int ag = *start_at + a;
+  const float3 pa = position(pts, ag);
   if (cnt == 0) {
-    if (lane == 0) idx[a] = 0;
+    if (threadIdx.x == 0) idx[a] = 0;
     return;
   }
-  const int r = min((int)floorf(__fmul_rn(u[a], (float)cnt)), cnt - 1);
-  // the split that holds the r-th member, and the members before it
+  const int r = min((int)floorf(__fmul_rn(ua, (float)cnt)), cnt - 1);
+  // the split that holds the r-th member, and the members before it (each
+  // warp finds the same)
   int split = -1, seen = 0;
   for (int s0 = 0; s0 < splits; s0 += 32) {
-    const int s = s0 + lane;
-    const Partial* q = partial + (long long)s * count + a;
-    const int c = s < splits ? (neg ? q->count_neg : q->count_pos) : 0;
+    const int c = s0 == 0 ? first : split_count(s0 + lane);
     int incl = c;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -720,59 +799,106 @@ __device__ __forceinline__ void draw_member(
     seen += __shfl_sync(full, incl, 31);
   }
   if (split < 0) {                // unreachable while the counts hold
-    if (lane == 0) idx[a] = 0;
+    if (threadIdx.x == 0) idx[a] = 0;
     return;
   }
   const int rr = r - seen;                      // its rank in the split
   const int n_tiles = (n + kBJ - 1) / kBJ;
-  const int lo = split_tile(n_tiles, split, splits) * kBJ;
-  const int hi = min(split_tile(n_tiles, split + 1, splits) * kBJ, n);
-  const float3 pa = position(pts, ag);
-  int found = 0;
-  for (int j0 = lo; j0 < hi; j0 += 32 * kDrawUnroll) {
-    bool in[kDrawUnroll];
+  const int t_lo = split_tile(n_tiles, split, splits);
+  const int t_hi = split_tile(n_tiles, split + 1, splits);
+  const int hi = min(t_hi * kBJ, n);
+  const unsigned below = (1u << lane) - 1u;     // the lanes under this one
+  int before = 0;                 // the members of the earlier rounds
+  int round = 0;
+  // passes of kDrawGate tiles (one a thread): the tiles the gate keeps,
+  // listed in index order, then walked kDrawWarps a round
+  for (int g0 = t_lo; g0 < t_hi; g0 += kDrawGate) {
+    const int t = g0 + threadIdx.x;
+    const bool keep = t < t_hi && !skip_tile(pa, boxes + 6LL * t, bnd, neg);
+    const unsigned kb = __ballot_sync(full, keep);
+    if (lane == 0) warp_kept[warp] = __popc(kb);
+    __syncthreads();
+    int n_kept = 0, at = 0;
 #pragma unroll
-    for (int q = 0; q < kDrawUnroll; ++q) {
-      const int j = j0 + 32 * q + lane;
-      bool pos = false, ng = false;
-      if (j < hi) masks(pa, position(pts, j), ag, j, prm, &pos, &ng);
-      in[q] = neg ? ng : pos;
+    for (int w = 0; w < kDrawWarps; ++w) {
+      const int v = warp_kept[w];
+      n_kept += v;
+      at += w < warp ? v : 0;
     }
+    if (keep) kept[at + __popc(kb & below)] = t;
+    __syncthreads();
+    for (int k0 = 0; k0 < n_kept; k0 += kDrawWarps, ++round) {
+      // this warp's tile (none past the list: its frames start at hi)
+      const int j0 = k0 + warp < n_kept ? kept[k0 + warp] * kBJ : hi;
+      bool in[kDrawUnroll];
 #pragma unroll
-    for (int q = 0; q < kDrawUnroll; ++q) {
-      const unsigned m = __ballot_sync(full, in[q]);
-      const int c = __popc(m);
-      if (found + c > rr) {
-        if (in[q] && __popc(m & ((1u << lane) - 1u)) == rr - found)
-          idx[a] = j0 + 32 * q + lane;
+      for (int q = 0; q < kDrawUnroll; ++q) {
+        const int j = j0 + 32 * q + lane;
+        in[q] = j < hi && member(pa, position(pts, j), ag, j, bnd, neg);
+      }
+      unsigned m[kDrawUnroll];
+      int c = 0;
+#pragma unroll
+      for (int q = 0; q < kDrawUnroll; ++q) {
+        m[q] = __ballot_sync(full, in[q]);
+        c += __popc(m[q]);
+      }
+      int* wc = warp_count[round & 1];
+      if (lane == 0) wc[warp] = c;
+      __syncthreads();            // (the other buffer's reads are done:
+                                  // every warp passed the last barrier)
+      int total = 0, earlier = 0; // the round's members, the lower warps'
+#pragma unroll
+      for (int w = 0; w < kDrawWarps; ++w) {
+        const int v = wc[w];
+        total += v;
+        earlier += w < warp ? v : 0;
+      }
+      if (before + total > rr) {  // the last round, for every warp
+        int f = before + earlier;
+        if (f <= rr && rr < f + c) {
+#pragma unroll
+          for (int q = 0; q < kDrawUnroll; ++q) {
+            const int cq = __popc(m[q]);
+            if (f + cq > rr) {
+              if (in[q] && __popc(m[q] & below) == rr - f)
+                idx[a] = j0 + 32 * q + lane;
+              break;
+            }
+            f += cq;
+          }
+        }
         return;
       }
-      found += c;
+      before += total;
     }
+    __syncthreads();              // kept and warp_kept are read
   }
-  if (lane == 0) idx[a] = 0;   // unreachable while the counts hold
+  if (threadIdx.x == 0) idx[a] = 0;   // unreachable while the counts hold
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kDrawWarps)
 mine_draw_kernel(const float* __restrict__ pts,
+                 const float* __restrict__ boxes,
                  const int* __restrict__ start_at, int n, int count,
-                 Params prm, const float* __restrict__ u,
+                 Bounds bnd, const float* __restrict__ u,
                  const int* __restrict__ count_pos, int splits,
                  const Partial* __restrict__ partial,
                  int* __restrict__ pos_idx) {
-  draw_member(pts, start_at, n, count, prm, u, count_pos, splits, partial,
-              pos_idx, false);
+  draw_member(pts, boxes, start_at, n, count, bnd, u, count_pos, splits,
+              partial, pos_idx, false);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kDrawWarps)
 mine_draw_mask_kernel(const float* __restrict__ pts,
+                      const float* __restrict__ boxes,
                       const int* __restrict__ start_at, int n, int count,
-                      Params prm, int which, const float* __restrict__ u,
+                      Bounds bnd, int which, const float* __restrict__ u,
                       const int* __restrict__ counts, int splits,
                       const Partial* __restrict__ partial,
                       int* __restrict__ idx) {
-  draw_member(pts, start_at, n, count, prm, u, counts, splits, partial, idx,
-              which != 0);
+  draw_member(pts, boxes, start_at, n, count, bnd, u, counts, splits,
+              partial, idx, which != 0);
 }
 
 // dynamic shared memory allowed so far, per device (0: the default 48 KB),
@@ -891,46 +1017,55 @@ extern "C" int nsc_mine_counts(const void* pts, const void* start, int n,
   return (int)cudaGetLastError();
 }
 
-// One chunk's positives: u (count,) float32 in [0, 1), count_pos (count,)
-// int32 and partial (splits * count entries) as nsc_mine_hard left them,
-// with the same splits; pos_idx (count,) int32 out.
-extern "C" int nsc_mine_draw(const void* pts, const void* start, int n,
-                             int count, float pos_max, float pos_gap,
-                             float neg_min, float neg_max, float neg_gap,
-                             const void* u, const void* count_pos, int splits,
+// One chunk's positives: boxes (ceil(n / 128), 6) float32 the frame tiles'
+// boxes (training/mine_kernel.py tile_boxes), u (count,) float32 in [0,
+// 1), count_pos (count,) int32 and partial (splits * count entries) as
+// nsc_mine_hard left them, with the same splits; the thresholds as
+// nsc_mine_counts takes them (mask_bounds); pos_idx (count,) int32 out.
+// Launches count CTAs of 32 * kDrawWarps threads (static shared memory).
+extern "C" int nsc_mine_draw(const void* pts, const void* boxes,
+                             const void* start, int n, int count,
+                             float pos_s, float neg_lo_s, float neg_hi_s,
+                             int pos_gap, int neg_gap, const void* u,
+                             const void* count_pos, int splits,
                              const void* partial, void* pos_idx,
                              void* stream) {
   if (n < 1 || count < 1 || count > n || splits < 1 ||
-      splits > (n + kBJ - 1) / kBJ)
+      splits > (n + kBJ - 1) / kBJ || pos_gap < 1 || neg_gap < 1)
     return (int)cudaErrorInvalidValue;
-  const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
-  mine_draw_kernel<<<(count + kDrawWarps - 1) / kDrawWarps, kThreads, 0,
+  const Bounds bnd = {pos_s, neg_lo_s, neg_hi_s, pos_gap, neg_gap};
+  mine_draw_kernel<<<count, 32 * kDrawWarps, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const int*>(start), n,
-      count, prm, static_cast<const float*>(u),
+      static_cast<const float*>(pts), static_cast<const float*>(boxes),
+      static_cast<const int*>(start), n, count, bnd,
+      static_cast<const float*>(u),
       static_cast<const int*>(count_pos), splits,
       static_cast<const Partial*>(partial), static_cast<int*>(pos_idx));
   return (int)cudaGetLastError();
 }
 
 // One chunk's draw over the positives (which 0) or the negatives (which 1):
-// u (count,) float32 in [0, 1), counts (count,) int32 that mask's counts,
-// partial as any of the three entries above left it, with the same
-// splits; idx (count,) int32 out.
-extern "C" int nsc_mine_draw_mask(const void* pts, const void* start, int n,
-                                  int count, float pos_max, float pos_gap,
-                                  float neg_min, float neg_max, float neg_gap,
+// boxes as nsc_mine_draw's, u (count,) float32 in [0, 1), counts (count,)
+// int32 that mask's counts, partial as any of the three entries above left
+// it, with the same splits, the thresholds as mask_bounds; idx (count,)
+// int32 out.
+extern "C" int nsc_mine_draw_mask(const void* pts, const void* boxes,
+                                  const void* start, int n, int count,
+                                  float pos_s, float neg_lo_s,
+                                  float neg_hi_s, int pos_gap, int neg_gap,
                                   int which, const void* u, const void* counts,
                                   int splits, const void* partial, void* idx,
                                   void* stream) {
   if (n < 1 || count < 1 || count > n || splits < 1 ||
-      splits > (n + kBJ - 1) / kBJ || which < 0 || which > 1)
+      splits > (n + kBJ - 1) / kBJ || which < 0 || which > 1 ||
+      pos_gap < 1 || neg_gap < 1)
     return (int)cudaErrorInvalidValue;
-  const Params prm = {pos_max, pos_gap, neg_min, neg_max, neg_gap};
-  mine_draw_mask_kernel<<<(count + kDrawWarps - 1) / kDrawWarps, kThreads, 0,
+  const Bounds bnd = {pos_s, neg_lo_s, neg_hi_s, pos_gap, neg_gap};
+  mine_draw_mask_kernel<<<count, 32 * kDrawWarps, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const int*>(start), n,
-      count, prm, which, static_cast<const float*>(u),
+      static_cast<const float*>(pts), static_cast<const float*>(boxes),
+      static_cast<const int*>(start), n, count, bnd, which,
+      static_cast<const float*>(u),
       static_cast<const int*>(counts), splits,
       static_cast<const Partial*>(partial), static_cast<int*>(idx));
   return (int)cudaGetLastError();

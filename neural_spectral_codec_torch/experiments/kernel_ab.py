@@ -13,20 +13,20 @@ the probe shape), the verifier's searches (N at 4,096 × 4,096, K at
 4,096 points with k = 20, on two prepared frames: ``prepared_frames``),
 its k-NN PCA (C, covariances of the first frame at k = 20) and the
 training path's kernels (M's two entries on a 2,048-anchor chunk of a
-100,000-frame ``synthetic_city`` sequence; G on the GAT's neighbour table
+100,000-frame ``synthetic_city`` sequence; its mask draw on that chunk
+over the negatives and the positives after the counts entry and over the
+negatives after the rows entry; G on the GAT's neighbour table
 of a 20,000-node one, float32 and bf16, and on 4,096 × 800 float32
 triplet rows into its 20,000 rows, with and without a 16-position
 segment; S on that chunk's W₁ block at count_neg // 2 and M's counts
 entry on the chunk) is called once through its wrapper; then both
-libraries' entry points are launched on those same arguments (M's with
-the other side's own splits and scratch, and its draw with the parent's
-arguments, when ``other_m_abi`` says the other side is the 64-anchor
-kernel; S without the regime argument and the counts entry with the
-five float thresholds when ``other_select_abi`` and ``other_counts_abi``
-say the other side is the earlier, one-CTA-a-row S and sqrt-testing
-counts entry), bare and queued behind a spin kernel
+libraries' entry points are launched on those same arguments (both draw
+entries without the tile boxes and with the five float thresholds in
+place of ``mask_bounds``' five bounds when ``other_draw_abi`` says the
+other side's draws take them), bare and queued behind a spin kernel
 (``utils.timing.time_queued_ms``, 200 launches; M 3, its draw and S 20,
-the counts entry 50), in the order other, this, this, other, twice. For
+the counts entry and the mask draws 50), in the order other, this,
+this, other, twice. For
 N, K, M (each entry), G and S the other side's last output must equal
 the wrapper's bit for bit; for C it must lie within 1e-5 of it on the
 rows whose relative
@@ -265,31 +265,23 @@ def _outputs(result) -> tuple:
 MINE_NODES, MINE_CHUNK = 100_000, 2048
 MINE_PARAMS = (5.0, 30.0, 10.0, 100.0, 30.0)    # scale_100k's thresholds
 GRAPH_NODES = 20_000
-LAUNCHES = {"mine": 3, "mine_draw": 20, "select": 20,
-            "mine_counts": 50}                   # else 200
-TRAINING_CASES = ("mine", "mine_draw", "gather_bwd", "gather_bwd_bf16",
-                  "gather_bwd_triplets", "gather_bwd_triplets_no16",
-                  "select", "mine_counts")
+LAUNCHES = {"mine": 3, "mine_draw": 20, "select": 20, "mine_counts": 50,
+            "mine_draw_mask": 50, "mine_draw_mask_pos": 50,
+            "mine_draw_mask_rows": 50}           # else 200
+TRAINING_CASES = ("mine", "mine_draw", "mine_draw_mask",
+                  "mine_draw_mask_pos", "mine_draw_mask_rows", "gather_bwd",
+                  "gather_bwd_bf16", "gather_bwd_triplets",
+                  "gather_bwd_triplets_no16", "select", "mine_counts")
 
 
-def other_m_abi(csrc: Path) -> bool:
-    """Whether ``csrc/mine.cu`` in ``csrc`` is the PR 19 kernel M: 64-anchor
-    CTAs and a draw entry without the splits' partials."""
+def other_draw_abi(csrc: Path) -> bool:
+    """Whether kernel M's draw entries in ``csrc/mine.cu`` take the five
+    float thresholds and no tile boxes (the warp-an-anchor draw, which
+    tests a square root) in place of the boxes and ``mask_bounds``' three
+    squared and two integer bounds."""
     text = (csrc / "mine.cu").read_text()
-    return "constexpr int kBA = 64;" in text
-
-
-def other_counts_abi(csrc: Path) -> bool:
-    """Whether ``csrc/mine.cu`` in ``csrc`` has the earlier counts entry:
-    the five float thresholds (a sqrt and an int-to-float a pair) in
-    place of ``mask_bounds``' squared and integer bounds."""
-    return "int pos_gap, int neg_gap" not in (csrc / "mine.cu").read_text()
-
-
-def other_select_abi(csrc: Path) -> bool:
-    """Whether ``csrc/select.cu`` in ``csrc`` is the earlier kernel S: one
-    streaming CTA a row, no regime argument."""
-    return "int ctas" not in (csrc / "select.cu").read_text()
+    entry = text[text.index('extern "C" int nsc_mine_draw('):]
+    return "float pos_max" in entry[:entry.index(")")]
 
 
 def mine_inputs(n: int, device) -> tuple:
@@ -304,12 +296,12 @@ def mine_inputs(n: int, device) -> tuple:
             torch.from_numpy(cdfs).to(device))
 
 
-def _training_cases(dev, old_m: bool, old_counts: bool = False,
-                    old_select: bool = False) -> tuple:
-    """M's and G's cases: {name: (kernel, call, other_args,
+def _training_cases(dev, old_draw: bool) -> tuple:
+    """M's, G's and S's cases: {name: (kernel, call, other_args,
     other_argtypes)}, other_args mapping this side's last arguments to the
     other side's and other_argtypes the other entry's ctypes types (None:
-    the same), and the tensors they use, kept alive by the caller."""
+    the same), and the tensors they use, kept alive by the caller. With
+    ``old_draw`` the other side's draws take the five float thresholds."""
     from neural_spectral_codec_torch.experiments.scale_100k import (
         synthetic_city)
     from neural_spectral_codec_torch.keyframe.graph import (
@@ -323,37 +315,23 @@ def _training_cases(dev, old_m: bool, old_counts: bool = False,
     start = torch.tensor([MINE_NODES // 2], dtype=torch.int32, device=dev)
     u = torch.rand(MINE_CHUNK, generator=gen, device=dev)
     scratch = mk.mine_scratch(MINE_NODES, MINE_CHUNK, dev)
-    keep = [pos, cdf, start, u, scratch]
-    old = {}
-    if old_m:
-        # the PR 19 kernel: 64-anchor CTAs over ~2 CTAs an SM, its own
-        # scratch; a draw entry without splits and partials
-        tiles = -(-MINE_CHUNK // 64)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        old["splits"] = max(1, min(-(-MINE_NODES // 64),
-                                   -(-2 * sms // tiles)))
-        old["partial"] = torch.empty((old["splits"], MINE_CHUNK, 4),
-                                     dtype=torch.int32, device=dev)
-        old["tickets"] = torch.zeros(tiles, dtype=torch.int32, device=dev)
-        keep.append(old)
-
-    def hard_other(args):
-        if not old_m:
-            return args
-        # (pts, cdf, start, n, count, bins, 5 thresholds, splits, partial,
-        #  tickets, neg_idx, count_pos, count_neg, valid, stream)
-        return (*args[:11], old["splits"], old["partial"].data_ptr(),
-                old["tickets"].data_ptr(), *args[14:])
+    boxes = mk.tile_boxes(pos)
+    keep = [pos, cdf, start, u, scratch, boxes]
 
     def draw_other(args):
-        # (pts, start, n, count, 5 thresholds, u, count_pos, [splits,
-        #  partial,] pos_idx, stream)
-        return (*args[:11], *args[13:]) if old_m else args
-    draw_types = ([*mk.DRAW.argtypes[:11], *mk.DRAW.argtypes[13:]]
-                  if old_m else None)
+        # (pts, [boxes,] start, n, count, 3 squared + 2 integer bounds | 5
+        #  thresholds, [which,] u, counts, splits, partial, idx, stream)
+        return ((args[0], *args[2:5], *params, *args[10:]) if old_draw
+                else args)
+
+    def draw_types(kernel):
+        t = kernel.argtypes
+        return ([t[0], *t[2:5], *[ctypes.c_float] * 5, *t[10:]] if old_draw
+                else None)
 
     def mine_call():
-        return mk.mine_cuda(pos, cdf, start, MINE_CHUNK, params, u, scratch)
+        return mk.mine_cuda(pos, cdf, start, MINE_CHUNK, params, u, boxes,
+                            scratch)
 
     # S on the chunk's W₁ block at count_neg // 2 ("semi-hard"), and M's
     # counts entry ("random"), on the same chunk
@@ -361,18 +339,23 @@ def _training_cases(dev, old_m: bool, old_counts: bool = False,
     place = mk.rows_cuda(pos, cdf, start, MINE_CHUNK, params, w1,
                          scratch).count_neg // 2
 
-    def select_other(args):
-        # (x, rows, n, ld, k, out, [ctas,] stream)
-        return (*args[:6], args[7]) if old_select else args
+    # the mask draws ("random": both masks after the counts entry;
+    # "semi-hard": the positives after the rows entry, here the negatives
+    # there too), each on the partials its entry leaves in the scratch;
+    # (the draw, the counts it read), so that the counts stay alive
+    def counts_then_draw(which):
+        def call():
+            cnt = getattr(mk.counts_cuda(pos, start, MINE_CHUNK, params,
+                                         scratch), f"count_{which}")
+            return (mk.draw_cuda(pos, start, MINE_CHUNK, params, u, cnt,
+                                 which, scratch, boxes), cnt)
+        return call
 
-    def counts_other(args):
-        # (pts, start, n, count, 3 bounds, 2 gaps | 5 thresholds, splits,
-        #  partial, tickets, count_pos, count_neg, valid, stream)
-        return (*args[:4], *params, *args[9:]) if old_counts else args
-    select_types = ([*sk.KERNEL.argtypes[:6], sk.KERNEL.argtypes[7]]
-                    if old_select else None)
-    counts_types = ([*mk.COUNTS.argtypes[:4], *[ctypes.c_float] * 5,
-                     *mk.COUNTS.argtypes[9:]] if old_counts else None)
+    def rows_then_draw():
+        cnt = mk.rows_cuda(pos, cdf, start, MINE_CHUNK, params, w1,
+                           scratch).count_neg
+        return (mk.draw_cuda(pos, start, MINE_CHUNK, params, u, cnt, "neg",
+                             scratch, boxes), cnt)
 
     desc, poses, _ = synthetic_city(GRAPH_NODES)
     g = graph_to_tensors(build_graph(desc, poses, temporal_neighbors=5), dev)
@@ -391,8 +374,14 @@ def _training_cases(dev, old_m: bool, old_counts: bool = False,
     tgrad = torch.randn(4096, 800, generator=gen, device=dev)
     keep += [g, plan, g32, b16, tplan, tplan_free, tgrad, w1, place]
     cases = {
-        "mine": (mk.HARD, mine_call, hard_other, None),
-        "mine_draw": (mk.DRAW, mine_call, draw_other, draw_types),
+        "mine": (mk.HARD, mine_call, None, None),
+        "mine_draw": (mk.DRAW, mine_call, draw_other, draw_types(mk.DRAW)),
+        "mine_draw_mask": (mk.DRAW_MASK, counts_then_draw("neg"),
+                           draw_other, draw_types(mk.DRAW_MASK)),
+        "mine_draw_mask_pos": (mk.DRAW_MASK, counts_then_draw("pos"),
+                               draw_other, draw_types(mk.DRAW_MASK)),
+        "mine_draw_mask_rows": (mk.DRAW_MASK, rows_then_draw, draw_other,
+                                draw_types(mk.DRAW_MASK)),
         "gather_bwd": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
             g32, plan, GRAPH_NODES), None, None),
         "gather_bwd_bf16": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
@@ -401,11 +390,10 @@ def _training_cases(dev, old_m: bool, old_counts: bool = False,
             tgrad, tplan, GRAPH_NODES), None, None),
         "gather_bwd_triplets_no16": (gk.KERNEL, lambda: gk.gather_bwd_cuda(
             tgrad, tplan_free, GRAPH_NODES), None, None),
-        "select": (sk.KERNEL, lambda: sk.select_cuda(w1, place),
-                   select_other, select_types),
+        "select": (sk.KERNEL, lambda: sk.select_cuda(w1, place), None,
+                   None),
         "mine_counts": (mk.COUNTS, lambda: mk.counts_cuda(
-            pos, start, MINE_CHUNK, params, scratch), counts_other,
-            counts_types),
+            pos, start, MINE_CHUNK, params, scratch), None, None),
     }
     return cases, keep
 
@@ -478,9 +466,7 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     training, keep_training = {}, []
     if not cases_kept or set(cases_kept) & set(TRAINING_CASES):
         training, keep_training = _training_cases(
-            dev, other_m_abi(Path(other_csrc)),
-            other_counts_abi(Path(other_csrc)),
-            other_select_abi(Path(other_csrc)))
+            dev, other_draw_abi(Path(other_csrc)))
     cases.update(training)
     if cases_kept:
         cases = {n: c for n, c in cases.items() if n in cases_kept}

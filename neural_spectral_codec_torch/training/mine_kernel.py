@@ -31,14 +31,18 @@ the same order, +inf outside each anchor's negatives, with the counts;
 (``draw_plain``) takes the r-th member in index order of the positive or
 the negative mask, r = min(⌊u · count⌋, count − 1), 0 when the count is 0.
 On a card the draw reads the per-split counts that the entry before it
-left in the scratch (``mine_scratch``), so both take the same scratch.
+left in the scratch (``mine_scratch``), so both take the same scratch;
+in the split that holds the member it reads only the frame tiles whose
+box (``tile_boxes``, once a sequence) can hold one (``draw_gate``), in
+rounds of DRAW_WARPS tiles (``draw_rounds``).
 
-The counts entry tests no distance: ``mask_bounds`` turns the thresholds
-into bounds on the rounded sum of squares s and on the integer gap that
-give the same masks (IEEE ``sqrt`` is correctly rounded and monotone), and
-the kernel skips each (128-anchor group, 128-frame tile) whose pairs
-provably hold no positive and no negative (``tile_gate``: bounds on s
-from the two bounding boxes, in the pair test's rounded operations).
+The counts entry and the draws test no distance: ``mask_bounds`` turns
+the thresholds into bounds on the rounded sum of squares s and on the
+integer gap that give the same masks (IEEE ``sqrt`` is correctly rounded
+and monotone), and the counts entry skips each (128-anchor group,
+128-frame tile) whose pairs provably hold no positive and no negative
+(``tile_gate``: bounds on s from the two bounding boxes, in the pair
+test's rounded operations).
 """
 
 from __future__ import annotations
@@ -56,6 +60,10 @@ CTAS_PER_SM = 2            # kCtasPerSm
 TILE = 4096                # mine_plain's frames a tile
 CPU_BLOCK = 1024           # w1_in_order's rows a block on the CPU
 INT32_MAX = 2**31 - 1
+DRAW_WARPS = 2             # kDrawWarps: a draw CTA's warps (one anchor)
+DRAW_GATE = 32 * DRAW_WARPS   # kDrawGate: the tiles a draw's gate pass
+# mask_bounds' five values as the C entries take them
+_BOUNDS = [ctypes.c_float] * 3 + [ctypes.c_int] * 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,8 +76,8 @@ def _kernels() -> tuple:
         ctypes.c_int, ctypes.c_int, *[ctypes.c_float] * 5, ctypes.c_int,
         *[ctypes.c_void_p] * 7]),
         CudaKernel("nsc_mine_draw", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            *[ctypes.c_float] * 5, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, *_BOUNDS, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]))
 
@@ -77,19 +85,17 @@ def _kernels() -> tuple:
 @functools.lru_cache(maxsize=None)
 def _other_kernels() -> tuple:
     from neural_spectral_codec_torch._build import CudaKernel
-    params = [ctypes.c_float] * 5
     return (CudaKernel("nsc_mine_counts", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        *[ctypes.c_float] * 3, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        *[ctypes.c_void_p] * 6]),
+        *_BOUNDS, ctypes.c_int, *[ctypes.c_void_p] * 6]),
         CudaKernel("nsc_mine_rows", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, *params, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, *[ctypes.c_float] * 5, ctypes.c_int,
             *[ctypes.c_void_p] * 7]),
         CudaKernel("nsc_mine_draw_mask", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            *params, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, *_BOUNDS, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]))
 
 
@@ -372,6 +378,16 @@ def tile_gate(positions: torch.Tensor, start: Union[int, torch.Tensor],
     s = int(start)
     amin, amax = _boxes(positions[s:s + count], ANCHORS_PER_CTA)
     fmin, fmax = _boxes(positions, ROWS_PER_TILE)
+    s_lo, s_hi = _box_sums(amin, amax, fmin, fmax)
+    skip = (s_lo >= bounds.pos_s) & ((s_hi < bounds.neg_lo_s)
+                                     | (s_lo > bounds.neg_hi_s))
+    return ~skip
+
+
+def _box_sums(amin, amax, fmin, fmax) -> tuple:
+    """(s_lo, s_hi) (a, f): bounds on the rounded sum of squares of every
+    pair of a point in box a (rows of amin, amax) and one in box f, as
+    ``tile_gate`` describes them."""
     dlo = amin[:, None, :] - fmax[None, :, :]
     dhi = amax[:, None, :] - fmin[None, :, :]
     zero = torch.where(torch.isnan(dlo) | torch.isnan(dhi),
@@ -383,10 +399,31 @@ def tile_gate(positions: torch.Tensor, start: Union[int, torch.Tensor],
         sq = d * d
         return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
 
-    s_lo, s_hi = s_of(low), s_of(high)
-    skip = (s_lo >= bounds.pos_s) & ((s_hi < bounds.neg_lo_s)
-                                     | (s_lo > bounds.neg_hi_s))
-    return ~skip
+    return s_of(low), s_of(high)
+
+
+def tile_boxes(positions: torch.Tensor) -> torch.Tensor:
+    """(⌈n / ROWS_PER_TILE⌉, 6) float32, contiguous: each frame tile's box
+    (min x, y, z, max x, y, z; NaN in a column where the tile holds a
+    NaN), on the positions' device. The draws read it."""
+    lo, hi = _boxes(positions, ROWS_PER_TILE)
+    return torch.cat([lo, hi], dim=1).contiguous()
+
+
+def draw_gate(positions: torch.Tensor, start: Union[int, torch.Tensor],
+              count: int, bounds: MaskBounds, which: str) -> torch.Tensor:
+    """(count, frame tiles) bool: the tiles the draw over ``which``'s mask
+    reads for each anchor, as ``csrc/mine.cu`` (``skip_tile``) decides it:
+    ``tile_gate``'s bounds with the anchor's position for the anchors'
+    box; a positive draw skips a tile where s_lo ≥ pos_s, a negative one
+    where s_hi < neg_lo_s or s_lo > neg_hi_s (a NaN s_lo skips none)."""
+    s = int(start)
+    a = positions[s:s + count]
+    fmin, fmax = _boxes(positions, ROWS_PER_TILE)
+    s_lo, s_hi = _box_sums(a, a, fmin, fmax)
+    if which == "pos":
+        return ~(s_lo >= bounds.pos_s)
+    return ~((s_hi < bounds.neg_lo_s) | (s_lo > bounds.neg_hi_s))
 
 
 def gate_pairs(positions: torch.Tensor, start: Union[int, torch.Tensor],
@@ -482,6 +519,73 @@ def draw_frames(pos_idx: torch.Tensor, count_pos: torch.Tensor, n: int,
     return int(((p - first + 1) * (count_pos.cpu() > 0)).sum())
 
 
+def draw_rounds(positions: torch.Tensor, start: Union[int, torch.Tensor],
+                idx: torch.Tensor, counts: torch.Tensor,
+                params: Sequence[float], which: str, splits: int) -> dict:
+    """The draw entry's walk on a chunk's result by its design's model
+    (``idx`` drawn from ``which``'s mask, whose counts are ``counts``;
+    nothing here is read from the kernel): per anchor with a member, the
+    rounds its CTA takes (each pass of DRAW_GATE tiles of the member's
+    split lists the tiles ``draw_gate`` keeps, read DRAW_WARPS a round)
+    and the frames it reads; their mean and most, the total frames read
+    and the tiles kept before the member's, on average. Beside them the
+    work the gated function needs, for its bound: the tiles from the
+    split's first to the member's, whose boxes are tested
+    (``tiles_tested``), the frames of the kept ones up to the member
+    (``frames_needed``), and over all anchors the distinct tested tiles
+    (``tiles_touched``) and the distinct frames of the kept ones and of
+    the anchors (``frames_touched``). Every key starts with ``model_``."""
+    n = positions.shape[0]
+    s0 = int(start)
+    keep = draw_gate(positions.cpu(), s0, len(idx),
+                     mask_bounds(tuple(float(v) for v in params)),
+                     which).numpy()
+    tiles = keep.shape[1]
+    size = np.minimum(ROWS_PER_TILE, n - ROWS_PER_TILE * np.arange(tiles))
+    t_lo = np.array([tiles * s // splits for s in range(splits + 1)])
+    p = idx.cpu().numpy().astype(np.int64)
+    rounds, read, before = [], 0, []
+    tested, needed = 0, 0
+    tested_any = np.zeros(tiles, bool)     # tiles any anchor tests
+    frames = np.zeros(n, bool)             # their frames up to a member
+    has = np.flatnonzero(counts.cpu().numpy() > 0)
+    for a in has:
+        tm = p[a] // ROWS_PER_TILE
+        s = np.searchsorted(t_lo, tm, side="right") - 1
+        first = t_lo[s]
+        tested += tm - first + 1
+        tested_any[first:tm + 1] = True
+        k_up = first + np.flatnonzero(keep[a, first:tm])
+        needed += int(size[k_up].sum()) + p[a] - ROWS_PER_TILE * tm + 1
+        frames[(ROWS_PER_TILE * k_up[:, None]
+                + np.arange(ROWS_PER_TILE)).ravel()] = True
+        frames[ROWS_PER_TILE * tm:p[a] + 1] = True
+        r = 0
+        for g in range(first, t_lo[s + 1], DRAW_GATE):
+            k = g + np.flatnonzero(keep[a, g:min(g + DRAW_GATE,
+                                                 t_lo[s + 1])])
+            if tm >= g + DRAW_GATE:              # a pass read in full
+                r += -(-len(k) // DRAW_WARPS)
+                read += int(size[k].sum())
+                continue
+            at = int(np.searchsorted(k, tm))     # the member's tile's place
+            r += at // DRAW_WARPS + 1
+            read += int(size[k[:(at // DRAW_WARPS + 1) * DRAW_WARPS]].sum())
+            before.append(int(keep[a, first:tm].sum()))
+            break
+        rounds.append(r)
+    frames[s0 + has] = True                      # the anchors' positions
+    return {"model_rounds_mean": float(np.mean(rounds)) if rounds else 0.0,
+            "model_rounds_max": int(np.max(rounds)) if rounds else 0,
+            "model_frames_read": read,
+            "model_tiles_kept_mean": (float(np.mean(before)) if before
+                                      else 0.0),
+            "model_tiles_tested": int(tested),
+            "model_frames_needed": int(needed),
+            "model_tiles_touched": int(tested_any.sum()),
+            "model_frames_touched": int(frames.sum())}
+
+
 def _check(t: torch.Tensor, shape: tuple, dtype, dev, what: str) -> None:
     from neural_spectral_codec_torch._build import check_contiguous
     if tuple(t.shape) != shape or t.dtype != dtype:
@@ -498,6 +602,10 @@ def _check_cdfs(cdfs: torch.Tensor, n: int, dev) -> None:
            torch.float32, dev, "cdfs")
 
 
+def _check_boxes(boxes: torch.Tensor, n: int, dev) -> None:
+    _check(boxes, (-(-n // ROWS_PER_TILE), 6), torch.float32, dev, "boxes")
+
+
 def mine_scratch(n: int, count: int, device) -> tuple:
     """Kernel M's scratch for a (n, count) chunk on a card: the splits'
     partials (splits, count, 4) int32, which the draw entry reads after the
@@ -512,24 +620,27 @@ def mine_scratch(n: int, count: int, device) -> tuple:
 
 def mine_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
               start: torch.Tensor, count: int, params: Sequence[float],
-              u: torch.Tensor, scratch: Optional[tuple] = None) -> Mined:
+              u: torch.Tensor, boxes: torch.Tensor,
+              scratch: Optional[tuple] = None) -> Mined:
     """Launch kernel M's two entries on the card: positions (n, 3), cdfs
     (n, B), u (count,) float32 and start (1,) int32 (start + count ≤ n, read
-    on the device), all on one card; ``scratch`` is ``mine_scratch``'s
-    (allocated here when None; a caller that launches the entries again by
-    hand keeps it). Types, shapes and contiguity are checked first
-    (``ValueError``, nothing launched)."""
+    on the device), all on one card; ``boxes`` the positions'
+    ``tile_boxes``; ``scratch`` is ``mine_scratch``'s (allocated here when
+    None; a caller that launches the entries again by hand keeps it).
+    Types, shapes and contiguity are checked first (``ValueError``,
+    nothing launched)."""
     n, (partial, tickets) = _entry_checks(positions, start, count, scratch,
                                           "mine_cuda")
     dev = positions.device
     _check_cdfs(cdfs, n, dev)
     _check(u, (count,), torch.float32, dev, "u")
+    _check_boxes(boxes, n, dev)
     splits = partial.shape[0]
     i32 = torch.int32
     out = Mined(*(torch.empty(count, dtype=i32, device=dev)
                   for _ in range(4)),
                 torch.empty(count, dtype=torch.bool, device=dev))
-    p = [float(v) for v in params]
+    p = tuple(float(v) for v in params)
     hard, draw = _kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -538,20 +649,22 @@ def mine_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
              tickets.data_ptr(), out.neg_idx.data_ptr(),
              out.count_pos.data_ptr(), out.count_neg.data_ptr(),
              out.valid.data_ptr(), stream)
-        draw(positions.data_ptr(), start.data_ptr(), n, count, *p,
-             u.data_ptr(), out.count_pos.data_ptr(), splits,
-             partial.data_ptr(), out.pos_idx.data_ptr(), stream)
+        draw(positions.data_ptr(), boxes.data_ptr(), start.data_ptr(), n,
+             count, *mask_bounds(p), u.data_ptr(),
+             out.count_pos.data_ptr(), splits, partial.data_ptr(),
+             out.pos_idx.data_ptr(), stream)
     return out
 
 
 def mine(positions: torch.Tensor, cdfs: torch.Tensor, start, count: int,
-         params: Sequence[float], u: torch.Tensor,
+         params: Sequence[float], u: torch.Tensor, boxes: torch.Tensor,
          tile: int = TILE) -> Mined:
-    """Kernel M on CUDA tensors (``start`` a (1,) int32 device tensor),
-    its plain version on CPU tensors (``tile`` frames a tile)."""
+    """Kernel M on CUDA tensors (``start`` a (1,) int32 device tensor;
+    ``boxes`` as ``mine_cuda``'s), its plain version on CPU tensors
+    (``tile`` frames a tile; ``boxes`` unused there)."""
     if positions.device.type == "cpu":
         return mine_plain(positions, cdfs, start, count, params, u, tile)
-    return mine_cuda(positions, cdfs, start, count, params, u)
+    return mine_cuda(positions, cdfs, start, count, params, u, boxes)
 
 
 def _entry_checks(positions: torch.Tensor, start: torch.Tensor, count: int,
@@ -624,11 +737,13 @@ def rows_cuda(positions: torch.Tensor, cdfs: torch.Tensor,
 
 def draw_cuda(positions: torch.Tensor, start: torch.Tensor, count: int,
               params: Sequence[float], u: torch.Tensor, counts: torch.Tensor,
-              which: str, scratch: tuple) -> torch.Tensor:
+              which: str, scratch: tuple, boxes: torch.Tensor
+              ) -> torch.Tensor:
     """Launch kernel M's mask draw on the card: ``u`` (count,) float32,
     ``counts`` (count,) int32 the mask's counts and ``scratch`` as the
     entry launched before it (``counts_cuda``, ``rows_cuda`` or
-    ``mine_cuda``) left it; int32 (count,) out."""
+    ``mine_cuda``) left it; the thresholds as ``mask_bounds``, ``boxes``
+    the positions' ``tile_boxes``; int32 (count,) out."""
     if scratch is None:
         raise ValueError("draw_cuda: needs the scratch of the entry before "
                          "it")
@@ -637,11 +752,14 @@ def draw_cuda(positions: torch.Tensor, start: torch.Tensor, count: int,
     dev = positions.device
     _check(u, (count,), torch.float32, dev, "u")
     _check(counts, (count,), torch.int32, dev, "counts")
+    _check_boxes(boxes, n, dev)
     out = torch.empty(count, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _other_kernels()[2](
-            positions.data_ptr(), start.data_ptr(), n, count,
-            *[float(v) for v in params], WHICH[which], u.data_ptr(),
+            positions.data_ptr(), boxes.data_ptr(), start.data_ptr(), n,
+            count,
+            *mask_bounds(tuple(float(v) for v in params)), WHICH[which],
+            u.data_ptr(),
             counts.data_ptr(), partial.shape[0], partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
@@ -670,12 +788,14 @@ def mine_rows(positions: torch.Tensor, cdfs: torch.Tensor, start,
 
 def mine_draw(positions: torch.Tensor, start, count: int,
               params: Sequence[float], u: torch.Tensor, counts: torch.Tensor,
-              which: str, scratch: Optional[tuple] = None,
-              tile: int = TILE) -> torch.Tensor:
+              which: str, boxes: torch.Tensor,
+              scratch: Optional[tuple] = None, tile: int = TILE
+              ) -> torch.Tensor:
     """Kernel M's mask draw on CUDA tensors (after an entry that filled
-    ``scratch``), its plain version on CPU tensors."""
+    ``scratch``; ``boxes`` as ``draw_cuda``'s), its plain version on CPU
+    tensors (``boxes`` and ``scratch`` unused there)."""
     if positions.device.type == "cpu":
         return draw_plain(positions, start, count, params, u, counts, which,
                           tile)
     return draw_cuda(positions, start, count, params, u, counts, which,
-                     scratch)
+                     scratch, boxes)

@@ -62,8 +62,9 @@ class MiningExecutable(GraphStep):
     "semi-hard", kernel S) on anchors ``start .. start + c``, ``start``
     and the draws' u (``DRAWS[strategy]`` rows of c: for "random" the
     positives' first) staged each chunk (``utils/graph_exec.GraphStep``).
-    The sequence's positions and CDFs sit in a device arena
-    (``load_sequence``, once a sequence), and so does "semi-hard"'s (c, n)
+    The sequence's positions, CDFs and frame tiles' boxes (the draws'
+    ``mine_kernel.tile_boxes``) sit in a device arena (``load_sequence``,
+    once a sequence), and so does "semi-hard"'s (c, n)
     W₁ block, at a fixed address. Outputs, fetched in one download a chunk:
     int32 ``pos_idx``, ``neg_idx``, ``count_pos``, ``count_neg`` and bool
     ``valid``."""
@@ -76,7 +77,8 @@ class MiningExecutable(GraphStep):
         super().__init__(device, use_graph, POOL, STATS)
         self.chunk, self.params, self.strategy = chunk, tuple(params), strategy
         f32, i32 = torch.float32, torch.int32
-        data = [("positions", (n, 3), f32), ("cdfs", (n, bins), f32)]
+        data = [("positions", (n, 3), f32), ("cdfs", (n, bins), f32),
+                ("boxes", (-(-n // mine_kernel.ROWS_PER_TILE), 6), f32)]
         if strategy == "semi-hard":
             data.append(("w1", (chunk, n), f32))
         self.data = Arena(data, device, host=False)
@@ -90,7 +92,8 @@ class MiningExecutable(GraphStep):
 
     def load_sequence(self, positions: torch.Tensor,
                       cdfs: torch.Tensor) -> None:
-        self.load(self.data, {"positions": positions, "cdfs": cdfs})
+        self.load(self.data, {"positions": positions, "cdfs": cdfs,
+                              "boxes": mine_kernel.tile_boxes(positions)})
 
     def _kernels(self) -> tuple:
         mk = mine_kernel
@@ -112,10 +115,11 @@ class MiningExecutable(GraphStep):
 
     def _step(self) -> None:
         d, i, o = self.data.dev, self.inputs.dev, self.outputs.dev
-        pos, start, u = d["positions"], i["start"], i["u"]
+        pos, start, u, boxes = d["positions"], i["start"], i["u"], d["boxes"]
         c, prm, mk = self.chunk, self.params, mine_kernel
         if self.strategy == "hard":
-            out = mk.mine(pos, d["cdfs"], start, c, prm, u[0], tile=TILE)
+            out = mk.mine(pos, d["cdfs"], start, c, prm, u[0], boxes,
+                          tile=TILE)
             for name, value in zip(out._fields, out):
                 o[name].copy_(value)
             return
@@ -128,10 +132,10 @@ class MiningExecutable(GraphStep):
         else:
             counts = mk.mine_counts(pos, start, c, prm, scratch, tile=TILE)
             neg = mk.mine_draw(pos, start, c, prm, u[1], counts.count_neg,
-                               "neg", scratch, tile=TILE)
+                               "neg", boxes, scratch, tile=TILE)
         o["pos_idx"].copy_(mk.mine_draw(pos, start, c, prm, u[0],
-                                        counts.count_pos, "pos", scratch,
-                                        tile=TILE))
+                                        counts.count_pos, "pos", boxes,
+                                        scratch, tile=TILE))
         o["neg_idx"].copy_(neg)
         for name, value in zip(counts._fields, counts):
             o[name].copy_(value)

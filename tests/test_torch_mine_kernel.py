@@ -466,9 +466,9 @@ def test_cuda_without_a_card_raises(entry):
             60, 60, 40, TPARAMS, torch.device("cuda")),
         "mine_cuda": lambda: mine_kernel.mine(
             p.to("cuda"), c, torch.zeros(1, dtype=torch.int32), 60, TPARAMS,
-            torch.zeros(60)),
+            torch.zeros(60), mine_kernel.tile_boxes(p)),
         "mine_cuda_cpu_tensors": lambda: mine_kernel.mine_cuda(
             p, c, torch.zeros(1, dtype=torch.int32), 60, TPARAMS,
-            torch.zeros(60)),
+            torch.zeros(60), mine_kernel.tile_boxes(p)),
     }
     _no_card(calls[entry])

@@ -335,12 +335,13 @@ def test_cuda_without_a_card_raises(entry):
         "draw_cuda": lambda: mk.draw_cuda(p, st, 60, TPARAMS,
                                           torch.zeros(60), cnt, "neg", (
             torch.zeros((1, 60, 4), dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32))),
+            torch.zeros(1, dtype=torch.int32)), mk.tile_boxes(p)),
         "mine_counts": lambda: mk.mine_counts(p.to("cuda"), st, 60, TPARAMS),
         "mine_rows": lambda: mk.mine_rows(p.to("cuda"), c, st, 60, TPARAMS,
                                           torch.empty(60, 60)),
         "mine_draw": lambda: mk.mine_draw(p.to("cuda"), st, 60, TPARAMS,
-                                          torch.zeros(60), cnt, "pos"),
+                                          torch.zeros(60), cnt, "pos",
+                                          mk.tile_boxes(p)),
         "semi_hard_executable": lambda: tminer.MiningExecutable(
             60, 60, 40, TPARAMS, cuda, strategy="semi-hard"),
         "random_executable": lambda: tminer.mining_executable(
