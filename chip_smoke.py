@@ -238,19 +238,37 @@ weights and data made from seeds:
    planted queries top-1 with the spatial filter, indices equal to the
    unsharded retriever's (ties by the lower row), distances within
    1e-6 (uint16: one code), ``update_rows`` on four slabs,
-   ``exclude_last``, ``as_of_size``; query ms p50 of both. Two-stage
+   ``exclude_last``, ``as_of_size``; the sharded query through its
+   graph bit-equal to the same step run eagerly, no capture after
+   warm-up; query ms p50 of all three. Two-stage
    retrieval on the mesh loaded from phase 8's final store: every
    session keyframe's candidates equal the unsharded ones;
    ``can_fuse_serving()`` false. Training: the full-width SpectralGNN on
    a 20,000-node graph, 4096 triplets, DP and node-sharded against the
    single-device step (loss 1e-5 relative, gradients 3e-5 +
    1e-5·max|g| except the gauge biases), the sharded eval forward within
-   1e-5 and the sharded recall equal, ms per step of each; bf16: the
+   1e-5 and the sharded recall equal, ms per step of each; kernel G
+   bit-equal to its plain version and the CPU's ``index_add_`` at the
+   plans the sharded steps build (each node slab's neighbours and a DP
+   replica's into the 20,000-row transform, the triplet columns of a
+   batch and of its DP slabs, the padded batch's masked triplets left
+   out through ``valid``); the sharded
+   programs as captured graphs: DP and node-sharded, two fresh runs of 5
+   Adam steps through the graph and one eagerly (the last batch with 300
+   padded triplets) leave the same losses, parameters, BatchNorm buffers
+   and Adam state bit for bit, the first loss within 1e-5 relative of the
+   single-device step's, G's nodes in each graph from ``graph_census``
+   (24 and 15), one capture a run and none after, ms a step through the
+   graph and eagerly with the device-busy share; the sharded eval forward
+   and Recall@{1,5,10} through their graphs equal to their eager steps
+   and to one device (on one card the sharded recall is the
+   single-device one), timed; bf16: the
    step's loss and gradients float32 and finite, the forward within
    3e-2·max(|out|, 1) of float32 and 1e-2·max(|out|, 1) of the CPU's
    bf16 forward, ms per step against float32, and a bf16 ``serve_step``
    ranking its own planted embedding top-1 in an L2 database;
-   ``dryrun_multichip(4, devices=[cuda:0] * 4)``;
+   ``dryrun_multichip(4, devices=[cuda:0] * 4)``, its train step and
+   eval forward through the sharded executables;
 11. the rest of the API: ``SpectralEncoder.encode_points`` on one
    full-density scan (133,632 points, cut to its 131,072) and ``forward``
    on 8 random-order scans, each equal to ``encode_points_batch`` on the
@@ -276,7 +294,8 @@ Launch counts are set to 0 just before each path (4, each entry point of
 5, 6, each entry-point run of 7 and 7d's counted mining run of each other
 strategy, 8's one-dispatch run, its verifier
 comparison and its warm torch-verifier session, each entry-point
-run of 9, each sharded encoder call and the dry run of 10, each call and
+run of 9, each sharded encoder call, each sharded train graph's run
+and the dry run of 10, each call and
 experiment of 11) and read just after. Any failure raises
 and the script exits nonzero, printing no result. Otherwise the line
 before the last is the kernels' JSON record (launches per path and in
@@ -289,8 +308,11 @@ function for the others)
 and the last is ``{"ok": true, "device": {...}}``. Before them it
 prints every graph family's captures, replays and eager steps over the
 whole run, and the declared op-by-op paths on the card: full-graph eval
-forwards (``gnn.STATS["eager_forwards"]``) and the sharded retriever's
-queries (``retriever.STATS["sharded"]``). It needs no JAX.
+forwards (``gnn.STATS["eager_forwards"]``) and the op-by-op sharded
+programs (``sharded_op_by_op``: phase 10's comparison runs of
+``make_sharded_train_step`` and ``make_sharded_eval_step``; and
+``retriever.STATS["sharded"]``, queries over distinct cards).
+It needs no JAX.
 """
 
 from __future__ import annotations
@@ -494,6 +516,8 @@ PAR_QUERIES = 32
 PAR_NODES = 20_000             # phase 10: sharded training graph
 PAR_TRIPLETS = 4096
 PAR_STEPS = 5                  # timed steps per mode after one warm-up
+PAR_RUNS = 5                   # sharded graphs: Adam steps of a fresh run
+PAR_PADDED = 300               # padded triplets in a run's last batch
 SHARD_TOL = 1e-7               # sharded vs unsharded encoder (0 expected)
 ENTRY_CALLS = 20               # phase 11: timed calls of entry()'s fn
 OVERLAP_TOL = 1e-6             # phase 11: native voxel IoU vs numpy
@@ -4503,12 +4527,17 @@ def _sharded_retrieval(device, mesh) -> dict:
     PAR_ROWS × 800 in three modes: PAR_QUERIES planted queries (spatial
     filter MIN_DIST), ``update_rows`` on four slabs, ``exclude_last`` and
     ``as_of_size``; indices equal (ties included), distances within 1e-6
-    (uint16: one code). Returns {mode: (sharded, unsharded) query ms}."""
+    (uint16: one code); the sharded query through its graph
+    (``QueryExecutable`` over ``rank``) against the same retriever's query
+    step run eagerly, bit for bit, with no capture after warm-up and none
+    counted op by op. Returns {mode: (sharded, unsharded, sharded eager)
+    query ms}."""
     import numpy as np
     import torch
     from neural_spectral_codec_torch.parallel import (
         ShardedWassersteinRetriever)
     from neural_spectral_codec_torch.retrieval import WassersteinRetriever
+    from neural_spectral_codec_torch.retrieval import retriever as _retriever
 
     out = {}
     for i, (metric, storage) in enumerate((("wasserstein", "float32"),
@@ -4523,7 +4552,10 @@ def _sharded_retrieval(device, mesh) -> dict:
                     storage=storage),
                 WassersteinRetriever(n_bins=800, capacity=PAR_ROWS,
                                      metric=metric, storage=storage,
-                                     device=device))
+                                     device=device),
+                ShardedWassersteinRetriever(
+                    mesh, n_bins=800, capacity=PAR_ROWS, metric=metric,
+                    storage=storage, use_graph=False))
         _check(rets[0].rows_per_shard * mesh.size == PAR_ROWS,
                f"retrieval: slabs of {rets[0].rows_per_shard} rows")
         for h, pos in chunks:
@@ -4532,7 +4564,11 @@ def _sharded_retrieval(device, mesh) -> dict:
         del chunks
         kw = dict(top_k=TOP_K, query_positions=qpos,
                   spatial_min_distance=MIN_DIST)
-        (ia, da), (ib, db) = (r.query_batch(q, **kw) for r in rets)
+        (ia, da), (ib, db), (ic, dc) = (r.query_batch(q, **kw)
+                                        for r in rets)
+        _check(np.array_equal(ia, ic) and np.array_equal(da, dc),
+               f"retrieval {mode}: the sharded query graph differs from its "
+               f"eager step")
         _check(np.array_equal(ia, ib) and np.array_equal(ia[:, 0], planted)
                and float(np.abs(da - db).max()) <= tol,
                f"retrieval {mode}: sharded != unsharded or planted row not "
@@ -4544,33 +4580,47 @@ def _sharded_retrieval(device, mesh) -> dict:
                          PAR_ROWS - 1])
         for r in rets:
             r.update_rows(rows, fresh)
-        (ua, _), (ub, _) = (r.query_batch(fresh, top_k=TOP_K) for r in rets)
+        (ua, _), (ub, _), (uc, _) = (r.query_batch(fresh, top_k=TOP_K)
+                                     for r in rets)
         excl = [r.query_batch(q, top_k=TOP_K, exclude_last=30_000)[0]
                 for r in rets]
         snap = [r.query(q[5], top_k=TOP_K, as_of_size=60_000,
                         exclude_last=5)[0] for r in rets]
-        _check(np.array_equal(ua, ub) and np.array_equal(ua[:, 0], rows),
+        _check(np.array_equal(ua, ub) and np.array_equal(ua, uc)
+               and np.array_equal(ua[:, 0], rows),
                f"retrieval {mode}: update_rows")
-        _check(np.array_equal(*excl) and excl[0].max() < 70_000,
+        _check(all(np.array_equal(excl[0], e) for e in excl[1:])
+               and excl[0].max() < 70_000,
                f"retrieval {mode}: exclude_last")
-        _check(np.array_equal(*snap) and snap[0].max() < 59_995,
+        _check(all(np.array_equal(snap[0], e) for e in snap[1:])
+               and snap[0].max() < 59_995,
                f"retrieval {mode}: as_of_size")
+        captures, by_op = _retriever.STATS["captures"], \
+            _retriever.STATS["sharded"]
         ms = [_p50_ms(lambda: r.query(q[3], top_k=TOP_K,
                                       query_position=qpos[3],
                                       spatial_min_distance=MIN_DIST))
               for r in rets]
         batch_ms = [_p50_ms(lambda: r.query_batch(q, **kw), calls=5)
                     for r in rets]
+        _check(_retriever.STATS["captures"] == captures and
+               _retriever.STATS["sharded"] == by_op,
+               f"retrieval {mode}: a capture after warm-up or a query op by "
+               f"op")
         out[mode] = {"query_ms_p50": ms[0], "unsharded_query_ms_p50": ms[1],
+                     "eager_query_ms_p50": ms[2],
                      "batch_ms_p50": batch_ms[0],
-                     "unsharded_batch_ms_p50": batch_ms[1]}
+                     "unsharded_batch_ms_p50": batch_ms[1],
+                     "eager_batch_ms_p50": batch_ms[2]}
         print(f"parallel: retrieval {mode}, {PAR_ROWS} rows in "
               f"{mesh.size} slabs of {rets[0].rows_per_shard}: "
               f"{PAR_QUERIES} planted queries top-1, indices equal to the "
               f"unsharded retriever's, distances {float(np.abs(da - db).max()):.3e}"
-              f" apart; update_rows, exclude_last, as_of_size equal; one "
-              f"query p50 {ms[0]:.3f} ms (unsharded {ms[1]:.3f}), "
-              f"{PAR_QUERIES} queries {batch_ms[0]:.3f} ms (unsharded "
+              f" apart; update_rows, exclude_last, as_of_size equal; the "
+              f"graph bit-equal to its eager step; one query p50 "
+              f"{ms[0]:.3f} ms through the graph (eager {ms[2]:.3f}, "
+              f"unsharded {ms[1]:.3f}), {PAR_QUERIES} queries "
+              f"{batch_ms[0]:.3f} ms (eager {batch_ms[2]:.3f}, unsharded "
               f"{batch_ms[1]:.3f})", flush=True)
         del rets
         torch.cuda.empty_cache()
@@ -4629,6 +4679,248 @@ def _step_ms(step, steps: int = PAR_STEPS) -> float:
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
+def _sharded_run(device, mesh, mode: str, graph, base, batches,
+                 use_graph: bool) -> tuple:
+    """A fresh full-width model with ``base``'s weights, capturable Adam
+    and a dropout generator seeded as phase 10's single-device step's,
+    through ``ShardedTrainStepExecutable`` (``mode`` "dp" or "nodes") for
+    the (triplets, mask) device ``batches``: (losses, model and Adam state,
+    the executable)."""
+    import torch
+    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.parallel.train import (
+        ShardedTrainStepExecutable)
+    from neural_spectral_codec_torch.training.trainer import make_optimizer
+    model = SpectralGNN()
+    model.load_state_dict(base.state_dict())
+    model.to(device)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device=device).manual_seed(SEED + 55)
+    exe = ShardedTrainStepExecutable(
+        model, opt, mesh, mode == "nodes", graph.n_nodes, graph.max_degree,
+        graph.edge_feats.shape[2], PAR_TRIPLETS, 0.1, 1.0, False, gen,
+        use_graph)
+    exe.load_graph(graph)
+    losses = [exe.run({"triplets": t, "tmask": m}, fetch=False)[0]["loss"]
+              for t, m in batches]
+    state = [v.detach().clone() for v in model.state_dict().values()]
+    for st in opt.state_dict()["state"].values():
+        state += [v.clone() for _, v in sorted(st.items())]
+    return [float(x) for x in losses], state, exe
+
+
+def _sharded_plans(device, mesh, graph, batches) -> None:
+    """Phase 10: kernel G against its plain version and the CPU's
+    ``index_add_``, bit for bit, at the plans the sharded train steps
+    build: each node slab's neighbour gather into the PAR_NODES-row
+    transform, each DP replica's whole-graph neighbour gather, and the
+    triplet gathers of the first and the last (padded) batch, whole
+    (node-sharded) and cut into one slab a replica (DP). Every position
+    carries a random gradient; ``valid`` (the graph's mask, the triplet
+    mask) must leave the masked ones out of G's segments, so the CPU
+    sums only the valid positions."""
+    import torch
+    from neural_spectral_codec_torch.models import gather_kernel as gk
+    from neural_spectral_codec_torch.parallel.mesh import data_sharding
+    from neural_spectral_codec_torch.parallel.train import place_graph
+
+    plans = {}
+    slabs = place_graph(graph, mesh, True)
+    whole = place_graph(graph, mesh, False)[0]
+    for name, g in ([(f"node slab {s}", g) for s, g in enumerate(slabs)]
+                    + [("DP replica", whole)]):
+        plans[f"{name} neighbours"] = (g.neighbors.reshape(-1),
+                                       g.mask.reshape(-1), 256)
+    for name, (t, m) in (("first", batches[0]), ("padded last",
+                                                 batches[-1])):
+        for j, col in enumerate(("anchor", "positive", "negative")):
+            plans[f"{name} batch's {col}s"] = (t[:, j], m, 800)
+            for k, (_, sl) in enumerate(data_sharding(mesh, len(t))):
+                plans[f"{name} batch's DP slab {k} {col}s"] = (
+                    t[sl, j], m[sl], 800)
+    gen = torch.Generator(device=device).manual_seed(SEED + 59)
+    left_out = 0
+    for name, (idx, valid, width) in plans.items():
+        plan = gk.make_plan(idx, PAR_NODES, valid)
+        grad = torch.randn(idx.numel(), width, generator=gen, device=device)
+        got = gk.gather_bwd_cuda(grad, plan, PAR_NODES)
+        keep = valid.cpu()
+        want = torch.zeros(PAR_NODES, width).index_add_(
+            0, idx.cpu()[keep], grad.cpu()[keep])
+        _check(torch.equal(got, gk.gather_bwd_plain(grad, plan, PAR_NODES))
+               and torch.equal(got.cpu(), want),
+               f"gather_bwd kernel != plain version / CPU index_add_ on the "
+               f"sharded step's {name} plan")
+        left_out += int((~keep).sum())
+    print(f"parallel: gather_bwd bit-equal to the plain version and the "
+          f"CPU's index_add_ over the valid positions at the sharded "
+          f"steps' {len(plans)} plans into {PAR_NODES} rows ({len(slabs)} "
+          f"node slabs' and a DP replica's neighbours; the first and the "
+          f"padded last batch's triplet columns, whole and in "
+          f"{mesh.size} DP slabs); {left_out} masked positions with a "
+          f"random gradient left out", flush=True)
+
+
+def _sharded_graphs(device, mesh, graph, base, tri, mask) -> tuple:
+    """Phase 10: the DP and node-sharded train steps through their
+    captured graphs (``parallel.train.ShardedTrainStepExecutable``):
+    first kernel G at the plans those steps build (``_sharded_plans``);
+    then each step against its eager step and two fresh runs against each
+    other: PAR_RUNS Adam steps (the last batch with PAR_PADDED padded
+    triplets) leave the same losses, parameters, BatchNorm buffers and
+    Adam state, bit for bit; the first loss within 1e-5 relative of the
+    single-device step's from the same weights and generator; G's nodes
+    in each graph from ``graph_census``; one capture a run and none after
+    it; ms a step through the graph and eagerly with the device-busy
+    share. Returns
+    ({mode: timings}, G's launches in the counted graph runs)."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.parallel_profile import (
+        _profile)
+    from neural_spectral_codec_torch.keyframe.graph import graph_to_tensors
+    from neural_spectral_codec_torch.models import SpectralGNN
+    from neural_spectral_codec_torch.training import trainer as trmod
+    from neural_spectral_codec_torch.training.trainer import (
+        make_optimizer, train_step)
+
+    rng = np.random.default_rng(SEED + 58)
+    batches = [(tri, mask)] + [
+        (torch.from_numpy(rng.integers(0, PAR_NODES, (PAR_TRIPLETS, 3))).to(
+            device), mask.clone()) for _ in range(PAR_RUNS - 1)]
+    batches[-1][1][PAR_TRIPLETS - PAR_PADDED:] = False
+    batches[-1][0][PAR_TRIPLETS - PAR_PADDED:] = 0
+    _sharded_plans(device, mesh, graph, batches)
+    model = SpectralGNN()
+    model.load_state_dict(base.state_dict())
+    model.to(device)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device=device).manual_seed(SEED + 55)
+    g1 = graph_to_tensors(graph, device)
+    single = [float(train_step(model, opt, g1, t[:, 0], t[:, 1], t[:, 2], m,
+                               0.1, generator=gen)) for t, m in batches]
+    del model, opt, g1
+    timings, launches = {}, None
+    for mode in ("dp", "nodes"):
+        before = dict(trmod.STATS)
+        (la, sa, ea), counts = _counted(lambda: _sharded_run(
+            device, mesh, mode, graph, base, batches, True))
+        captures = trmod.STATS["captures"] - before["captures"]
+        replays = trmod.STATS["replays"] - before["replays"]
+        launches = counts if launches is None else {
+            k: v + counts[k] for k, v in launches.items()}
+        lb, sb, _ = _sharded_run(device, mesh, mode, graph, base, batches,
+                                 True)
+        lc, sc, ec = _sharded_run(device, mesh, mode, graph, base, batches,
+                                  False)
+        census = ea.census
+        same_runs = la == lb and all(torch.equal(a, b)
+                                     for a, b in zip(sa, sb))
+        same_eager = la == lc and all(torch.equal(a, c)
+                                      for a, c in zip(sa, sc))
+        rel = abs(la[0] - single[0]) / abs(single[0])
+        drift = max(abs(a - b) / abs(b) for a, b in zip(la, single))
+        print(f"parallel: {mode} train graph on {mesh}, {PAR_NODES} nodes, "
+              f"{PAR_RUNS} Adam steps (last batch {PAR_PADDED} padded): "
+              f"captured in {ea.capture_s:.3f} s, {census['nodes']} nodes "
+              f"({census['kernels']} kernels, {census['memcpy']} copies, "
+              f"{census['memset']} memsets), G nodes {census['gather_bwd']}"
+              f" (want {ea.gathers()}); captures {captures}, replays "
+              f"{replays}; G launches {counts['gather_bwd']}; losses "
+              f"{la}; graph = eager bit for bit {same_eager}, two fresh "
+              f"graph runs bit-equal {same_runs}; first loss {rel:.3e} "
+              f"relative from the single-device step's (later steps "
+              f"{drift:.3e})", flush=True)
+        _check(census["gather_bwd"] == ea.gathers() and captures == 1
+               and replays == PAR_RUNS - 1
+               and counts["gather_bwd"] == PAR_RUNS * ea.gathers(),
+               f"{mode} train graph: census {census['gather_bwd']}, "
+               f"captures {captures}, replays {replays}, launches "
+               f"{counts['gather_bwd']}")
+        _check(same_runs and same_eager and rel <= 1e-5,
+               f"{mode} train graph: runs equal {same_runs}, eager equal "
+               f"{same_eager}, first loss {rel:.3e} from one device")
+        t = {}
+        for name, exe in (("graph", ea), ("eager", ec)):
+            before = trmod.STATS["captures"]
+            t[name] = _profile(lambda: exe.run(
+                {"triplets": tri, "tmask": mask}, fetch=False))
+            _check(trmod.STATS["captures"] == before,
+                   f"{mode} train {name}: a capture after warm-up")
+        timings[mode] = t
+        print(f"parallel: {mode} train ms a step, graph "
+              f"{t['graph']['wall_ms']:.3f} (device "
+              f"{t['graph']['device_ms']:.3f}, busy "
+              f"{t['graph']['busy_share']:.3f}, "
+              f"{t['graph']['ops']:.0f} ops), eager "
+              f"{t['eager']['wall_ms']:.3f} (device "
+              f"{t['eager']['device_ms']:.3f}, busy "
+              f"{t['eager']['busy_share']:.3f}, {t['eager']['ops']:.0f} "
+              f"ops)", flush=True)
+        del ea, ec, sa, sb, sc
+        torch.cuda.empty_cache()
+    return timings, launches
+
+
+def _sharded_eval_recall(device, mesh, model, emb_1, graph, poses) -> dict:
+    """Phase 10: the node-sharded eval forward (``ShardedEvalExecutable``)
+    and the sharded Recall@{1,5,10} (on a one-device mesh the
+    single-device ``RecallExecutable``) through their graphs against
+    their eager steps (bit for bit, counts equal) and the single-device
+    forward (1e-5) and recall (equal); no capture on a second call; wall
+    ms of each."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.models import gnn
+    from neural_spectral_codec_torch.parallel.train import (
+        ShardedEvalExecutable)
+    from neural_spectral_codec_torch.training import validation
+    from neural_spectral_codec_torch.training.validation import recall_at_ks
+
+    args = (model, mesh, True, graph.n_nodes, graph.max_degree,
+            graph.edge_feats.shape[2])
+    embs, out = {}, {}
+    for use_graph in (True, False):
+        exe = ShardedEvalExecutable(*args, use_graph)
+        embs[use_graph] = exe.run(graph._asdict())[0]["emb"]
+        before = gnn.STATS["captures"]
+        out[f"eval_ms_{'graph' if use_graph else 'eager'}"] = _p50_ms(
+            lambda: exe.run(graph._asdict()), calls=5)
+        _check(gnn.STATS["captures"] == before and
+               (exe.graph is not None) == use_graph,
+               "sharded eval: a capture after warm-up")
+        del exe
+    err = float(np.abs(embs[True] - emb_1.cpu().numpy()).max())
+    _check(np.array_equal(embs[True], embs[False]) and err <= 1e-5,
+           f"sharded eval graph: eager equal "
+           f"{np.array_equal(embs[True], embs[False])}, {err:.3e} from one "
+           f"device")
+    emb = emb_1.cpu().numpy()
+    recall = {}
+    for name, kw in (("graph", dict(mesh=mesh)),
+                     ("eager", dict(mesh=mesh, use_graph=False)),
+                     ("single", dict(device=device))):
+        recall_at_ks(emb, poses, (1, 5, 10), **kw)
+        before = validation.STATS["captures"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recall[name] = recall_at_ks(emb, poses, (1, 5, 10), **kw)
+        out[f"recall_s_{name}"] = time.perf_counter() - t0
+        _check(validation.STATS["captures"] == before,
+               f"sharded recall {name}: a capture on the second call")
+    _check(recall["graph"] == recall["eager"] == recall["single"],
+           f"sharded recall: {recall}")
+    validation.clear_cache()
+    print(f"parallel: sharded eval graph on {mesh}: bit-equal to its eager "
+          f"step, {err:.3e} from one device, p50 ms graph "
+          f"{out['eval_ms_graph']:.3f}, eager {out['eval_ms_eager']:.3f}; "
+          f"sharded Recall@1/5/10 {recall['graph']} equal through the "
+          f"graph, eagerly and on one device; wall s graph "
+          f"{out['recall_s_graph']:.4f}, eager {out['recall_s_eager']:.4f},"
+          f" one device {out['recall_s_single']:.4f}", flush=True)
+    return out
+
+
 def _sharded_training(device, mesh) -> dict:
     """Phase 10: the full-width SpectralGNN on a PAR_NODES-node graph with
     PAR_TRIPLETS triplets, DP and node-sharded on ``mesh`` against the
@@ -4636,8 +4928,10 @@ def _sharded_training(device, mesh) -> dict:
     within 1e-5 relative, each gradient within 3e-5 + 1e-5·max|g|
     (tests/test_parallel.py's bar) except the gauge biases (true gradient
     0: rounding noise on both sides, as in phase 7a); the sharded eval
-    forward within 1e-5, the sharded recall equal; then bf16. Returns ms
-    per step by mode."""
+    forward within 1e-5, the sharded recall equal; then the sharded
+    programs through their graphs (``_sharded_graphs``,
+    ``_sharded_eval_recall``); then bf16. Returns (ms per step by mode
+    and the graphs' timings, G's launches in the counted graph runs)."""
     import numpy as np
     import torch
     from neural_spectral_codec_torch.experiments.scale_100k import (
@@ -4721,6 +5015,10 @@ def _sharded_training(device, mesh) -> dict:
           flush=True)
     _check(eval_err <= 1e-5 and rm == r1 and rm[1] > 0,
            f"sharded eval {eval_err:.3e}, recall {rm} vs {r1}")
+    del emb_sh
+    ms["graphs"], launches = _sharded_graphs(device, mesh, graph, base, tri,
+                                             mask)
+    ms.update(_sharded_eval_recall(device, mesh, model, emb_1, graph, poses))
 
     # -- bf16: the same step and forward with mixed precision ------------
     m16, step16 = make("single", None, torch.bfloat16)
@@ -4747,7 +5045,7 @@ def _sharded_training(device, mesh) -> dict:
            and err32 <= 3e-2 * scale and err_cpu <= 1e-2 * scale,
            f"bf16: loss {float(loss16)}, grads {grads_ok}, forward "
            f"{err32:.3e} / {err_cpu:.3e}")
-    return ms
+    return ms, launches
 
 
 def _bf16_serving(device) -> None:
@@ -4815,7 +5113,9 @@ def _parallel(device, store: Path) -> dict:
     mesh = meshes[0][1]
     query_ms = _sharded_retrieval(device, mesh)
     _sharded_two_stage(device, mesh, store)
-    step_ms = _sharded_training(device, mesh)
+    step_ms, by_path["parallel_train"] = _sharded_training(device, mesh)
+    _check(by_path["parallel_train"]["gather_bwd"] > 0,
+           f"phase 10: G never launched {by_path['parallel_train']}")
     _bf16_serving(device)
     out, by_path["dryrun"] = _counted(lambda: dryrun_multichip(
         PAR_SHARDS, devices=[device] * PAR_SHARDS))
@@ -5560,9 +5860,10 @@ def main() -> None:
           f"sessions lost a marker and were repeated; "
           f"{timing_mod.LOST_LEAD_IN} lead-in records lost; lead-in now "
           f"{timing_mod.LEAD_IN} kernels", flush=True)
-    # eager_steps: the comparison runs (use_graph off); eager_forwards and
-    # sharded: the declared op-by-op paths (full-graph eval forwards, the
-    # sharded retriever's queries)
+    # eager_steps: the comparison runs (use_graph off); eager_forwards,
+    # sharded and sharded_op_by_op: the declared op-by-op paths (full-graph
+    # eval forwards; the op-by-op sharded programs, here phase 10's
+    # comparison runs)
     from neural_spectral_codec_torch.training import (
         miner, trainer, validation)
     counts = {"serving": serving_mod.STATS,

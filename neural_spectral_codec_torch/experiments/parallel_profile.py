@@ -5,9 +5,11 @@ against device time, on four logical shards by default.
         [--nodes 20000] [--shards 4] [--rows 100000] [--json out.json]
 
 For a 4096-triplet train step of the full-width SpectralGNN on a
-``--nodes`` graph (``scale_100k.synthetic_city``) single-device, bf16,
-DP and node-sharded over ``Mesh([cuda:0] * shards)``, and for one W₁
-query against ``--rows`` × 800 rows, unsharded and row-sharded: the host
+``--nodes`` graph (``scale_100k.synthetic_city``) single-device and bf16
+(``train_step``, op by op), DP and node-sharded over ``Mesh([cuda:0] *
+shards)`` (``ShardedTrainStepExecutable``, a captured graph), and for one
+W₁ query against ``--rows`` × 800 rows, unsharded and row-sharded (each
+through its query graph): the host
 clock per call (5 calls after one warm-up, synchronised) and, from
 ``torch.profiler`` over 3 calls, the device time and the number of device
 operations per call, and their ratio, the device's busy share. Then the
@@ -51,8 +53,9 @@ def run(nodes: int = 20_000, shards: int = 4, rows: int = 100_000,
         build_graph, graph_to_tensors)
     from neural_spectral_codec_torch.models import SpectralGNN
     from neural_spectral_codec_torch.parallel import (
-        Mesh, ShardedWassersteinRetriever, make_sharded_train_step)
-    from neural_spectral_codec_torch.parallel.train import place_graph
+        Mesh, ShardedWassersteinRetriever)
+    from neural_spectral_codec_torch.parallel.train import (
+        ShardedTrainStepExecutable)
     from neural_spectral_codec_torch.retrieval import WassersteinRetriever
     from neural_spectral_codec_torch.retrieval.retriever import smallest_k
     from neural_spectral_codec_torch.training.trainer import (
@@ -83,13 +86,14 @@ def run(nodes: int = 20_000, shards: int = 4, rows: int = 100_000,
                 return train_step(model, opt, g1, tri[:, 0], tri[:, 1],
                                   tri[:, 2], mask, 0.1, generator=gen)
         else:
-            placed = place_graph(graph, mesh, mode == "nodes")
-            step = make_sharded_train_step(model, opt, mesh,
-                                           shard_nodes=mode == "nodes")
+            exe = ShardedTrainStepExecutable(
+                model, opt, mesh, mode == "nodes", nodes, graph.max_degree,
+                graph.edge_feats.shape[2], len(tri), 0.1, 1.0, False, gen)
+            exe.load_graph(graph)
 
             def fn():
-                return step(placed, tri[:, 0], tri[:, 1], tri[:, 2], mask,
-                            0.1, gen)
+                return exe.run({"triplets": tri, "tmask": mask},
+                               fetch=False)[0]["loss"]
         out[f"train_{mode}"] = _profile(fn)
         log(f"train_{mode}: {json.dumps(out[f'train_{mode}'])}")
 

@@ -55,19 +55,47 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int,
         t.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
 
 
+class KeepDraws:
+    """The dropout keep masks of one train forward, in the order it draws
+    them. A forward given an empty ``KeepDraws`` draws and records each
+    mask; one given its ``replay()`` takes them back in that order and
+    draws nothing. So data-parallel replicas drop what the first replica
+    dropped and the generator advances once a step, with no host-side
+    generator state, which a CUDA graph could not hold."""
+
+    def __init__(self, masks: Optional[List[torch.Tensor]] = None):
+        self.masks = [] if masks is None else masks
+        self._replaying = masks is not None
+        self._next = 0
+
+    def replay(self) -> "KeepDraws":
+        return KeepDraws(self.masks)
+
+    def take(self, shape: tuple, p: float, device: torch.device,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self._replaying:
+            self._next += 1
+            return self.masks[self._next - 1]
+        keep = torch.rand(shape, generator=generator, device=device) >= p
+        self.masks.append(keep)
+        return keep
+
+
 def _keep_masks(sizes: Sequence[int], devices: Sequence[torch.device],
                 width: int, p: float, training: bool,
-                generator: Optional[torch.Generator]
+                generator: Optional[torch.Generator],
+                draws: Optional[KeepDraws] = None
                 ) -> Optional[List[torch.Tensor]]:
     """Flax ``nn.Dropout``'s keep masks (keep with probability 1 − p) for
     node slabs of ``sizes`` rows on ``devices``, or None when nothing is
     dropped. One (Σ sizes, width) draw on the first slab's device from
     ``generator`` (the global generator when None), cut into the slabs'
-    rows: slabs draw the bits one graph would draw."""
+    rows: slabs draw the bits one graph would draw. ``draws`` records the
+    draw, or hands back a recorded one instead."""
     if not training or p == 0.0:
         return None
-    keep = torch.rand((sum(sizes), width), generator=generator,
-                      device=devices[0]) >= p
+    keep = (KeepDraws() if draws is None else draws).take(
+        (sum(sizes), width), p, devices[0], generator)
     return [k.to(d) for k, d in zip(keep.split(list(sizes)), devices)]
 
 
@@ -308,10 +336,12 @@ class SpectralGNN(nn.Module):
     def forward(self, features: torch.Tensor, neighbors: torch.Tensor,
                 mask: torch.Tensor, edge_feats: Optional[torch.Tensor] = None,
                 return_attention: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """``generator`` draws the dropout masks in train mode."""
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[KeepDraws] = None):
+        """``generator`` draws the dropout masks in train mode; ``draws``
+        records them, or hands back recorded ones (``KeepDraws``)."""
         out, attentions = self.forward_slabs(
-            [features], [neighbors], [mask], [edge_feats], generator)
+            [features], [neighbors], [mask], [edge_feats], generator, draws)
         if return_attention:
             return out[0], [a[0] for a in attentions]
         return out[0]
@@ -320,13 +350,15 @@ class SpectralGNN(nn.Module):
                       neighbors: List[torch.Tensor],
                       masks: List[torch.Tensor],
                       edge_feats: List[Optional[torch.Tensor]],
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[KeepDraws] = None):
         """The forward over contiguous node slabs, each on its own device
         (one slab: the whole graph), its rows' ``neighbors`` holding
         global node indices; returns (embeddings, attentions) per slab.
         Each layer's (n, C) transform is all-gathered onto every slab's
         device for the neighbour gather; BatchNorm takes the statistics
-        of all slabs; dropout draws what one graph would draw; the
+        of all slabs; dropout draws what one graph would draw (through
+        ``draws`` when given); the
         parameters are replicated by differentiable copies, so a backward
         sums every slab's gradient into them."""
         dt = self.compute_dtype
@@ -341,7 +373,8 @@ class SpectralGNN(nn.Module):
             h = [gat.transform(v) for v in x]
             h_all = _all_gathered(h)
             keep = _keep_masks(sizes, devices, neighbors[0].shape[1] + 1,
-                               gat.attn_dropout, self.training, generator)
+                               gat.attn_dropout, self.training, generator,
+                               draws)
             outs = [gat.attend(h[s], h_all[s], neighbors[s], masks[s],
                                edge_feats[s], keep and keep[s])
                     for s in range(len(h))]
@@ -349,7 +382,8 @@ class SpectralGNN(nn.Module):
             x = bn.forward_slabs([o for o, _ in outs])
             if i < self.n_layers - 1:
                 keep = _keep_masks(sizes, devices, x[0].shape[1],
-                                   self.dropout, self.training, generator)
+                                   self.dropout, self.training, generator,
+                                   draws)
                 x = [_dropped(F.relu(v), keep and keep[s], self.dropout)
                      for s, v in enumerate(x)]
             if self.residual and 0 < i < self.n_layers - 1:
@@ -430,7 +464,11 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
 
 
 POOL = SharedPool()     # every eval graph of a device: one memory pool
-STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "eager_forwards": 0}
+# sharded_op_by_op: calls of ``parallel.train.make_sharded_eval_step``'s
+# op-by-op forward (the trainer's over distinct cards, and any direct
+# caller)
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "eager_forwards": 0,
+         "sharded_op_by_op": 0}
 _CACHE = ExecutableCache()
 
 

@@ -9,7 +9,8 @@
   * ``retrieval.py``: the row-sharded W₁ database (local top-k per slab,
     a global top-k of the gathered candidates);
   * ``train.py``: data-parallel and node-sharded train steps and the
-    sharded eval forward;
+    sharded eval forward, and their executables (one CUDA graph each on
+    a mesh of one card);
   * ``dryrun.py``: ``dryrun_multichip``, one pass over all of the above.
 """
 

@@ -9,7 +9,10 @@ general and ring encoders (the ring one equal to the unsharded encoder),
 one full-width node-sharded train step, the node-sharded eval forward
 and the query-sharded recall (both equal to the single-device pass), and
 the row-sharded W₁ query in float32 and uint16 storage and the L2 query
-after a row refresh. Every check raises on failure.
+after a row refresh. Every check raises on failure. On a one-device
+mesh the train step and the eval forward run as the trainer runs them,
+through ``ShardedTrainStepExecutable`` and ``ShardedEvalExecutable``
+(on a card captured graphs); over distinct cards op by op.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda",
     from neural_spectral_codec_torch.parallel.encode import (
         make_sharded_ring_encoder)
     from neural_spectral_codec_torch.parallel.train import (
+        ShardedEvalExecutable, ShardedTrainStepExecutable,
         make_sharded_eval_step, place_graph)
     from neural_spectral_codec_torch.training.trainer import make_optimizer
     from neural_spectral_codec_torch.training.validation import (
@@ -100,18 +104,29 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda",
     n_nodes = 2 * n_devices
     graph = _example_graph(n_nodes, rng)
     model = SpectralGNN(generator=torch.Generator().manual_seed(0)).to(dev0)
-    step = make_sharded_train_step(model, make_optimizer(model), mesh,
-                                   shard_nodes=True)
+    opt = make_optimizer(model)
     tri = torch.from_numpy(rng.integers(0, n_nodes, (2 * n_devices, 3)))
+    tmask = torch.ones(len(tri), dtype=torch.bool)
     gen = torch.Generator(device=dev0).manual_seed(1)
-    loss = float(step(place_graph(graph, mesh, True), tri[:, 0], tri[:, 1],
-                      tri[:, 2], torch.ones(len(tri), dtype=torch.bool),
-                      0.1, gen))
+    shape = (n_nodes, graph.max_degree, graph.edge_feats.shape[2])
+    if mesh.one_device:
+        exe = ShardedTrainStepExecutable(model, opt, mesh, True, *shape,
+                                         len(tri), 0.1, 1.0, False, gen)
+        exe.load_graph(graph)
+        loss = float(exe.run({"triplets": tri, "tmask": tmask})[0]["loss"])
+    else:
+        step = make_sharded_train_step(model, opt, mesh, shard_nodes=True)
+        loss = float(step(place_graph(graph, mesh, True), tri[:, 0],
+                          tri[:, 1], tri[:, 2], tmask, 0.1, gen))
     _check(np.isfinite(loss), f"non-finite training loss: {loss}")
 
     # -- node-sharded eval and query-sharded recall == one device ---------
-    emb_sh = make_sharded_eval_step(model, mesh, shard_nodes=True)(
-        place_graph(graph, mesh, True)).cpu().numpy()
+    if mesh.one_device:
+        emb_sh = ShardedEvalExecutable(model, mesh, True, *shape).run(
+            graph._asdict())[0]["emb"]
+    else:
+        emb_sh = make_sharded_eval_step(model, mesh, shard_nodes=True)(
+            place_graph(graph, mesh, True)).cpu().numpy()
     emb_1d = gnn_forward(model.eval(),
                          graph_to_tensors(graph, dev0)).cpu().numpy()
     _check(np.allclose(emb_sh, emb_1d, rtol=1e-5, atol=1e-6),

@@ -42,6 +42,14 @@ class Mesh:
     def shape(self) -> dict:
         return {"data": self.size}
 
+    @property
+    def one_device(self) -> bool:
+        """Whether every shard is on one device (``Mesh([cuda:0] * 4)``,
+        the CPU test meshes). Then a sharded program runs on one stream,
+        so on a card it is one captured CUDA graph; over distinct cards
+        it runs op by op."""
+        return len(set(self.devices)) == 1
+
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
 

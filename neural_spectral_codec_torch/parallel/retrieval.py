@@ -11,6 +11,17 @@ answer: the candidates lie in shard-major order, and both top-k levels
 order equal distances by position (``retriever.smallest_k``), so equal
 distances come out by the lower global row, as the unsharded retriever
 and JAX's ``lax.top_k`` order them.
+
+JAX's query is one jitted ``shard_map`` (parallel/retrieval.py:67-72).
+On a one-device mesh (``Mesh([cuda:0] * 4)``) ``query`` and
+``query_batch`` run ``retriever.QueryExecutable`` with ``rank`` as its
+step: the queries, filters and effective size in one upload, each slab's
+local size a device clamp of that size, the (Q, k) answer in one
+download; on a card one captured CUDA graph, replayed under the
+retriever's lock (``warm_query`` captures it, as ``pipeline.warmup``
+asks). Over distinct cards a query spans several devices' streams and
+runs op by op, counted in ``retriever.STATS["sharded"]``. Inserts and
+``update_rows`` are in-place copies into the slabs: nothing to capture.
 """
 
 from __future__ import annotations
@@ -30,18 +41,28 @@ class ShardedWassersteinRetriever(WassersteinRetriever):
     """``WassersteinRetriever`` with its rows sharded over ``mesh``: the
     same insert, update and query surface (float32 or uint16 storage, W₁
     or L2), the same lock. ``device`` is ``mesh.devices[0]``, where
-    inputs are encoded and answers are merged."""
+    inputs are encoded and answers are merged. ``use_graph`` False runs
+    the query step eagerly on a card (the comparison path)."""
 
     def __init__(self, mesh: Mesh, n_bins: int = 800,
                  capacity: int = 100_000, epsilon: float = 1e-8,
-                 metric: str = "wasserstein", storage: str = "float32"):
+                 metric: str = "wasserstein", storage: str = "float32",
+                 use_graph: bool = True):
         self.mesh = mesh
         self.n_devices = mesh.size
         self.rows_per_shard = -(-capacity // self.n_devices)
         super().__init__(n_bins=n_bins,
                          capacity=self.rows_per_shard * self.n_devices,
                          epsilon=epsilon, metric=metric, storage=storage,
-                         device=mesh.devices[0])
+                         device=mesh.devices[0], use_graph=use_graph)
+
+    def buffer_key(self) -> tuple:
+        """The query step's specialisation: the base key's terms over
+        every slab's buffers."""
+        return (id(self), self.metric, self.storage, self.epsilon,
+                tuple(r.data_ptr() for r in self._slab_rows),
+                tuple(p.data_ptr() for p in self._slab_pos),
+                self.rows_per_shard, self._row_dtype)
 
     def _allocate(self) -> None:
         self._slab_rows: List[torch.Tensor] = [
@@ -97,16 +118,19 @@ class ShardedWassersteinRetriever(WassersteinRetriever):
                             rows[torch.from_numpy(sel).to(rows.device)])
 
     def rank(self, queries: torch.Tensor, filters: torch.Tensor, top_k: int,
-             eff_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+             eff_size) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local ranking on every slab, then the global top-k of their
-        (Q, n_shards · k) candidates on ``mesh.devices[0]``."""
+        (Q, n_shards · k) candidates on ``mesh.devices[0]``. ``eff_size``
+        (an int, or the query step's staged 0-d int64) is clamped into
+        each slab on the device."""
         k = int(min(top_k, self.capacity))
         r = self.rows_per_shard
         idx, dist = [], []
         with self._buffer_lock:
             for s, (rows, pos) in enumerate(zip(self._slab_rows,
                                                 self._slab_pos)):
-                local = min(max(eff_size - s * r, 0), r)
+                local = (torch.as_tensor(eff_size, device=rows.device)
+                         - s * r).clamp(0, r)
                 i, d = query_math(rows, pos, local, queries.to(rows.device),
                                   filters.to(rows.device), min(k, r),
                                   self.metric, self.epsilon)
@@ -117,9 +141,13 @@ class ShardedWassersteinRetriever(WassersteinRetriever):
 
     def _ranked(self, queries, filters: np.ndarray, top_k: int,
                 eff_size: int) -> Tuple[np.ndarray, np.ndarray]:
-        """``query`` and ``query_batch`` rank through ``rank``, op by op
-        (no query graph spans the slabs' devices; counted as
+        """``query`` and ``query_batch`` rank through the query step
+        (``retriever.QueryExecutable`` over ``rank``) on a one-device
+        mesh; over distinct cards through ``rank`` op by op (no graph
+        spans the slabs' devices; counted as
         ``retriever.STATS["sharded"]``)."""
+        if self.mesh.one_device:
+            return super()._ranked(queries, filters, top_k, eff_size)
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         f = torch.from_numpy(filters).to(self.device)
         idx, dist = self.rank(q, f, top_k, eff_size)

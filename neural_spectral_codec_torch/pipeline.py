@@ -483,7 +483,9 @@ class NeuralSpectralCodecPipeline:
         encode once at B=1, then replay a short session on a scratch graph
         manager (loop edges included) through the executable the hot path
         runs, at every padded bucket it reaches, every smaller one it
-        skips and one bucket beyond, and run the stage-1 query once. With one-dispatch serving
+        skips and one bucket beyond, and run the stage-1 query once (a
+        row-sharded database on one card: its sharded query step, so no
+        query graph is captured mid-stream either). With one-dispatch serving
         (``deployment.fused_query``) that executable is the serving step,
         built (on a card: captured) by scratch executions that leave the
         database as it was (``LocalUpdateGNN.warm_serve``); with

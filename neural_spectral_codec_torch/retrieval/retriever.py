@@ -132,6 +132,7 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size,
 
 
 POOL = SharedPool()     # every query graph of a device: one memory pool
+# sharded: queries of a row-sharded retriever over distinct cards, op by op
 STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "sharded": 0}
 _CACHE = ExecutableCache()
 
@@ -140,9 +141,11 @@ class QueryExecutable(GraphStep):
     """The stage-1 query at one (Q, k) against one retriever's buffers:
     (Q, n_bins) float32 queries, (Q, 4) filters and the effective size (a
     0-d int64) in, (Q, k) int64 indices and float32 distances out
-    (``utils/graph_exec.GraphStep``). The step reads the rows, positions,
-    their int16 view and ``_dequant_scale`` by address: a replaced buffer
-    (``clear_database``) gets another executable (``query_executable``)."""
+    (``utils/graph_exec.GraphStep``). The step is the retriever's
+    ``rank`` (a ``parallel.ShardedWassersteinRetriever``'s runs over its
+    row slabs). It reads the rows, positions, their int16 view and
+    ``_dequant_scale`` by address: a replaced buffer (``clear_database``)
+    gets another executable (``query_executable``)."""
 
     def __init__(self, retriever: "WassersteinRetriever", n_queries: int,
                  top_k: int, use_graph: bool = True):
@@ -161,9 +164,8 @@ class QueryExecutable(GraphStep):
         ret = self._retriever()
         i, o = self.inputs.dev, self.outputs.dev
         with torch.no_grad():
-            idx, dist = query_math(ret._db_rows, ret._db_pos, i["size"],
-                                   i["queries"], i["filters"], self.top_k,
-                                   ret.metric, ret.epsilon)
+            idx, dist = ret.rank(i["queries"], i["filters"], self.top_k,
+                                 i["size"])
             o["idx"].copy_(idx)
             o["dist"].copy_(dist)
 

@@ -28,6 +28,8 @@ and Adam), replayed each step; the graph's arrays sit in a device arena
 for the run and each step copies its triplets and mask into static
 buffers. ``embed`` runs the eval forward as one ``gnn.EvalExecutable``
 graph of the graph's own size, validation its two scans as graphs too.
+On a one-device mesh the sharded step and forward are such graphs too
+(``parallel.train``); over distinct cards they run op by op.
 """
 
 from __future__ import annotations
@@ -60,7 +62,10 @@ from neural_spectral_codec_torch.utils.graph_exec import (
 logger = logging.getLogger(__name__)
 
 POOL = SharedPool()     # every train-step graph of a device: one memory pool
-STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
+# sharded_op_by_op: calls of ``parallel.train.make_sharded_train_step``'s
+# op-by-op step (the trainer's over distinct cards, and any direct caller)
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0,
+         "sharded_op_by_op": 0}
 
 
 def make_optimizer(model: torch.nn.Module, learning_rate: float = 5e-4,
@@ -177,10 +182,15 @@ class TrainStepExecutable(GraphStep):
         gen = self.generator
         return (gen,) if gen is not None and gen.device.type == "cuda" else ()
 
+    def gathers(self) -> int:
+        """G's launches a step: the 3 triplet gathers and one a GAT
+        layer."""
+        return 3 + self.model.n_layers
+
     def _check(self, graph) -> None:
         from neural_spectral_codec_torch._build import graph_census
         self.census = graph_census(graph.raw_cuda_graph())
-        want = 3 + self.model.n_layers
+        want = self.gathers()
         if self.census["gather_bwd"] != want:
             raise RuntimeError(f"the train graph holds "
                                f"{self.census['gather_bwd']} gather backward "
@@ -208,7 +218,10 @@ class GNNTrainer:
     triplet batch, padded to a multiple of the mesh size, is split over
     the devices, and with ``shard_nodes`` the graph's nodes too. The
     embedding pass then runs the sharded eval forward on the graph padded
-    to a multiple of the mesh size, and validation shards its queries."""
+    to a multiple of the mesh size, and validation shards its queries.
+    On a one-device mesh (``Mesh.one_device``) the step and the forward
+    are ``parallel.train``'s executables, as on one device; over
+    distinct cards they run op by op (counted ``sharded_op_by_op``)."""
 
     def __init__(self, model: Optional[SpectralGNN] = None,
                  learning_rate: float = 5e-4, weight_decay: float = 1e-5,
@@ -242,18 +255,21 @@ class GNNTrainer:
         self._lr = self.optimizer.param_groups[0]["lr"]
         self._train_exe: Optional[TrainStepExecutable] = None
         self._embed_exes: Dict[tuple, EvalExecutable] = {}
+        self._several = mesh is not None and not mesh.one_device
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.mesh = mesh
         self.shard_nodes = shard_nodes
         self._divisor = 1
         if mesh is not None:
-            from neural_spectral_codec_torch.parallel.train import (
-                make_sharded_eval_step, make_sharded_train_step)
-            self._sharded_step = make_sharded_train_step(
-                self.model, self.optimizer, mesh, shard_nodes=shard_nodes,
-                normalize=normalize_embeddings, grad_clip=grad_clip)
-            self._sharded_eval = make_sharded_eval_step(
-                self.model, mesh, shard_nodes=shard_nodes)
+            if self._several:
+                from neural_spectral_codec_torch.parallel.train import (
+                    make_sharded_eval_step, make_sharded_train_step)
+                self._sharded_step = make_sharded_train_step(
+                    self.model, self.optimizer, mesh,
+                    shard_nodes=shard_nodes, normalize=normalize_embeddings,
+                    grad_clip=grad_clip)
+                self._sharded_eval = make_sharded_eval_step(
+                    self.model, mesh, shard_nodes=shard_nodes)
             self._divisor = mesh.size
             logger.info("Training over %d devices (%s)", mesh.size,
                         "nodes sharded" if shard_nodes else "data-parallel")
@@ -311,17 +327,25 @@ class GNNTrainer:
 
     def train_step_executable(self, graph: KeyframeGraph,
                               batch: int) -> TrainStepExecutable:
-        """The run's train step for ``graph`` and ``batch`` triplets: kept
-        while the trainer trains on the same arrays, made anew (its graph
-        loaded) otherwise."""
+        """The run's train step for ``graph`` and ``batch`` triplets (on a
+        one-device mesh ``parallel.train.ShardedTrainStepExecutable``):
+        kept while the trainer trains on the same arrays, made anew (its
+        graph loaded) otherwise."""
         exe = self._train_exe
         shape = (graph.n_nodes, graph.max_degree, graph.edge_feats.shape[2],
                  batch)
         if exe is None or exe.shape != shape or not exe.holds(graph):
-            exe = TrainStepExecutable(
-                self.model, self.optimizer, *shape, self.margin,
-                self.grad_clip, self.normalize_embeddings, self._gen,
-                self.device, self.use_graph)
+            args = (*shape, self.margin, self.grad_clip,
+                    self.normalize_embeddings, self._gen)
+            if self.mesh is None:
+                exe = TrainStepExecutable(self.model, self.optimizer, *args,
+                                          self.device, self.use_graph)
+            else:
+                from neural_spectral_codec_torch.parallel.train import (
+                    ShardedTrainStepExecutable)
+                exe = ShardedTrainStepExecutable(
+                    self.model, self.optimizer, self.mesh, self.shard_nodes,
+                    *args, self.use_graph)
             exe.load_graph(graph)
             self._train_exe = exe
         return exe
@@ -369,7 +393,7 @@ class GNNTrainer:
             tmask = np.concatenate([tmask, np.zeros(pad, bool)])
         trip_d = torch.from_numpy(triplets).to(self.device)
         mask_d = torch.from_numpy(tmask).to(self.device)
-        if self.mesh is None:
+        if not self._several:
             exe = self.train_step_executable(graph, B)
 
             def step_fn(s):
@@ -377,7 +401,7 @@ class GNNTrainer:
                                   "tmask": mask_d[s * B:(s + 1) * B]},
                                  fetch=False)
                 return out["loss"]
-        else:
+        else:   # distinct cards: op by op
             from neural_spectral_codec_torch.parallel.train import (
                 place_graph)
             dev_graph = place_graph(graph, self.mesh, self.shard_nodes)
@@ -408,31 +432,42 @@ class GNNTrainer:
         ``normalize_embeddings``), as numpy. On one device: the
         ``gnn.EvalExecutable`` of the graph's own size (on a card with
         ``use_graph`` a captured graph, made once a run): its arrays
-        staged, one upload, the forward, one download. The trainer keeps
-        one a graph shape until ``release_graphs``."""
+        staged, one upload, the forward, one download. On a mesh the
+        graph is padded to a multiple of the mesh size (isolated padding
+        nodes, self-loop-only attention, leave the real nodes' outputs as
+        they are) and runs the sharded forward: on one device
+        ``parallel.train.ShardedEvalExecutable``, staged and fetched the
+        same way; over distinct cards op by op. The trainer keeps one
+        executable a graph shape until ``release_graphs``."""
+        from neural_spectral_codec_torch.keyframe.graph import pad_graph
         self.model.eval()
-        if self.mesh is None:
-            shape = (graph.n_nodes, graph.max_degree,
+        n = graph.n_nodes
+        padded = pad_graph(graph, -(-n // self._divisor) * self._divisor)
+        if self._several:
+            from neural_spectral_codec_torch.parallel.train import (
+                place_graph)
+            emb = self._sharded_eval(place_graph(
+                padded, self.mesh, self.shard_nodes))[:n].cpu().numpy()
+        else:
+            shape = (padded.n_nodes, graph.max_degree,
                      graph.edge_feats.shape[2])
             exe = self._embed_exes.get(shape)
             if exe is None:
-                exe = self._embed_exes[shape] = EvalExecutable(
-                    self.model, *shape, self.device, self.use_graph)
-            out, _ = exe.run({"features": graph.features,
-                              "neighbors": graph.neighbors,
-                              "mask": graph.mask,
-                              "edge_feats": graph.edge_feats})
-            emb = out["emb"]
-        else:
-            # isolated padding nodes (self-loop-only attention) leave the
-            # real nodes' eval outputs as they are
-            from neural_spectral_codec_torch.keyframe.graph import pad_graph
-            from neural_spectral_codec_torch.parallel.train import (
-                place_graph)
-            n = graph.n_nodes
-            padded = pad_graph(graph, -(-n // self._divisor) * self._divisor)
-            emb = self._sharded_eval(place_graph(
-                padded, self.mesh, self.shard_nodes))[:n].cpu().numpy()
+                if self.mesh is None:
+                    exe = EvalExecutable(self.model, *shape, self.device,
+                                         self.use_graph)
+                else:
+                    from neural_spectral_codec_torch.parallel.train import (
+                        ShardedEvalExecutable)
+                    exe = ShardedEvalExecutable(
+                        self.model, self.mesh, self.shard_nodes, *shape,
+                        self.use_graph)
+                self._embed_exes[shape] = exe
+            out, _ = exe.run({"features": padded.features,
+                              "neighbors": padded.neighbors,
+                              "mask": padded.mask,
+                              "edge_feats": padded.edge_feats})
+            emb = out["emb"][:n]
         if self.normalize_embeddings:
             emb = emb / np.maximum(
                 np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)

@@ -22,7 +22,9 @@ from neural_spectral_codec_torch.utils.graph_exec import (
     Arena, ExecutableCache, GraphStep, SharedPool)
 
 POOL = SharedPool()     # every validation graph of a device: one memory pool
-STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
+# sharded_op_by_op: recall chunks over a mesh of distinct cards, op by op
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0,
+         "sharded_op_by_op": 0}
 _CACHE = ExecutableCache()
 
 
@@ -142,7 +144,10 @@ class RecallExecutable(GraphStep):
     positions in the device arena ``data`` (once a recall pass), a chunk
     of query rows with a validity mask (the last chunk is padded) and the
     threshold staged a chunk; out ``hits``, the valid rows' hit count at
-    each k of ``ks``."""
+    each k of ``ks``. On a one-device mesh it is also JAX's
+    ``_sharded_recall_kernel`` (validation.py:92-106): every query share
+    sits on the one device, and each query's hits do not depend on its
+    share, so the shares' summed counts are the one chunk's."""
 
     def __init__(self, n: int, dim: int, chunk: int, ks: Tuple[int, ...],
                  skip_frames: int, device: torch.device,
@@ -180,11 +185,15 @@ def recall_at_ks(embeddings: np.ndarray, poses: np.ndarray,
     card each chunk is one graph replay with ``use_graph``.
 
     ``mesh`` (``parallel.Mesh``, in place of ``device``) shards each
-    chunk's query axis over its devices, the embeddings replicated, op by
-    op: each device ranks its contiguous share of the queries and the hit
-    counts are summed. The shares may differ by one query, so no
-    repeat-query padding (JAX's, for equal shards) is needed and the count
-    equals the single-device pass's."""
+    chunk's query axis over its devices, the embeddings replicated: each
+    device ranks its contiguous share of the queries and the hit counts
+    are summed. The shares may differ by one query, so no repeat-query
+    padding (JAX's, for equal shards) is needed and the count equals the
+    single-device pass's. On a one-device mesh every share is on that
+    device and the summed counts are the unsharded chunk's, so the pass
+    is the single-device one (``RecallExecutable``, one graph replay and
+    one download a chunk on a card); over distinct cards it runs op by
+    op, counted in ``STATS["sharded_op_by_op"]``."""
     ks = tuple(sorted({int(k) for k in ks}))
     if torch.is_tensor(embeddings):
         embeddings = embeddings.detach().cpu().numpy()
@@ -200,9 +209,10 @@ def recall_at_ks(embeddings: np.ndarray, poses: np.ndarray,
     emb = torch.from_numpy(np.asarray(embeddings, np.float32))
     pos = torch.from_numpy(positions)
     hits = np.zeros(len(ks), np.int64)
-    if mesh is not None:
+    if mesh is not None and not mesh.one_device:    # distinct cards
         on = {d: (emb.to(d), pos.to(d)) for d in devices}
         for s in range(0, nq, query_chunk):
+            STATS["sharded_op_by_op"] += 1
             shares = np.array_split(queries[s:s + query_chunk], len(devices))
             for d, q in zip(devices, shares):
                 if len(q):
