@@ -203,7 +203,20 @@ weights and data made from seeds:
    the same step run eagerly, the embeddings within SPLIT_EMB_TOL of the
    fused encode + refresh's on the same frames and weights, 0 eval or
    query graphs captured after ``warmup()``, keyframe p50/p95, one
-   bucket's step wall and device ms through its graph and eagerly;
+   bucket's step wall and device ms through its graph and eagerly. Then
+   the full-graph mode (``gnn.use_local_updates`` false) on the same
+   frames: ``warmup()`` captures the eval graphs of the buckets 8 to
+   1,024 (that of ``max_active_nodes``), each keyframe's whole window runs
+   one replay of its bucket's graph; every forward (warm-up included)
+   bit-equal to the same executable run eagerly on the same padded graph,
+   every keyframe's within SPLIT_EMB_TOL of ``gnn_forward`` op by op on
+   the unpadded window, 0 eval or query graphs captured mid-stream, one
+   eval replay a keyframe, no op-by-op forward in the session, K3 and K1
+   launched; keyframe p50/p95/max and stage means; at the configured
+   window (a 1,000-node graph of seeded descriptors) bucket 1,024 through
+   its graph bit-equal to its eager step and within SPLIT_EMB_TOL of the
+   op-by-op forward, the wall and device ms of the three, and the eval
+   graph pool's MiB;
 9. datasets and evaluation: three sequences written in their datasets'
    on-disk formats from seeded SyntheticWorld streams through simulated
    sensors (``DATA_SEQS``: KITTI 150 frames of 131,072 points in sweep
@@ -293,7 +306,8 @@ weights and data made from seeds:
 Launch counts are set to 0 just before each path (4, each entry point of
 5, 6, each entry-point run of 7 and 7d's counted mining run of each other
 strategy, 8's one-dispatch run, its verifier
-comparison and its warm torch-verifier session, each entry-point
+comparison, its warm torch-verifier session, its split and full-graph
+sessions, each entry-point
 run of 9, each sharded encoder call, each sharded train graph's run
 and the dry run of 10, each call and
 experiment of 11) and read just after. Any failure raises
@@ -306,9 +320,12 @@ kernels N, K, C, R, M's two W₁ entries and S also carry
 ``yardstick_ms``: two calls for N, K and S, one that computes part of the
 function for the others)
 and the last is ``{"ok": true, "device": {...}}``. Before them it
-prints every graph family's captures, replays and eager steps over the
-whole run, and the declared op-by-op paths on the card: full-graph eval
-forwards (``gnn.STATS["eager_forwards"]``) and the op-by-op sharded
+prints every graph family's captures, replays, eager steps and (serving,
+eval) executables built over the whole run, and the declared op-by-op
+paths on the card: eval forwards by ``gnn_forward``
+(``gnn.STATS["eager_forwards"]``: the evaluation's one a sequence in
+phase 9, the dry run's reference and this script's own references) and
+the op-by-op sharded
 programs (``sharded_op_by_op``: phase 10's comparison runs of
 ``make_sharded_train_step`` and ``make_sharded_eval_step``; and
 ``retriever.STATS["sharded"]``, queries over distinct cards).
@@ -3623,6 +3640,154 @@ def _split_eval(device, frames) -> dict:
     return launches
 
 
+def _full_graph_eval(device, frames) -> dict:
+    """Phase 8's full-graph mode (``gnn.use_local_updates`` false, sync,
+    no resumed map) on the split sessions' SPLIT_FRAMES frames: each
+    keyframe's descriptor comes from the encoder and the whole window's
+    forward is one replay of its bucket's eval graph
+    (``LocalUpdateGNN.forward_full``; ``warmup()`` captures the buckets 8
+    up to that of ``max_active_nodes``). Every forward of the session,
+    warm-up included, is recorded and run again through the same
+    executable eagerly on the same padded graph: bit-equal; every
+    keyframe's forward within SPLIT_EMB_TOL of ``gnn_forward`` op by op
+    on the unpadded graph. 0 eval or query graphs captured after
+    ``warmup()``, one eval replay a keyframe, no op-by-op forward in the
+    session, K3 (or K2) and K1 launched. Then the top bucket at the
+    configured window: a graph of ``max_active_nodes`` nodes (seeded
+    descriptors on a circle with revisit edges), its padded step through
+    the graph bit-equal to the eager step and within SPLIT_EMB_TOL of the
+    op-by-op forward; the wall and device ms of the three, the device ms
+    of their copies and their device operations a call. Returns the
+    session's launches."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.experiments.online_latency import (
+        inference_config, run)
+    from neural_spectral_codec_torch.keyframe.graph import (
+        TemporalGraphManager, graph_to_tensors, pad_graph)
+    from neural_spectral_codec_torch.keyframe.selector import Keyframe
+    from neural_spectral_codec_torch.models import gnn
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    calls = []
+    forward_full = gnn.LocalUpdateGNN.forward_full
+    bucket = gnn.LocalUpdateGNN.bucket
+
+    def recorded(self, graph):
+        out = forward_full(self, graph)
+        calls.append((graph, out.numpy().copy()))
+        return out
+
+    cfg = inference_config(
+        retrieval={"database_capacity": SPLIT_FRAMES},
+        gnn={"use_local_updates": False},
+        deployment={"async_loop_closing": False},
+        monitoring={"enabled": False})
+    torch.manual_seed(SEED + 62)
+    forwards = gnn.STATS["eager_forwards"]
+    with mock.patch.object(gnn.LocalUpdateGNN, "forward_full", recorded):
+        (pipe, _, rep), launches = _counted(lambda: run(
+            frames[:SPLIT_FRAMES], cfg, device,
+            warmup_scans=ONLINE_WARM_SCANS))
+    forwards = gnn.STATS["eager_forwards"] - forwards
+    model, window = pipe.model, pipe.graph_manager.max_active_nodes
+    dev = next(model.parameters()).device
+    n_kf = len(pipe.selector.keyframes)
+    n_warm = len(calls) - n_kf
+
+    def eager(g):
+        p = pad_graph(g, bucket(g.n_nodes))
+        exe = gnn.eval_executable(model, p.n_nodes, p.max_degree,
+                                  p.edge_feats.shape[2], dev,
+                                  use_graph=False)
+        return exe.run(p._asdict())[0]["emb"][:g.n_nodes]
+
+    def op_by_op(g):
+        return gnn.gnn_forward(model, graph_to_tensors(g, dev)).cpu()
+
+    same = all(np.array_equal(got, eager(g)) for g, got in calls)
+    gap = max(float(np.abs(got - op_by_op(g).numpy()).max())
+              for g, got in calls[n_warm:])
+    warm_buckets = sorted(bucket(g.n_nodes) for g, _ in calls[:n_warm])
+    print(f"full graph: {n_kf} keyframes, {len(calls)} forwards recorded "
+          f"({n_warm} in warmup(), buckets {warm_buckets}), graph vs "
+          f"eager executable bit-equal {same}; embeddings vs the op-by-op "
+          f"forward max abs {gap:.3e}; eval replays {rep['eval_replays']}, "
+          f"captured mid-stream {rep['midstream_captures']} eval/serving "
+          f"and {rep['query_midstream_captures']} query graphs; op-by-op "
+          f"forwards in the session {forwards}; keyframe "
+          f"{json.dumps(rep['keyframe'])}; stage means ms "
+          f"{json.dumps(rep['stage_mean_ms'])}; launches {launches}",
+          flush=True)
+    _check(warm_buckets == [8 << i for i in range(
+        bucket(window).bit_length() - 3)],
+        f"full graph: warmup() ran buckets {warm_buckets}")
+    _check(same, "full graph: a graph replay differs from the eager step")
+    _check(gap <= SPLIT_EMB_TOL, f"full graph: embeddings {gap:.3e} from "
+           "the op-by-op forward's")
+    _check(rep["midstream_captures"] == 0
+           and rep["query_midstream_captures"] == 0
+           and rep["eval_replays"] == n_kf and forwards == 0,
+           f"full graph: {rep['midstream_captures']} eval and "
+           f"{rep['query_midstream_captures']} query graphs captured "
+           f"mid-stream, {rep['eval_replays']} replays for {n_kf} "
+           f"keyframes, {forwards} op-by-op forwards")
+    _check((launches["project"] > 0 or launches["ring_fold"] > 0)
+           and launches["spectral"] > 0,
+           f"full graph: a kernel of the path never launched: {launches}")
+
+    rng = np.random.default_rng(SEED + 63)
+    mgr = TemporalGraphManager(temporal_neighbors=pipe.temporal_neighbors,
+                               max_active_nodes=window)
+    lap = 200                  # keyframes a lap of a 120 m circle
+    for i in range(window):
+        h = rng.random(model.input_dim).astype(np.float32) ** 4
+        pose = np.eye(4)
+        a = 2 * math.pi * i / lap
+        pose[:2, 3] = 60 * math.cos(a), 60 * math.sin(a)
+        mgr.add_keyframe(Keyframe(keyframe_id=i, scan_id=i,
+                                  timestamp=float(i), pose=pose,
+                                  points=None, descriptor=h / h.sum()))
+    for q in range(lap, window, 10):
+        mgr.add_loop_closure_edge(q, q - lap)
+    g = mgr.get_graph()
+    top = bucket(g.n_nodes)
+    vals = pad_graph(g, top)._asdict()
+    exes = {form: gnn.eval_executable(model, top, g.max_degree,
+                                      g.edge_feats.shape[2], dev,
+                                      use_graph=form == "graph")
+            for form in ("graph", "eager")}
+    captures = gnn.STATS["captures"]
+    out = {form: exe.run(vals)[0]["emb"] for form, exe in exes.items()}
+    top_same = np.array_equal(out["graph"], out["eager"])
+    top_gap = float(np.abs(out["graph"][:g.n_nodes]
+                           - op_by_op(g).numpy()).max())
+    timed = {"graph": lambda: exes["graph"].run(vals),
+             "eager": lambda: exes["eager"].run(vals),
+             "op_by_op": lambda: op_by_op(g)}
+    ms = {}
+    for form, fn in timed.items():
+        ops = device_ops(fn, calls=5)
+        ms[form] = {"wall_ms": _p50_ms(fn),
+                    "device_ms": sum(us for _, us in ops) / 5 / 1e3,
+                    "copy_ms": sum(us for name, us in ops
+                                   if name.startswith("Memcpy")) / 5 / 1e3,
+                    "device_ops": len(ops) / 5}
+    print(f"full graph: top bucket {top} at the configured window of "
+          f"{g.n_nodes} nodes ({g.n_edges} edges): graph vs eager step "
+          f"bit-equal {top_same}, vs the op-by-op forward max abs "
+          f"{top_gap:.3e}; ms {json.dumps(ms)}; eval graph pool "
+          f"{gnn.POOL.bytes(dev) / 2**20:.1f} MiB", flush=True)
+    _check(gnn.STATS["captures"] == captures,
+           f"full graph: bucket {top} was not captured by warmup()")
+    _check(top_same, f"full graph: bucket {top}'s replay differs from its "
+           "eager step")
+    _check(top_gap <= SPLIT_EMB_TOL, f"full graph: bucket {top} "
+           f"{top_gap:.3e} from the op-by-op forward")
+    return launches
+
+
 def _concurrent_captures(device, frames) -> dict:
     """Phase 8's last sessions, CONCURRENT_FRAMES frames each with the
     torch verifier (one prepare graph replay a cloud, one registration
@@ -3820,6 +3985,7 @@ def _online(device, keep_store: Path) -> dict:
         _serve_trace(device, frames, cap, rep["stage_mean_ms"]["serve_step"])
         verify = _concurrent_captures(device, frames)
         split_eval = _split_eval(device, frames)
+        full_graph = _full_graph_eval(device, frames)
 
         split_cfg = inference_config(retrieval={"database_capacity": cap},
                                      deployment={"fused_query": False,
@@ -3861,7 +4027,8 @@ def _online(device, keep_store: Path) -> dict:
                "online: the saved store does not restore the rows")
         shutil.copyfile(tmp / "run1.bin", keep_store)
     return {"online": launches, "verify_backends": backend_launches,
-            "verify": verify, "split_eval": split_eval}
+            "verify": verify, "split_eval": split_eval,
+            "full_graph": full_graph}
 
 
 def _sensor_scan(pose, elev_deg, n_points: int, world, seed: int, device,
@@ -5861,8 +6028,9 @@ def main() -> None:
           f"{timing_mod.LOST_LEAD_IN} lead-in records lost; lead-in now "
           f"{timing_mod.LEAD_IN} kernels", flush=True)
     # eager_steps: the comparison runs (use_graph off); eager_forwards,
-    # sharded and sharded_op_by_op: the declared op-by-op paths (full-graph
-    # eval forwards; the op-by-op sharded programs, here phase 10's
+    # sharded and sharded_op_by_op: the declared op-by-op paths (the
+    # evaluation's forward a sequence, the dry run's and this script's
+    # references; the op-by-op sharded programs, here phase 10's
     # comparison runs)
     from neural_spectral_codec_torch.training import (
         miner, trainer, validation)

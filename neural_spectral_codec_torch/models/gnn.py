@@ -36,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neural_spectral_codec_torch.keyframe.graph import KeyframeGraph
+from neural_spectral_codec_torch.keyframe.graph import (
+    KeyframeGraph, pad_graph)
 from neural_spectral_codec_torch.models.gather_kernel import gather_rows
 from neural_spectral_codec_torch.utils.graph_exec import (
     Arena, ExecutableCache, GraphStep, SharedPool)
@@ -446,10 +447,14 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
     mode (the model in train mode) keeps the autograd graph, draws dropout
     from ``generator`` and updates the BatchNorm buffers in place, where
     JAX returns new ``batch_stats``. Op by op: an eval forward on a card
-    here is the declared eager path (a graph of any size: the full graph
-    of the online loop's ``use_local_updates: false``, the evaluation),
-    counted in ``STATS["eager_forwards"]``; the bucketed forwards of
-    ``LocalUpdateGNN`` run ``EvalExecutable``."""
+    here is the declared eager path, counted in
+    ``STATS["eager_forwards"]``. Its callers on a card are the
+    evaluation's one forward a sequence (``evaluation.py``: a capture
+    used once would cost more than it saves) and the dry run's
+    one-device reference (``parallel/dryrun.py``); the train-mode forward
+    runs inside the train step's own graph. Every online forward, the
+    full graph of ``use_local_updates: false`` included, runs its
+    bucket's ``EvalExecutable`` (``LocalUpdateGNN.forward_full``)."""
     if model.training != train:
         raise ValueError(f"gnn_forward(train={train}) needs the model in "
                          f"{'train' if train else 'eval'} mode; call "
@@ -464,12 +469,12 @@ def gnn_forward(model: SpectralGNN, graph: KeyframeGraph, train: bool = False,
 
 
 POOL = SharedPool()     # every eval graph of a device: one memory pool
-# sharded_op_by_op: calls of ``parallel.train.make_sharded_eval_step``'s
-# op-by-op forward (the trainer's over distinct cards, and any direct
-# caller)
+# builds: executables ``eval_executable`` made; sharded_op_by_op: calls of
+# ``parallel.train.make_sharded_eval_step``'s op-by-op forward (the
+# trainer's over distinct cards, and any direct caller)
 STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "eager_forwards": 0,
-         "sharded_op_by_op": 0}
-_CACHE = ExecutableCache()
+         "sharded_op_by_op": 0, "builds": 0}
+_CACHE = ExecutableCache(STATS)
 
 
 class EvalExecutable(GraphStep):
@@ -555,24 +560,21 @@ class LocalUpdateGNN:
         self.device = next(model.parameters()).device
 
     def forward_full(self, graph: KeyframeGraph) -> torch.Tensor:
-        """(n, output_dim) eval embeddings of a numpy graph, on the host.
-        A graph of a bucket's size (``bucket``) runs the bucket's
-        ``EvalExecutable``: its arrays staged into the pinned arena, one
-        upload, the step (on a card a graph replay), one download. Any
-        other size runs ``gnn_forward`` op by op (the declared eager
-        path)."""
-        n = graph.features.shape[0]
-        if n != self.bucket(n):
-            from neural_spectral_codec_torch.keyframe.graph import (
-                graph_to_tensors)
-            return gnn_forward(self.model,
-                               graph_to_tensors(graph, self.device)).cpu()
-        exe = eval_executable(self.model, n, graph.max_degree,
-                              graph.edge_feats.shape[2], self.device)
-        out, _ = exe.run({"features": graph.features,
-                          "neighbors": graph.neighbors, "mask": graph.mask,
-                          "edge_feats": graph.edge_feats})
-        return torch.from_numpy(out["emb"])
+        """(n, output_dim) eval embeddings of a numpy graph of any size n,
+        on the host: the graph padded to its bucket (``bucket``,
+        ``pad_graph``: isolated nodes, which change no real node's
+        embedding) runs the bucket's ``EvalExecutable`` (its arrays staged
+        into the pinned arena, one upload, the step, one download) and
+        the first n rows come back. On a card the step is a graph replay;
+        a failed capture or replay raises."""
+        n = graph.n_nodes
+        padded = pad_graph(graph, self.bucket(n))
+        exe = eval_executable(self.model, padded.n_nodes, padded.max_degree,
+                              padded.edge_feats.shape[2], self.device)
+        out, _ = exe.run({"features": padded.features,
+                          "neighbors": padded.neighbors, "mask": padded.mask,
+                          "edge_feats": padded.edge_feats})
+        return torch.from_numpy(out["emb"][:n])
 
     @staticmethod
     def bucket(n_nodes: int) -> int:
@@ -584,7 +586,6 @@ class LocalUpdateGNN:
 
     @classmethod
     def _padded(cls, sub: KeyframeGraph) -> KeyframeGraph:
-        from neural_spectral_codec_torch.keyframe.graph import pad_graph
         return pad_graph(sub, cls.bucket(sub.n_nodes))
 
     def forward_local(self, manager, center_node: int,

@@ -107,7 +107,8 @@ def _kernels() -> tuple:
 
 
 POOL = SharedPool()     # every serving graph of a device: one memory pool
-STATS = {"captures": 0, "replays": 0, "eager_steps": 0}
+# builds: executables ``executable`` made
+STATS = {"captures": 0, "replays": 0, "eager_steps": 0, "builds": 0}
 
 
 class ServingExecutable:
@@ -327,7 +328,7 @@ class ServingExecutable:
         STATS["captures"] += 1
 
 
-_CACHE = ExecutableCache()
+_CACHE = ExecutableCache(STATS)
 
 
 def executable(model: SpectralGNN, retriever: Optional[WassersteinRetriever],

@@ -40,13 +40,12 @@ from neural_spectral_codec_torch.data.pose_utils import (
     is_valid_transformation)
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.keyframe.graph import (
-    TemporalGraphManager, build_graph_from_keyframes, graph_to_tensors,
-    pad_graph)
+    TemporalGraphManager, build_graph_from_keyframes, pad_graph)
 from neural_spectral_codec_torch.keyframe.selector import (
     Keyframe, KeyframeSelector)
 from neural_spectral_codec_torch.models import gnn, serving
 from neural_spectral_codec_torch.models.gnn import (
-    LocalUpdateGNN, create_spectral_gnn, gnn_forward)
+    LocalUpdateGNN, create_spectral_gnn)
 from neural_spectral_codec_torch.ops.range_image import pad_points
 from neural_spectral_codec_torch.ops.spectral import (
     SpectralEncoderConfig, encode_points_batch)
@@ -480,22 +479,16 @@ class NeuralSpectralCodecPipeline:
     def warmup(self) -> None:
         """Make the first keyframe as fast as the rest (JAX pipeline.py
         ``warmup``): build the CUDA kernels and the geometry library,
-        encode once at B=1, then replay a short session on a scratch graph
-        manager (loop edges included) through the executable the hot path
-        runs, at every padded bucket it reaches, every smaller one it
-        skips and one bucket beyond, and run the stage-1 query once (a
-        row-sharded database on one card: its sharded query step, so no
-        query graph is captured mid-stream either). With one-dispatch serving
-        (``deployment.fused_query``) that executable is the serving step,
-        built (on a card: captured) by scratch executions that leave the
-        database as it was (``LocalUpdateGNN.warm_serve``); with
-        ``fused_encode`` alone the fused encode + refresh; else the split
-        local forward. The verifier is warmed too
-        (``GeometricVerifier.warmup``): the native library built, or for
-        the torch backend its registration executable built (on a card
-        captured) on a scratch pair of clouds. The live database and graph
-        are left as they were. Run it before the verifier's worker threads
-        start."""
+        encode once at B=1, then build (on a card: capture) every GNN
+        executable the session will run, on scratch graph managers
+        (``_warm_local``, ``_warm_full``), and run the stage-1 query once
+        (a row-sharded database on one card: its sharded query step, so
+        no query graph is captured mid-stream either). The verifier is
+        warmed too (``GeometricVerifier.warmup``): the native library
+        built, or for the torch backend its registration executable built
+        (on a card captured) on a scratch pair of clouds. The live
+        database and graph are left as they were. Run it before the
+        verifier's worker threads start."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from neural_spectral_codec_torch import _build
@@ -503,67 +496,104 @@ class NeuralSpectralCodecPipeline:
         self.retrieval.verifier.warmup()
         self.encoder.encode_one(np.zeros((64, 4), np.float32))
         if not self.ablate_gnn:
-            fused = self.use_local_updates and cfg_get(
-                self.config, "deployment.fused_encode", True)
-            one_dispatch = fused and cfg_get(
-                self.config, "deployment.fused_query", True) \
-                and self.retrieval.can_fuse_serving()
-            mgr = TemporalGraphManager(
-                temporal_neighbors=self.temporal_neighbors,
-                max_active_nodes=self.graph_manager.max_active_nodes)
             local = LocalUpdateGNN(self._serving_model(),
                                    k_hops=self.local_update_hops)
-            dim = self.encoder_config.output_dim
-            desc = np.full(dim, 1.0 / dim, np.float32)
-            dummy_pts = pad_points(np.zeros((0, 4), np.float32),
-                                   self.encoder.max_points)
-            args = (dummy_pts, self.encoder.alpha, self.encoder_config)
-            warmed = set()
-
-            def refresh(node, n_slots=None):
-                sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
-                bucket = n_slots or local.bucket(sub.n_nodes)
-                if one_dispatch:
-                    if bucket not in warmed:
-                        local.warm_serve(mgr, node, *args, self.retrieval,
-                                         bucket)
-                elif fused:
-                    local.encode_update_local(mgr, node, *args, n_slots)
-                elif n_slots is None:
-                    local.update_embeddings_local(mgr, node)
-                else:
-                    local.forward_full(pad_graph(sub, n_slots))
-                warmed.add(bucket)
-
-            node = 0
-            for i in range(18):
-                node = mgr.add_keyframe(Keyframe(
-                    keyframe_id=i, scan_id=i, timestamp=float(i),
-                    pose=np.eye(4, dtype=np.float32), points=None,
-                    descriptor=desc.copy()))
-                refresh(node)
-            # loop edges widen the k-hop subgraph into the next bucket
-            mgr.add_loop_closure_edge(17, 0)
-            mgr.add_loop_closure_edge(17, 8)
-            refresh(node)
-            # a live session whose loop edges inflate the subgraph past the
-            # replayed sizes would build mid-stream: one bucket beyond, and
-            # every bucket below it that the replay skipped (its subgraphs
-            # jump from 8 nodes to past 16 when the loop edges land), each
-            # from a scratch subgraph that fits it
-            sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
-            top = 2 * local.bucket(sub.n_nodes)
-            sizes = {n: len(mgr.get_k_hop_neighbors(
-                n, self.local_update_hops)) for n in range(len(mgr.keyframes))}
-            for bucket in (8 << i for i in range(top.bit_length() - 3)):
-                fits = [n for n, k in sizes.items() if k <= bucket]
-                if bucket not in warmed and fits:
-                    refresh(fits[0], bucket)
+            if self.use_local_updates:
+                self._warm_local(local)
+            else:
+                self._warm_full(local)
         self.retrieval.retriever.warm_query(self.retrieval.top_k)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - t0
         logger.info("warmup: serving ready in %.1f s", self.warmup_seconds)
+
+    def _scratch_manager(self) -> TemporalGraphManager:
+        live = self.graph_manager
+        return TemporalGraphManager(
+            temporal_neighbors=self.temporal_neighbors,
+            max_active_nodes=live.max_active_nodes,
+            max_loop_per_node=live.max_loop_per_node)
+
+    def _scratch_keyframe(self, i: int) -> Keyframe:
+        dim = self.encoder_config.output_dim
+        return Keyframe(keyframe_id=i, scan_id=i, timestamp=float(i),
+                        pose=np.eye(4, dtype=np.float32), points=None,
+                        descriptor=np.full(dim, 1.0 / dim, np.float32))
+
+    def _warm_full(self, local: LocalUpdateGNN) -> None:
+        """The full-graph mode's eval forward (``use_local_updates:
+        false``) at every bucket from 8 up to that of
+        ``max_active_nodes``, the largest window a freezing graph reaches,
+        each from a scratch graph that fits it. A window that never
+        freezes (``freeze_old_embeddings: false``) builds the buckets past
+        it mid-stream, one at each doubling."""
+        mgr = self._scratch_manager()
+        top = local.bucket(mgr.max_active_nodes)
+        warmed = set()
+        while len(warmed) < top.bit_length() - 3:
+            mgr.add_keyframe(self._scratch_keyframe(len(mgr.keyframes)))
+            bucket = local.bucket(len(mgr.keyframes))
+            if bucket not in warmed:
+                local.forward_full(mgr.get_graph())
+                warmed.add(bucket)
+
+    def _warm_local(self, local: LocalUpdateGNN) -> None:
+        """Replay a short session on a scratch graph manager (loop edges
+        included) through the executable the local refresh runs, at every
+        padded bucket it reaches, every smaller one it skips and one
+        bucket beyond. With one-dispatch serving
+        (``deployment.fused_query``) that executable is the serving step,
+        built (on a card: captured) by scratch executions that leave the
+        database as it was (``LocalUpdateGNN.warm_serve``); with
+        ``fused_encode`` alone the fused encode + refresh; else the split
+        local forward."""
+        fused = cfg_get(self.config, "deployment.fused_encode", True)
+        one_dispatch = fused and cfg_get(
+            self.config, "deployment.fused_query", True) \
+            and self.retrieval.can_fuse_serving()
+        mgr = self._scratch_manager()
+        dummy_pts = pad_points(np.zeros((0, 4), np.float32),
+                               self.encoder.max_points)
+        args = (dummy_pts, self.encoder.alpha, self.encoder_config)
+        warmed = set()
+
+        def refresh(node, n_slots=None):
+            sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
+            bucket = n_slots or local.bucket(sub.n_nodes)
+            if one_dispatch:
+                if bucket not in warmed:
+                    local.warm_serve(mgr, node, *args, self.retrieval,
+                                     bucket)
+            elif fused:
+                local.encode_update_local(mgr, node, *args, n_slots)
+            elif n_slots is None:
+                local.update_embeddings_local(mgr, node)
+            else:
+                local.forward_full(pad_graph(sub, n_slots))
+            warmed.add(bucket)
+
+        node = 0
+        for i in range(18):
+            node = mgr.add_keyframe(self._scratch_keyframe(i))
+            refresh(node)
+        # loop edges widen the k-hop subgraph into the next bucket
+        mgr.add_loop_closure_edge(17, 0)
+        mgr.add_loop_closure_edge(17, 8)
+        refresh(node)
+        # a live session whose loop edges inflate the subgraph past the
+        # replayed sizes would build mid-stream: one bucket beyond, and
+        # every bucket below it that the replay skipped (its subgraphs
+        # jump from 8 nodes to past 16 when the loop edges land), each
+        # from a scratch subgraph that fits it
+        sub, _ = mgr.get_local_subgraph(node, self.local_update_hops)
+        top = 2 * local.bucket(sub.n_nodes)
+        sizes = {n: len(mgr.get_k_hop_neighbors(
+            n, self.local_update_hops)) for n in range(len(mgr.keyframes))}
+        for bucket in (8 << i for i in range(top.bit_length() - 3)):
+            fits = [n for n, k in sizes.items() if k <= bucket]
+            if bucket not in warmed and fits:
+                refresh(fits[0], bucket)
 
     def run_online(self, loader, checkpoint_path: Optional[str] = None,
                    loop_closure_interval: int = 10,
@@ -701,12 +731,13 @@ class NeuralSpectralCodecPipeline:
 
         def _graph_counts() -> tuple:
             return (serving.STATS["replays"], gnn.STATS["replays"],
-                    serving.STATS["captures"] + gnn.STATS["captures"])
+                    serving.STATS["builds"] + gnn.STATS["builds"])
 
         def _count_graphs(scan_id: int, before: tuple) -> None:
-            # the keyframe's serving- and eval-graph replays, and any graph
-            # captured during the stream: its capture's time lands on this
-            # keyframe (warmup() captures them ahead)
+            # the keyframe's serving- and eval-graph replays, and any
+            # executable made during the stream, which on a card captures
+            # its graph at its first run: the capture's time lands on this
+            # keyframe (warmup() makes them ahead)
             now = _graph_counts()
             self.profiler.count("serving_replays", now[0] - before[0])
             self.profiler.count("eval_replays", now[1] - before[1])
@@ -772,12 +803,11 @@ class NeuralSpectralCodecPipeline:
                                     local_gnn.update_embeddings_local(
                                         self.graph_manager, node)
                             else:
-                                # the whole graph grows by a node a
-                                # keyframe: op by op (gnn.STATS counts it)
-                                emb = gnn_forward(
-                                    local_gnn.model, graph_to_tensors(
-                                        self.graph_manager.get_graph(),
-                                        local_gnn.device)).cpu().numpy()
+                                # the whole window, padded to its bucket:
+                                # one eval replay (warmup() captures the
+                                # buckets up to max_active_nodes)
+                                emb = local_gnn.forward_full(
+                                    self.graph_manager.get_graph()).numpy()
                                 self.graph_manager.update_embeddings(emb)
                                 refreshed_nodes = list(range(len(
                                     self.graph_manager.keyframes)))

@@ -220,11 +220,13 @@ class ExecutableCache:
     by address) weakly, and optionally ``buffers`` = (owner, key of the
     buffers it reads). A lookup that misses first drops the entries whose
     owner no longer exists and those of the same buffer owner on other
-    buffers (a retriever whose rows were reallocated), then makes one."""
+    buffers (a retriever whose rows were reallocated), then makes one,
+    counted in ``stats["builds"]`` when ``stats`` is given."""
 
-    def __init__(self):
+    def __init__(self, stats: Optional[Dict[str, int]] = None):
         self._entries: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
+        self._stats = stats
 
     def get(self, key: tuple, make: Callable[[], object],
             owners: Sequence[object] = (), buffers: Optional[tuple] = None):
@@ -239,6 +241,8 @@ class ExecutableCache:
                 if stale or any(r() is None for r in refs):
                     del self._entries[k]
             exe = make()
+            if self._stats is not None:
+                self._stats["builds"] += 1
             self._entries[key] = (
                 exe, tuple(weakref.ref(o) for o in owners),
                 None if buffers is None

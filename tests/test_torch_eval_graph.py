@@ -71,19 +71,26 @@ def test_eval_step_matches_jax(bucket, n):
             if e._model() is net] == [exe]
 
 
-def test_unbucketed_graph_runs_the_eager_forward():
+def test_unbucketed_graph_runs_its_bucket_step():
     """A graph whose node count is no bucket (the full graph of
-    ``use_local_updates: false``) runs ``gnn_forward`` op by op and builds
-    no executable; it equals the bucket step on the same graph padded."""
+    ``use_local_updates: false``) runs its bucket's eval step: one
+    executable of 16 nodes built, one eager step (no op-by-op forward),
+    and its 11 rows equal the step's on the same graph padded, which
+    reuses that executable."""
     _, _, _, net = _models(4)
     g = _graph(np.random.default_rng(4), 11)
     local = LocalUpdateGNN(net)
-    before = len(gnn.cached_executables())
+    eager, forwards = gnn.STATS["eager_steps"], gnn.STATS["eager_forwards"]
     full = local.forward_full(g)
-    assert len(gnn.cached_executables()) == before
+    assert full.shape == (11, DIM)
+    assert gnn.STATS["eager_steps"] == eager + 1
+    assert gnn.STATS["eager_forwards"] == forwards
+    (exe,) = [e for e in gnn.cached_executables() if e._model() is net]
+    assert exe.inputs.dev["features"].shape == (16, DIM)
     padded = local.forward_full(pad_graph(g, 16))
-    np.testing.assert_allclose(full.numpy(), padded[:11].numpy(), rtol=0,
-                               atol=EMB_TOL)
+    assert [e for e in gnn.cached_executables() if e._model() is net] \
+        == [exe]
+    np.testing.assert_array_equal(full.numpy(), padded[:11].numpy())
 
 
 def _small_entry(seed=0):
