@@ -70,7 +70,16 @@ weights and data made from seeds:
    rank-2, rank-1 and zero H and a real step's H, R within 1e-5 and t
    within 1e-5 max(1, |p_c|_1), H = 0 giving I; their device, wrapper and
    plain time (and R's solve entry's device time), the yardstick
-   (``eigh`` of the covariances; ``svd`` of H) and the bound (bytes);
+   (``eigh`` of the covariances; ``svd`` of H) and the bound (bytes).
+   Kernel Q (the stage-1 query's fused body) bit-equal to its plain
+   version, indices and distances, at 100,032 x 800 in 48 cases: float32
+   and uint16 W1 rows and L2, Q = 1, 32 and 40 (two query groups), k = 1,
+   10, 50, 128 (K_MAX) and 200 (the distance entry), the spatial filter off and on, size the
+   database, below it and 0 (every slot +inf, rows 0 .. k - 1), copies of
+   a row (ties by the lower row) and rows at the filter radius +-1 ulp
+   (the first masked); its device, wrapper and plain time at Q = 1 and
+   32 for each storage and metric, the earlier plain chain, the
+   ``cdist`` yardstick and the bound (bytes at Q = 1, operations at 32);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
    card, and 32 requests through ``serve_step`` (16 ring-structured, 16
@@ -86,7 +95,7 @@ weights and data made from seeds:
    sits in the database as a row computed by the plain path on the CPU,
    outside the spatial filter; it must come back as top-1, the descriptor
    must agree with the CPU's to 1e-4 and the embeddings to 1e-3, and
-   every serving kernel's launch count must rise. Then the same
+   every serving kernel's launch count must rise (kernel Q's included). Then the same
    database, and its rows as uint16 codes, through the stage-1 query
    graphs (``retriever.QueryExecutable``): each request's descriptor as
    one query and the 32 as a batch, with the spatial filter, through the
@@ -450,6 +459,11 @@ NO_LIBRARY = {
     "select": "no one call: torch.kthvalue takes one place for every row; "
               "yardstick_ms times torch.sort(stable=True) + gather (two "
               "calls), which the port no longer calls",
+    "query": "no one call; yardstick_ms times torch.cdist(p=1) + "
+             "smallest_k (two calls, the masks left out), which the port "
+             "never calls",
+    "query_dist": "no one call computes the masked W1 distances; the port "
+                  "ranks them with smallest_k (torch.topk of int64 keys)",
 }
 # kernel function names as torch.profiler reports them
 KERNEL_NAMES = {
@@ -470,6 +484,8 @@ KERNEL_NAMES = {
     "mine_rows": ("mine_rows_kernel",),
     "mine_draw_mask": ("mine_draw_mask_kernel",),
     "select": ("select_cluster_kernel", "select_rows_kernel"),
+    "query": ("query_kernel", "query_merge_kernel"),
+    "query_dist": ("query_kernel",),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -536,6 +552,14 @@ PAR_STEPS = 5                  # timed steps per mode after one warm-up
 PAR_RUNS = 5                   # sharded graphs: Adam steps of a fresh run
 PAR_PADDED = 300               # padded triplets in a run's last batch
 SHARD_TOL = 1e-7               # sharded vs unsharded encoder (0 expected)
+QUERY_ROWS = 100_032           # phase 3: kernel Q's database (phase 4's)
+QUERY_MIN_D = 50.0             # kernel Q: the filter radius of its cases
+QUERY_TIES = (3, 11, 20)       # kernel Q: copies of row 7 (query 0's)
+QUERY_K_EDGE = 128             # kernel Q: K_MAX, the fused route's largest
+QUERY_K_BIG = 200              # phase 4: a batch through the distance entry
+QUERY_POS_OPS = 10             # kernel Q: a (query, row)'s spatial test:
+                               # 3 differences, 3 squares, 2 sums, the
+                               # root and a comparison
 ENTRY_CALLS = 20               # phase 11: timed calls of entry()'s fn
 OVERLAP_TOL = 1e-6             # phase 11: native voxel IoU vs numpy
 
@@ -777,7 +801,9 @@ def _query_graphs(device, ret, queries, qps, planted) -> None:
     distances bit-equal, top-1 the planted row; the p50 wall ms (host
     clock around the call, which fetches) and the device ms
     (``device_ops``) of both forms, each graph's nodes (``graph_census``)
-    and the query pool's MiB."""
+    and the query pool's MiB. Then the batch at k = QUERY_K_BIG (kernel
+    Q's distance entry and ``smallest_k``) through its graph and eagerly:
+    equal, its first k the k = TOP_K answer."""
     import numpy as np
     from neural_spectral_codec_torch import _build
     from neural_spectral_codec_torch.retrieval import retriever as R
@@ -831,8 +857,243 @@ def _query_graphs(device, ret, queries, qps, planted) -> None:
         _check(top1, f"query: {storage} top-1 is not the planted row")
         _check(sorted(nodes) == [1, len(queries)],
                f"query: {storage} graphs captured for Q {sorted(nodes)}")
+        # k above K_MAX: kernel Q's distance entry and smallest_k, graphed
+        big = {}
+        for form in ("graph", "eager"):
+            r.use_graph = form == "graph"
+            big[form] = r.query_batch(queries, QUERY_K_BIG,
+                                      query_positions=pos, **kw)
+        r.use_graph = True
+        _check(all(np.array_equal(a, b)
+                   for a, b in zip(big["graph"], big["eager"]))
+               and np.array_equal(big["graph"][0][:, 0], planted)
+               and np.array_equal(big["graph"][0][:, :TOP_K], gb[0]),
+               f"query: {storage} k={QUERY_K_BIG} graph != eager, or its "
+               f"first {TOP_K} differ from the k={TOP_K} answer")
     print(f"query: graph pool {R.POOL.bytes(device) / 2**20:.1f} MiB, "
           f"counts {json.dumps(R.STATS)}", flush=True)
+
+
+def _query_data(device, n: int, bins: int) -> dict:
+    """Kernel Q's database at phase 4's size: n rows of ``bins``-bin
+    random histograms (as phase 4's), stored as W1 CDF rows (float32 and
+    their uint16 codes) and as raw vectors (L2), positions over +-1 km;
+    32 queries, each a row's histogram plus noise, at that row's position
+    plus 1 m. Query 0 is row 7's histogram itself, at the origin: rows
+    QUERY_TIES hold copies of row 7 (equal distances: the lower row
+    first), at (QUERY_MIN_D - 1 ulp, 0, 0), (QUERY_MIN_D, 0, 0) and
+    (QUERY_MIN_D + 1 ulp, 0, 0) from it, so the spatial filter masks the
+    first and keeps the other two (a norm of exactly the axis offset)."""
+    import numpy as np
+    import torch
+    from neural_spectral_codec_torch.ops.wasserstein import histogram_cdf
+    from neural_spectral_codec_torch.retrieval.retriever import quantize_cdf
+    g = torch.Generator(device=device).manual_seed(SEED + 60)
+    h = torch.rand((n, bins), generator=g, device=device) ** 4
+    pos = (torch.rand((n, 3), generator=g, device=device) - 0.5) * 2000.0
+    src = torch.randint(0, n, (32,), generator=g, device=device)
+    src[0] = 7
+    q = h[src] + 0.2 * torch.rand((32, bins), generator=g,
+                                  device=device) / bins
+    q[0] = h[7]
+    qpos = pos[src] + 1.0
+    qpos[0] = 0.0
+    steps = np.array([np.nextafter(np.float32(QUERY_MIN_D), np.float32(0)),
+                      QUERY_MIN_D, np.nextafter(np.float32(QUERY_MIN_D),
+                                                np.float32(1e9))],
+                     np.float32)
+    for row, x in zip(QUERY_TIES, steps):
+        h[row] = h[7]
+        pos[row] = torch.tensor([float(x), 0.0, 0.0], device=device)
+    cdf = histogram_cdf(h, 1e-8)
+    return {"f32": cdf, "u16": quantize_cdf(cdf), "l2": h, "pos": pos,
+            "hist": q, "qpos": qpos, "cdf": histogram_cdf(q, 1e-8)}
+
+
+def _old_query_chain(rows, pos, size, q, filters, k: int, metric: str):
+    """The plain stage-1 query the port ran before kernel Q (the earlier
+    ``retriever._distances`` and ``query_math``): the broadcast (Q, rows,
+    bins) difference in chunks of 2^28 elements, summed (or normed),
+    masked, ``smallest_k``. A yardstick only: the port no longer runs
+    it."""
+    import torch
+    from neural_spectral_codec_torch.retrieval.retriever import (
+        dequantize_rows, smallest_k)
+    x = dequantize_rows(rows)
+    step = max(1, (1 << 28) // x.numel())
+    out = []
+    for c in q.split(step):
+        diff = x[None, :, :] - c[:, None, :]
+        out.append(diff.abs().sum(dim=2) if metric == "wasserstein"
+                   else torch.linalg.vector_norm(diff, dim=2))
+    d = torch.cat(out)
+    invalid = (torch.arange(x.shape[0], device=x.device) >= size)[None, :]
+    min_d = filters[:, 3:4]
+    near = torch.linalg.vector_norm(
+        pos[None, :, :] - filters[:, None, :3], dim=2) < min_d
+    return smallest_k(torch.where(invalid | ((min_d > 0) & near),
+                                  torch.inf, d), k)
+
+
+def _query_kernel_cases(device) -> dict:
+    """Kernel Q (``retrieval/query_kernel.py``, ``csrc/query.cu``) against
+    its plain version on the card, indices and distances bit for bit, at
+    phase 4's 100,032 x 800 (``_query_data``): W1 over float32 rows, W1
+    over uint16 codes and L2; Q = 1 and 32 (and 40: two query groups, k =
+    10 and 50); k = 1, 10, 128 (K_MAX) and 200 (beyond K_MAX: the
+    distance entry and smallest_k); without and with the
+    spatial filter; size = the database, below it, and 0 (every slot
+    +inf, rows 0 .. k - 1); size as a device int64 and as an int. The
+    ties and the +-1 ulp rows of ``_query_data`` are in every database.
+    Then the fused route's device time (both launches; torch.profiler,
+    queued bare launches; the merge launch's apart) at Q = 1 and 32 over
+    float32 and uint16 rows and for L2 (k = 10), and at k = K_MAX over
+    float32 rows, its wrapper's and plain version's, the distance
+    entry's, the earlier plain chain (``_old_query_chain``) and the
+    two-call yardstick torch.cdist(p=1) + smallest_k, those two as device
+    time summed over every operation a call enqueues; bounds from this
+    run's shapes."""
+    import torch
+    from neural_spectral_codec_torch.retrieval import query_kernel as qk
+    from neural_spectral_codec_torch.retrieval.retriever import (
+        dequantize_rows, smallest_k)
+    from neural_spectral_codec_torch.utils.timing import device_ops
+    n, bins = QUERY_ROWS, 800
+    data = _query_data(device, n, bins)
+    zero = torch.zeros((32, 4), device=device)
+    filt = torch.cat([data["qpos"], torch.full((32, 1), QUERY_MIN_D,
+                                               device=device)], dim=1)
+    mid = torch.tensor(n - 1000, dtype=torch.int64, device=device)
+    modes = {"f32": ("wasserstein", data["f32"], data["cdf"]),
+             "u16": ("wasserstein", data["u16"], data["cdf"]),
+             "l2": ("l2", data["l2"], data["hist"])}
+    cases = 0
+    for mode, (metric, rows, queries) in modes.items():
+        for n_q in (1, 32):
+            q = queries[:n_q].contiguous()
+            for k, f, size in ((1, zero, n), (10, filt, mid), (10, zero, mid),
+                               (200, filt, n), (QUERY_K_EDGE, filt, mid),
+                               (10, filt, 0), (200, zero, 0)):
+                f = f[:n_q].contiguous()
+                got = qk.query_cuda(rows, data["pos"], size, q, f, k, metric)
+                want = qk.query_plain(rows, data["pos"], size, q, f, k,
+                                      metric)
+                what = (f"{mode} Q={n_q} k={k} filter {bool(f.any())} "
+                        f"size {int(size)}")
+                _check(torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32)),
+                       f"query kernel != plain version ({what}: "
+                       f"{int((got[0] != want[0]).sum())} indices differ)")
+                if int(size) == 0:
+                    _check(bool(torch.isinf(got[1]).all()) and torch.equal(
+                        got[0][0], torch.arange(k, device=device)),
+                           f"query kernel, size 0 ({what}): {got[0][0, :8]}")
+                if k == 10 and int(size) > 0:
+                    # query 0: row 7 and its copies, the first copy masked
+                    ties = sorted([7, *QUERY_TIES[bool(f.any()):]])
+                    top = got[0][0, :len(ties)].tolist()
+                    _check(top == ties,
+                           f"query kernel ({what}): ties and the +-1 ulp rows "
+                           f"came out as {top}, not {ties}")
+                cases += 1
+    for mode, (metric, rows, queries) in modes.items():
+        # more queries than a CTA holds: two query groups
+        q = torch.cat([queries, queries[:8]]).contiguous()
+        f = torch.cat([filt, filt[:8]]).contiguous()
+        for k in (10, 50):
+            got = qk.query_cuda(rows, data["pos"], mid, q, f, k, metric)
+            want = qk.query_plain(rows, data["pos"], mid, q, f, k, metric)
+            _check(torch.equal(got[0], want[0]) and torch.equal(
+                got[1].view(torch.int32), want[1].view(torch.int32)),
+                   f"query kernel != plain version ({mode} Q=40 k={k})")
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"query: kernel Q bit-equal to its plain version in {cases} cases "
+          f"at {n} x {bins} (float32, uint16, L2; Q 1, 32 and 40; k 1, 10, "
+          f"50, {QUERY_K_EDGE}, 200; filter off and on; size {n}, "
+          f"{n - 1000}, 0; ties to the lower row; the +-1 ulp rows masked as "
+          f"JAX masks them)", flush=True)
+
+    def dev_ms(fn, calls: int = 3) -> float:
+        fn()
+        return sum(us for _, us in device_ops(fn, calls=calls)) / calls / 1e3
+
+    out = {}
+    for name, mode, n_q, k in (("query", "f32", 1, TOP_K),
+                               ("query_dist", "f32", 1, 200)):
+        metric, rows, queries = modes[mode]
+        q, f = queries[:n_q].contiguous(), filt[:n_q].contiguous()
+
+        def call(rows=rows, q=q, f=f, k=k, metric=metric):
+            return qk.query_cuda(rows, data["pos"], mid, q, f, k, metric)
+
+        wrapper_ms = _time_ms(call)
+        t = {"max_abs_err": 0.0, "ms": wrapper_ms, "wrapper_ms": wrapper_ms,
+             "plain_ms": _time_ms(lambda: qk.query_plain(
+                 rows, data["pos"], mid, q, f, k, metric)),
+             **_device_times(name, call)}
+        out[name] = t
+    t = out["query"]
+    for mode, n_q in (("f32", 1), ("f32", 32), ("u16", 1), ("u16", 32),
+                      ("l2", 1), ("l2", 32)):
+        metric, rows, queries = modes[mode]
+        q, f = queries[:n_q].contiguous(), filt[:n_q].contiguous()
+        key = f"{mode}_q{n_q}"
+
+        def call(rows=rows, q=q, f=f, metric=metric):
+            return qk.query_cuda(rows, data["pos"], mid, q, f, TOP_K, metric)
+
+        dev = _device_times("query", call, profiled=10, queued_calls=20)
+        t[f"device_ms_{key}"] = dev["device_ms"]
+        t[f"merge_ms_{key}"] = sum(
+            us for op, us in device_ops(call, calls=5)
+            if "query_merge_kernel" in op) / 5 / 1e3
+        t[f"wrapper_ms_{key}"] = _few_ms(call, 5)
+        t[f"old_chain_ms_{key}"] = dev_ms(lambda: _old_query_chain(
+            rows, data["pos"], mid, q, f, TOP_K, metric), calls=1)
+        t[f"plain_ms_{key}"] = _few_ms(lambda: qk.query_plain(
+            rows, data["pos"], mid, q, f, TOP_K, metric), 2)
+        if mode != "l2":
+            x = dequantize_rows(rows)
+            t[f"yardstick_ms_{key}"] = dev_ms(lambda: smallest_k(
+                torch.cdist(q, x, p=1), TOP_K), calls=1)
+        item = rows.element_size()
+        t[f"bound_ms_{key}"], t[f"bound_by_{key}"] = _bound(
+            n * bins * item + n * 12 + n_q * (bins * 4 + 16 + TOP_K * 12),
+            n_ops_no_fma=(2 + (mode == "l2")) * n_q * n * bins
+            + (n * bins if mode == "u16" else 0) + QUERY_POS_OPS * n_q * n)
+        print(f"kernel query {key}: device {t[f'device_ms_{key}']:.5f} ms "
+              f"(the merge {t[f'merge_ms_{key}']:.5f}), "
+              f"wrapper {t[f'wrapper_ms_{key}']:.5f}, plain "
+              f"{t[f'plain_ms_{key}']:.4f}, earlier plain chain "
+              f"{t[f'old_chain_ms_{key}']:.4f} (device), yardstick "
+              f"{t.get(f'yardstick_ms_{key}')} (cdist + smallest_k, "
+              f"device), bound {t[f'bound_ms_{key}']:.5f} ms "
+              f"({t[f'bound_by_{key}']})", flush=True)
+    for n_q in (1, 32):
+        q, f = data["cdf"][:n_q].contiguous(), filt[:n_q].contiguous()
+        t[f"device_ms_f32_q{n_q}_k{QUERY_K_EDGE}"] = _device_times(
+            "query", lambda q=q, f=f: qk.query_cuda(
+                data["f32"], data["pos"], mid, q, f, QUERY_K_EDGE,
+                "wasserstein"), profiled=10, queued_calls=20)["device_ms"]
+    print(f"kernel query: k = {QUERY_K_EDGE} (lists in shared memory) "
+          f"float32 device {t[f'device_ms_f32_q1_k{QUERY_K_EDGE}']:.5f} ms "
+          f"at Q = 1, {t[f'device_ms_f32_q32_k{QUERY_K_EDGE}']:.5f} at 32",
+          flush=True)
+    t["bound_ms"], t["bound_by"] = t["bound_ms_f32_q1"], t["bound_by_f32_q1"]
+    t["yardstick_ms"] = t["yardstick_ms_f32_q1"]
+    t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    d = out["query_dist"]
+    d["bound_ms"], d["bound_by"] = t["bound_ms"], t["bound_by"]
+    d["share_of_bound"] = d["bound_ms"] / d["device_ms"]
+    for name, t in out.items():
+        print(f"kernel {name}: f32 Q=1 k={TOP_K if name == 'query' else 200} "
+              f"device {t['device_ms']:.5f} ms (profiler {t['profiler_ms']}, "
+              f"queued bare {t['queued_ms']:.5f}), wrapper "
+              f"{t['wrapper_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+              f"{100 * t['share_of_bound']:.1f}% of it)", flush=True)
+    return out
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1864,7 +2125,7 @@ def _all_kernels() -> dict:
     from neural_spectral_codec_torch.ops import (
         probe_kernels, projection_kernel, ring_kernel, spectral_kernel)
     from neural_spectral_codec_torch.retrieval import (
-        knn_kernel, nearest_kernel, pca_kernel)
+        knn_kernel, nearest_kernel, pca_kernel, query_kernel)
     from neural_spectral_codec_torch.training import (
         mine_kernel, select_kernel)
     return {"spectral": spectral_kernel.KERNEL,
@@ -1883,7 +2144,9 @@ def _all_kernels() -> dict:
             "mine_counts": mine_kernel.COUNTS,
             "mine_rows": mine_kernel.ROWS,
             "mine_draw_mask": mine_kernel.DRAW_MASK,
-            "select": select_kernel.KERNEL}
+            "select": select_kernel.KERNEL,
+            "query": query_kernel.KERNEL,
+            "query_dist": query_kernel.DIST_KERNEL}
 
 
 def _counted(run) -> tuple:
@@ -4697,8 +4960,9 @@ def _sharded_retrieval(device, mesh) -> dict:
     (uint16: one code); the sharded query through its graph
     (``QueryExecutable`` over ``rank``) against the same retriever's query
     step run eagerly, bit for bit, with no capture after warm-up and none
-    counted op by op. Returns {mode: (sharded, unsharded, sharded eager)
-    query ms}."""
+    counted op by op. Returns ({mode: (sharded, unsharded, sharded eager)
+    query ms}, the kernels' launches in the sharded graph's first batch of
+    each mode: its capture's warm-up and one replay)."""
     import numpy as np
     import torch
     from neural_spectral_codec_torch.parallel import (
@@ -4706,7 +4970,7 @@ def _sharded_retrieval(device, mesh) -> dict:
     from neural_spectral_codec_torch.retrieval import WassersteinRetriever
     from neural_spectral_codec_torch.retrieval import retriever as _retriever
 
-    out = {}
+    out, launches = {}, {}
     for i, (metric, storage) in enumerate((("wasserstein", "float32"),
                                            ("wasserstein", "uint16"),
                                            ("l2", "float32"))):
@@ -4731,8 +4995,10 @@ def _sharded_retrieval(device, mesh) -> dict:
         del chunks
         kw = dict(top_k=TOP_K, query_positions=qpos,
                   spatial_min_distance=MIN_DIST)
-        (ia, da), (ib, db), (ic, dc) = (r.query_batch(q, **kw)
-                                        for r in rets)
+        (ia, da), counts = _counted(lambda: rets[0].query_batch(q, **kw))
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        (ib, db), (ic, dc) = (r.query_batch(q, **kw) for r in rets[1:])
         _check(np.array_equal(ia, ic) and np.array_equal(da, dc),
                f"retrieval {mode}: the sharded query graph differs from its "
                f"eager step")
@@ -4791,7 +5057,7 @@ def _sharded_retrieval(device, mesh) -> dict:
               f"{batch_ms[1]:.3f})", flush=True)
         del rets
         torch.cuda.empty_cache()
-    return out
+    return out, launches
 
 
 def _sharded_two_stage(device, mesh, store: Path) -> None:
@@ -5278,7 +5544,10 @@ def _parallel(device, store: Path) -> dict:
     meshes = _meshes(device)
     by_path = _sharded_encoders(device, meshes)
     mesh = meshes[0][1]
-    query_ms = _sharded_retrieval(device, mesh)
+    query_ms, by_path["sharded_query"] = _sharded_retrieval(device, mesh)
+    _check(by_path["sharded_query"]["query"] > 0,
+           f"phase 10: the sharded query graph never ran kernel Q "
+           f"{by_path['sharded_query']}")
     _sharded_two_stage(device, mesh, store)
     step_ms, by_path["parallel_train"] = _sharded_training(device, mesh)
     _check(by_path["parallel_train"]["gather_bwd"] > 0,
@@ -5705,6 +5974,7 @@ def main() -> None:
     timing.update(_probe_kernels(device))
     timing.update(_search_kernels(device))
     timing.update(_pca_kernels(device))
+    timing.update(_query_kernel_cases(device))
 
     # -- 4. serve ----------------------------------------------------------
     rng = np.random.default_rng(SEED + 4)
@@ -5864,11 +6134,15 @@ def main() -> None:
            f"{desc_err:.3e} > {DESC_TOL}")
     _check(emb_err <= EMB_TOL, f"embeddings differ from the CPU path by "
            f"{emb_err:.3e} > {EMB_TOL}")
-    _check(all(launches[k] > 0 for k in ("spectral", "ring_fold", "project")),
+    _check(all(launches[k] > 0
+               for k in ("spectral", "ring_fold", "project", "query")),
            f"a kernel of the path never launched: {launches}")
     serving_mod.clear_cache()
-    _query_graphs(device, ret, cpu_desc.numpy(), qps, planted)
-    by_path = {"serve": launches}
+    _, query_launches = _counted(lambda: _query_graphs(
+        device, ret, cpu_desc.numpy(), qps, planted))
+    _check(query_launches["query"] > 0 and query_launches["query_dist"] > 0,
+           f"query graphs: kernel Q never launched {query_launches}")
+    by_path = {"serve": launches, "query_graphs": query_launches}
 
     # -- 5. the stage-profile entry points ---------------------------------
     by_path.update(_probe_paths())
@@ -5891,6 +6165,8 @@ def main() -> None:
         # -- 8. the online loop --------------------------------------------
         store = Path(keep.name) / "map.bin"
         by_path.update(_online(device, store))
+        _check(by_path["online"]["query"] > 0,
+               f"online: kernel Q never launched {by_path['online']}")
 
         # -- 9. datasets and evaluation ------------------------------------
         by_path.update(_datasets_and_evaluation(device, str(gnn_pt)))
@@ -5955,6 +6231,12 @@ def main() -> None:
         "select": ("neural_spectral_codec_torch/csrc/select.cu",
                    "neural_spectral_codec_tpu/training/miner.py:102",
                    timing["select"]["max_abs_err"]),
+        "query": ("neural_spectral_codec_torch/csrc/query.cu",
+                  "neural_spectral_codec_tpu/retrieval/retriever.py:139",
+                  timing["query"]["max_abs_err"]),
+        "query_dist": ("neural_spectral_codec_torch/csrc/query.cu",
+                       "neural_spectral_codec_tpu/retrieval/retriever.py:106",
+                       timing["query_dist"]["max_abs_err"]),
     }
     # "ms" keeps the meaning it had in earlier records: the wrapper's time
     # per call (one event pair per call; for the probes, loops of 200 calls)
@@ -5986,7 +6268,12 @@ def main() -> None:
                       if k.startswith(("device_ms_random", "device_ms_mined",
                                        "longest_segment_", "rows_", "draw_",
                                        "pos_", "frames_", "scan_",
-                                       "model_"))})
+                                       "model_", "device_ms_f32",
+                                       "device_ms_u16", "device_ms_l2",
+                                       "wrapper_ms_", "old_chain_ms_",
+                                       "plain_ms_", "yardstick_ms_",
+                                       "bound_ms_", "bound_by_",
+                                       "merge_ms_"))})
         if name == "project":
             entry["also_replaces"] = \
                 "neural_spectral_codec_tpu/ops/pallas_densify.py:76"
@@ -6017,7 +6304,14 @@ def main() -> None:
                                   "positives (:67-68) and the negatives "
                                   "(:107-109)",
                 "select": "argsort and take at count // 2 of _mine_chunk "
-                          "(:101-105)"}[name]
+                          "(:101-105)",
+                "query": "W1 or L2 against every row, the size and spatial "
+                         "masks and the exact smallest-k of _query_math "
+                         "(:139-159) and _query_batch_kernel (:106-136), "
+                         "which the serving step runs (models/gnn.py:274)",
+                "query_dist": "the same body's masked distances, for k "
+                              "above K_MAX (the wrapper ranks them with "
+                              "smallest_k)"}[name]
         record.append(entry)
     from neural_spectral_codec_torch import entry as entry_mod
     from neural_spectral_codec_torch.models import gnn

@@ -102,8 +102,10 @@ class StepShape(NamedTuple):
 def _kernels() -> tuple:
     from neural_spectral_codec_torch.ops import (
         projection_kernel, ring_kernel, spectral_kernel)
+    from neural_spectral_codec_torch.retrieval import query_kernel
     return (projection_kernel.KERNEL, ring_kernel.KERNEL,
-            spectral_kernel.KERNEL)
+            spectral_kernel.KERNEL, query_kernel.KERNEL,
+            query_kernel.DIST_KERNEL)
 
 
 POOL = SharedPool()     # every serving graph of a device: one memory pool

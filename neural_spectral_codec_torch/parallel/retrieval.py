@@ -4,8 +4,8 @@ Port of ``neural_spectral_codec_tpu/parallel/retrieval.py``. The
 (capacity, n_bins) row buffer and the (capacity, 3) positions are cut
 into one contiguous slab per mesh device (capacity rounded up to a
 multiple of the mesh size). A query runs ``retriever.query_math`` on
-each slab, on the slab's device: local W₁ (or L2), the validity and
-spatial masks, a local top-k. Each slab's (Q, k) indices and distances go
+each slab, on the slab's device (kernel Q on a card): local W₁ (or L2),
+the validity and spatial masks, a local top-k. Each slab's (Q, k) indices and distances go
 to ``mesh.devices[0]``, shard by shard, where a global top-k picks the
 answer: the candidates lie in shard-major order, and both top-k levels
 order equal distances by position (``retriever.smallest_k``), so equal

@@ -6,7 +6,14 @@ and (capacity, 3) position buffer live on the device and are updated in
 place. A query is W₁ (or L2) against every row, a mask that sends rows ≥
 the effective size and rows spatially nearer than ``min_d`` (when
 ``min_d > 0``) to +inf, then an exact smallest-k in ``lax.top_k``'s
-order (``smallest_k``).
+order (``smallest_k``). On a card that body (``query_math``, JAX
+``_query_math`` / ``_query_batch_kernel``) is kernel Q
+(``retrieval/query_kernel.py``, ``csrc/query.cu``), which reads the rows
+once for up to 32 queries and writes no (Q, rows, n_bins) temporary: for
+k ≤ ``query_kernel.K_MAX`` (128) two launches, the rows' pass with
+per-warp smallest-k lists and a merge a query; for a larger k its
+distance entry (the masked (Q, rows) distances) and ``smallest_k``. On
+the CPU the plain version sums in the kernel's order.
 
 ``storage="uint16"`` keeps each CDF row as ``round(cdf · 65535)`` codes
 (W₁ only: half the device memory, a W₁ error of at most
@@ -42,11 +49,11 @@ import torch
 
 from neural_spectral_codec_torch.device import DeviceLike, resolve_device
 from neural_spectral_codec_torch.ops.wasserstein import histogram_cdf
+from neural_spectral_codec_torch.retrieval import query_kernel
 from neural_spectral_codec_torch.utils.graph_exec import (
     Arena, ExecutableCache, GraphStep, SharedPool)
 
 
-_MAX_TEMP = 1 << 28   # elements of one (queries, rows, n_bins) temporary
 CDF_QUANT = 65535.0
 
 
@@ -92,22 +99,6 @@ def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return d.gather(-1, idx), idx
 
 
-def _distances(db_rows: torch.Tensor, queries: torch.Tensor, metric: str,
-               epsilon: float) -> torch.Tensor:
-    """(Q, n_bins) queries vs (N, n_bins) rows → (Q, N) distances. The
-    broadcast difference is materialised, so queries go in chunks that
-    keep it under ``_MAX_TEMP`` elements (1 GiB)."""
-    if metric == "wasserstein":
-        queries = histogram_cdf(queries, epsilon)
-    step = max(1, _MAX_TEMP // max(db_rows.numel(), 1))
-    out = []
-    for q in queries.split(step):
-        diff = db_rows[None, :, :] - q[:, None, :]
-        out.append(diff.abs().sum(dim=2) if metric == "wasserstein"
-                   else torch.linalg.vector_norm(diff, dim=2))
-    return torch.cat(out)
-
-
 def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size,
                queries: torch.Tensor, query_pos_and_filters: torch.Tensor,
                top_k: int, metric: str = "wasserstein",
@@ -116,19 +107,15 @@ def query_math(db_rows: torch.Tensor, db_pos: torch.Tensor, size,
     retriever.py:107-159) for (Q, n_bins) queries and (Q, 4)
     [x, y, z, min_d] filters → (Q, k) indices and distances, smallest
     first, equal distances by the lower row as ``lax.top_k`` orders them;
-    masked rows carry +inf. uint16 rows are dequantised here. ``size`` is
-    an int or a 0-d int64 tensor on the rows' device (the serving step's
-    device scalar)."""
-    n = db_rows.shape[0]
-    dists = _distances(dequantize_rows(db_rows), queries, metric, epsilon)
-    invalid = (torch.arange(n, device=db_rows.device) >= size)[None, :]
-    qp = query_pos_and_filters[:, :3]
-    min_d = query_pos_and_filters[:, 3:4]
-    spatial = torch.linalg.vector_norm(
-        db_pos[None, :, :] - qp[:, None, :], dim=2) < min_d
-    masked = torch.where(invalid | ((min_d > 0) & spatial), torch.inf, dists)
-    top_dist, top_idx = smallest_k(masked, top_k)
-    return top_idx, top_dist
+    masked rows carry +inf. The queries' CDFs (W₁) are made here; the rest
+    is kernel Q on CUDA tensors and its plain version on CPU tensors
+    (``query_kernel.query``), which dequantises uint16 rows itself.
+    ``size`` is an int or a 0-d int64 tensor on the rows' device (the
+    serving step's device scalar)."""
+    q = histogram_cdf(queries, epsilon) if metric == "wasserstein" \
+        else queries
+    return query_kernel.query(db_rows, db_pos, size, q,
+                              query_pos_and_filters, top_k, metric)
 
 
 POOL = SharedPool()     # every query graph of a device: one memory pool
@@ -143,9 +130,10 @@ class QueryExecutable(GraphStep):
     0-d int64) in, (Q, k) int64 indices and float32 distances out
     (``utils/graph_exec.GraphStep``). The step is the retriever's
     ``rank`` (a ``parallel.ShardedWassersteinRetriever``'s runs over its
-    row slabs). It reads the rows, positions, their int16 view and
-    ``_dequant_scale`` by address: a replaced buffer (``clear_database``)
-    gets another executable (``query_executable``)."""
+    row slabs). It reads the rows and positions by address: a replaced
+    buffer (``clear_database``) gets another executable
+    (``query_executable``). On a card the graph holds kernel Q, whose
+    launches each replay credits."""
 
     def __init__(self, retriever: "WassersteinRetriever", n_queries: int,
                  top_k: int, use_graph: bool = True):
@@ -159,6 +147,9 @@ class QueryExecutable(GraphStep):
         self.outputs = Arena([("idx", (n_queries, top_k), torch.int64),
                               ("dist", (n_queries, top_k), f32)],
                              self.device)
+
+    def _kernels(self) -> tuple:
+        return query_kernel.KERNEL, query_kernel.DIST_KERNEL
 
     def _step(self) -> None:
         ret = self._retriever()
@@ -348,7 +339,8 @@ class WassersteinRetriever:
         tensor) → (Q, k) tensors; k is clamped by capacity, and slots past
         the valid rows carry +inf. The traceable body (JAX
         ``_query_math``) that the serving step and ``QueryExecutable``
-        run."""
+        run: on a card kernel Q, fused up to ``query_kernel.K_MAX`` (128)
+        and through its distance entry and ``smallest_k`` beyond."""
         with self._buffer_lock:
             return query_math(self._db_rows, self._db_pos, eff_size, queries,
                               filters, int(min(top_k, self.capacity)),

@@ -225,8 +225,8 @@ def test_source_hash_follows_sources(tmp_path, monkeypatch):
     assert h0 == _build.source_hash()
     assert [s.name for s in _build.sources()] == [
         "gather_bwd.cu", "kabsch.cu", "knn.cu", "knn_pca.cu", "mine.cu",
-        "nearest.cu", "project.cu", "ring_fold.cu", "ring_probe.cu",
-        "roll_floor.cu", "select.cu", "spectral.cu"]
+        "nearest.cu", "project.cu", "query.cu", "ring_fold.cu",
+        "ring_probe.cu", "roll_floor.cu", "select.cu", "spectral.cu"]
     (tmp_path / "common.cuh").write_text("// changed\n")
     h1 = _build.source_hash()
     assert h1 != h0
