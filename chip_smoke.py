@@ -72,13 +72,14 @@ weights and data made from seeds:
    plain time (and R's solve entry's device time), the yardstick
    (``eigh`` of the covariances; ``svd`` of H) and the bound (bytes).
    Kernel Q (the stage-1 query's fused body) bit-equal to its plain
-   version, indices and distances, at 100,032 x 800 in 48 cases: float32
-   and uint16 W1 rows and L2, Q = 1, 32 and 40 (two query groups), k = 1,
-   10, 50, 128 (K_MAX) and 200 (the distance entry), the spatial filter off and on, size the
-   database, below it and 0 (every slot +inf, rows 0 .. k - 1), copies of
-   a row (ties by the lower row) and rows at the filter radius +-1 ulp
-   (the first masked); its device, wrapper and plain time at Q = 1 and
-   32 for each storage and metric, the earlier plain chain, the
+   version, indices and distances, at 100,032 x 800 in 72 cases: float32
+   and uint16 W1 rows and L2, Q = 1, 3, 8, 32 and 40 (two query groups),
+   k = 1, 10, 50, 128 (K_MAX) and 200 (the distance entry), the spatial
+   filter off and on, size the database, below it and 0 (every slot +inf,
+   rows 0 .. k - 1), copies of a row (ties by the lower row) and rows at
+   the filter radius +-1 ulp (the first masked); its device, wrapper and
+   plain time at Q = 1, 8 and 32 for each storage and metric, the
+   earlier plain chain, the
    ``cdist`` yardstick and the bound (bytes at Q = 1, operations at 32);
 4. serve: a 1,000-node keyframe graph, a full-width SpectralGNN
    (800 -> 256 -> 800, 3 GAT layers), a 100,000-row W1 database on the
@@ -484,8 +485,8 @@ KERNEL_NAMES = {
     "mine_rows": ("mine_rows_kernel",),
     "mine_draw_mask": ("mine_draw_mask_kernel",),
     "select": ("select_cluster_kernel", "select_rows_kernel"),
-    "query": ("query_kernel", "query_merge_kernel"),
-    "query_dist": ("query_kernel",),
+    "query": ("query_kernel", "query_group_kernel", "query_merge_kernel"),
+    "query_dist": ("query_kernel", "query_group_kernel"),
 }
 DESC_TOL = 1e-4                # card vs CPU plain path (1-ulp atan2f cause)
 EMB_TOL = 1e-3
@@ -739,7 +740,8 @@ def _only_kernel(name: str, wrapper) -> None:
     wrapper()
     ops, launches = _counted(lambda: [op for op, _ in device_ops(wrapper)])
     print(f"{name}: one wrapper call enqueues {ops}", flush=True)
-    _check(launches[name] >= 1 and launches[name] == sum(launches.values()),
+    _check(launches[name] >= 1 and launches[name] == sum(
+        v for k, v in launches.items() if k != "query_group"),
            f"{name}: profiled wrapper calls launched {launches}")
     _check(len(ops) == 1 and KERNEL_NAMES[name][0] in ops[0],
            f"{name}: a wrapper call enqueues {ops}, not only its kernel")
@@ -940,13 +942,14 @@ def _query_kernel_cases(device) -> dict:
     its plain version on the card, indices and distances bit for bit, at
     phase 4's 100,032 x 800 (``_query_data``): W1 over float32 rows, W1
     over uint16 codes and L2; Q = 1 and 32 (and 40: two query groups, k =
-    10 and 50); k = 1, 10, 128 (K_MAX) and 200 (beyond K_MAX: the
-    distance entry and smallest_k); without and with the
+    10 and 50; and 3 and 8, one query tile of the group kernel, k = 10 and
+    50 with the filter off and on); k = 1, 10, 128 (K_MAX) and 200 (beyond
+    K_MAX: the distance entry and smallest_k); without and with the
     spatial filter; size = the database, below it, and 0 (every slot
     +inf, rows 0 .. k - 1); size as a device int64 and as an int. The
     ties and the +-1 ulp rows of ``_query_data`` are in every database.
     Then the fused route's device time (both launches; torch.profiler,
-    queued bare launches; the merge launch's apart) at Q = 1 and 32 over
+    queued bare launches; the merge launch's apart) at Q = 1, 8 and 32 over
     float32 and uint16 rows and for L2 (k = 10), and at k = K_MAX over
     float32 rows, its wrapper's and plain version's, the distance
     entry's, the earlier plain chain (``_old_query_chain``) and the
@@ -1007,10 +1010,25 @@ def _query_kernel_cases(device) -> dict:
                 got[1].view(torch.int32), want[1].view(torch.int32)),
                    f"query kernel != plain version ({mode} Q=40 k={k})")
             cases += 1
+        # groups of one query tile (the group kernel's small groups)
+        for n_q in (3, 8):
+            q = queries[:n_q].contiguous()
+            for k in (10, 50):
+                for f in (filt, zero):
+                    f = f[:n_q].contiguous()
+                    got = qk.query_cuda(rows, data["pos"], mid, q, f, k,
+                                        metric)
+                    want = qk.query_plain(rows, data["pos"], mid, q, f, k,
+                                          metric)
+                    _check(torch.equal(got[0], want[0]) and torch.equal(
+                        got[1].view(torch.int32), want[1].view(torch.int32)),
+                           f"query kernel != plain version ({mode} Q={n_q} "
+                           f"k={k} filter {bool(f.any())})")
+                    cases += 1
     torch.cuda.synchronize()
     print(f"query: kernel Q bit-equal to its plain version in {cases} cases "
-          f"at {n} x {bins} (float32, uint16, L2; Q 1, 32 and 40; k 1, 10, "
-          f"50, {QUERY_K_EDGE}, 200; filter off and on; size {n}, "
+          f"at {n} x {bins} (float32, uint16, L2; Q 1, 3, 8, 32 and 40; "
+          f"k 1, 10, 50, {QUERY_K_EDGE}, 200; filter off and on; size {n}, "
           f"{n - 1000}, 0; ties to the lower row; the +-1 ulp rows masked as "
           f"JAX masks them)", flush=True)
 
@@ -1034,8 +1052,9 @@ def _query_kernel_cases(device) -> dict:
              **_device_times(name, call)}
         out[name] = t
     t = out["query"]
-    for mode, n_q in (("f32", 1), ("f32", 32), ("u16", 1), ("u16", 32),
-                      ("l2", 1), ("l2", 32)):
+    for mode, n_q in (("f32", 1), ("f32", 8), ("f32", 32), ("u16", 1),
+                      ("u16", 8), ("u16", 32), ("l2", 1), ("l2", 8),
+                      ("l2", 32)):
         metric, rows, queries = modes[mode]
         q, f = queries[:n_q].contiguous(), filt[:n_q].contiguous()
         key = f"{mode}_q{n_q}"
@@ -2146,7 +2165,10 @@ def _all_kernels() -> dict:
             "mine_draw_mask": mine_kernel.DRAW_MASK,
             "select": select_kernel.KERNEL,
             "query": query_kernel.KERNEL,
-            "query_dist": query_kernel.DIST_KERNEL}
+            "query_dist": query_kernel.DIST_KERNEL,
+            # not a kernel: the group regime's share of query's and
+            # query_dist's launches (Q > 1)
+            "query_group": query_kernel.GROUP}
 
 
 def _counted(run) -> tuple:
@@ -5545,9 +5567,10 @@ def _parallel(device, store: Path) -> dict:
     by_path = _sharded_encoders(device, meshes)
     mesh = meshes[0][1]
     query_ms, by_path["sharded_query"] = _sharded_retrieval(device, mesh)
-    _check(by_path["sharded_query"]["query"] > 0,
-           f"phase 10: the sharded query graph never ran kernel Q "
-           f"{by_path['sharded_query']}")
+    _check(by_path["sharded_query"]["query"] > 0 and
+           by_path["sharded_query"]["query_group"] > 0,
+           f"phase 10: the sharded query graph never ran kernel Q's group "
+           f"regime {by_path['sharded_query']}")
     _sharded_two_stage(device, mesh, store)
     step_ms, by_path["parallel_train"] = _sharded_training(device, mesh)
     _check(by_path["parallel_train"]["gather_bwd"] > 0,
@@ -6140,8 +6163,10 @@ def main() -> None:
     serving_mod.clear_cache()
     _, query_launches = _counted(lambda: _query_graphs(
         device, ret, cpu_desc.numpy(), qps, planted))
-    _check(query_launches["query"] > 0 and query_launches["query_dist"] > 0,
-           f"query graphs: kernel Q never launched {query_launches}")
+    _check(query_launches["query"] > 0 and query_launches["query_dist"] > 0
+           and query_launches["query_group"] > 0,
+           f"query graphs: kernel Q (or its group regime) never launched "
+           f"{query_launches}")
     by_path = {"serve": launches, "query_graphs": query_launches}
 
     # -- 5. the stage-profile entry points ---------------------------------
@@ -6280,6 +6305,10 @@ def main() -> None:
         if name == "mine":
             entry["draw_launches"] = sum(v["mine_draw"]
                                          for v in by_path.values())
+        if name in ("query", "query_dist"):
+            # the group regime's launches (Q > 1) of both entries together
+            entry["group_launches_by_path"] = {
+                p: v["query_group"] for p, v in by_path.items()}
         if name not in ("spectral", "ring_fold", "project", "ring_probe",
                         "roll_floor", "roll_min_chain"):
             entry["replaces_note"] = "not a pl.pallas_call site: the XLA " + {

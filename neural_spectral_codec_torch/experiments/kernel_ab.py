@@ -19,15 +19,20 @@ negatives after the rows entry; G on the GAT's neighbour table
 of a 20,000-node one, float32 and bf16, and on 4,096 × 800 float32
 triplet rows into its 20,000 rows, with and without a 16-position
 segment; S on that chunk's W₁ block at count_neg // 2 and M's counts
-entry on the chunk) is called once through its wrapper; then both
+entry on the chunk; Q, the stage-1 query's fused route, on 100,032 × 800
+rows at Q = 1, 8 and 32 for float32 and uint16 W₁ and L2, k = 10, and on
+float32 at k = 128, Q = 1 and 32, the spatial filter on: ``query_cases``)
+is called once through its wrapper; then both
 libraries' entry points are launched on those same arguments (both draw
 entries without the tile boxes and with the five float thresholds in
 place of ``mask_bounds``' five bounds when ``other_draw_abi`` says the
 other side's draws take them), bare and queued behind a spin kernel
 (``utils.timing.time_queued_ms``, 200 launches; M 3, its draw and S 20,
-the counts entry and the mask draws 50), in the order other, this,
-this, other, twice. For
-N, K, M (each entry), G and S the other side's last output must equal
+the counts entry, the mask draws and Q 50), in the order other, this,
+this, other, twice. Q's other side runs on its own layout
+(``nsc_query_layout`` of the other library; one that returns three
+numbers has 8 candidate lists a CTA) and its own candidate scratch. For
+N, K, M (each entry), G, S and Q the other side's last output must equal
 the wrapper's bit for bit; for C it must lie within 1e-5 of it on the
 rows whose relative
 eigen-gap is at least 0.1, where a float64 solve is determined well below
@@ -398,6 +403,74 @@ def _training_cases(dev, old_draw: bool) -> tuple:
     return cases, keep
 
 
+QUERY_ROWS, QUERY_BINS, QUERY_K, QUERY_MIN_D = 100_032, 800, 10, 25.0
+QUERY_CASES = tuple(f"query_{m}_q{n}" for m in ("f32", "u16", "l2")
+                    for n in (1, 8, 32)) + ("query_f32_q1_k128",
+                                            "query_f32_q32_k128")
+
+
+def query_cases(dev, other: ctypes.CDLL) -> tuple:
+    """Q's cases ({name: (kernel, call, other_args, None)}) on 100,032 ×
+    800 rows of random histograms (W₁ over their CDFs as float32 rows and
+    as uint16 codes, L2 over the histograms), positions over ±1 km, 32
+    queries (a row's histogram plus noise near its position), the filter
+    at QUERY_MIN_D, size 1,000 rows below the database's (a device int64);
+    and the tensors they use. other_args maps this side's last arguments
+    to the other side's: its layout and its own scratch, the same
+    outputs."""
+    from neural_spectral_codec_torch.ops.wasserstein import histogram_cdf
+    from neural_spectral_codec_torch.retrieval import query_kernel as qk
+    from neural_spectral_codec_torch.retrieval.retriever import quantize_cdf
+    g = torch.Generator(device=dev).manual_seed(61)
+    n, bins = QUERY_ROWS, QUERY_BINS
+    h = torch.rand((n, bins), generator=g, device=dev) ** 4
+    pos = (torch.rand((n, 3), generator=g, device=dev) - 0.5) * 2000.0
+    src = torch.randint(0, n, (32,), generator=g, device=dev)
+    qh = h[src] + 0.2 * torch.rand((32, bins), generator=g,
+                                   device=dev) / bins
+    filt = torch.cat([pos[src] + 1.0, torch.full((32, 1), QUERY_MIN_D,
+                                                 device=dev)], 1)
+    cdf = histogram_cdf(h, 1e-8)
+    size = torch.tensor(n - 1000, dtype=torch.int64, device=dev)
+    modes = {"f32": ("wasserstein", cdf, histogram_cdf(qh, 1e-8)),
+             "u16": ("wasserstein", quantize_cdf(cdf),
+                     histogram_cdf(qh, 1e-8)),
+             "l2": ("l2", h, qh)}
+    layout = other.nsc_query_layout
+    layout.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    layout.restype = ctypes.c_int
+    keep = [h, pos, filt, size, modes]
+    cases = {}
+    for name in QUERY_CASES:
+        parts = name.split("_")
+        mode, n_q = parts[1], int(parts[2][1:])
+        k = int(parts[3][1:]) if len(parts) > 3 else QUERY_K
+        metric, rows, queries = modes[mode]
+        q, f = queries[:n_q].contiguous(), filt[:n_q].contiguous()
+        storage, l2 = int(rows.dtype == torch.uint16), int(metric == "l2")
+        out = (ctypes.c_int * 4)(0, 0, 0, -1)
+        err = layout(storage, l2, n, bins, n_q, k, out)
+        if err != 0:
+            raise RuntimeError(f"nsc_query_layout (other): CUDA error {err}")
+        ctas, group, smem, lists = out
+        if lists < 0:                        # a layout of three numbers
+            lists = ctas * 8
+        cand = torch.empty((n_q, lists, k), dtype=torch.int64, device=dev)
+        keep += [q, f, cand]
+
+        def call(rows=rows, q=q, f=f, k=k, metric=metric):
+            return qk.query_cuda(rows, pos, size, q, f, k, metric)
+
+        def other_args(args, ctas=ctas, group=group, smem=smem, cand=cand):
+            # (rows, storage, metric, pos, size_ptr, size_val, q, filters,
+            #  n, bins, Q, k, scale | ctas, group, smem, cand | idx, dist,
+            #  stream)
+            return (*args[:13], ctas, group, smem, cand.data_ptr(),
+                    *args[17:])
+        cases[name] = (qk.KERNEL, call, other_args, None)
+    return cases, keep
+
+
 def run(other_csrc: str, cases_kept=None, log=print) -> dict:
     from neural_spectral_codec_torch import _build, resolve_device
     from neural_spectral_codec_torch.ops import (
@@ -468,6 +541,10 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
         training, keep_training = _training_cases(
             dev, other_draw_abi(Path(other_csrc)))
     cases.update(training)
+    queries, keep_queries = {}, []
+    if not cases_kept or set(cases_kept) & set(QUERY_CASES):
+        queries, keep_queries = query_cases(dev, other)
+    cases.update(queries)
     if cases_kept:
         cases = {n: c for n, c in cases.items() if n in cases_kept}
     out = {}
@@ -488,14 +565,14 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
                                    f"{err}")
         sides = {"other": launch_other, "this": kernel.bare()}
         times = {"other": [], "this": []}
-        launches = LAUNCHES.get(name, 200)
+        launches = LAUNCHES.get(name, 50 if name in queries else 200)
         for side in ("other", "this", "this", "other") * 2:
             times[side].append(1e3 * time_queued_ms(
                 sides[side], n=launches, repeats=3 if launches < 20 else 5))
         out[name] = {"other_us": statistics.median(times["other"]),
                      "this_us": statistics.median(times["this"]),
                      "runs_us": times}
-        if name in searches or name in training:   # the other side's last
+        if name in searches or name in training or name in queries:
             torch.cuda.synchronize()
             got = _outputs(keep)
             same = all(torch.equal(_bits(a), _bits(b))
@@ -531,7 +608,7 @@ def run(other_csrc: str, cases_kept=None, log=print) -> dict:
             out[f"knn_merges_k{k}"] = counts
             log(f"knn merges a row, k = {k}: " + ", ".join(
                 f"{n} {v:.3f}" for n, v in counts.items()))
-    del keep_training
+    del keep_training, keep_queries
     return out
 
 

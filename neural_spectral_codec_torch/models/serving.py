@@ -105,7 +105,7 @@ def _kernels() -> tuple:
     from neural_spectral_codec_torch.retrieval import query_kernel
     return (projection_kernel.KERNEL, ring_kernel.KERNEL,
             spectral_kernel.KERNEL, query_kernel.KERNEL,
-            query_kernel.DIST_KERNEL)
+            query_kernel.DIST_KERNEL, query_kernel.GROUP)
 
 
 POOL = SharedPool()     # every serving graph of a device: one memory pool

@@ -18,10 +18,12 @@ Every distance is summed in one stated order (``lane_sums``; the
 kernel's header has it), which the plain version follows with
 elementwise adds, so the kernel and ``query_plain`` agree bit for bit,
 indices and distances. Up to ``K_MAX`` the selection is fused (two
-launches: per-warp lists, then a merge a query); a larger k takes the
+launches: candidate lists, then a merge a query); a larger k takes the
 distance entry (the masked (Q, N) distances, counted on ``DIST_KERNEL``)
-and ``smallest_k``. A CPU tensor takes the plain version, a CUDA tensor
-the kernel, or the binding raises.
+and ``smallest_k``. One query runs the one-query kernel; 2-32 queries a
+CTA the group kernel, whose warps hold register tiles of 8 queries × 8
+rows (``kTileQ`` × ``kTileR``). A CPU tensor takes the plain version, a
+CUDA tensor the kernel, or the binding raises.
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ from neural_spectral_codec_torch.ops.range_image import sqrt_f32
 
 
 K_MAX = 128               # kMaxK in csrc/query.cu: the fused route's k
-WARPS = 8                 # kWarps: candidate lists a CTA (query)
 LANES = 32
 UNIT_BYTES = 16           # one load of a lane: 4 float32 values, 8 codes
 MAX_TEMP = 1 << 28        # elements of one (queries, rows, bins) temporary
@@ -53,6 +54,20 @@ def _kernels():
     return (CudaKernel("nsc_query_topk", shared + [i, f, i, i, i, p, p, p,
                                                    p]),
             CudaKernel("nsc_query_dist", shared + [f, i, i, i, p, p]))
+
+
+class GroupCount:
+    """The group regime's share of the launches (Q > 1: the group kernel,
+    on the fused route or the distance entry), counted beside ``KERNEL``'s
+    and ``DIST_KERNEL``'s own counts; a graph capture credits it as it
+    credits them (``launches``, ``last_args``)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.last_args: tuple = ()
+
+
+GROUP = GroupCount()
 
 
 def __getattr__(name: str):
@@ -141,21 +156,21 @@ def query_plain(rows: torch.Tensor, pos: torch.Tensor, size,
 
 @functools.lru_cache(maxsize=None)
 def _layout(device_index: int, storage: int, metric: int, n: int, bins: int,
-            n_queries: int, k: int) -> Tuple[int, int, int]:
-    """(CTAs, queries a CTA, shared bytes) of a call (``nsc_query_layout``;
-    host-side, so a capture's calls read it from this cache); k = 0: the
-    distance entry's."""
+            n_queries: int, k: int) -> Tuple[int, int, int, int]:
+    """(CTAs, queries a CTA, shared bytes, candidate lists a query) of a
+    call (``nsc_query_layout``; host-side, so a capture's calls read it
+    from this cache); k = 0: the distance entry's."""
     from neural_spectral_codec_torch._build import error_string, load_library
     fn = load_library().nsc_query_layout
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         err = fn(storage, metric, n, bins, n_queries, k, out)
     if err != 0:
         raise RuntimeError(f"nsc_query_layout: CUDA error {err} "
                            f"({error_string(err)})")
-    return out[0], out[1], out[2]
+    return out[0], out[1], out[2], out[3]
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,23 +233,27 @@ def query_cuda(rows: torch.Tensor, pos: torch.Tensor, size, q: torch.Tensor,
     l2 = int(metric == "l2")
     fused = k <= K_MAX
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    ctas, group, smem = _layout(index, storage, l2, n, bins, n_q,
-                                k if fused else 0)
+    ctas, group, smem, lists = _layout(index, storage, l2, n, bins, n_q,
+                                       k if fused else 0)
     head = (rows.data_ptr(), storage, l2, pos.data_ptr(), size_ptr, size_val,
             q.data_ptr(), filters.data_ptr(), n, bins, n_q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if fused:
-            cand = torch.empty((n_q, ctas * WARPS, k), dtype=torch.int64,
+            cand = torch.empty((n_q, lists, k), dtype=torch.int64,
                                device=dev)
             idx = torch.empty((n_q, k), dtype=torch.int64, device=dev)
             dist = torch.empty((n_q, k), dtype=torch.float32, device=dev)
             _kernels()[0](*head, k, _scale(), ctas, group, smem,
                           cand.data_ptr(), idx.data_ptr(), dist.data_ptr(),
                           stream)
+            if n_q > 1:
+                GROUP.launches += 1
             return idx, dist
         d = torch.empty((n_q, n), dtype=torch.float32, device=dev)
         _kernels()[1](*head, _scale(), ctas, group, smem, d.data_ptr(), stream)
+        if n_q > 1:
+            GROUP.launches += 1
     top_d, top_i = smallest_k(d, k)
     return top_i, top_d
 

@@ -149,7 +149,8 @@ class QueryExecutable(GraphStep):
                              self.device)
 
     def _kernels(self) -> tuple:
-        return query_kernel.KERNEL, query_kernel.DIST_KERNEL
+        return (query_kernel.KERNEL, query_kernel.DIST_KERNEL,
+                query_kernel.GROUP)
 
     def _step(self) -> None:
         ret = self._retriever()

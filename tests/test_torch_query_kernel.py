@@ -4,8 +4,9 @@ against JAX's ``_query_kernel`` and ``_query_batch_kernel`` (W₁ over
 float32 rows and over uint16 codes, L2; Q = 1 and 3; with and without the
 spatial filter; k ≤ 9 and one k above ``K_MAX``); its bits under another
 chunking of the queries; ties, rows at ``min_d`` ± 1 ulp, ``size`` 0 and
-NaN; the kernel's summation order (a numpy model of the lanes, the
-recursive halving and the butterfly, against ``lane_sums``) and its
+NaN; the kernel's summation order (numpy models of the lanes, the
+recursive halving and the butterfly, and of the group kernel's split
+of (query, row) sums over warps and lanes, against ``lane_sums``) and its
 selection (a numpy model of the per-warp lists and the merge's bound and
 bisection, constants read from the CUDA source) against ``smallest_k``;
 and the binding's checks, which raise before anything is launched.
@@ -293,6 +294,97 @@ def test_lane_order_model(bins, unit, metric):
                                       want[:, r].view(np.int32))
 
 
+def _halve(v: np.ndarray, offset: int = 16) -> np.ndarray:
+    """``halve<N, offset>`` on (32 lanes, N) float32 values: at each offset
+    a lane keeps the half of its values that its offset bit selects and
+    adds the partner lane's copy of that half; returns (32, N / 32)."""
+    while offset >= 1:
+        n = v.shape[1] // 2
+        lanes = np.arange(32)
+        upper = (lanes & offset) != 0
+        partner = v[lanes ^ offset]
+        mine = np.where(upper[:, None], v[:, n:], v[:, :n])
+        theirs = np.where(upper[:, None], partner[:, n:], partner[:, :n])
+        v = (mine + theirs).astype(np.float32)
+        offset //= 2
+    return v
+
+
+@pytest.mark.parametrize("mode", ["float32", "uint16", "l2"])
+@pytest.mark.parametrize("group", [2, 3, 8, 32])
+def test_group_split_model(group, mode):
+    """``lane_sums`` equals a float32 numpy model of the group kernel's
+    split, bit for bit: a CTA's group cut into query tiles of at most
+    ``kTileQ`` queries (1, 2 or 4, queries spread evenly), the warps of a
+    tile splitting a round's rows ``kTileR`` a warp; lane l of a warp adds
+    to its ``kTileQ`` × ``kTileR`` tile of sums, for each of its units l,
+    l + 32, … and each float quad of the unit, each query's quad against
+    each row's (a query slot past the tile's queries stays 0); then the 64
+    sums a lane are reduced by recursive halving, which leaves lane l the
+    sums of slot l / 4 over rows 2 (l % 4) and 2 (l % 4) + 1. Rows of 301
+    bins (a last unit cut short) and 32 units past them zero-padded."""
+    tq, tr, warps = Q_SRC["kTileQ"], Q_SRC["kTileR"], Q_SRC["kGroupWarps"]
+    lanes_a_slot = Q_SRC["kSlotLanes"]
+    tiles = 1 if group <= tq else (2 if group <= 2 * tq else 4)
+    row_tiles = warps // tiles
+    n_rows, bins = tr * row_tiles, 301
+    unit = 8 if mode == "uint16" else 4
+    metric = "l2" if mode == "l2" else "wasserstein"
+    rng = np.random.default_rng(group * 7 + unit)
+    q = rng.random((group, bins)).astype(np.float32)
+    if mode == "uint16":
+        codes = rng.integers(0, 65536, (n_rows, bins)).astype(np.uint16)
+        scale = np.float32(1.0 / 65535.0)
+        x = codes.astype(np.float32) * scale      # one rounded product
+        rows = dequantize_rows(torch.from_numpy(codes.view(np.int16)).view(
+            torch.uint16)).numpy()
+        np.testing.assert_array_equal(x.view(np.int32), rows.view(np.int32))
+    else:
+        x = rng.random((n_rows, bins)).astype(np.float32)
+        rows = x
+    want = qk.lane_sums(torch.from_numpy(rows), torch.from_numpy(q), metric,
+                        unit).numpy()                  # (group, n_rows)
+    units = -(-bins // unit)
+    width = -(-units // 32) * 32 * unit
+    xp = np.zeros((n_rows, width), np.float32)
+    xp[:, :bins] = x
+    qp = np.zeros((group, width), np.float32)
+    qp[:, :bins] = q
+    got = np.full((group, n_rows), np.nan, np.float32)
+    for w in range(warps):
+        qt, rt = divmod(w, row_tiles)
+        q_lo = qt * group // tiles
+        qn = (qt + 1) * group // tiles - q_lo
+        rows_w = slice(rt * tr, rt * tr + tr)
+        acc = np.zeros((32, tq, tr), np.float32)        # (lane, slot, row)
+        for lane in range(32):
+            for u in range(lane, width // unit, 32):
+                if u >= units:
+                    continue                            # adds +0
+                for h in range(unit // 4):
+                    e = u * unit + 4 * h
+                    xq = xp[rows_w, e:e + 4]             # (rows, 4)
+                    for s in range(qn):
+                        y = qp[q_lo + s, e:e + 4]
+                        a = acc[lane, s]
+                        for c in range(4):
+                            t = (xq[:, c] - y[c]).astype(np.float32)
+                            t = np.abs(t) if metric == "wasserstein" else (
+                                t * t).astype(np.float32)
+                            a = (a + t).astype(np.float32)
+                        acc[lane, s] = a
+        v = _halve(acc.reshape(32, tq * tr))            # (32, 2)
+        for lane in range(32):
+            s = lane // lanes_a_slot
+            if s >= qn:
+                continue
+            for t in range(v.shape[1]):
+                r = rt * tr + v.shape[1] * (lane % lanes_a_slot) + t
+                got[q_lo + s, r] = v[lane, t]
+    assert not np.isnan(got).any()                    # every pair held once
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def _u64_keys(d: np.ndarray) -> np.ndarray:
     """The kernel's unsigned keys (u(d) << 32) | row."""
     b = d.astype(np.float32).view(np.uint32).astype(np.uint64)
@@ -368,10 +460,15 @@ def test_merge_model_equals_smallest_k(k, warps, cap):
 def test_constants_match_the_source():
     """The binding's constants are the kernel's."""
     assert qk.K_MAX == Q_SRC["kMaxK"]
-    assert qk.WARPS == Q_SRC["kThreads"] // 32
     assert Q_SRC["kRegK"] <= qk.K_MAX <= Q_SRC["kMergeGroups"]
     assert Q_SRC["kGroup"] == qk.LANES
     assert qk.K_MAX <= Q_SRC["kMergeCap"]
+    tq, tr = Q_SRC["kTileQ"], Q_SRC["kTileR"]
+    assert Q_SRC["kSlotLanes"] * tq == qk.LANES      # a slot's lanes
+    assert Q_SRC["kSlotLanes"] * (tq * tr // qk.LANES) == tr
+    assert 4 * tq == Q_SRC["kGroup"] == qk.LANES      # up to 4 query tiles
+    assert Q_SRC["kGroupWarps"] % 4 == 0
+    assert 2 <= Q_SRC["kMinStages"] <= Q_SRC["kMaxStages"]
     assert qk.unit_elems(torch.float32) == 4
     assert qk.unit_elems(torch.uint16) == 8
 
